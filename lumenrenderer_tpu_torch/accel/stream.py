@@ -1,0 +1,94 @@
+"""Triangle clusters with precomputed Möller–Trumbore coefficients.
+
+Port of `ClusterSet`, `build_clusters` and `ray_features` from
+`lumenrenderer_tpu/accel/stream.py`. Möller–Trumbore is written as a bilinear
+form: with ray features f = [o×d, d, o, 1] (10 per ray) and per-triangle
+coefficient columns, the four quantities det, u·det, v·det and t·det of a
+(rays × triangles) block are one product f · tri_feat. The pair-stream
+intersector of that file is not ported, nor is the second-level cluster tree
+(used only by tree culling, for scenes of more than 2048 clusters).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..core import vecmath as vm
+from ..core.struct import TensorStruct
+from .sah import build_sah_arrays
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterSet(TensorStruct):
+    """C clusters of K triangles each."""
+
+    aabb_lo: torch.Tensor   # (C,3) float32
+    aabb_hi: torch.Tensor   # (C,3)
+    tri_feat: torch.Tensor  # (C,10,4K) coefficient blocks [det|u|v|t]
+    tri_id: torch.Tensor    # (C,K) int32 scene triangle ids, -1 = padding
+
+    @property
+    def num_clusters(self) -> int:
+        return self.tri_id.shape[0]
+
+    @property
+    def tris_per_cluster(self) -> int:
+        return self.tri_id.shape[1]
+
+
+def ray_features(o: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Per-ray feature rows [o×d, d, o, 1] (...,10)."""
+    return torch.cat([vm.cross(o, d), d, o, torch.ones_like(o[..., :1])],
+                     dim=-1)
+
+
+def sah_cluster_order(tri_pos: np.ndarray, cluster_size: int) -> np.ndarray:
+    """(C,K) triangle ids of the SAH leaves of K triangles, -1 padded."""
+    tp32 = np.asarray(tri_pos, np.float32)
+    order = build_sah_arrays(tp32, leaf_size=cluster_size)[4]
+    return order.reshape(-1, cluster_size)
+
+
+def clusters_from_order(tri_pos, tri_id: np.ndarray) -> ClusterSet:
+    """Cluster boxes and coefficient blocks for a given (C,K) membership,
+    computed in float64 on the host and stored as float32."""
+    tp = np.asarray(tri_pos, np.float32).astype(np.float64)
+    ids = np.asarray(tri_id).astype(np.int64)
+    c, k = ids.shape
+    valid = ids >= 0
+    tri3 = tp[np.maximum(ids, 0)]                  # (C,K,3,3)
+    lo = np.where(valid[..., None], tri3.min(axis=2), np.inf).min(axis=1)
+    hi = np.where(valid[..., None], tri3.max(axis=2), -np.inf).max(axis=1)
+    lo = np.where(np.isfinite(lo), lo, 1e30)
+    hi = np.where(np.isfinite(hi), hi, -1e30)
+    p0 = tri3[:, :, 0]
+    e1 = tri3[:, :, 1] - p0
+    e2 = tri3[:, :, 2] - p0
+    n = np.cross(e1, e2)
+
+    def z3(a):  # (C,K,3) -> (C,3,K), zero on padding slots
+        return np.where(valid[..., None], a, 0.0).transpose(0, 2, 1)
+
+    feat = np.zeros((c, 10, 4 * k), np.float64)
+    feat[:, 3:6, 0 * k:1 * k] = z3(-n)
+    feat[:, 0:3, 1 * k:2 * k] = z3(e2)
+    feat[:, 3:6, 1 * k:2 * k] = z3(np.cross(p0, e2))
+    feat[:, 0:3, 2 * k:3 * k] = z3(-e1)
+    feat[:, 3:6, 2 * k:3 * k] = z3(-np.cross(p0, e1))
+    feat[:, 6:9, 3 * k:4 * k] = z3(n)
+    feat[:, 9, 3 * k:4 * k] = np.where(
+        valid, -np.einsum("ckj,ckj->ck", p0, n), 0.0)
+    t_ = torch.from_numpy
+    return ClusterSet(
+        aabb_lo=t_(lo.astype(np.float32)), aabb_hi=t_(hi.astype(np.float32)),
+        tri_feat=t_(feat.astype(np.float32)),
+        tri_id=t_(ids.astype(np.int32)))
+
+
+def build_clusters(tri_pos, cluster_size: int = 64) -> ClusterSet:
+    """SAH clusters of `cluster_size` triangles over (T,3,3) positions."""
+    tp = (tri_pos.detach().cpu().numpy() if isinstance(tri_pos, torch.Tensor)
+          else np.asarray(tri_pos))
+    return clusters_from_order(tp, sah_cluster_order(tp, cluster_size))

@@ -1,0 +1,123 @@
+"""Pinhole camera, primary rays and motion vectors.
+
+Port of `lumenrenderer_tpu/core/camera.py` (`block_swizzle_map` is not ported:
+swizzled ray order is refused by the integrator).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from . import sampling
+from . import vecmath as vm
+from .struct import TensorStruct
+
+F32 = torch.float32
+
+
+def _f32(x) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=F32)
+
+
+@dataclasses.dataclass(frozen=True)
+class Camera(TensorStruct):
+    """eye (3,); u, v, w screen basis (u = right*tan(fov/2)*aspect,
+    v = up*tan(fov/2), w = forward); prev_view_proj (4,4) for motion
+    vectors; t_min, t_max () ray interval."""
+
+    eye: torch.Tensor
+    u: torch.Tensor
+    v: torch.Tensor
+    w: torch.Tensor
+    prev_view_proj: torch.Tensor
+    t_min: torch.Tensor
+    t_max: torch.Tensor
+
+    @staticmethod
+    def look_at(eye, target, up=(0.0, 1.0, 0.0), fov_y_deg: float = 45.0,
+                aspect: float = 1.0, t_min: float = 1e-3,
+                t_max: float = 1e9) -> "Camera":
+        eye, target, up = _f32(eye), _f32(target), _f32(up)
+        w = vm.normalize(target - eye)
+        u = vm.normalize(vm.cross(w, up))
+        v = vm.cross(u, w)
+        tan_half = torch.tan(torch.deg2rad(_f32(fov_y_deg)) * 0.5)
+        cam = Camera(eye=eye, u=u * tan_half * aspect, v=v * tan_half, w=w,
+                     prev_view_proj=torch.eye(4, dtype=F32),
+                     t_min=_f32(t_min), t_max=_f32(t_max))
+        return cam.replace(prev_view_proj=cam.view_proj(fov_y_deg, aspect))
+
+    def view_proj(self, fov_y_deg: float = 45.0,
+                  aspect: float = 1.0) -> torch.Tensor:
+        """Row-major view-projection matrix."""
+        rot = torch.stack([vm.normalize(self.u), vm.normalize(self.v),
+                           vm.normalize(self.w)], dim=0)
+        view = torch.eye(4, dtype=F32, device=self.eye.device)
+        view[:3, :3] = rot
+        view[:3, 3] = -(rot @ self.eye)
+        f = 1.0 / torch.tan(torch.deg2rad(_f32(fov_y_deg)) * 0.5)
+        f = float(f)
+        near, far = 0.01, 1e6
+        proj = torch.tensor(
+            [[f / aspect, 0.0, 0.0, 0.0],
+             [0.0, f, 0.0, 0.0],
+             [0.0, 0.0, far / (far - near), -far * near / (far - near)],
+             [0.0, 0.0, 1.0, 0.0]], dtype=F32, device=self.eye.device)
+        return proj @ view
+
+    def with_previous(self, prev: "Camera", fov_y_deg: float = 45.0,
+                      aspect: float = 1.0) -> "Camera":
+        return self.replace(prev_view_proj=prev.view_proj(fov_y_deg, aspect))
+
+    def signature(self) -> bytes:
+        """The pose's values as bytes, for camera-move detection."""
+        return b"".join(x.detach().cpu().numpy().tobytes()
+                        for x in (self.eye, self.u, self.v, self.w))
+
+
+def generate_primary_rays(camera: Camera, width: int, height: int,
+                          frame_index: int, uniforms: sampling.Uniforms | None
+                          = None, jitter: str = "halton"
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One jittered primary ray per pixel, row-major: (origins, dirs) (N,3).
+
+    jitter: "halton" (Halton(2,3) by frame), "random" (draws (N,2) from
+    `uniforms`) or anything else for the pixel center."""
+    dev = camera.eye.device
+    n = width * height
+    ids = torch.arange(n, dtype=torch.int64, device=dev)
+    px = ids % width
+    py = ids // width
+    if jitter == "halton":
+        j = sampling.halton23(torch.full((n,), int(frame_index),
+                                         dtype=torch.int64, device=dev))
+    elif jitter == "random" and uniforms is not None:
+        j = uniforms(n, 2)
+    else:
+        j = torch.full((n, 2), 0.5, dtype=F32, device=dev)
+    sx = ((px.to(F32) + j[:, 0]) / width) * 2.0 - 1.0
+    sy = 1.0 - ((py.to(F32) + j[:, 1]) / height) * 2.0
+    d = vm.normalize(sx[:, None] * camera.u[None, :]
+                     + sy[:, None] * camera.v[None, :] + camera.w[None, :])
+    o = camera.eye[None, :].expand(n, 3)
+    return o, d
+
+
+def motion_vectors(world_pos: torch.Tensor, valid: torch.Tensor,
+                   camera: Camera, width: int, height: int) -> torch.Tensor:
+    """Screen-space motion (prev - current pixel), (N,2); 0 where invalid."""
+    n = world_pos.shape[0]
+    hp = torch.cat([world_pos, torch.ones_like(world_pos[:, :1])], dim=-1)
+    clip = hp @ camera.prev_view_proj.T
+    w = clip[:, 3:4]
+    ndc = clip[:, :2] / torch.where(w.abs() > 1e-8, w, torch.ones_like(w))
+    prev_px = (ndc[:, 0] * 0.5 + 0.5) * width
+    prev_py = (0.5 - ndc[:, 1] * 0.5) * height
+    ids = torch.arange(n, dtype=torch.int64, device=world_pos.device)
+    cur_px = (ids % width).to(F32) + 0.5
+    cur_py = (ids // width).to(F32) + 0.5
+    mv = torch.stack([prev_px - cur_px, prev_py - cur_py], dim=-1)
+    behind = clip[:, 3] <= 0.0
+    return torch.where((valid & ~behind)[:, None], mv, torch.zeros_like(mv))

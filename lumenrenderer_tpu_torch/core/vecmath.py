@@ -1,0 +1,86 @@
+"""Vector math on tensors whose last axis holds the 3 vector components.
+
+Port of `lumenrenderer_tpu/core/vecmath.py`.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched dot product over the last axis."""
+    return (a * b).sum(-1)
+
+
+def vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched dot product keeping the last axis (size 1)."""
+    return (a * b).sum(-1, keepdim=True)
+
+
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.cross(a, b, dim=-1)
+
+
+def length(v: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(dot(v, v).clamp_min(0.0))
+
+
+def normalize(v: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
+    """Safe normalize: v/|v|; near-zero vectors map to 0."""
+    vv = vdot(v, v)
+    return v * torch.where(vv > eps, torch.rsqrt(vv.clamp_min(eps)),
+                           torch.zeros_like(vv))
+
+
+def reflect(d: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Reflect direction d about normal n (d points into the surface)."""
+    return d - 2.0 * vdot(d, n) * n
+
+
+def refract(d: torch.Tensor, n: torch.Tensor, eta: torch.Tensor):
+    """Refract d at normal n with relative IOR eta.
+
+    Returns (refracted_dir, total_internal_reflection_mask)."""
+    cos_i = -vdot(d, n)
+    e = eta[..., None]
+    sin2_t = e ** 2 * (1.0 - cos_i ** 2).clamp_min(0.0)
+    tir = sin2_t[..., 0] >= 1.0
+    cos_t = torch.sqrt((1.0 - sin2_t).clamp_min(0.0))
+    refr = e * d + (e * cos_i - cos_t) * n
+    return torch.where(tir[..., None], reflect(d, n), refr), tir
+
+
+def luminance(rgb: torch.Tensor) -> torch.Tensor:
+    """Rec.709 luminance."""
+    return rgb[..., 0] * 0.2126 + rgb[..., 1] * 0.7152 + rgb[..., 2] * 0.0722
+
+
+def build_onb(n: torch.Tensor):
+    """Branchless orthonormal basis from a unit normal (Duff et al. 2017).
+
+    Returns (tangent, bitangent)."""
+    nx, ny, nz = n[..., 0], n[..., 1], n[..., 2]
+    s = torch.where(nz >= 0.0, 1.0, -1.0)
+    a = -1.0 / (s + nz)
+    b = nx * ny * a
+    t = torch.stack([1.0 + s * nx ** 2 * a, s * b, -s * nx], dim=-1)
+    bt = torch.stack([b, s + ny ** 2 * a, -ny], dim=-1)
+    return t, bt
+
+
+def to_world(local: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Tangent-space direction (z up) to world space about n."""
+    t, b = build_onb(n)
+    return local[..., 0:1] * t + local[..., 1:2] * b + local[..., 2:3] * n
+
+
+def to_local_frame(world, t, b, n) -> torch.Tensor:
+    return torch.stack([dot(world, t), dot(world, b), dot(world, n)], dim=-1)
+
+
+def to_world_frame(local, t, b, n) -> torch.Tensor:
+    return local[..., 0:1] * t + local[..., 1:2] * b + local[..., 2:3] * n
+
+
+def lerp(a, b, t):
+    return a + (b - a) * t

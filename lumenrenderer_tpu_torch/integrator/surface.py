@@ -1,0 +1,144 @@
+"""Hit -> SurfaceData extraction: port of
+`lumenrenderer_tpu/integrator/surface.py` for untextured scenes.
+
+Per ray this is one row gather from a per-triangle attribute table, and an
+exact elementwise Möller–Trumbore against the gathered vertices: the tiled
+intersector's key gives the winning triangle and only a quantized t.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..core import vecmath as vm
+from ..core.struct import TensorStruct
+from ..scene.materials import GatheredMaterial
+from ..scene.scene import SceneData
+
+
+@dataclasses.dataclass(frozen=True)
+class SurfaceData(TensorStruct):
+    """Per-ray shading inputs, all (R,...)."""
+
+    position: torch.Tensor     # (R,3)
+    normal: torch.Tensor       # (R,3) shading normal, facing the ray's side
+    geo_normal: torch.Tensor   # (R,3) geometric normal, facing the ray
+    uv: torch.Tensor           # (R,2) zeros (untextured)
+    base_color: torch.Tensor   # (R,3)
+    emissive: torch.Tensor     # (R,3)
+    metallic: torch.Tensor     # (R,)
+    roughness: torch.Tensor    # (R,)
+    alpha: torch.Tensor        # (R,)
+    mat_idx: torch.Tensor      # (R,) int32
+    mat_rows: torch.Tensor     # (R,25) packed material parameters
+    light_row: torch.Tensor    # (R,) int32 triangle -> light row, -1 = none
+    tri_idx: torch.Tensor      # (R,) -1 = miss
+    tangent: torch.Tensor      # (R,3)
+    t: torch.Tensor            # (R,) exact hit distance, inf on miss
+    valid: torch.Tensor        # (R,) bool
+    is_emissive: torch.Tensor  # (R,) bool
+    front_face: torch.Tensor   # (R,) bool
+
+
+def _attr_table(scene: SceneData, with_tangent: bool):
+    """Per-triangle attribute table (T, C) and its column map."""
+    n = scene.tri_pos.shape[0]
+    p0 = scene.tri_pos[:, 0]
+    e1 = scene.tri_pos[:, 1] - p0
+    e2 = scene.tri_pos[:, 2] - p0
+    inst = scene.tri_inst.long()
+    parts, cols = [], {}
+    cursor = 0
+
+    def add(name, arr):
+        nonlocal cursor
+        parts.append(arr)
+        cols[name] = (cursor, cursor + arr.shape[1])
+        cursor += arr.shape[1]
+
+    add("geo_n", vm.normalize(vm.cross(e1, e2)))
+    add("normals", scene.tri_normal.reshape(n, 9))
+    if with_tangent:
+        add("tangent", scene.tri_tangent.reshape(n, 12))
+    add("material", scene.materials.packed()[scene.tri_mat.long()])
+    add("em_mode", scene.inst_emission_mode[inst][:, None].float())
+    add("em_override", scene.inst_emission_override[inst])
+    add("mat_idx", scene.tri_mat[:, None].float())      # exact below 2^24
+    add("light_row", scene.lights.tri_to_light[:, None].float())
+    add("p0", p0)
+    add("e1", e1)
+    add("e2", e2)
+    return torch.cat(parts, dim=1), cols
+
+
+def extract_surface_data(scene: SceneData, ray_o: torch.Tensor,
+                         ray_d: torch.Tensor, hit_tri: torch.Tensor,
+                         with_tangent: bool = True) -> SurfaceData:
+    """Shading data for hits `hit_tri` (-1 = miss). t, u and v are
+    re-derived exactly from the triangle; an intersector supplies only the
+    triangle. with_tangent=False skips the tangent columns (callers that
+    prove no material is anisotropic) and builds a frame from the normal."""
+    valid = hit_tri >= 0
+    table, col = _attr_table(scene, with_tangent)
+    att = table[hit_tri.clamp_min(0).long()]
+
+    def c(name, lo=0, hi=None):
+        s0, s1 = col[name]
+        return att[:, s0 + lo:(s1 if hi is None else s0 + hi)]
+
+    p0, e1, e2 = c("p0"), c("e1"), c("e2")
+    pvec = vm.cross(ray_d, e2)
+    det = vm.dot(e1, pvec)
+    okd = det.abs() > 1e-14
+    inv_det = torch.where(okd, 1.0 / torch.where(okd, det, 1.0),
+                          torch.zeros_like(det))
+    tvec = ray_o - p0
+    qvec = vm.cross(tvec, e1)
+    hit_u = vm.dot(tvec, pvec) * inv_det
+    hit_v = vm.dot(ray_d, qvec) * inv_det
+    t_exact = vm.dot(e2, qvec) * inv_det
+    valid = valid & okd
+    zero = torch.zeros_like(t_exact)
+    hit_t = torch.where(valid, t_exact, torch.inf)
+    # misses were gathered from triangle 0: mask their barycentrics
+    hit_u = torch.where(valid, hit_u, zero)
+    hit_v = torch.where(valid, hit_v, zero)
+    w = (1.0 - hit_u - hit_v)[..., None]
+    u_ = hit_u[..., None]
+    v_ = hit_v[..., None]
+    position = ray_o + torch.where(valid, hit_t, 1.0)[..., None] * ray_d
+    normal = vm.normalize(w * c("normals", 0, 3) + u_ * c("normals", 3, 6)
+                          + v_ * c("normals", 6, 9))
+    geo_normal = c("geo_n")
+    if with_tangent:
+        tangent = vm.normalize(w * c("tangent", 0, 3)
+                               + u_ * c("tangent", 4, 7)
+                               + v_ * c("tangent", 8, 11))
+    else:
+        y_axis = torch.tensor([[0.0, 1.0, 0.0]], device=ray_d.device)
+        x_axis = torch.tensor([[1.0, 0.0, 0.0]], device=ray_d.device)
+        a = torch.where(geo_normal[:, 1:2].abs() < 0.9, y_axis, x_axis)
+        tangent = vm.normalize(vm.cross(a, geo_normal))
+    front_face = vm.dot(geo_normal, -ray_d) >= 0.0
+    geo_normal = geo_normal * torch.where(front_face, 1.0, -1.0)[..., None]
+    normal = torch.where(vm.dot(normal, geo_normal)[..., None] < 0.0,
+                         -normal, normal)
+
+    rows = c("material")
+    g = GatheredMaterial(rows)
+    mat_idx = c("mat_idx")[:, 0].to(torch.int32)
+    light_row = torch.where(valid, c("light_row")[:, 0].to(torch.int32), -1)
+    mode = c("em_mode")[:, 0]
+    emissive = torch.where((mode == 2.0)[..., None], c("em_override"),
+                           g.emissive)
+    emissive = torch.where((mode == 0.0)[..., None],
+                           torch.zeros_like(emissive), emissive)
+    return SurfaceData(
+        position=position, normal=normal, geo_normal=geo_normal,
+        uv=torch.zeros(hit_t.shape + (2,), device=ray_d.device),
+        base_color=g.base_color, emissive=emissive, metallic=g.metallic,
+        roughness=g.roughness, alpha=g.alpha_factor, mat_idx=mat_idx,
+        mat_rows=rows, light_row=light_row, tri_idx=hit_tri,
+        tangent=tangent, t=hit_t, valid=valid,
+        is_emissive=vm.luminance(emissive) > 0.0, front_face=front_face)

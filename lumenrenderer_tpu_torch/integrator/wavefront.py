@@ -1,0 +1,313 @@
+"""The wavefront path-tracing frame: port of
+`lumenrenderer_tpu/integrator/wavefront.py`.
+
+One 1-spp frame as a loop over depths of masked fixed-size ray batches, run
+eagerly under `torch.no_grad()` (forward only). Light channels: DIRECT gets
+primary-hit emission and primary NEE; INDIRECT gets bounce NEE and, with MIS,
+weighted BSDF-sampled emission; SPECULAR gets paths whose first bounce took a
+near-delta lobe. Strategies: "nee", "bsdf", "mis".
+
+Random numbers come from a `Uniforms` source, drawn in a fixed order: the
+(N,2) pixel jitter, then per depth the alpha (N,), NEE (N,3), BSDF (N,4) and
+Russian-roulette (N,) uniforms, each only where the JAX frame draws it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional
+
+import torch
+
+from ..bsdf import disney as disney_mod
+from ..bsdf import lambert
+from ..core import camera as camera_mod
+from ..core import sampling
+from ..core import vecmath as vm
+from ..scene.materials import GatheredMaterial
+from ..scene.scene import SceneData
+from . import nee as nee_mod
+from .surface import SurfaceData, extract_surface_data
+
+RAY_EPS = 1e-3
+
+# stage names for debug_checks (encoded as depth * len + stage + 1)
+DEBUG_STAGES = (
+    "intersect",
+    "extract_surface_data",
+    "volumetric",
+    "emissive/light channels",
+    "nee/shade_direct",
+    "bsdf_sample/throughput",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Frame configuration; same names and defaults as the JAX package's
+    `RenderConfig` for the options the port has. use_restir, swizzle and
+    remat are kept only to refuse them."""
+
+    width: int = 128
+    height: int = 128
+    max_depth: int = 5
+    bsdf: str = "disney"          # "lambert" | "disney"
+    light_strategy: str = "mis"   # "nee" | "bsdf" | "mis"
+    light_selection: str = "cdf"  # "cdf" | "uniform"
+    rr_start_depth: int = 2
+    rr_min_prob: float = 0.05
+    use_restir: bool = False
+    jitter: str = "random"        # "halton" | "random" | "center"
+    alpha_test: bool = False      # treat OPAQUE materials as BLEND too
+    alpha_materials: bool = False  # per-material alpha mode and sidedness
+    swizzle: bool = False
+    sort_secondary: bool = True
+    extract_tangent: bool = True
+    remat: bool = False
+    debug_checks: bool = False
+
+    def __post_init__(self):
+        for name in ("use_restir", "swizzle", "remat"):
+            if getattr(self, name):
+                raise NotImplementedError(
+                    f"RenderConfig.{name} is not ported to PyTorch yet")
+
+    @property
+    def num_pixels(self) -> int:
+        return self.width * self.height
+
+
+def _bsdf_sample(cfg: RenderConfig, sd: SurfaceData, wo, u):
+    if cfg.bsdf == "lambert":
+        wi, f, pdf = lambert.sample_brdf(sd.base_color, sd.normal, wo,
+                                         u[..., :2])
+        return wi, f, pdf, torch.zeros(wo.shape[:-1], dtype=torch.bool,
+                                       device=wo.device)
+    return disney_mod.sample(sd, wo, u)
+
+
+def _bsdf_eval(cfg: RenderConfig, sd: SurfaceData, wo, wi):
+    if cfg.bsdf == "lambert":
+        return lambert.eval_brdf(sd.base_color, sd.normal, wo, wi)
+    return disney_mod.evaluate(sd, wo, wi)
+
+
+def _sel(mask, a, b):
+    """torch.where of (N,3) rows (or scalars) by an (N,) per-ray mask."""
+    return torch.where(mask[:, None], a, b)
+
+
+def render_wavefront(scene: SceneData, intersect_fn: Callable,
+                     occlude_fn: Callable, camera: camera_mod.Camera,
+                     uniforms: sampling.Uniforms, frame_index: int,
+                     cfg: RenderConfig,
+                     pixel_ids: Optional[torch.Tensor] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """Trace one 1-spp frame. Returns direct/indirect/specular (N,3) light
+    channels, primary-hit AOVs depth (N,), normal/albedo (N,3), motion (N,2),
+    and the scalars overflow (visit lists truncated) and, with debug_checks,
+    debug_first_bad (0 = clean, else 1 + encoded stage).
+
+    intersect_fn(o, d, tmin, tmax) -> {"t", "tri", "overflow"};
+    occlude_fn(o, d, tmin, tmax) -> (N,) bool."""
+    if pixel_ids is not None:
+        raise NotImplementedError("pixel_ids (frame slices) are not ported")
+    dev = camera.eye.device
+    n = cfg.num_pixels
+    f32 = torch.float32
+
+    def zeros(*shape, dtype=f32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    ray_o, ray_d = camera_mod.generate_primary_rays(
+        camera, cfg.width, cfg.height, frame_index, uniforms, cfg.jitter)
+    throughput = torch.ones((n, 3), dtype=f32, device=dev)
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    prev_pdf = torch.full((n,), torch.inf, dtype=f32, device=dev)
+    prev_specular = torch.ones(n, dtype=torch.bool, device=dev)
+    first_specular = zeros(n, dtype=torch.bool)
+    beer_sigma = zeros(n, 3)
+    direct, indirect, specular_ch = zeros(n, 3), zeros(n, 3), zeros(n, 3)
+    overflow_any = zeros(dtype=torch.bool)
+    first_bad = zeros(dtype=torch.int32)
+    aovs: Dict[str, torch.Tensor] = {}
+
+    def chk(fb, stage: str, depth_i: int, *arrs):
+        if not cfg.debug_checks:
+            return fb
+        idx = depth_i * len(DEBUG_STAGES) + DEBUG_STAGES.index(stage) + 1
+        bad = zeros(dtype=torch.bool)
+        for a in arrs:
+            bad = bad | ~torch.isfinite(a).all()
+        return torch.where((fb == 0) & bad, idx, fb).to(torch.int32)
+
+    t_min = RAY_EPS
+    light_table = nee_mod.build_light_table(scene, cfg.light_selection)
+    s_isect, occl = intersect_fn, occlude_fn
+    if cfg.sort_secondary:
+        from ..accel import sorting as sorting_mod
+
+        pts = scene.tri_pos.reshape(-1, 3)
+        s_isect, occl = sorting_mod.sorted_intersectors(
+            intersect_fn, occlude_fn, pts.amin(0), pts.amax(0))
+    alpha_on = cfg.alpha_test or cfg.alpha_materials
+    env = scene.env_radiance[None, :]
+
+    for depth in range(cfg.max_depth):
+        # dead lanes get t_max < t_min: skipped and left out of tile bounds
+        t_max_ray = torch.where(alive, camera.t_max, -1.0)
+        hits = (s_isect if depth > 0 else intersect_fn)(
+            ray_o, ray_d, t_min, t_max_ray)
+        overflow_any = overflow_any | hits["overflow"]
+        first_bad = chk(first_bad, "intersect", depth,
+                        torch.where(torch.isinf(hits["t"]), 0.0, hits["t"]))
+        sd = extract_surface_data(scene, ray_o, ray_d, hits["tri"],
+                                  with_tangent=cfg.extract_tangent)
+        hit_mask = sd.valid & alive
+        wo = -ray_d
+        first_bad = chk(first_bad, "extract_surface_data", depth,
+                        _sel(hit_mask, sd.position, 0.0),
+                        _sel(hit_mask, sd.normal, 0.0),
+                        _sel(hit_mask, sd.base_color, 0.0),
+                        _sel(hit_mask, sd.emissive, 0.0),
+                        torch.where(hit_mask, sd.roughness, 0.0))
+
+        # Beer's-law absorption over the interior segment just traversed
+        if cfg.bsdf == "disney" and depth > 0:
+            seg = torch.where(sd.valid, sd.t.clamp_max(1e6), 0.0)
+            throughput = throughput * torch.exp(-beer_sigma * seg[:, None])
+
+        # miss: environment light
+        env_contrib = _sel(alive & ~sd.valid, throughput * env, 0.0)
+        if depth == 0:
+            direct = direct + env_contrib
+        else:
+            specular_ch = specular_ch + _sel(first_specular, env_contrib, 0.0)
+            indirect = indirect + _sel(first_specular, 0.0, env_contrib)
+
+        if depth == 0:
+            aovs["depth"] = torch.where(hit_mask, sd.t, 0.0)
+            aovs["normal"] = _sel(hit_mask, sd.normal, 0.0)
+            aovs["albedo"] = _sel(hit_mask, sd.base_color, 0.0)
+            aovs["motion"] = camera_mod.motion_vectors(
+                sd.position, hit_mask, camera, cfg.width, cfg.height)
+
+        # emissive surface hit
+        em = throughput * sd.emissive
+        if depth == 0:
+            direct = direct + _sel(hit_mask, em, 0.0)
+        elif cfg.light_strategy == "bsdf":
+            indirect = indirect + _sel(hit_mask, em, 0.0)
+        elif cfg.light_strategy == "mis":
+            lpdf = nee_mod.light_pdf_solid_angle(light_table, ray_d, sd.t,
+                                                 sd.light_row)
+            w = torch.where(prev_specular, 1.0,
+                            sampling.power_heuristic(prev_pdf, lpdf))
+            em_w = em * torch.where(hit_mask, w, 0.0)[:, None]
+            specular_ch = specular_ch + _sel(first_specular, em_w, 0.0)
+            indirect = indirect + _sel(first_specular, 0.0, em_w)
+        first_bad = chk(first_bad, "emissive/light channels", depth,
+                        direct, indirect, specular_ch)
+
+        # per-material alpha and sidedness: pass through without shading
+        if alpha_on:
+            a_u = uniforms(n)
+            gm = GatheredMaterial(sd.mat_rows)
+            mode = gm.alpha_mode
+            stochastic = mode == 2.0
+            if cfg.alpha_test:
+                stochastic = stochastic | (mode == 0.0)
+            passthrough = hit_mask & (
+                ((mode == 1.0) & (sd.alpha < gm.alpha_cutoff))
+                | (stochastic & (sd.alpha < a_u))
+                | ((gm.double_sided < 0.5) & ~sd.front_face))
+            hit_mask = hit_mask & ~passthrough
+        else:
+            passthrough = zeros(n, dtype=torch.bool)
+
+        if cfg.light_strategy in ("nee", "mis"):
+            u3 = uniforms(n, 3)
+            ls = nee_mod.sample_light(light_table, u3, sd.position)
+            cos_s = vm.dot(sd.normal, ls.wi)
+            f_val, bsdf_pdf = _bsdf_eval(cfg, sd, wo, ls.wi)
+            pdf_sa = nee_mod.pdf_solid_angle(ls)
+            contrib_valid = (hit_mask & ls.valid & (cos_s > 0.0)
+                             & (pdf_sa > 1e-12)
+                             & (vm.luminance(ls.radiance) > 0.0))
+            mis_w = (sampling.power_heuristic(pdf_sa, bsdf_pdf)
+                     if cfg.light_strategy == "mis" else 1.0)
+            so = sd.position + sd.geo_normal * RAY_EPS
+            occluded = occl(so, ls.wi, RAY_EPS,
+                            torch.where(contrib_valid,
+                                        ls.dist - 2.0 * RAY_EPS, -1.0))
+            scale = torch.where(
+                contrib_valid & ~occluded,
+                cos_s.clamp_min(0.0) * mis_w / pdf_sa.clamp_min(1e-12), 0.0)
+            shadowed = throughput * f_val * ls.radiance * scale[:, None]
+            first_bad = chk(first_bad, "nee/shade_direct", depth, shadowed)
+            if depth == 0:
+                direct = direct + shadowed
+            else:
+                specular_ch = specular_ch + _sel(first_specular, shadowed,
+                                                 0.0)
+                indirect = indirect + _sel(first_specular, 0.0, shadowed)
+
+        if depth + 1 < cfg.max_depth:
+            u_b = uniforms(n, 4)
+            wi, f_val, pdf, is_spec = _bsdf_sample(cfg, sd, wo, u_b)
+            cos_i = vm.dot(sd.normal, wi).abs()
+            valid_bounce = (hit_mask & (pdf > 1e-9)
+                            & torch.isfinite(wi).all(-1))
+            new_tp = throughput * f_val * (cos_i / pdf.clamp_min(1e-9))[:, None]
+            new_tp = _sel(valid_bounce, new_tp, 0.0)
+            if depth >= cfg.rr_start_depth:
+                p_survive = new_tp.amax(-1).clamp(cfg.rr_min_prob, 1.0)
+                survive = uniforms(n) < p_survive
+                new_tp = _sel(survive, new_tp / p_survive[:, None], 0.0)
+                valid_bounce = valid_bounce & survive
+            side = torch.sign(vm.dot(sd.geo_normal, wi))[..., None]
+            bounce_o = sd.position + sd.geo_normal * side * RAY_EPS
+            next_o = _sel(passthrough, sd.position + ray_d * RAY_EPS,
+                          bounce_o)
+            next_d = _sel(passthrough, ray_d, wi)
+            next_alive = valid_bounce | passthrough
+            ray_o = _sel(next_alive, next_o, ray_o)
+            ray_d = _sel(next_alive, next_d, ray_d)
+            throughput = _sel(passthrough, throughput, new_tp)
+            prev_pdf = torch.where(passthrough, prev_pdf, pdf)
+            prev_specular = torch.where(passthrough, prev_specular, is_spec)
+            if depth == 0:
+                first_specular = is_spec & valid_bounce & ~passthrough
+            if cfg.bsdf == "disney":
+                # a refraction crossing the surface enters or leaves a medium
+                crossing = valid_bounce & (vm.dot(sd.geo_normal, wi) < 0.0)
+                sigma_mat = -torch.log(GatheredMaterial(sd.mat_rows)
+                                       .transmittance.clamp(1e-6, 1.0))
+                beer_sigma = _sel(crossing & sd.front_face, sigma_mat,
+                                  beer_sigma)
+                beer_sigma = _sel(crossing & ~sd.front_face, 0.0, beer_sigma)
+            alive = next_alive & (throughput.amax(-1) > 0.0)
+            first_bad = chk(first_bad, "bsdf_sample/throughput", depth,
+                            _sel(alive, throughput, 0.0),
+                            _sel(alive, ray_d, 0.0))
+        elif alpha_on:
+            # passthrough at the depth horizon still sees the environment
+            indirect = indirect + _sel(passthrough, throughput * env, 0.0)
+
+    out = {"direct": direct, "indirect": indirect, "specular": specular_ch,
+           **aovs, "overflow": overflow_any}
+    if cfg.debug_checks:
+        out["debug_first_bad"] = first_bad
+    return out
+
+
+def decode_debug_stage(first_bad: int) -> Optional[str]:
+    """Map out["debug_first_bad"] to "stage (depth d)"; None when clean."""
+    if first_bad == 0:
+        return None
+    i = int(first_bad) - 1
+    return f"{DEBUG_STAGES[i % len(DEBUG_STAGES)]} (depth {i // len(DEBUG_STAGES)})"
+
+
+def merge_channels(out: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Sum the light channels into the radiance image (N,3)."""
+    return out["direct"] + out["indirect"] + out["specular"]

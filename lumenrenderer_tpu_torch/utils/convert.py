@@ -1,0 +1,53 @@
+"""Carry state into the port from numpy arrays.
+
+The JAX package's scene, cluster set and camera, turned into numpy leaves by
+the caller (a mapping of field name to array, nested for sub-structures),
+become the port's dataclasses, so both packages can compute on the same
+arrays. This module takes numpy only.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from ..accel.stream import ClusterSet
+from ..core.camera import Camera
+from ..scene.lights import TriangleLights
+from ..scene.materials import MaterialTable
+from ..scene.scene import SceneData, TextureAtlas
+
+
+def _fill(cls, leaves: Mapping, **nested):
+    """cls(**fields) with each field taken from `leaves` as a tensor."""
+    kw = {}
+    for f in dataclasses.fields(cls):
+        if f.name in nested:
+            kw[f.name] = nested[f.name]
+        else:
+            kw[f.name] = torch.from_numpy(np.array(leaves[f.name]))
+    return cls(**kw)
+
+
+def scene_from_numpy(leaves: Mapping) -> SceneData:
+    """SceneData from the JAX SceneData's leaves (volumes must be None)."""
+    if leaves.get("volumes") is not None:
+        raise NotImplementedError("volumes are not ported")
+    return _fill(
+        SceneData, leaves,
+        materials=_fill(MaterialTable, leaves["materials"]),
+        lights=_fill(TriangleLights, leaves["lights"]),
+        textures=_fill(TextureAtlas, leaves["textures"]))
+
+
+def clusters_from_numpy(leaves: Mapping) -> ClusterSet:
+    """ClusterSet from aabb_lo, aabb_hi, tri_feat and tri_id (other leaves,
+    such as the cluster tree, are ignored)."""
+    return _fill(ClusterSet, leaves)
+
+
+def camera_from_numpy(leaves: Mapping) -> Camera:
+    """Camera from eye, u, v, w, prev_view_proj, t_min and t_max."""
+    return _fill(Camera, leaves)
