@@ -3,17 +3,33 @@
 
     python3 chip_smoke.py
 
-Phases, one line each (any failure raises, so the exit code is non-zero):
+Phases, one line each or more (any failure raises, so the exit code is
+non-zero), each with its seconds:
   1. environment: torch, CUDA, nvcc, the card's name and power limit;
-  2. build kernel K1 (ops/csrc/visit_scan.cu) with nvcc from this checkout;
+  2. build kernels K1, K2 and K3 (ops/csrc/*.cu) with nvcc from this
+     checkout, one nvcc each, all at once; ptxas registers and spills;
   3. K1 against its plain PyTorch twin on the card: 1,024 tiles each of a
      2560x1440 bounce pass and shadow pass of the interior scene, closest
      and any mode, with kernel and twin times per call;
-  4. the slice at 320x180: one frame through the kernel and one through the
-     twin from the same generator seed;
-  5. the slice at full size: Renderer(accel="tiled") on the interior scene
-     (600 boxes, 64 lights), 2560x1440, 1 spp, depth 5, Disney + MIS:
-     1 warm-up and 5 timed frames; both K1 launch counters must be > 0.
+  4. the tiled slice at 320x180: one frame through the kernel and one
+     through the twin from the same generator seed;
+  5. the tiled slice at full size: Renderer(accel="tiled") on the interior
+     scene (600 boxes, 64 lights), 2560x1440, 1 spp, depth 5, Disney + MIS:
+     1 warm-up and 5 timed frames; both K1 launch counters must be > 0;
+  6. K2 against its twin: 1,024 tiles each of the sorted 2560x1440 bounce
+     and shadow passes of the instanced scene (120 box instances and a
+     light: 121 units, 2 unique meshes), closest and any mode, and K1's
+     full-pass times on the same passes through the flattened clusters;
+  7. the two-level slice: Renderer(accel="two_level", dynamic=...) on that
+     scene at 2560x1440, depth 5, Disney + MIS, 1 warm-up and 3 timed
+     frames, held against Renderer(accel="tiled"); then instance 0 moves
+     by +50 in x and the next frame is held against a fresh build;
+  8. K3 against its twin: 1,024 pair tiles, evenly spaced over the live
+     tiles, of the interior scene's sorted 2560x1440 bounce and shadow
+     passes;
+  9. the pair slice: render_wavefront with pair_intersectors on the
+     interior scene at 2560x1440, depth 5, Disney + MIS, 1 warm-up and 3
+     timed frames, held against the tiled frame from the same seed.
 Then a JSON line of per-kernel results, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}. Needs no network; exits
 non-zero without a CUDA device or without the package next to it.
@@ -30,10 +46,21 @@ REPO = Path(__file__).resolve().parent
 W, H = 2560, 1440
 SMALL_W, SMALL_H = 320, 180
 SUBSET_TILES = 1024
-MATCH_FRACTION = 0.9999      # K1 vs twin: identical keys / bits
+MATCH_FRACTION = 0.9999      # kernel vs twin: identical keys / bits
 PIXEL_FRACTION = 0.999       # small slice: pixels within PIXEL_RTOL
 PIXEL_RTOL, PIXEL_ATOL = 1e-3, 1e-4
+AOV_TOL = 1e-3               # full slices: primary depth and normal
+MEAN_RTOL = 0.01             # full slices: image means
 TIMED_FRAMES = 5
+SLICE_FRAMES = 3             # timed frames of phases 7 and 9
+N_INSTANCES = 120
+PAIRS_PER_RAY = 8
+KERNELS = ("visit_scan", "visit_scan_instanced", "pair_scan")
+REPLACES = {
+    "visit_scan": "lumenrenderer_tpu/ops/pallas/intersect.py:325",
+    "visit_scan_instanced": "lumenrenderer_tpu/ops/pallas/instanced.py:168",
+    "pair_scan": "lumenrenderer_tpu/ops/pallas/pair_intersect.py:129",
+}
 
 
 def say(phase: str, **fields) -> None:
@@ -63,10 +90,23 @@ def cuda_time_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def timed_frames(render_one, frames: int) -> float:
+    """ms per frame of `frames` calls of render_one(), on the host clock
+    around work that ends in a device synchronisation."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(frames):
+        render_one()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / frames * 1e3
+
+
 def phase_environment():
     import torch
 
-    from lumenrenderer_tpu_torch.ops.visit_scan import nvcc_path
+    from lumenrenderer_tpu_torch.ops.build import nvcc_path
 
     nvcc = subprocess.run([nvcc_path(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
@@ -76,14 +116,18 @@ def phase_environment():
 
 
 def phase_build():
-    from lumenrenderer_tpu_torch.ops import visit_scan as vs
+    from lumenrenderer_tpu_torch.ops import build
 
-    seconds, log = vs.build_library(force=True)
-    ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln
-             or "spill" in ln]
-    say("2 build", seconds=f"{seconds:.2f}", library=vs.library_path().name,
-        ptxas=repr(" | ".join(ptxas)))
-    return seconds
+    t0 = time.perf_counter()
+    results = build.build_libraries(KERNELS, force=True)
+    for name in KERNELS:
+        seconds, log = results[name]
+        ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln
+                 or "spill" in ln]
+        say("2 build", kernel=name, seconds=f"{seconds:.2f}",
+            library=build.library_path(name).name,
+            ptxas=repr(" | ".join(ptxas)))
+    say("2 build", wall_seconds=f"{time.perf_counter() - t0:.2f}")
 
 
 def _scene(dev):
@@ -93,9 +137,10 @@ def _scene(dev):
     return builder.build().to(dev), camf
 
 
-def _secondary_passes(sc, cs, cam, dev, w, h, max_visits):
-    """Scan inputs of one bounce pass and one shadow pass, each sorted as
-    the frame sorts them (octant|morton, capsule)."""
+def _secondary_passes(sc, cs, cam, dev, w, h, capture):
+    """capture(o, d, tn, tx) of one bounce pass and one shadow pass, each
+    sorted as the frame sorts them (octant|morton, capsule); primary hits
+    come from the tiled intersector over the flattened clusters `cs`."""
     import torch
 
     from lumenrenderer_tpu_torch.accel import sorting, tiled
@@ -105,12 +150,14 @@ def _secondary_passes(sc, cs, cam, dev, w, h, max_visits):
     from lumenrenderer_tpu_torch.integrator import nee
     from lumenrenderer_tpu_torch.integrator.surface import \
         extract_surface_data
+    from lumenrenderer_tpu_torch.render.renderer import KERNEL_VISIT_CAP
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     uni = sampling.generator_uniforms(gen)
     o, d = generate_primary_rays(cam, w, h, 0, uni, "random")
-    hits = tiled.intersect_closest(cs, o, d, 1e-3, 1e9, max_visits)
+    hits = tiled.intersect_closest(cs, o, d, 1e-3, 1e9,
+                                   min(cs.num_clusters, KERNEL_VISIT_CAP))
     sd = extract_surface_data(sc, o, d, hits["tri"], with_tangent=False)
     eps = 1e-3
     wi = disney.sample(sd, -d, uni(w * h, 4))[0]
@@ -121,35 +168,36 @@ def _secondary_passes(sc, cs, cam, dev, w, h, max_visits):
     so = sd.position + sd.geo_normal * eps
 
     # the frame's own sort, with the query replaced by a capture of its
-    # visit-scan inputs
+    # kernel's inputs
     passes = {}
 
-    def capture(name):
-        def query(o_, d_, tn, tx):
-            passes[name] = tiled.scan_inputs(cs, o_, d_, tn, tx, max_visits)
+    def query(name):
+        def fn(o_, d_, tn, tx):
+            passes[name] = capture(o_, d_, tn, tx)
             if name == "shadow":
                 return torch.zeros(o_.shape[0], dtype=torch.bool, device=dev)
             return {"tri": torch.zeros(o_.shape[0], device=dev),
                     "overflow": passes[name]["overflow"]}
-        return query
+        return fn
 
     pts = sc.tri_pos.reshape(-1, 3)
     s_isect, s_occl = sorting.sorted_intersectors(
-        capture("bounce"), capture("shadow"), pts.amin(0), pts.amax(0))
+        query("bounce"), query("shadow"), pts.amin(0), pts.amax(0))
     s_isect(bo, wi, eps, torch.where(sd.valid, 1e9, -1.0))
     s_occl(so, ls.wi, eps, torch.where(sd.valid & ls.valid,
                                        ls.dist - 2 * eps, -1.0))
     return passes
 
 
-def _subset(q, n_tiles):
+def _tile_subset(args, shared, n_tiles):
+    """Evenly spaced tiles of per-tile arguments; args[shared] (the cluster
+    table) is taken whole."""
     import torch
 
-    rf_t, feats, sel, nv, tnb = q["args"]
-    idx = torch.linspace(0, rf_t.shape[0] - 1, n_tiles,
-                         device=rf_t.device).long()
-    return (rf_t[idx].contiguous(), feats, sel[idx].contiguous(),
-            nv[idx].contiguous(), tnb[idx].contiguous())
+    tiles = args[0].shape[0]
+    idx = torch.linspace(0, tiles - 1, n_tiles, device=args[0].device).long()
+    return tuple(a if i == shared else a[idx].contiguous()
+                 for i, a in enumerate(args))
 
 
 def _compare(kern, twin, closest, low_bits):
@@ -171,42 +219,39 @@ def _compare(kern, twin, closest, low_bits):
     return int(diff.sum()), int((diff & ~tie).sum()), err
 
 
-def phase_kernel_vs_twin(dev, w=W, h=H, n_tiles=SUBSET_TILES):
+def hold_against_twin(phase, label, passes, subset, kernel, twin, low_bits,
+                      exact_bits):
+    """Each pass's subset through kernel and twin, in both modes: raise
+    unless at least MATCH_FRACTION of keys (bits) are identical and every
+    other key is a tie (exact_bits: every bit identical); print times.
+    Returns per mode max_abs_err, mismatches, ms and plain_ms (means over
+    the passes)."""
     import torch
 
-    from lumenrenderer_tpu_torch.accel import stream
-    from lumenrenderer_tpu_torch.ops import visit_scan as vs
-    from lumenrenderer_tpu_torch.render.renderer import KERNEL_VISIT_CAP
-
-    sc, camf = _scene(dev)
-    cs = stream.build_clusters(sc.tri_pos, cluster_size=128).to(dev)
-    mv = min(cs.num_clusters, KERNEL_VISIT_CAP)
-    passes = _secondary_passes(sc, cs, camf(w / h).to(dev), dev, w, h, mv)
     results = {}
     for mode, closest in (("closest", True), ("any", False)):
         worst, total, timing = 0.0, 0, []
         for name, q in passes.items():
-            args = _subset(q, n_tiles)
+            args = subset(q)
             kw = dict(q["kw"], closest=closest)
-            kern = vs.visit_scan(*args, **kw)
-            twin = vs.visit_scan_ref(*args, **kw)
+            kern = kernel(*args, **kw)
+            ref = twin(*args, **kw)
             torch.cuda.synchronize()
-            mism, bad, err = _compare(kern, twin, closest,
-                                      kw["low_bits"])
+            lb = low_bits(q)
+            mism, bad, err = _compare(kern, ref, closest, lb)
             rays = kern.numel()
-            if mism > (1 - MATCH_FRACTION) * rays or bad:
+            if (mism > (1 - MATCH_FRACTION) * rays or (closest and bad)
+                    or (exact_bits and not closest and mism)):
                 raise AssertionError(
-                    f"K1 {mode} vs twin on the {name} pass: {mism} of "
+                    f"{label} {mode} vs twin on the {name} pass: {mism} of "
                     f"{rays} differ, {bad} not ties")
-            ms = cuda_time_ms(lambda: vs.visit_scan(*args, **kw))
-            plain_ms = cuda_time_ms(lambda: vs.visit_scan_ref(*args, **kw),
-                                    reps=2)
-            full_ms = cuda_time_ms(lambda: vs.visit_scan(*q["args"], **kw))
-            say("3 kernel", mode=mode, rays=name, tiles=n_tiles, rays_n=rays,
+            ms = cuda_time_ms(lambda: kernel(*args, **kw))
+            plain_ms = cuda_time_ms(lambda: twin(*args, **kw), reps=2)
+            full_ms = cuda_time_ms(lambda: kernel(*q["args"], **kw))
+            say(phase, kernel=label, mode=mode, rays=name, rays_n=rays,
                 mismatches=mism, non_ties=bad, max_abs_err=err,
                 kernel_ms=f"{ms:.4f}", twin_ms=f"{plain_ms:.4f}",
-                full_frame_tiles=q["args"][0].shape[0],
-                full_frame_kernel_ms=f"{full_ms:.4f}")
+                full_pass_kernel_ms=f"{full_ms:.4f}")
             worst = max(worst, err)
             total += mism
             timing.append((ms, plain_ms))
@@ -214,6 +259,26 @@ def phase_kernel_vs_twin(dev, w=W, h=H, n_tiles=SUBSET_TILES):
                          "ms": sum(a for a, _ in timing) / len(timing),
                          "plain_ms": sum(b for _, b in timing) / len(timing)}
     return results
+
+
+def phase_kernel_vs_twin(dev, w=W, h=H, n_tiles=SUBSET_TILES):
+    from lumenrenderer_tpu_torch.accel import stream, tiled
+    from lumenrenderer_tpu_torch.ops import visit_scan as vs
+    from lumenrenderer_tpu_torch.render.renderer import KERNEL_VISIT_CAP
+
+    sc, camf = _scene(dev)
+    cs = stream.build_clusters(sc.tri_pos, cluster_size=128).to(dev)
+    mv = min(cs.num_clusters, KERNEL_VISIT_CAP)
+    passes = _secondary_passes(
+        sc, cs, camf(w / h).to(dev), dev, w, h,
+        lambda o, d, tn, tx: tiled.scan_inputs(cs, o, d, tn, tx, mv))
+    for q in passes.values():
+        say("3 kernel", full_pass_tiles=q["args"][0].shape[0],
+            subset_tiles=n_tiles)
+    return hold_against_twin(
+        "3 kernel", "visit_scan", passes,
+        lambda q: _tile_subset(q["args"], 1, n_tiles), vs.visit_scan,
+        vs.visit_scan_ref, lambda q: q["kw"]["low_bits"], exact_bits=True)
 
 
 def phase_small_slice(dev, w=SMALL_W, h=SMALL_H):
@@ -296,6 +361,317 @@ def phase_full_slice(dev, w=W, h=H, frames=TIMED_FRAMES):
     return launches
 
 
+def _instanced():
+    from lumenrenderer_tpu_torch.scene import presets
+
+    return presets.instanced_boxes(n_inst=N_INSTANCES, seed=5)
+
+
+def phase_instanced_kernel_vs_twin(dev, w=W, h=H, n_tiles=SUBSET_TILES):
+    from lumenrenderer_tpu_torch.accel import stream, tiled, two_level
+    from lumenrenderer_tpu_torch.ops import visit_scan as vs
+    from lumenrenderer_tpu_torch.ops import visit_scan_instanced as vsi
+    from lumenrenderer_tpu_torch.render.renderer import KERNEL_VISIT_CAP
+
+    builder, camf = _instanced()
+    sc = builder.build().to(dev)
+    cs = stream.build_clusters(sc.tri_pos, cluster_size=128).to(dev)
+    ics = two_level.build_instanced(
+        *two_level.instance_tables(builder.instances)).to(dev)
+    mv = min(ics.num_clusters, KERNEL_VISIT_CAP)
+    passes = _secondary_passes(
+        sc, cs, camf(w / h).to(dev), dev, w, h,
+        lambda o, d, tn, tx: two_level.scan_inputs(ics, o, d, tn, tx, mv))
+    for name, q in passes.items():
+        nv = q["args"][5]
+        say("6 instanced kernel", rays=name, units=ics.num_clusters,
+            unique_meshes=ics.tri_feat.shape[0], max_visits=mv,
+            full_pass_tiles=nv.shape[0], subset_tiles=n_tiles,
+            mean_visits_live_tiles=f"{float(nv[nv > 0].float().mean()):.2f}",
+            overflow=bool(q["overflow"]))
+    results = hold_against_twin(
+        "6 instanced kernel", "visit_scan_instanced", passes,
+        lambda q: _tile_subset(q["args"], 2, n_tiles),
+        vsi.visit_scan_instanced, vsi.visit_scan_instanced_ref,
+        lambda q: q["kw"]["low_bits"], exact_bits=False)
+    # K1 on the same passes through the flattened clusters, for scale
+    flat = _secondary_passes(
+        sc, cs, camf(w / h).to(dev), dev, w, h,
+        lambda o, d, tn, tx: tiled.scan_inputs(
+            cs, o, d, tn, tx, min(cs.num_clusters, KERNEL_VISIT_CAP)))
+    for name, q in flat.items():
+        for mode in ("closest", "any"):
+            ms = cuda_time_ms(lambda: vs.visit_scan(
+                *q["args"], **q["kw"], closest=mode == "closest"))
+            say("6 instanced kernel", reference="visit_scan, flattened",
+                clusters=cs.num_clusters, rays=name, mode=mode,
+                full_pass_kernel_ms=f"{ms:.4f}")
+    return results
+
+
+def _aov_agreement(aux, ref, low_bits):
+    """(fraction of pixels whose primary depth and normal agree within
+    AOV_TOL (relative for depth beyond 1), fraction that agree or are key
+    ties). A tie is a pixel where both frames hit, at depths within the
+    coarser packed key's t resolution, 2^-(23 - low_bits): there the key
+    cannot order the two surfaces and either may win (ROADMAP C-1)."""
+    import torch
+
+    da, db = aux["depth"], ref["depth"]
+    scale = torch.maximum(da.abs(), db.abs()).clamp_min(1.0)
+    ok = (da - db).abs() <= AOV_TOL * scale
+    ok &= ((aux["normal"] - ref["normal"]).abs() <= AOV_TOL).all(-1)
+    tie = ((da > 0) & (db > 0)
+           & ((da - db).abs() <= torch.maximum(da, db)
+              * 2.0 ** -(23 - low_bits)))
+    return float(ok.float().mean()), float((ok | tie).float().mean())
+
+
+def _hold_frames(phase, label, aux, ref_aux, mean, ref_mean, low_bits):
+    strict, frac = _aov_agreement(aux, ref_aux, low_bits)
+    rel = abs(mean - ref_mean) / max(abs(ref_mean), 1e-12)
+    say(phase, against=label, aov_pixels_agree=f"{strict:.6f}",
+        aov_pixels_agree_or_tie=f"{frac:.6f}", tie_key_low_bits=low_bits,
+        mean=f"{mean:.6f}", ref_mean=f"{ref_mean:.6f}",
+        mean_rel_diff=f"{rel:.2e}")
+    if frac < PIXEL_FRACTION or rel > MEAN_RTOL:
+        raise AssertionError(f"{phase}: frame differs from {label}: AOVs "
+                             f"{frac}, means {mean} vs {ref_mean}")
+
+
+def _key_low_bits(accel_units, k, max_visits):
+    from lumenrenderer_tpu_torch.accel.tiled import key_bits
+
+    return key_bits(k, min(max_visits, accel_units))[2]
+
+
+def phase_two_level_slice(dev, w=W, h=H, frames=SLICE_FRAMES):
+    import numpy as np
+    import torch
+
+    from lumenrenderer_tpu_torch.integrator.wavefront import RenderConfig
+    from lumenrenderer_tpu_torch.ops import visit_scan_instanced as vsi
+    from lumenrenderer_tpu_torch.render.renderer import Renderer
+    from lumenrenderer_tpu_torch.scene.dynamic import DynamicScene
+
+    builder, camf = _instanced()
+    cam = camf(w / h)
+    cfg = RenderConfig(width=w, height=h, max_depth=5, bsdf="disney",
+                       light_strategy="mis")
+    dyn = DynamicScene(builder)
+    r = Renderer(dyn.build(), cfg, accel="two_level", builder=builder,
+                 dynamic=dyn, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    vsi.reset_launches()
+    st, aux0 = r.render_frame(r.init_state(0), cam)
+    warm_ms = r.frame_stats["Total Frame Time"]
+    run = {"st": st, "overflow": r.frame_stats["overflow"]}
+
+    def one():
+        run["st"], _ = r.render_frame(run["st"], cam)
+        run["overflow"] |= r.frame_stats["overflow"]
+
+    ms = timed_frames(one, frames)
+    overflow = run["overflow"]
+    launches = dict(vsi.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    img = run["st"].accum
+    finite = bool(torch.isfinite(img).all())
+    mean = float(img.mean())
+    say("7 two-level slice", size=f"{w}x{h}", tris=r.scene.num_triangles,
+        units=r.instanced.num_clusters, max_visits=r.max_visits,
+        warmup_ms=f"{warm_ms:.1f}", ms_per_frame=f"{ms:.1f}",
+        peak_mem_gib=f"{peak / 2**30:.2f}", overflow=overflow,
+        tri_feat_bytes=r.instanced.tri_feat.numel() * 4, mean=f"{mean:.5f}",
+        finite=finite, launches=json.dumps(launches))
+    if not finite or mean <= 0 or overflow:
+        raise AssertionError(f"bad two-level frame: finite={finite} "
+                             f"mean={mean} overflow={overflow}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"K2 not launched on the two-level path: "
+                             f"{launches}")
+
+    # the same scene and seed through the flattened tiled accel
+    rt = Renderer(builder.build(), cfg, accel="tiled", device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    st_t, aux_t = rt.render_frame(rt.init_state(0), cam)
+    run_t = {"st": st_t}
+
+    def one_t():
+        run_t["st"], _ = rt.render_frame(run_t["st"], cam)
+
+    ms_t = timed_frames(one_t, frames)
+    say("7 two-level slice", reference="tiled", ms_per_frame=f"{ms_t:.1f}",
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f}",
+        clusters=rt.clusters.num_clusters,
+        tri_feat_bytes=rt.clusters.tri_feat.numel() * 4,
+        overflow=rt.frame_stats["overflow"])
+    low_bits = max(
+        _key_low_bits(r.instanced.num_clusters, 128, r.max_visits),
+        _key_low_bits(rt.clusters.num_clusters, 128, rt.max_visits))
+    _hold_frames("7 two-level slice", "tiled", aux0, aux_t, mean,
+                 float(run_t["st"].accum.mean()), low_bits)
+
+    # dynamic: move instance 0 out of view through its Transform
+    st_before, _ = r.render_frame(r.init_state(1), cam)
+    dyn.transform(0).translation = (50.0, 0.0, 0.0)
+    st_moved, aux_moved = r.render_frame(r.init_state(1), cam)
+    rebake_ms = r.frame_stats["Rebake Time"]
+    changed = float((st_moved.accum - st_before.accum).abs().amax())
+    moved = _instanced()[0]
+    moved.instances[0].transform = (
+        np.array([[1, 0, 0, 50], [0, 1, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1]],
+                 np.float32) @ moved.instances[0].transform)
+    rf = Renderer(moved.build(), cfg, accel="two_level", builder=moved,
+                  device=dev)
+    st_f, aux_f = rf.render_frame(rf.init_state(1), cam)
+    say("7 two-level slice", dynamic="instance 0 +50 x",
+        rebake_ms=f"{rebake_ms:.3f}", max_pixel_change=f"{changed:.4g}",
+        overflow=r.frame_stats["overflow"])
+    if changed <= 0.0 or r.frame_stats["overflow"]:
+        raise AssertionError("moving instance 0 did not change the image")
+    _hold_frames("7 two-level slice", "a fresh build at the new transform",
+                 aux_moved, aux_f, float(st_moved.accum.mean()),
+                 float(st_f.accum.mean()), low_bits)
+    return launches
+
+
+def phase_pair_kernel_vs_twin(dev, w=W, h=H, n_tiles=SUBSET_TILES):
+    import torch
+
+    from lumenrenderer_tpu_torch.accel import pairs, stream
+    from lumenrenderer_tpu_torch.ops import pair_scan as ps
+    from lumenrenderer_tpu_torch.render.renderer import KERNEL_VISIT_CAP
+
+    sc, camf = _scene(dev)
+    cs = stream.build_clusters(sc.tri_pos, cluster_size=128).to(dev)
+    mv = min(cs.num_clusters, KERNEL_VISIT_CAP)
+    passes = _secondary_passes(
+        sc, cs, camf(w / h).to(dev), dev, w, h,
+        lambda o, d, tn, tx: pairs.scan_inputs(cs, o, d, tn, tx, mv,
+                                               PAIRS_PER_RAY))
+
+    def subset(q):
+        rf_pairs, feats, tile_cluster = q["args"]
+        rf = rf_pairs.reshape(-1, 128, 12)
+        live = (rf[..., 11] >= rf[..., 10]).any(1).nonzero()[:, 0]
+        idx = live[torch.linspace(0, live.numel() - 1, n_tiles,
+                                  device=dev).long()]
+        return (rf[idx].reshape(-1, 12).contiguous(), feats,
+                tile_cluster[idx].contiguous())
+
+    for name, q in passes.items():
+        rf = q["args"][0].reshape(-1, 128, 12)
+        live_tiles = int((rf[..., 11] >= rf[..., 10]).any(1).sum())
+        live_rays = int(q["live"].sum())
+        say("8 pair kernel", rays=name, pair_tiles=rf.shape[0],
+            live_pair_tiles=live_tiles, subset_tiles=n_tiles,
+            admitted_pairs=q["pairs"],
+            pairs_per_live_ray=f"{q['pairs'] / max(live_rays, 1):.3f}",
+            pairs_per_ray=f"{q['pairs'] / q['r']:.3f}",
+            overflow=bool(q["overflow"]))
+    return hold_against_twin(
+        "8 pair kernel", "pair_scan", passes, subset, ps.pair_scan,
+        ps.pair_scan_ref, lambda q: q["kw"]["k_bits"], exact_bits=False)
+
+
+def phase_pair_slice(dev, w=W, h=H, frames=SLICE_FRAMES):
+    import torch
+
+    from lumenrenderer_tpu_torch.accel import pairs, stream, tiled
+    from lumenrenderer_tpu_torch.core import sampling
+    from lumenrenderer_tpu_torch.integrator import wavefront as wf
+    from lumenrenderer_tpu_torch.ops import pair_scan as ps
+    from lumenrenderer_tpu_torch.render.renderer import KERNEL_VISIT_CAP
+
+    sc, camf = _scene(dev)
+    cam = camf(w / h).to(dev)
+    cs = stream.build_clusters(sc.tri_pos, cluster_size=128).to(dev)
+    mv = min(cs.num_clusters, KERNEL_VISIT_CAP)
+    cfg = wf.RenderConfig(width=w, height=h, max_depth=5, bsdf="disney",
+                          light_strategy="mis", extract_tangent=False)
+
+    def pair_fns(per_ray, flags):
+        isect, _ = pairs.pair_intersectors(cs, max_visits=128,
+                                           max_pairs_per_ray=per_ray,
+                                           decode=False)
+
+        def occl(o, d, tn, tx):
+            # pair_intersectors' occlusion query, keeping its overflow flag
+            res = pairs._query(cs, o, d, tn, tx, 128, per_ray, False, False)
+            flags.append(res["overflow"])
+            return res["occluded"]
+
+        return isect, occl
+
+    def frames_of(isect, occl, n, flags=()):
+        """n frames from generator seed 0: (the first frame's outputs, the
+        mean of the frames' image means, ms per frame after the first, any
+        overflow of a closest or an occlusion query)."""
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        uni = sampling.generator_uniforms(gen)
+        first, means, ovf = [], [], []
+
+        def one():
+            with torch.no_grad():
+                out = wf.render_wavefront(sc, isect, occl, cam, uni,
+                                          len(means), cfg)
+            means.append(wf.merge_channels(out).mean())
+            ovf.append(out["overflow"])
+            if not first:
+                first.append(out)
+
+        one()
+        ms = timed_frames(one, n - 1) if n > 1 else float("nan")
+        return (first[0], float(torch.stack(means).mean()), ms,
+                bool(torch.stack(ovf + list(flags)).any()))
+
+    # the smallest pair cap, from PAIRS_PER_RAY up, whose first frame does
+    # not overflow (JAX measured 5.28 admitted clusters per bounce ray)
+    per_ray = PAIRS_PER_RAY
+    while True:
+        flags = []
+        overflow = frames_of(*pair_fns(per_ray, flags), 1, flags)[3]
+        say("9 pair slice", max_pairs_per_ray=per_ray,
+            first_frame_overflow=overflow)
+        if not overflow:
+            break
+        per_ray += 1
+        if per_ray > 2 * PAIRS_PER_RAY:
+            raise AssertionError("the pair frame overflows at "
+                                 f"{2 * PAIRS_PER_RAY} pairs per ray")
+    flags = []
+    isect, occl = pair_fns(per_ray, flags)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ps.reset_launches()
+    out, mean, ms, overflow = frames_of(isect, occl, frames + 1, flags)
+    launches = dict(ps.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    img = wf.merge_channels(out)
+    finite = bool(torch.isfinite(img).all())
+    say("9 pair slice", size=f"{w}x{h}", clusters=cs.num_clusters,
+        max_visits=mv, max_pairs_per_ray=per_ray, ms_per_frame=f"{ms:.1f}",
+        peak_mem_gib=f"{peak / 2**30:.2f}", overflow=overflow,
+        mean=f"{mean:.5f}", finite=finite, launches=json.dumps(launches))
+    if not finite or mean <= 0 or overflow:
+        raise AssertionError(f"bad pair frame: finite={finite} mean={mean} "
+                             f"overflow={overflow}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"K3 not launched on the pair path: "
+                             f"{launches}")
+    t_isect, t_occl = tiled.tiled_intersectors(cs, mv)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out_t, mean_t, ms_t, ovf_t = frames_of(t_isect, t_occl, frames + 1)
+    say("9 pair slice", reference="tiled", ms_per_frame=f"{ms_t:.1f}",
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f}",
+        overflow=ovf_t)
+    # the pair key keeps more bits of t than the tiled key
+    _hold_frames("9 pair slice", "tiled", out, out_t, mean, mean_t,
+                 _key_low_bits(cs.num_clusters, 128, mv))
+    return launches
+
+
 def main() -> int:
     if not (REPO / "lumenrenderer_tpu_torch" / "ops" / "csrc"
             / "visit_scan.cu").is_file():
@@ -312,19 +688,33 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    phase_environment()
-    phase_build()
-    k1 = phase_kernel_vs_twin(dev)
-    phase_small_slice(dev)
-    launches = phase_full_slice(dev)
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        say(name, seconds=f"{time.perf_counter() - t0:.1f}")
+        return out
 
-    src = "lumenrenderer_tpu_torch/ops/csrc/visit_scan.cu"
-    kernels = [{"name": f"visit_scan[{mode}]", "route": "cuda", "source": src,
-                "replaces": "lumenrenderer_tpu/ops/pallas/intersect.py:323",
-                "launches": launches[mode],
-                "max_abs_err": k1[mode]["max_abs_err"],
-                "ms": k1[mode]["ms"], "plain_ms": k1[mode]["plain_ms"]}
-               for mode in ("closest", "any")]
+    run("1 environment", phase_environment)
+    run("2 build", phase_build)
+    checks = {"visit_scan": run("3 kernel", phase_kernel_vs_twin, dev)}
+    run("4 small slice", phase_small_slice, dev)
+    launches = {"visit_scan": run("5 full slice", phase_full_slice, dev)}
+    checks["visit_scan_instanced"] = run(
+        "6 instanced kernel", phase_instanced_kernel_vs_twin, dev)
+    launches["visit_scan_instanced"] = run(
+        "7 two-level slice", phase_two_level_slice, dev)
+    checks["pair_scan"] = run("8 pair kernel", phase_pair_kernel_vs_twin,
+                              dev)
+    launches["pair_scan"] = run("9 pair slice", phase_pair_slice, dev)
+
+    kernels = [{"name": f"{name}[{mode}]", "route": "cuda",
+                "source": f"lumenrenderer_tpu_torch/ops/csrc/{name}.cu",
+                "replaces": REPLACES[name],
+                "launches": launches[name][mode],
+                "max_abs_err": checks[name][mode]["max_abs_err"],
+                "ms": checks[name][mode]["ms"],
+                "plain_ms": checks[name][mode]["plain_ms"]}
+               for name in KERNELS for mode in ("closest", "any")]
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

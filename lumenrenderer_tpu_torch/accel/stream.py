@@ -92,3 +92,40 @@ def build_clusters(tri_pos, cluster_size: int = 64) -> ClusterSet:
     tp = (tri_pos.detach().cpu().numpy() if isinstance(tri_pos, torch.Tensor)
           else np.asarray(tri_pos))
     return clusters_from_order(tp, sah_cluster_order(tp, cluster_size))
+
+
+def refit_clusters(cs: ClusterSet, tri_pos: torch.Tensor) -> ClusterSet:
+    """Refit for dynamic scenes, on tri_pos's device in float32 as the JAX
+    package's `refit_clusters` computes it (not `build_clusters`' float64
+    host path): membership (tri_id) stays, boxes and Möller–Trumbore
+    coefficients follow the new (T,3,3) world positions."""
+    ids = cs.tri_id.long()
+    valid = ids >= 0
+    k = cs.tris_per_cluster
+    c = ids.shape[0]
+    tri3 = tri_pos[ids.clamp_min(0)]                 # (C,K,3,3)
+    big = 1e30
+    v3 = valid[..., None]
+    lo = torch.where(v3, tri3.amin(2), big).amin(1)
+    hi = torch.where(v3, tri3.amax(2), -big).amax(1)
+    lo = torch.where(torch.isfinite(lo) & (lo.abs() < big), lo, big)
+    hi = torch.where(torch.isfinite(hi) & (hi.abs() < big), hi, -big)
+
+    p0 = tri3[:, :, 0]
+    e1 = tri3[:, :, 1] - p0
+    e2 = tri3[:, :, 2] - p0
+    n = vm.cross(e1, e2)
+
+    def z3(a):  # (C,K,3) -> (C,3,K), zero on padding slots
+        return torch.where(v3, a, 0.0).transpose(1, 2)
+
+    feat = torch.zeros((c, 10, 4 * k), dtype=torch.float32,
+                       device=tri_pos.device)
+    feat[:, 3:6, 0 * k:1 * k] = z3(-n)
+    feat[:, 0:3, 1 * k:2 * k] = z3(e2)
+    feat[:, 3:6, 1 * k:2 * k] = z3(vm.cross(p0, e2))
+    feat[:, 0:3, 2 * k:3 * k] = z3(-e1)
+    feat[:, 3:6, 2 * k:3 * k] = z3(-vm.cross(p0, e1))
+    feat[:, 6:9, 3 * k:4 * k] = z3(n)
+    feat[:, 9, 3 * k:4 * k] = torch.where(valid, -(p0 * n).sum(-1), 0.0)
+    return cs.replace(aabb_lo=lo, aabb_hi=hi, tri_feat=feat)

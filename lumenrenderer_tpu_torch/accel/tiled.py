@@ -45,11 +45,29 @@ def _tile_bounds(o, d, tn, tx, tiles: int, tile: int):
     return olo, ohi, dlo, dhi, t_cap, alive.any(1)
 
 
+def pad_rays(origins, dirs, t_min, t_max, group: int):
+    """Per-ray windows from scalars or (R,) tensors, and the rays padded to a
+    multiple of `group`: (o, d, tn, tx). Padded rays are dead (tx < tn)."""
+    r = origins.shape[0]
+    dev = origins.device
+    t_min_b = torch.as_tensor(t_min, dtype=torch.float32, device=dev).expand(r)
+    t_max_b = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(r)
+    r_pad = (-r) % group
+    return (_pad(origins, r_pad, 0.0), _pad(dirs, r_pad, 1.0),
+            _pad(t_min_b, r_pad, 0.0), _pad(t_max_b, r_pad, -1.0))
+
+
 def _frustum_visits(cs: ClusterSet, o, d, tn, tx, tiles: int, mv: int):
-    """Interval-ray (packet) slab test of every (tile, cluster) pair.
+    """Interval-ray (packet) slab test of every (tile, cluster) pair; `cs` is
+    a ClusterSet or any table of boxes `aabb_lo`/`aabb_hi` (two-level units).
 
     Returns (order (T,mv) cluster ids, valid (T,mv), tnear (T,mv) ascending,
     overflow ()). Ties in tnear keep cluster-id order, as `lax.top_k` does."""
+    c = cs.aabb_lo.shape[0]
+    if c > MAX_FRUSTUM_CLUSTERS:
+        raise NotImplementedError(
+            f"{c} clusters or units: tree culling (more than "
+            f"{MAX_FRUSTUM_CLUSTERS}) is not ported yet")
     olo, ohi, dlo, dhi, t_cap, any_alive = _tile_bounds(
         o, d, tn, tx, tiles, RAY_TILE)
     eps = 1e-20
@@ -89,44 +107,55 @@ def key_bits(k: int, mv: int) -> Tuple[int, int, int]:
     return k_bits, s_bits, low_bits
 
 
+def visit_lists(acc, o, d, tn, tx, max_visits: int):
+    """Cull the padded rays' tiles against `acc` (a ClusterSet, or the units
+    of an InstancedClusterSet) and lay out the visit scan's list inputs:
+    (sel (T,mv) int32, nv (T,) int32, tnb (T,mv) int32 entry-t bits with
+    KEY_MISS past nv, overflow (), kw {k, mv, k_bits, low_bits}, s_bits)."""
+    mv = min(max_visits, acc.num_clusters)
+    sel, valid, tnear, overflow = _frustum_visits(
+        acc, o, d, tn, tx, o.shape[0] // RAY_TILE, mv)
+    k_bits, s_bits, low_bits = key_bits(acc.tris_per_cluster, mv)
+    nv = valid.sum(1, dtype=torch.int32)
+    tn_bits = tnear.clamp_min(0.0).view(torch.int32)
+    tnb = torch.where(valid, tn_bits.clamp_max(KEY_MISS - 1),
+                      torch.full_like(tn_bits, KEY_MISS))
+    kw = dict(k=acc.tris_per_cluster, mv=mv, k_bits=k_bits, low_bits=low_bits)
+    return sel, nv, tnb, overflow, kw, s_bits
+
+
+def decode_winners(out: torch.Tensor, q: Dict):
+    """Decode a closest-mode visit scan's (T,128) keys for the r real rays
+    of scan inputs `q`: (found (r,), the winning visit's entry of q["sel"]
+    (r,) int64, the slot in its cluster (r,) int64, t (r,) the key's
+    quantized distance, good to ~2^-(23 - low_bits), inf where not found)."""
+    r, k_bits, low_bits = q["r"], q["kw"]["k_bits"], q["kw"]["low_bits"]
+    bk = out.reshape(-1)[:r]
+    found = q["live"] & (bk < KEY_MISS)   # dead lanes carry key 0
+    slot = torch.where(found, bk & ((1 << k_bits) - 1), 0).long()
+    step = torch.where(found, (bk >> k_bits) & ((1 << q["s_bits"]) - 1),
+                       0).long()
+    tile_idx = torch.arange(r, device=out.device) // RAY_TILE
+    entry = q["sel"][tile_idx, step].long()
+    t_key = (bk & ~((1 << low_bits) - 1)).view(torch.float32)
+    return found, entry, slot, torch.where(found, t_key, torch.inf)
+
+
 def scan_inputs(cs: ClusterSet, origins, dirs, t_min, t_max,
                 max_visits: int) -> Dict:
     """Pad rays to whole tiles, cull, and build the visit scan's inputs:
     {"args": (rf_t, feats, sel, nv, tnb), "kw": {k, mv, k_bits, low_bits}},
-    plus what the decode needs: s_bits, overflow, the ray count r and the
-    (T,128) dead-lane mask (padding included)."""
+    plus what the decode needs: the visit lists sel, s_bits, overflow, the
+    ray count r and the (r,) live mask."""
     r = origins.shape[0]
-    dev = origins.device
-    t_min_b = torch.as_tensor(t_min, dtype=torch.float32, device=dev).expand(r)
-    t_max_b = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(r)
-    r_pad = (-r) % RAY_TILE
-    o = _pad(origins, r_pad, 0.0)
-    d = _pad(dirs, r_pad, 1.0)
-    tn = _pad(t_min_b, r_pad, 0.0)
-    tx = _pad(t_max_b, r_pad, -1.0)          # padded rays are dead
-    tiles = (r + r_pad) // RAY_TILE
-    k = cs.tris_per_cluster
-    c = cs.num_clusters
-    if c > MAX_FRUSTUM_CLUSTERS:
-        raise NotImplementedError(
-            f"{c} clusters: cluster-tree culling (more than "
-            f"{MAX_FRUSTUM_CLUSTERS} clusters) is not ported yet")
-    mv = min(max_visits, c)
-    order, valid_k, tnear_k, overflow = _frustum_visits(
-        cs, o, d, tn, tx, tiles, mv)
-    k_bits, s_bits, low_bits = key_bits(k, mv)
+    o, d, tn, tx = pad_rays(origins, dirs, t_min, t_max, RAY_TILE)
+    sel, nv, tnb, overflow, kw, s_bits = visit_lists(cs, o, d, tn, tx,
+                                                     max_visits)
     rf_t = torch.cat([ray_features(o, d), tn[:, None], tx[:, None]],
-                     dim=1).reshape(tiles, RAY_TILE, 12)
-    nv = valid_k.sum(1, dtype=torch.int32)
-    tn_bits = tnear_k.clamp_min(0.0).view(torch.int32)
-    tnb = torch.where(valid_k, tn_bits.clamp_max(KEY_MISS - 1),
-                      torch.full_like(tn_bits, KEY_MISS))
-    return {
-        "args": (rf_t, cs.tri_feat, order, nv, tnb),
-        "kw": dict(k=k, mv=mv, k_bits=k_bits, low_bits=low_bits),
-        "s_bits": s_bits, "overflow": overflow, "r": r,
-        "dead": (tx < tn).reshape(tiles, RAY_TILE),
-    }
+                     dim=1).reshape(-1, RAY_TILE, 12)
+    return {"args": (rf_t, cs.tri_feat, sel, nv, tnb), "kw": kw,
+            "sel": sel, "s_bits": s_bits, "overflow": overflow, "r": r,
+            "live": (tx >= tn)[:r]}
 
 
 def _query(cs: ClusterSet, origins, dirs, t_min, t_max, max_visits: int,
@@ -134,31 +163,12 @@ def _query(cs: ClusterSet, origins, dirs, t_min, t_max, max_visits: int,
            ) -> Dict[str, torch.Tensor]:
     q = scan_inputs(cs, origins, dirs, t_min, t_max, max_visits)
     out = scan(*q["args"], **q["kw"], closest=closest)
-    r, overflow = q["r"], q["overflow"]
-    live = ~q["dead"].reshape(-1)[:r]
     if not closest:
-        return {"occluded": (out.reshape(-1)[:r] > 0) & live,
-                "overflow": overflow}
-
-    k_bits, low_bits = q["kw"]["k_bits"], q["kw"]["low_bits"]
-    s_bits = q["s_bits"]
-    order = q["args"][2]
-    bk = out.reshape(-1)[:r]
-    found = live & (bk < KEY_MISS)   # dead lanes carry key 0
-    k_win = torch.where(found, bk & ((1 << k_bits) - 1), 0).long()
-    step_win = torch.where(found, (bk >> k_bits) & ((1 << s_bits) - 1),
-                           0).long()
-    tile_idx = torch.arange(r, device=origins.device) // RAY_TILE
-    cluster = order[tile_idx, step_win].long()
-    tri_g = cs.tri_id[cluster, k_win]
-    low_mask = ~((1 << low_bits) - 1)
-    # t is the key's quantized distance: good to ~2^-(23 - low_bits)
-    t_key = (bk & low_mask).view(torch.float32)
-    return {
-        "t": torch.where(found, t_key, torch.inf),
-        "tri": torch.where(found, tri_g, -1),
-        "overflow": overflow,
-    }
+        return {"occluded": (out.reshape(-1)[:q["r"]] > 0) & q["live"],
+                "overflow": q["overflow"]}
+    found, cluster, slot, t = decode_winners(out, q)
+    return {"t": t, "tri": torch.where(found, cs.tri_id[cluster, slot], -1),
+            "overflow": q["overflow"]}
 
 
 def intersect_closest(cs: ClusterSet, origins, dirs, t_min, t_max,

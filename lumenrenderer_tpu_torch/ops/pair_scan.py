@@ -1,0 +1,93 @@
+"""Kernel K3: the pair scan of the pair-admission intersector, on Hopper.
+
+Replaces the Pallas TPU kernel `pair_scan` (`_make_pair_kernel_resident` and
+`_make_pair_kernel_stream`) in `lumenrenderer_tpu/ops/pallas/pair_intersect.py`.
+
+Contract. `rf_pairs (S, 12)` holds one row per (ray, cluster) pair: the ray's
+features [o×d, d, o, 1] and its window t_min, t_max; S is a multiple of 128.
+The pairs come sorted by cluster in runs padded to 128, so each 128-pair tile
+refers to one cluster, `tile_cluster[S / 128]` of `feats (C, 10, 4K)`. Per
+pair, the Möller–Trumbore test of K1 (`ops/visit_scan.py`) against the K
+triangles of that cluster; closest mode returns the minimum key
+`(t_bits & ~((1 << k_bits) - 1)) | slot` (no visit field), 0x7F000000 for a
+miss; any mode returns 1 where any triangle hits. Padding pairs have
+t_max < t_min and so never hit: they return the miss key or 0, with no
+special case.
+
+What bounds it on an H100: per tile 128 pairs x K triangles x 40 fp32 FMAs
+on one 20 KB slab (K = 128), read from L2: fp32 issue and shared-memory
+reads, as K1. The design: one block per pair tile and one thread per pair;
+the block loads its one slab into shared memory (transposed so a triangle's
+coefficients are broadcast float4s, `csrc/cluster_scan.cuh`) and runs the
+test once. There is no visit loop and no early-out. One CUDA kernel replaces
+both Pallas variants (the table resident in VMEM, or streamed by DMA): the
+table stays in device memory behind the 50 MB L2.
+
+Not carried over: the grid of G = 8 tiles per program (S only needs to be a
+multiple of 128 here), and the FR = 16 feature-row padding.
+
+On a CPU tensor the wrapper runs `pair_scan_ref`, the plain PyTorch twin; on
+a CUDA tensor it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+from .visit_scan import KEY_MISS, RAY_TILE, check_scalars, slab_hits
+
+# launches of the CUDA kernel per mode (the CPU twin does not count)
+LAUNCHES = {"closest": 0, "any": 0}
+
+
+def reset_launches() -> None:
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def pair_scan_ref(rf_pairs, feats, tile_cluster, *, k: int, k_bits: int,
+                  closest: bool) -> torch.Tensor:
+    """Plain PyTorch twin of the kernel: one (128, 10)·(10, 4K) product per
+    pair tile. Memory is (S / 128, 128, 4K) float32."""
+    rf = rf_pairs.reshape(-1, RAY_TILE, 12)
+    hit, tb = slab_hits(rf[..., :10].contiguous(), feats[tile_cluster.long()],
+                        rf[..., 10:11], rf[..., 11:12], k, closest)
+    if not closest:
+        return hit.any(-1).to(torch.int32).reshape(-1)
+    kid = torch.arange(k, dtype=torch.int32, device=rf.device)
+    key = (tb & ~((1 << k_bits) - 1)) | kid
+    key = torch.where(hit, key, torch.full_like(key, KEY_MISS))
+    return key.amin(-1).reshape(-1)
+
+
+def pair_scan(rf_pairs, feats, tile_cluster, *, k: int, k_bits: int,
+              closest: bool) -> torch.Tensor:
+    """Run the pair scan (contract in the module docstring): (S,) int32 keys
+    (closest) or occlusion bits (any)."""
+    s = rf_pairs.shape[0]
+    if s % RAY_TILE:
+        raise ValueError(f"{s} pairs: not a multiple of {RAY_TILE}")
+    tiles = s // RAY_TILE
+    build.check_tensors(rf_pairs.device, {
+        "rf_pairs": (rf_pairs, torch.float32, (s, 12)),
+        "feats": (feats, torch.float32, (feats.shape[0], 10, 4 * k)),
+        "tile_cluster": (tile_cluster, torch.int32, (tiles,)),
+    })
+    check_scalars(k, 1, k_bits, k_bits)   # one visit, no visit field
+    if rf_pairs.device.type == "cpu":
+        return pair_scan_ref(rf_pairs, feats, tile_cluster, k=k,
+                             k_bits=k_bits, closest=closest)
+    if rf_pairs.device.type != "cuda":
+        raise ValueError(f"pair_scan runs on cpu or cuda, not "
+                         f"{rf_pairs.device}")
+    fn = build.load_function(
+        "pair_scan", "pair_scan_launch",
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    out = torch.empty((s,), dtype=torch.int32, device=rf_pairs.device)
+    build.launch(fn, rf_pairs.device, rf_pairs.data_ptr(), feats.data_ptr(),
+                 tile_cluster.data_ptr(), out.data_ptr(), tiles,
+                 feats.shape[0], k, k_bits, int(closest))
+    LAUNCHES["closest" if closest else "any"] += 1
+    return out

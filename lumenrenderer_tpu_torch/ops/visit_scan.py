@@ -39,26 +39,15 @@ a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
+
+from . import build
 
 KEY_MISS = 0x7F000000
 RAY_TILE = 128
 # launches of the CUDA kernel per mode (the CPU twin does not count)
 LAUNCHES = {"closest": 0, "any": 0}
-
-_SRC = Path(__file__).resolve().parent / "csrc" / "visit_scan.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_MAX_SMEM = 48 * 1024  # static launch limit without an opt-in attribute
-_lib = None
 
 
 def reset_launches() -> None:
@@ -66,19 +55,34 @@ def reset_launches() -> None:
         LAUNCHES[key] = 0
 
 
-def visit_scan_ref(rf_t, feats, sel, nv, tnb, *, k: int, mv: int,
-                   k_bits: int, low_bits: int, closest: bool
-                   ) -> torch.Tensor:
-    """Plain PyTorch twin of the kernel (same contract, no early-out: the
-    kernel's early-out is conservative, so the results are equal). Runs every
-    tile for max(nv) visits; memory is (T, 128, 4K) float32 per visit."""
-    del tnb, mv  # only the kernel's early-out reads them
-    tiles = rf_t.shape[0]
-    dev = rf_t.device
-    rfm = rf_t[..., :10]
-    tmin = rf_t[..., 10:11]
-    tmax = rf_t[..., 11:12]
-    dead = (tmax < tmin)[..., 0]
+def slab_hits(rf, slab, tmin, tmax, k: int, closest: bool):
+    """The kernels' test (`test_slab` in csrc/cluster_scan.cuh) of ray
+    features rf (T,128,10) against one coefficient slab per tile
+    (T,10,4K) within [tmin, tmax] (T,128,1): hit (T,128,K) bool and, in
+    closest mode, t's float bits (T,128,K) int32 (else None)."""
+    res = torch.bmm(rf, slab)                               # (T, 128, 4K)
+    det, un, vn, tn = res.split(k, dim=-1)
+    s = torch.sign(det)
+    ad = det * s
+    us, vs, ts = un * s, vn * s, tn * s
+    hit = ((ad > 1e-12) & (us >= 0.0) & (vs >= 0.0) & (us + vs <= ad)
+           & (ts > tmin * ad) & (ts <= tmax * ad))
+    if not closest:
+        return hit, None
+    ad_safe = torch.where(ad > 1e-12, ad, torch.ones_like(ad))
+    return hit, (ts / ad_safe).clamp_min(0.0).view(torch.int32)
+
+
+def scan_visits_ref(rays, feats, sel, nv, tmin, tmax, dead, *, k: int,
+                    k_bits: int, low_bits: int, closest: bool
+                    ) -> torch.Tensor:
+    """Plain twin of the kernels' visit loop (`scan_visits` in
+    csrc/cluster_scan.cuh) without its early-out, which is conservative, so
+    the results are equal. `rays(i)` gives the (T,128,10) features of visit
+    i. Runs every tile for max(nv) visits; memory is (T,128,4K) float32 per
+    visit."""
+    tiles = sel.shape[0]
+    dev = sel.device
     kid = torch.arange(k, dtype=torch.int32, device=dev)
     low_mask = ~((1 << low_bits) - 1)
     best = torch.full((tiles, RAY_TILE), KEY_MISS, dtype=torch.int32,
@@ -86,17 +90,10 @@ def visit_scan_ref(rf_t, feats, sel, nv, tnb, *, k: int, mv: int,
     occ = dead.clone()
     n_max = int(nv.max()) if tiles else 0
     for i in range(n_max):
-        live = (i < nv)[:, None, None]
-        res = torch.bmm(rfm, feats[sel[:, i].long()])     # (T, 128, 4K)
-        det, un, vn, tn = res.split(k, dim=-1)
-        s = torch.sign(det)
-        ad = det * s
-        us, vs, ts = un * s, vn * s, tn * s
-        hit = (live & (ad > 1e-12) & (us >= 0.0) & (vs >= 0.0)
-               & (us + vs <= ad) & (ts > tmin * ad) & (ts <= tmax * ad))
+        hit, tb = slab_hits(rays(i), feats[sel[:, i].long()], tmin, tmax, k,
+                            closest)
+        hit &= (i < nv)[:, None, None]
         if closest:
-            ad_safe = torch.where(ad > 1e-12, ad, torch.ones_like(ad))
-            tb = (ts / ad_safe).clamp_min(0.0).view(torch.int32)
             key = (tb & low_mask) | (i << k_bits) | kid
             key = torch.where(hit, key, torch.full_like(key, KEY_MISS))
             best = torch.minimum(best, key.amin(-1))
@@ -107,70 +104,21 @@ def visit_scan_ref(rf_t, feats, sel, nv, tnb, *, k: int, mv: int,
     return occ.to(torch.int32)
 
 
-def nvcc_path() -> str:
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    found = str(cand) if cand.exists() else shutil.which("nvcc")
-    if not found:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return found
+def visit_scan_ref(rf_t, feats, sel, nv, tnb, *, k: int, mv: int,
+                   k_bits: int, low_bits: int, closest: bool
+                   ) -> torch.Tensor:
+    """Plain PyTorch twin of the kernel (same contract, no early-out)."""
+    del tnb, mv  # only the kernel's early-out reads them
+    rfm = rf_t[..., :10]
+    return scan_visits_ref(lambda i: rfm, feats, sel, nv, rf_t[..., 10:11],
+                           rf_t[..., 11:12], rf_t[..., 11] < rf_t[..., 10],
+                           k=k, k_bits=k_bits, low_bits=low_bits,
+                           closest=closest)
 
 
-def library_path() -> Path:
-    """The shared library's path, keyed by a hash of source and flags."""
-    h = hashlib.sha256(_SRC.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"visit_scan-{h.hexdigest()[:16]}.so"
-
-
-def build_library(force: bool = False) -> tuple[float, str]:
-    """Compile the kernel with nvcc into BUILD_DIR unless it is there.
-    Returns (seconds spent, compiler output)."""
-    so = library_path()
-    if so.exists() and not force:
-        return 0.0, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                          capture_output=True, text=True, check=False)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, so)
-    return seconds, proc.stdout + proc.stderr
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        build_library()
-        lib = ctypes.CDLL(str(library_path()))
-        fn = lib.visit_scan_launch
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
-def _check(rf_t, feats, sel, nv, tnb, k, mv, k_bits, low_bits):
-    tiles = rf_t.shape[0]
-    c = feats.shape[0]
-    expect = {
-        "rf_t": (rf_t, torch.float32, (tiles, RAY_TILE, 12)),
-        "feats": (feats, torch.float32, (c, 10, 4 * k)),
-        "sel": (sel, torch.int32, (tiles, mv)),
-        "nv": (nv, torch.int32, (tiles,)),
-        "tnb": (tnb, torch.int32, (tiles, mv)),
-    }
-    for name, (x, dtype, shape) in expect.items():
-        if x.device != rf_t.device:
-            raise ValueError(f"{name} is on {x.device}, rf_t on {rf_t.device}")
-        if x.dtype != dtype or tuple(x.shape) != shape:
-            raise ValueError(f"{name}: expected {dtype} {shape}, got "
-                             f"{x.dtype} {tuple(x.shape)}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+def check_scalars(k: int, mv: int, k_bits: int, low_bits: int) -> None:
+    """Raise ValueError on a visit count, key layout or cluster size the
+    kernels do not take (shared by K1, K2 and K3)."""
     if not 1 <= mv <= 128:
         raise ValueError(f"mv={mv} outside 1..128")
     if (k - 1).bit_length() > k_bits or (mv - 1).bit_length() + k_bits > low_bits:
@@ -178,9 +126,21 @@ def _check(rf_t, feats, sel, nv, tnb, k, mv, k_bits, low_bits):
                          f"{low_bits=}")
     if low_bits > 15:
         raise ValueError(f"packed-key layout overflow: {low_bits=} > 15")
-    if 10 * 4 * k * 4 > _MAX_SMEM:
+    if 10 * 4 * k * 4 > build.MAX_STATIC_SMEM:
         raise ValueError(f"cluster size {k} needs more than 48 KB of shared "
                          "memory")
+
+
+def _check(rf_t, feats, sel, nv, tnb, k, mv, k_bits, low_bits):
+    tiles = rf_t.shape[0]
+    build.check_tensors(rf_t.device, {
+        "rf_t": (rf_t, torch.float32, (tiles, RAY_TILE, 12)),
+        "feats": (feats, torch.float32, (feats.shape[0], 10, 4 * k)),
+        "sel": (sel, torch.int32, (tiles, mv)),
+        "nv": (nv, torch.int32, (tiles,)),
+        "tnb": (tnb, torch.int32, (tiles, mv)),
+    })
+    check_scalars(k, mv, k_bits, low_bits)
 
 
 def visit_scan(rf_t, feats, sel, nv, tnb, *, k: int, mv: int, k_bits: int,
@@ -194,17 +154,15 @@ def visit_scan(rf_t, feats, sel, nv, tnb, *, k: int, mv: int, k_bits: int,
                               closest=closest)
     if rf_t.device.type != "cuda":
         raise ValueError(f"visit_scan runs on cpu or cuda, not {rf_t.device}")
-    lib = _library()
+    fn = build.load_function("visit_scan", "visit_scan_launch",
+                             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                             + [ctypes.c_void_p])
     tiles = rf_t.shape[0]
     out = torch.empty((tiles, RAY_TILE), dtype=torch.int32,
                       device=rf_t.device)
-    with torch.cuda.device(rf_t.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.visit_scan_launch(
-            rf_t.data_ptr(), feats.data_ptr(), sel.data_ptr(), nv.data_ptr(),
-            tnb.data_ptr(), out.data_ptr(), tiles, feats.shape[0], k, mv,
-            k_bits, low_bits, int(closest), stream)
-    if err != 0:
-        raise RuntimeError(f"visit_scan kernel launch failed: CUDA error {err}")
+    build.launch(fn, rf_t.device, rf_t.data_ptr(), feats.data_ptr(),
+                 sel.data_ptr(), nv.data_ptr(), tnb.data_ptr(),
+                 out.data_ptr(), tiles, feats.shape[0], k, mv, k_bits,
+                 low_bits, int(closest))
     LAUNCHES["closest" if closest else "any"] += 1
     return out

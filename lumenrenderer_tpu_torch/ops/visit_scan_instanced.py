@@ -1,0 +1,121 @@
+"""Kernel K2: the instanced visit scan of the two-level intersector, on Hopper.
+
+Replaces the Pallas TPU kernel `visit_scan_instanced` (`_make_kernel`) in
+`lumenrenderer_tpu/ops/pallas/instanced.py`.
+
+Contract (as the JAX kernel's, with its input layouts). Rays come in tiles of
+128: `rayblk (T, 8, 128)` holds the tile's world rays transposed (rows o, d,
+then two of padding) and `wnd (T, 128, 8)` their windows (cols t_min, t_max,
+then padding); t_max < t_min marks a dead lane. Tile t visits `nv[t]`
+(instance, cluster) units in order of conservative world entry t (bits
+`tnb[t, i]`): for visit i, `sel_cl[t, i]` is the cluster of the object-space
+table `feats (C, 10, 4K)` and `minv12[t, i]` the instance's world->object
+3x4 affine, row-major. Each visit maps the rays into object space,
+O = M·o + m, D = M·d, in the order of `instanced.py:81-89`; the map keeps the
+ray's world t, so the window test and the key are K1's (`ops/visit_scan.py`):
+closest mode returns the minimum key `(t_bits & ~low_mask) | (visit <<
+k_bits) | slot`, 0x7F000000 for a miss, any mode 1 where any triangle hits.
+Dead lanes return 0 in closest mode and 1 in any mode.
+
+What bounds it on an H100: K1's slab test (fp32 issue and shared-memory
+reads, the table behind L2), plus per visit 12 uniform loads and about 30
+flops per ray for the affine and the cross product, small beside the
+128 x K x 40 FMAs of the test. The design is K1's, sharing its visit loop
+and early-out (`csrc/cluster_scan.cuh`): one block per tile, one thread per
+ray; per visit every thread reads the same 12 affine floats (a broadcast),
+forms its object-space features, and tests the slab in shared memory. The
+affine and the cross product use round-to-nearest intrinsics in the twin's
+order, so the features equal the twin's bit for bit and only the slab
+product's summation order differs, as in K1. t is formed by one exact
+division, where the TPU used an approximate reciprocal and a Newton step.
+
+Not carried over: the T % 8 padding and (T/8, 8, 128) blocks, the FR = 16
+feature-row padding, and the `RESIDENT_BYTES` limit (a VMEM limit; here the
+table stays in device memory behind L2).
+
+On a CPU tensor the wrapper runs `visit_scan_instanced_ref`, the plain
+PyTorch twin; on a CUDA tensor it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+from .visit_scan import RAY_TILE, check_scalars, scan_visits_ref
+
+# launches of the CUDA kernel per mode (the CPU twin does not count)
+LAUNCHES = {"closest": 0, "any": 0}
+
+
+def reset_launches() -> None:
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def object_space_features(rayblk: torch.Tensor, m: torch.Tensor
+                          ) -> torch.Tensor:
+    """(T, 128, 10) features [O×D, D, O, 1] of the rays `rayblk (T, 8, 128)`
+    under the per-tile affines `m (T, 12)`, each product and sum rounded in
+    the kernel's order."""
+    ox, oy, oz, dx, dy, dz = (rayblk[:, f] for f in range(6))
+    c = [m[:, j:j + 1] for j in range(12)]
+    oox = c[0] * ox + c[1] * oy + c[2] * oz + c[3]
+    ooy = c[4] * ox + c[5] * oy + c[6] * oz + c[7]
+    ooz = c[8] * ox + c[9] * oy + c[10] * oz + c[11]
+    ddx = c[0] * dx + c[1] * dy + c[2] * dz
+    ddy = c[4] * dx + c[5] * dy + c[6] * dz
+    ddz = c[8] * dx + c[9] * dy + c[10] * dz
+    mx = ooy * ddz - ooz * ddy
+    my = ooz * ddx - oox * ddz
+    mz = oox * ddy - ooy * ddx
+    return torch.stack([mx, my, mz, ddx, ddy, ddz, oox, ooy, ooz,
+                        torch.ones_like(oox)], dim=-1)
+
+
+def visit_scan_instanced_ref(rayblk, wnd, feats, sel_cl, minv12, nv, tnb, *,
+                             k: int, mv: int, k_bits: int, low_bits: int,
+                             closest: bool) -> torch.Tensor:
+    """Plain PyTorch twin of the kernel (same contract, no early-out): K1's
+    twin loop with the object-space features of each visit."""
+    del tnb, mv  # only the kernel's early-out reads them
+    return scan_visits_ref(
+        lambda i: object_space_features(rayblk, minv12[:, i]), feats, sel_cl,
+        nv, wnd[..., 0:1], wnd[..., 1:2], wnd[..., 1] < wnd[..., 0], k=k,
+        k_bits=k_bits, low_bits=low_bits, closest=closest)
+
+
+def visit_scan_instanced(rayblk, wnd, feats, sel_cl, minv12, nv, tnb, *,
+                         k: int, mv: int, k_bits: int, low_bits: int,
+                         closest: bool) -> torch.Tensor:
+    """Run the instanced visit scan (contract in the module docstring):
+    (T, 128) int32 keys (closest) or occlusion bits (any)."""
+    tiles = rayblk.shape[0]
+    build.check_tensors(rayblk.device, {
+        "rayblk": (rayblk, torch.float32, (tiles, 8, RAY_TILE)),
+        "wnd": (wnd, torch.float32, (tiles, RAY_TILE, 8)),
+        "feats": (feats, torch.float32, (feats.shape[0], 10, 4 * k)),
+        "sel_cl": (sel_cl, torch.int32, (tiles, mv)),
+        "minv12": (minv12, torch.float32, (tiles, mv, 12)),
+        "nv": (nv, torch.int32, (tiles,)),
+        "tnb": (tnb, torch.int32, (tiles, mv)),
+    })
+    check_scalars(k, mv, k_bits, low_bits)
+    args = (rayblk, wnd, feats, sel_cl, minv12, nv, tnb)
+    kw = dict(k=k, mv=mv, k_bits=k_bits, low_bits=low_bits, closest=closest)
+    if rayblk.device.type == "cpu":
+        return visit_scan_instanced_ref(*args, **kw)
+    if rayblk.device.type != "cuda":
+        raise ValueError(f"visit_scan_instanced runs on cpu or cuda, not "
+                         f"{rayblk.device}")
+    fn = build.load_function(
+        "visit_scan_instanced", "visit_scan_instanced_launch",
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    out = torch.empty((tiles, RAY_TILE), dtype=torch.int32,
+                      device=rayblk.device)
+    build.launch(fn, rayblk.device, *(a.data_ptr() for a in args),
+                 out.data_ptr(), tiles, feats.shape[0], k, mv, k_bits,
+                 low_bits, int(closest))
+    LAUNCHES["closest" if closest else "any"] += 1
+    return out

@@ -1,19 +1,23 @@
-"""Progressive renderer over a static scene: port of
-`lumenrenderer_tpu/render/renderer.py` for `accel="tiled"`.
+"""Progressive renderer: port of `lumenrenderer_tpu/render/renderer.py` for
+`accel="tiled"` and `accel="two_level"`, static or dynamic.
 
-The scene and its SAH clusters live on `device`. On a CUDA device the tiled
-intersector's visit scan is the hand-written kernel K1; on the CPU it is the
-kernel's plain PyTorch twin.
+The scene and its accel live on `device`. "tiled" clusters the flattened
+world-space triangles (kernel K1 on a CUDA device); "two_level" clusters
+each unique mesh once in object space and culls (instance, cluster) units
+(kernel K2). On the CPU each kernel runs as its plain PyTorch twin. With
+`dynamic=` (a `scene.dynamic.DynamicScene`) a transform edit rebakes the
+scene and refits the accel before the next frame.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 from typing import Dict
 
 import torch
 
-from ..accel import stream, tiled
+from ..accel import stream, tiled, two_level
 from ..core import sampling
 from ..core.camera import Camera
 from ..integrator import wavefront
@@ -21,32 +25,44 @@ from ..scene.scene import SceneData
 from . import state as state_mod
 from . import tonemap
 
-# visit-list caps for max_visits="auto": the kernel's early-out makes a long
-# list cheap; the CPU twin scans every listed visit of every tile
+# visit-list caps for max_visits="auto": the kernels' early-out makes a long
+# list cheap; the CPU twins scan every listed visit of every tile
 KERNEL_VISIT_CAP = 128
 TWIN_VISIT_CAP = 24
+TWIN_UNIT_CAP = 64          # two-level: units are smaller than clusters
+
+_log = logging.getLogger(__name__)
 
 
 class Renderer:
-    """Progressive wavefront renderer. Only accel="tiled" is ported."""
+    """Progressive wavefront renderer over accel="tiled" or "two_level"."""
+
+    DRIFT_REBUILD_RATIO = 2.0
 
     def __init__(self, scene: SceneData, config: wavefront.RenderConfig,
                  accel: str = "tiled", cluster_size: int = 128,
                  max_visits: int | str = "auto", culling: str = "auto",
                  candidate_dtype: str = "high", device=None,
-                 reset_on_camera_move: bool = True, mesh=None, dynamic=None):
-        """candidate_dtype: "high" (the JAX default, a bf16 three-pass split
-        there) and "float32" both run exact fp32 here; "bfloat16" is not
-        ported. device: where the scene, state and frame live (default: the
-        current CUDA device if there is one, else the CPU)."""
-        if accel != "tiled":
+                 reset_on_camera_move: bool = True, mesh=None, dynamic=None,
+                 builder=None):
+        """accel="two_level" needs `builder`, the SceneBuilder of `scene`:
+        its instances give the unique meshes (by identity) and transforms.
+        max_visits="auto" caps the visit list at min(units, 128) with the
+        kernels, min(units, 24) ("tiled") or 64 ("two_level") with the CPU
+        twins. candidate_dtype: "high" (the JAX default, a bf16 three-pass
+        split there) and "float32" both run exact fp32 here; "bfloat16" is
+        not ported. device: where the scene, state and frame live (default:
+        the current CUDA device if there is one, else the CPU). dynamic: a
+        DynamicScene whose build() is `scene`."""
+        if accel not in ("tiled", "two_level"):
             raise NotImplementedError(
                 f"accel={accel!r} is not ported; the PyTorch port has "
-                "accel='tiled' only")
+                "accel='tiled' and 'two_level'")
+        if accel == "two_level" and builder is None:
+            raise ValueError("accel='two_level' needs builder=<SceneBuilder> "
+                             "for the instance and mesh tables")
         if mesh is not None:
             raise NotImplementedError("mesh (multi-device) is not ported")
-        if dynamic is not None:
-            raise NotImplementedError("dynamic scenes are not ported")
         if culling not in ("auto", "frustum"):
             raise NotImplementedError(
                 f"culling={culling!r} is not ported; only 'frustum'")
@@ -72,19 +88,92 @@ class Renderer:
                 or (materials.double_sided < 0.5).any()):
             config = dataclasses.replace(config, alpha_materials=True)
         self.config = config
+        self.accel_kind = accel
         self.scene = scene.to(self.device)
-        self.clusters = stream.build_clusters(
-            scene.tri_pos, cluster_size=cluster_size).to(self.device)
+        self.clusters = None
+        self.instanced = None
+        kernel = self.device.type == "cuda"
+        if accel == "tiled":
+            self.clusters = stream.build_clusters(
+                scene.tri_pos, cluster_size=cluster_size).to(self.device)
+            units = self.clusters.num_clusters
+            twin_cap = TWIN_VISIT_CAP
+        else:
+            # geometry clustered once per unique mesh, in object space; the
+            # flattened scene still gives the shading attributes, indexed by
+            # the decoded virtual triangle id
+            self.instanced = two_level.build_instanced(
+                *two_level.instance_tables(builder.instances),
+                cluster_size=cluster_size).to(self.device)
+            units = self.instanced.num_clusters
+            twin_cap = TWIN_UNIT_CAP
         if max_visits == "auto":
-            cap = (KERNEL_VISIT_CAP if self.device.type == "cuda"
-                   else TWIN_VISIT_CAP)
-            max_visits = min(self.clusters.num_clusters, cap)
+            max_visits = min(units, KERNEL_VISIT_CAP if kernel else twin_cap)
+        elif accel == "two_level":
+            max_visits = min(max_visits, KERNEL_VISIT_CAP)
         self.max_visits = int(max_visits)
-        self._isect, self._occl = tiled.tiled_intersectors(
-            self.clusters, self.max_visits)
+        self._bind_accel()
+        self._dynamic = dynamic
+        # drift baseline for dynamic cluster refits
+        self._cluster_area0 = (self._cluster_area(self.clusters)
+                               if dynamic is not None and self.clusters
+                               is not None else 0.0)
+        self._last_drift = None
         self._reset_on_camera_move = bool(reset_on_camera_move)
         self.frame_stats: Dict[str, float] = {}
         self._frames_done = 0
+
+    def _bind_accel(self):
+        if self.accel_kind == "tiled":
+            self._isect, self._occl = tiled.tiled_intersectors(
+                self.clusters, self.max_visits)
+        else:
+            self._isect, self._occl = two_level.instanced_intersectors(
+                self.instanced, self.max_visits)
+
+    # -- dynamic scenes -------------------------------------------------------
+
+    @staticmethod
+    def _cluster_area(cs) -> float:
+        ext = (cs.aabb_hi - cs.aabb_lo).clamp_min(0.0).double()
+        return float((ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2]
+                      + ext[:, 0] * ext[:, 2]).sum())
+
+    def cluster_drift(self) -> float:
+        """Refit quality of a dynamic "tiled" scene: total cluster-box
+        surface area now over that at build. Membership is frozen at build,
+        so instances that travel far inflate their clusters' boxes and the
+        visit lists grow with them; 1.0 is pristine. A new Renderer
+        rebuilds the clusters."""
+        if self.clusters is None or self._cluster_area0 <= 0.0:
+            return 1.0
+        return self._cluster_area(self.clusters) / self._cluster_area0
+
+    def _rebake(self):
+        """Rebake the scene and refit the accel at the current transforms;
+        returns the time it took in ms (device work included)."""
+        t0 = time.perf_counter()
+        if self.accel_kind == "two_level":
+            # shading arrays rebake in O(T); the accel refits its instance
+            # and unit tables in O(units), with no triangle work
+            self.scene, self.instanced = self._dynamic.rebake_two_level(
+                self.scene, self.instanced)
+        else:
+            self.scene, self.clusters = self._dynamic.rebake(
+                self.scene, self.clusters)
+            self._last_drift = self.cluster_drift()
+            if self._last_drift > self.DRIFT_REBUILD_RATIO:
+                _log.warning(
+                    "cluster drift %.2fx exceeds %.1fx: refit quality "
+                    "degraded; build a new Renderer (fresh cluster "
+                    "membership) for these instance positions",
+                    self._last_drift, self.DRIFT_REBUILD_RATIO)
+        self._bind_accel()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return (time.perf_counter() - t0) * 1e3
+
+    # -- public API -----------------------------------------------------------
 
     def init_state(self, seed: int = 0) -> state_mod.FrameState:
         return state_mod.init_state(self.config.num_pixels, seed, self.device)
@@ -100,6 +189,9 @@ class Renderer:
             if st.camera_sig is not None and sig != st.camera_sig:
                 st = state_mod.reset_accumulation(st)
             st = dataclasses.replace(st, camera_sig=sig)
+        rebake_ms = None
+        if self._dynamic is not None and self._dynamic.dirty:
+            rebake_ms = self._rebake()
         with torch.no_grad():
             out = wavefront.render_wavefront(
                 self.scene, self._isect, self._occl, camera,
@@ -127,6 +219,10 @@ class Renderer:
             "Frame": self._frames_done,
             "overflow": overflow,
         }
+        if rebake_ms is not None:
+            self.frame_stats["Rebake Time"] = rebake_ms
+        if self._last_drift is not None:
+            self.frame_stats["cluster_drift"] = self._last_drift
         return new_st, aux
 
     def render(self, camera: Camera, spp: int = 16, seed: int = 0):

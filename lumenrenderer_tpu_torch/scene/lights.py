@@ -1,8 +1,9 @@
 """Triangle-light extraction and per-light radiance.
 
-Port of `lumenrenderer_tpu/scene/lights.py` (`refit_lights`, for dynamic
-scenes, is not ported). Light geometry is chosen on the host at scene build;
-radiance is read from the material table at shade time.
+Port of `lumenrenderer_tpu/scene/lights.py`. Light membership is chosen on
+the host at scene build; `refit_lights` moves the light geometry with its
+instances in dynamic scenes; radiance is read from the material table at
+shade time.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core import vecmath as vm
 from ..core.struct import TensorStruct
 from .geometry import EmissionMode, FlatGeometry
 from .materials import MaterialTable
@@ -102,3 +104,22 @@ def extract_lights(geom: FlatGeometry, materials_emissive: np.ndarray,
         tri_to_light=t_(tri_to_light),
         packed=t_(np.concatenate(cols, axis=-1)),
     )
+
+
+def refit_lights(lights: TriangleLights,
+                 tri_pos: torch.Tensor) -> TriangleLights:
+    """Light geometry of fixed membership at new (T,3,3) world positions,
+    on tri_pos's device in float32 (dynamic scenes)."""
+    valid = (torch.arange(lights.capacity, device=tri_pos.device)
+             < lights.count)[:, None]
+    tri = tri_pos[lights.tri_idx.long().clamp_min(0)]      # (L,3,3)
+    p0 = torch.where(valid, tri[:, 0], 0.0)
+    e1 = torch.where(valid, tri[:, 1] - tri[:, 0], 0.0)
+    e2 = torch.where(valid, tri[:, 2] - tri[:, 0], 0.0)
+    n = vm.cross(e1, e2)
+    ln = torch.linalg.vector_norm(n, dim=-1)
+    area = 0.5 * ln
+    normal = n / ln.clamp_min(1e-12)[:, None]
+    packed = torch.cat([p0, e1, e2, normal, area[:, None]], dim=1)
+    return lights.replace(p0=p0, e1=e1, e2=e2, normal=normal, area=area,
+                          packed=packed)

@@ -1,7 +1,9 @@
 """Built-in test scenes: port of `lumenrenderer_tpu/scene/presets.py`.
 
 `cornell_box`, `furnace_scene` and `interior_scene` build the same geometry
-and materials as the JAX presets (same numpy seed). `mega_scene` is not
+and materials as the JAX presets (same numpy seed). `instanced_boxes` is the
+two-level scene of the JAX package's tests (`tests/test_two_level.py`),
+which has no JAX preset. `mega_scene` is not
 ported: it needs cluster-tree culling (more than 2048 clusters).
 """
 from __future__ import annotations
@@ -208,6 +210,45 @@ def interior_scene(n_boxes: int = 600, n_lights: int = 64, seed: int = 0):
             fov_y_deg=60.0,
             aspect=aspect,
         )
+
+    return b, make_camera
+
+
+def instanced_boxes(n_inst: int = 20, seed: int = 5):
+    """`n_inst` instances of one 12-triangle box, each rotated about z,
+    scaled by 0.4-1.2 and moved within [-3, 3]^3, under one emissive box:
+    one mesh object shared by many instances, for `accel="two_level"`."""
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder()
+    white = b.add_material(MaterialSpec(base_color=(0.7, 0.7, 0.7)))
+    lightm = b.add_material(MaterialSpec(emissive=(9.0, 9.0, 9.0)))
+
+    def centred_box(s):
+        v = np.array([[x, y, z] for x in (-s, s) for y in (-s, s)
+                      for z in (-s, s)], np.float32)
+        f = np.array([[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5],
+                      [0, 4, 5], [0, 5, 1], [2, 3, 7], [2, 7, 6],
+                      [0, 2, 6], [0, 6, 4], [1, 5, 7], [1, 7, 3]], np.int32)
+        return MeshHost(positions=v, indices=f)
+
+    box = centred_box(0.5)
+    for _ in range(n_inst):
+        m4 = np.eye(4, dtype=np.float32)
+        ang = rng.uniform(0, 2 * np.pi)
+        c, s = np.cos(ang), np.sin(ang)
+        m4[:3, :3] = (np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+                      * rng.uniform(0.4, 1.2))
+        m4[:3, 3] = rng.uniform(-3, 3, 3)
+        b.add_instance(InstanceHost(mesh=box, transform=m4,
+                                    material_override=white))
+    m4 = np.eye(4, dtype=np.float32)
+    m4[:3, 3] = [0.0, 5.0, 0.0]
+    b.add_instance(InstanceHost(mesh=centred_box(0.8), transform=m4,
+                                material_override=lightm))
+
+    def make_camera(aspect: float = 1.0) -> Camera:
+        return Camera.look_at((0.0, 1.0, 9.0), (0.0, 0.0, 0.0),
+                              fov_y_deg=50.0, aspect=aspect)
 
     return b, make_camera
 

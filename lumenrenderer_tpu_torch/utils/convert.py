@@ -1,6 +1,6 @@
 """Carry state into the port from numpy arrays.
 
-The JAX package's scene, cluster set and camera, turned into numpy leaves by
+The JAX package's scene, cluster sets and camera, turned into numpy leaves by
 the caller (a mapping of field name to array, nested for sub-structures),
 become the port's dataclasses, so both packages can compute on the same
 arrays. This module takes numpy only.
@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..accel.stream import ClusterSet
+from ..accel.two_level import InstancedClusterSet
 from ..core.camera import Camera
 from ..scene.lights import TriangleLights
 from ..scene.materials import MaterialTable
@@ -46,6 +47,13 @@ def clusters_from_numpy(leaves: Mapping) -> ClusterSet:
     """ClusterSet from aabb_lo, aabb_hi, tri_feat and tri_id (other leaves,
     such as the cluster tree, are ignored)."""
     return _fill(ClusterSet, leaves)
+
+
+def instanced_from_numpy(leaves: Mapping) -> InstancedClusterSet:
+    """InstancedClusterSet from the JAX InstancedClusterSet's leaves (the
+    unit tree's `tree_*` leaves are ignored)."""
+    return _fill(InstancedClusterSet, leaves,
+                 tris_per_cluster=int(leaves["tris_per_cluster"]))
 
 
 def camera_from_numpy(leaves: Mapping) -> Camera:

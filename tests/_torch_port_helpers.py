@@ -66,6 +66,47 @@ def port_camera(jax_cam):
     return convert.camera_from_numpy(to_numpy_tree(jax_cam))
 
 
+def port_instanced(jax_ics):
+    return convert.instanced_from_numpy(to_numpy_tree(jax_ics))
+
+
+def jax_instanced_builder(n_inst: int = 20, seed: int = 5):
+    """The JAX package's SceneBuilder of the two-level test scene
+    (tests/test_two_level.py), which the port builds as
+    `presets.instanced_boxes(n_inst, seed)`."""
+    from lumenrenderer_tpu.scene.geometry import InstanceHost, MeshHost
+    from lumenrenderer_tpu.scene.materials import MaterialSpec
+    from lumenrenderer_tpu.scene.scene import SceneBuilder
+
+    def box(s):
+        v = np.array([[x, y, z] for x in (-s, s) for y in (-s, s)
+                      for z in (-s, s)], np.float32)
+        f = np.array([[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5],
+                      [0, 4, 5], [0, 5, 1], [2, 3, 7], [2, 7, 6],
+                      [0, 2, 6], [0, 6, 4], [1, 5, 7], [1, 7, 3]], np.int32)
+        return MeshHost(positions=v, indices=f)
+
+    g = np.random.default_rng(seed)
+    b = SceneBuilder()
+    white = b.add_material(MaterialSpec(base_color=(0.7, 0.7, 0.7)))
+    lightm = b.add_material(MaterialSpec(emissive=(9.0, 9.0, 9.0)))
+    mesh = box(0.5)
+    for _ in range(n_inst):
+        m4 = np.eye(4, dtype=np.float32)
+        ang = g.uniform(0, 2 * np.pi)
+        c, s = np.cos(ang), np.sin(ang)
+        m4[:3, :3] = (np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+                      * g.uniform(0.4, 1.2))
+        m4[:3, 3] = g.uniform(-3, 3, 3)
+        b.add_instance(InstanceHost(mesh=mesh, transform=m4,
+                                    material_override=white))
+    m4 = np.eye(4, dtype=np.float32)
+    m4[:3, 3] = [0.0, 5.0, 0.0]
+    b.add_instance(InstanceHost(mesh=box(0.8), transform=m4,
+                                material_override=lightm))
+    return b
+
+
 class ListUniforms:
     """A `Uniforms` source that returns given arrays in order, checking that
     each draw has the shape the JAX frame drew."""

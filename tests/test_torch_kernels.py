@@ -1,8 +1,9 @@
-"""Kernel K1 (ops/csrc/visit_scan.cu) on the card against its plain twin.
+"""Kernels K1 (ops/csrc/visit_scan.cu), K2 (visit_scan_instanced.cu) and K3
+(pair_scan.cu) on the card against their plain twins.
 
 Marked `cuda`: these need an NVIDIA GPU with nvcc (Hopper, sm_90a) and skip
 where torch.cuda.is_available() is False. Run them on the card with
-`python -m pytest tests/test_torch_kernels.py -q`.
+`python -m pytest --noconftest tests/test_torch_kernels.py -q`.
 Tolerance: keys identical on at least 99.99% of rays, every differing key a
 tie within the key's t resolution; occlusion bits identical.
 """
@@ -10,9 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from lumenrenderer_tpu_torch.accel import stream, tiled
+from lumenrenderer_tpu_torch.accel import pairs, stream, tiled, two_level
 from lumenrenderer_tpu_torch.integrator.wavefront import RenderConfig
+from lumenrenderer_tpu_torch.ops import pair_scan as ps
 from lumenrenderer_tpu_torch.ops import visit_scan as vs
+from lumenrenderer_tpu_torch.ops import visit_scan_instanced as vsi
 from lumenrenderer_tpu_torch.render.renderer import Renderer
 from lumenrenderer_tpu_torch.scene import presets
 
@@ -22,7 +25,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (kernel K1 has no CPU mode)")
+        pytest.skip("needs a CUDA device (the CUDA kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda", 0)
 
@@ -40,26 +43,66 @@ def _inputs(dev, n_tris=2000, r=8192, k=64, seed=0):
     return tiled.scan_inputs(cs, o, d, 1e-4, tx, min(cs.num_clusters, 128))
 
 
-@pytest.mark.parametrize("closest", [True, False])
-def test_kernel_matches_twin(dev, closest):
-    q = _inputs(dev)
+def _check_against_twin(mod, kernel, twin, q, closest, low_bits):
     kw = dict(q["kw"], closest=closest)
-    vs.reset_launches()
-    kern = vs.visit_scan(*q["args"], **kw)
-    twin = vs.visit_scan_ref(*q["args"], **kw)
+    mod.reset_launches()
+    kern = kernel(*q["args"], **kw)
+    ref = twin(*q["args"], **kw)
     torch.cuda.synchronize()
-    assert vs.LAUNCHES["closest" if closest else "any"] == 1
-    diff = kern != twin
+    assert mod.LAUNCHES["closest" if closest else "any"] == 1
+    diff = kern != ref
     if not closest:
         assert not bool(diff.any())
         return
     assert float(diff.float().mean()) <= 1e-4
-    mask = ~((1 << kw["low_bits"]) - 1)
+    mask = ~((1 << low_bits) - 1)
     tk = (kern & mask).view(torch.float32)
-    tt = (twin & mask).view(torch.float32)
-    quantum = torch.maximum(tk, tt) * 2.0 ** -(23 - kw["low_bits"])
+    tt = (ref & mask).view(torch.float32)
+    quantum = torch.maximum(tk, tt) * 2.0 ** -(23 - low_bits)
     assert bool(((tk - tt).abs() <= quantum)[diff].all())
     assert int((kern < vs.KEY_MISS).sum()) > 1000
+
+
+@pytest.mark.parametrize("closest", [True, False])
+def test_kernel_matches_twin(dev, closest):
+    q = _inputs(dev)
+    _check_against_twin(vs, vs.visit_scan, vs.visit_scan_ref, q, closest,
+                        q["kw"]["low_bits"])
+
+
+@pytest.mark.parametrize("closest", [True, False])
+def test_instanced_kernel_matches_twin(dev, closest):
+    b, _ = presets.instanced_boxes(n_inst=120)
+    ics = two_level.build_instanced(*two_level.instance_tables(b.instances),
+                                    cluster_size=32).to(dev)
+    g = np.random.default_rng(1)
+    r = 8192
+    o = torch.from_numpy(g.uniform(-4, 4, (r, 3)).astype(np.float32)).to(dev)
+    d = torch.nn.functional.normalize(
+        torch.from_numpy(g.normal(size=(r, 3)).astype(np.float32)), dim=-1
+    ).to(dev)
+    tx = torch.where(torch.arange(r, device=dev) % 9 == 0, -1.0, 8.0)
+    q = two_level.scan_inputs(ics, o, d, 1e-3, tx, 128)
+    _check_against_twin(vsi, vsi.visit_scan_instanced,
+                        vsi.visit_scan_instanced_ref, q, closest,
+                        q["kw"]["low_bits"])
+
+
+@pytest.mark.parametrize("closest", [True, False])
+def test_pair_kernel_matches_twin(dev, closest):
+    g = np.random.default_rng(2)
+    c = g.uniform(-3, 3, (2000, 1, 3))
+    tris = (c + g.normal(size=(2000, 3, 3)) * 0.2).astype(np.float32)
+    cs = stream.build_clusters(torch.from_numpy(tris), cluster_size=64).to(dev)
+    r = 8192
+    o = torch.from_numpy(g.uniform(-4, 4, (r, 3)).astype(np.float32)).to(dev)
+    d = torch.nn.functional.normalize(
+        torch.from_numpy(g.normal(size=(r, 3)).astype(np.float32)), dim=-1
+    ).to(dev)
+    tx = torch.where(torch.arange(r, device=dev) % 9 == 0, -1.0, 6.0)
+    q = pairs.scan_inputs(cs, o, d, 1e-4, tx, 128, 16)
+    _check_against_twin(ps, ps.pair_scan, ps.pair_scan_ref, q, closest,
+                        q["kw"]["k_bits"])
 
 
 def test_kernel_rejects_mixed_devices(dev):
@@ -78,3 +121,13 @@ def test_renderer_frame_launches_both_modes(dev):
     img = r.render(camf(64 / 48), spp=2)
     assert np.isfinite(img).all() and img.mean() > 0.01
     assert vs.LAUNCHES["closest"] == 6 and vs.LAUNCHES["any"] == 6
+
+
+def test_two_level_frame_launches_both_modes(dev):
+    b, camf = presets.instanced_boxes(n_inst=40)
+    r = Renderer(b.build(), RenderConfig(width=64, height=48, max_depth=3),
+                 accel="two_level", builder=b, device=dev)
+    vsi.reset_launches()
+    img = r.render(camf(64 / 48), spp=2)
+    assert np.isfinite(img).all() and img.mean() > 0.0
+    assert vsi.LAUNCHES["closest"] == 6 and vsi.LAUNCHES["any"] == 6

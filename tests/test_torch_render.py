@@ -145,16 +145,23 @@ def test_debug_checks_and_png(tmp_path):
 def test_renderer_refusals():
     sc = presets.furnace_scene()[0].build()
     cfg = RenderConfig(width=8, height=8)
-    for kw in ({"accel": "sah"}, {"accel": "two_level"}, {"mesh": object()},
-               {"dynamic": object()}, {"candidate_dtype": "bfloat16"},
-               {"culling": "tree"}):
+    for kw in ({"accel": "sah"}, {"accel": "brute"}, {"mesh": object()},
+               {"candidate_dtype": "bfloat16"}, {"culling": "tree"}):
         with pytest.raises(NotImplementedError):
             Renderer(sc, cfg, device="cpu", **kw)
+    with pytest.raises(ValueError):     # two_level needs the SceneBuilder
+        Renderer(sc, cfg, device="cpu", accel="two_level")
 
 
 def test_port_never_imports_jax():
     code = ("import sys; import lumenrenderer_tpu_torch.render.renderer; "
             "import lumenrenderer_tpu_torch.utils.convert; "
+            "import lumenrenderer_tpu_torch.accel.two_level; "
+            "import lumenrenderer_tpu_torch.accel.pairs; "
+            "import lumenrenderer_tpu_torch.scene.dynamic; "
+            "import lumenrenderer_tpu_torch.ops.build; "
+            "import lumenrenderer_tpu_torch.ops.visit_scan_instanced; "
+            "import lumenrenderer_tpu_torch.ops.pair_scan; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'chex', 'lumenrenderer_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
