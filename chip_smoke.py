@@ -8,17 +8,23 @@ non-zero), each with its seconds:
   1. environment: torch, CUDA, nvcc, the card's name and power limit;
   2. build kernels K1, K2 and K3 (ops/csrc/*.cu) with nvcc from this
      checkout, one nvcc each, all at once; ptxas registers and spills;
-  3. K1 against its plain PyTorch twin on the card: 1,024 tiles each of a
-     2560x1440 bounce pass and shadow pass of the interior scene, closest
-     and any mode, with kernel and twin times per call;
+  3. K1 against its plain PyTorch twin on the card: 1,024 tiles each of the
+     interior scene's 2560x1440 primary pass and sorted bounce and shadow
+     passes, closest and any mode, with kernel and twin times per call;
+     K1's visit counter against `executed_visits_ref` on each subset; the
+     kernel on every tile of each pass, with its executed visits per tile,
+     flop, bound and share of the bound;
   4. the tiled slice at 320x180: one frame through the kernel and one
      through the twin from the same generator seed;
   5. the tiled slice at full size: Renderer(accel="tiled") on the interior
      scene (600 boxes, 64 lights), 2560x1440, 1 spp, depth 5, Disney + MIS:
-     1 warm-up and 5 timed frames; both K1 launch counters must be > 0;
+     1 warm-up and 5 timed frames; K1 must launch 5 times per frame in each
+     mode; then one more frame under torch.profiler (device kernel time,
+     idle share, K1's share, the top kernels);
   6. K2 against its twin: 1,024 tiles each of the sorted 2560x1440 bounce
      and shadow passes of the instanced scene (120 box instances and a
-     light: 121 units, 2 unique meshes), closest and any mode, and K1's
+     light: 121 units, 2 unique meshes), closest and any mode, with the
+     visits each tile runs replayed from the twin for the bound, and K1's
      full-pass times on the same passes through the flattened clusters;
   7. the two-level slice: Renderer(accel="two_level", dynamic=...) on that
      scene at 2560x1440, depth 5, Disney + MIS, 1 warm-up and 3 timed
@@ -26,13 +32,21 @@ non-zero), each with its seconds:
      by +50 in x and the next frame is held against a fresh build;
   8. K3 against its twin: 1,024 pair tiles, evenly spaced over the live
      tiles, of the interior scene's sorted 2560x1440 bounce and shadow
-     passes;
+     passes, with the bound of the live pair tiles;
   9. the pair slice: render_wavefront with pair_intersectors on the
      interior scene at 2560x1440, depth 5, Disney + MIS, 1 warm-up and 3
      timed frames, held against the tiled frame from the same seed.
 Then a JSON line of per-kernel results, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}. Needs no network; exits
 non-zero without a CUDA device or without the package next to it.
+
+Bounds: a kernel's least time is the larger of its flop over the H100's
+67 TFLOP/s of fp32 (no tensor cores) and its bytes (each input read once,
+each output written once) over 3.35 TB/s. The flop are those these inputs
+need: 80 per (live ray, live triangle) pair of every visit a tile runs (K1:
+the kernel's counter; K2: the vote replayed from the twin) or of every live
+pair tile (K3). No single PyTorch call computes any of the three
+functions, so library_ms is null.
 """
 from __future__ import annotations
 
@@ -56,6 +70,10 @@ SLICE_FRAMES = 3             # timed frames of phases 7 and 9
 N_INSTANCES = 120
 PAIRS_PER_RAY = 8
 KERNELS = ("visit_scan", "visit_scan_instanced", "pair_scan")
+PEAK_FLOPS = 67e12           # H100 SXM, fp32 outside the tensor cores
+PEAK_BYTES = 3.35e12         # H100 SXM, HBM3
+FLOP_PER_PAIR = 80           # 40 FMAs per ray-triangle test
+REPLAY_CHUNK = 1024          # tiles per chunk of K2's replay on a full pass
 REPLACES = {
     "visit_scan": "lumenrenderer_tpu/ops/pallas/intersect.py:325",
     "visit_scan_instanced": "lumenrenderer_tpu/ops/pallas/instanced.py:168",
@@ -137,10 +155,11 @@ def _scene(dev):
     return builder.build().to(dev), camf
 
 
-def _secondary_passes(sc, cs, cam, dev, w, h, capture):
+def _secondary_passes(sc, cs, cam, dev, w, h, capture, primary=False):
     """capture(o, d, tn, tx) of one bounce pass and one shadow pass, each
-    sorted as the frame sorts them (octant|morton, capsule); primary hits
-    come from the tiled intersector over the flattened clusters `cs`."""
+    sorted as the frame sorts them (octant|morton, capsule), and with
+    `primary` of the (unsorted) primary pass first; primary hits come from
+    the tiled intersector over the flattened clusters `cs`."""
     import torch
 
     from lumenrenderer_tpu_torch.accel import sorting, tiled
@@ -156,6 +175,7 @@ def _secondary_passes(sc, cs, cam, dev, w, h, capture):
     gen.manual_seed(1)
     uni = sampling.generator_uniforms(gen)
     o, d = generate_primary_rays(cam, w, h, 0, uni, "random")
+    passes = {"primary": capture(o, d, 1e-3, 1e9)} if primary else {}
     hits = tiled.intersect_closest(cs, o, d, 1e-3, 1e9,
                                    min(cs.num_clusters, KERNEL_VISIT_CAP))
     sd = extract_surface_data(sc, o, d, hits["tri"], with_tangent=False)
@@ -169,7 +189,6 @@ def _secondary_passes(sc, cs, cam, dev, w, h, capture):
 
     # the frame's own sort, with the query replaced by a capture of its
     # kernel's inputs
-    passes = {}
 
     def query(name):
         def fn(o_, d_, tn, tx):
@@ -219,18 +238,51 @@ def _compare(kern, twin, closest, low_bits):
     return int(diff.sum()), int((diff & ~tie).sum()), err
 
 
+def bound_ms(flop, nbytes):
+    """(least ms, what sets it) for `flop` fp32 operations and `nbytes`."""
+    ops_ms = flop / PEAK_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                              "bytes")
+
+
+def _nbytes(*tensors):
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def _live_tris(feats, k):
+    """(C,) live triangles per cluster (or unit mesh cluster)."""
+    from lumenrenderer_tpu_torch.ops.visit_scan import slab_layout
+
+    return slab_layout(feats, k)[1].double()
+
+
+def visit_flop(live_rays, live_tris, sel, ran):
+    """Flop of the visits that tiles run: live_rays (T,) per tile, live_tris
+    (C,) per cluster, sel (T, mv) cluster ids, ran (T,) visits run."""
+    import torch
+
+    sel = sel.long().clamp(0, live_tris.shape[0] - 1)
+    mask = torch.arange(sel.shape[1], device=sel.device)[None] < ran[:, None]
+    return FLOP_PER_PAIR * float((live_rays.double()[:, None]
+                                  * live_tris[sel] * mask).sum())
+
+
 def hold_against_twin(phase, label, passes, subset, kernel, twin, low_bits,
-                      exact_bits):
+                      exact_bits, work):
     """Each pass's subset through kernel and twin, in both modes: raise
     unless at least MATCH_FRACTION of keys (bits) are identical and every
-    other key is a tie (exact_bits: every bit identical); print times.
-    Returns per mode max_abs_err, mismatches, ms and plain_ms (means over
-    the passes)."""
+    other key is a tie (exact_bits: every bit identical); print times, and
+    the bound of the subset and of the full pass from `work(q, args,
+    closest, is_subset)` -> (flop, bytes, extra fields to print). Returns per
+    mode max_abs_err, mismatches, and means over the passes of ms,
+    plain_ms, bound_ms, full_pass_ms and full_pass_bound_ms, with
+    bound_by."""
     import torch
 
     results = {}
     for mode, closest in (("closest", True), ("any", False)):
-        worst, total, timing = 0.0, 0, []
+        worst, total, rows = 0.0, 0, []
         for name, q in passes.items():
             args = subset(q)
             kw = dict(q["kw"], closest=closest)
@@ -248,20 +300,35 @@ def hold_against_twin(phase, label, passes, subset, kernel, twin, low_bits,
             ms = cuda_time_ms(lambda: kernel(*args, **kw))
             plain_ms = cuda_time_ms(lambda: twin(*args, **kw), reps=2)
             full_ms = cuda_time_ms(lambda: kernel(*q["args"], **kw))
-            say(phase, kernel=label, mode=mode, rays=name, rays_n=rays,
-                mismatches=mism, non_ties=bad, max_abs_err=err,
+            flop, nb, extra = work(q, args, closest, True)
+            b_ms, b_by = bound_ms(flop, nb)
+            f_flop, f_nb, f_extra = work(q, q["args"], closest, False)
+            fb_ms, fb_by = bound_ms(f_flop, f_nb)
+            say(phase, kernel=label, mode=mode, rays=name, scope="subset",
+                rays_n=rays, mismatches=mism, non_ties=bad, max_abs_err=err,
                 kernel_ms=f"{ms:.4f}", twin_ms=f"{plain_ms:.4f}",
-                full_pass_kernel_ms=f"{full_ms:.4f}")
+                **extra, flop=f"{flop:.4g}", bound_ms=f"{b_ms:.4f}",
+                bound_by=b_by, share=f"{b_ms / ms:.3f}")
+            say(phase, kernel=label, mode=mode, rays=name, scope="full",
+                full_pass_kernel_ms=f"{full_ms:.4f}", **f_extra,
+                flop=f"{f_flop:.4g}", bytes=f_nb, bound_ms=f"{fb_ms:.4f}",
+                bound_by=fb_by, share=f"{fb_ms / full_ms:.3f}")
             worst = max(worst, err)
             total += mism
-            timing.append((ms, plain_ms))
-        results[mode] = {"max_abs_err": worst, "mismatches": total,
-                         "ms": sum(a for a, _ in timing) / len(timing),
-                         "plain_ms": sum(b for _, b in timing) / len(timing)}
+            rows.append((ms, plain_ms, b_ms, full_ms, fb_ms, flop, nb))
+        mean = [sum(r[i] for r in rows) / len(rows) for i in range(5)]
+        results[mode] = {
+            "max_abs_err": worst, "mismatches": total, "ms": mean[0],
+            "plain_ms": mean[1], "bound_ms": mean[2],
+            "bound_by": bound_ms(sum(r[5] for r in rows),
+                                 sum(r[6] for r in rows))[1],
+            "full_pass_ms": mean[3], "full_pass_bound_ms": mean[4]}
     return results
 
 
 def phase_kernel_vs_twin(dev, w=W, h=H, n_tiles=SUBSET_TILES):
+    import torch
+
     from lumenrenderer_tpu_torch.accel import stream, tiled
     from lumenrenderer_tpu_torch.ops import visit_scan as vs
     from lumenrenderer_tpu_torch.render.renderer import KERNEL_VISIT_CAP
@@ -271,14 +338,38 @@ def phase_kernel_vs_twin(dev, w=W, h=H, n_tiles=SUBSET_TILES):
     mv = min(cs.num_clusters, KERNEL_VISIT_CAP)
     passes = _secondary_passes(
         sc, cs, camf(w / h).to(dev), dev, w, h,
-        lambda o, d, tn, tx: tiled.scan_inputs(cs, o, d, tn, tx, mv))
-    for q in passes.values():
-        say("3 kernel", full_pass_tiles=q["args"][0].shape[0],
-            subset_tiles=n_tiles)
+        lambda o, d, tn, tx: tiled.scan_inputs(cs, o, d, tn, tx, mv),
+        primary=True)
+    live_tris = _live_tris(cs.tri_feat, 128)
+    for name, q in passes.items():
+        say("3 kernel", rays=name, full_pass_tiles=q["args"][0].shape[0],
+            subset_tiles=n_tiles,
+            listed_visits_per_tile=f"{float(q['args'][3].float().mean()):.3f}")
+
+    def work(q, args, closest, is_subset):
+        """K1's flop from its own visit counter, checked against the replay
+        of its vote on the subset."""
+        kw = dict(q["kw"], closest=closest)
+        rf_t, feats, sel, nv, tnb = args
+        visits = torch.empty(rf_t.shape[0], dtype=torch.int32, device=dev)
+        vs.visit_scan(*args, **kw, visits=visits)
+        if is_subset:
+            ref = vs.executed_visits_ref(*args, **kw)
+            if not torch.equal(visits, ref):
+                raise AssertionError(
+                    f"K1's visit counter differs from executed_visits_ref on "
+                    f"{int((visits != ref).sum())} of {visits.numel()} tiles")
+        live_rays = (rf_t[..., 11] >= rf_t[..., 10]).sum(1)
+        flop = visit_flop(live_rays, live_tris, sel, visits)
+        nb = _nbytes(rf_t, feats, sel, nv, tnb) + rf_t.shape[0] * 128 * 4
+        return flop, nb, {
+            "visits_per_tile": f"{float(visits.float().mean()):.3f}"}
+
     return hold_against_twin(
         "3 kernel", "visit_scan", passes,
         lambda q: _tile_subset(q["args"], 1, n_tiles), vs.visit_scan,
-        vs.visit_scan_ref, lambda q: q["kw"]["low_bits"], exact_bits=True)
+        vs.visit_scan_ref, lambda q: q["kw"]["low_bits"], exact_bits=True,
+        work=work)
 
 
 def phase_small_slice(dev, w=SMALL_W, h=SMALL_H):
@@ -343,6 +434,7 @@ def phase_full_slice(dev, w=W, h=H, frames=TIMED_FRAMES):
     torch.cuda.synchronize(dev)
     ms = (time.perf_counter() - t0) / frames * 1e3
     launches = dict(vs.LAUNCHES)
+    per_frame = {k: v / (frames + 1) for k, v in launches.items()}
     peak = torch.cuda.max_memory_allocated(dev)
     img = st.accum
     finite = bool(torch.isfinite(img).all())
@@ -352,13 +444,54 @@ def phase_full_slice(dev, w=W, h=H, frames=TIMED_FRAMES):
         warmup_ms=f"{warm_ms:.1f}", ms_per_frame=f"{ms:.1f}",
         primary_rays_per_s=f"{w * h / ms * 1e3:.4g}",
         peak_mem_gib=f"{peak / 2**30:.2f}", overflow=overflow,
-        mean=f"{mean:.5f}", finite=finite, launches=json.dumps(launches))
+        mean=f"{mean:.5f}", finite=finite, launches=json.dumps(launches),
+        launches_per_frame=json.dumps(per_frame))
     if not finite or mean <= 0 or overflow:
         raise AssertionError(f"bad frame: finite={finite} mean={mean} "
                              f"overflow={overflow}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"K1 not launched on the main path: {launches}")
+    # primary + 4 bounces (closest) and a shadow query per depth (any)
+    if per_frame != {"closest": cfg.max_depth, "any": cfg.max_depth}:
+        raise AssertionError(f"K1 launches per frame {per_frame}, expected "
+                             f"{cfg.max_depth} in each mode")
+    _profile_frame(r, st, cam)
     return launches
+
+
+def _profile_frame(r, st, cam):
+    """One more frame under torch.profiler: device kernel time, idle share
+    of the frame's wall time, K1's share, the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        r.render_frame(st, cam)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+
+    def dev_ms(e):
+        us = getattr(e, "self_device_time_total", None)
+        return (us if us is not None else e.self_cuda_time_total) / 1e3
+
+    # device-side events only: an aten op's row repeats its kernels' time
+    kernels = sorted(((dev_ms(e), e.key, e.count) for e in events
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and dev_ms(e) > 0), reverse=True)
+    device_ms = sum(k[0] for k in kernels)
+    if device_ms <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    k1_ms = sum(k[0] for k in kernels if "visit_scan_kernel" in k[1])
+    say("5 profile", frame_wall_ms=f"{wall_ms:.1f}",
+        device_kernel_ms=f"{device_ms:.1f}",
+        idle_share=f"{1 - device_ms / wall_ms:.3f}",
+        k1_ms=f"{k1_ms:.1f}", k1_share_of_device=f"{k1_ms / device_ms:.3f}",
+        kernels=len(kernels),
+        launches=sum(k[2] for k in kernels))
+    for ms, key, count in kernels[:12]:
+        say("5 profile", kernel=repr(key[:90]), ms=f"{ms:.2f}", calls=count)
 
 
 def _instanced():
@@ -368,6 +501,8 @@ def _instanced():
 
 
 def phase_instanced_kernel_vs_twin(dev, w=W, h=H, n_tiles=SUBSET_TILES):
+    import torch
+
     from lumenrenderer_tpu_torch.accel import stream, tiled, two_level
     from lumenrenderer_tpu_torch.ops import visit_scan as vs
     from lumenrenderer_tpu_torch.ops import visit_scan_instanced as vsi
@@ -389,11 +524,29 @@ def phase_instanced_kernel_vs_twin(dev, w=W, h=H, n_tiles=SUBSET_TILES):
             full_pass_tiles=nv.shape[0], subset_tiles=n_tiles,
             mean_visits_live_tiles=f"{float(nv[nv > 0].float().mean()):.2f}",
             overflow=bool(q["overflow"]))
+    live_tris = _live_tris(ics.tri_feat, ics.tri_id.shape[1])
+
+    def work(q, args, closest, is_subset):
+        """K2's flop from the visits that its vote lets each tile run,
+        replayed from the twin in chunks of tiles."""
+        kw = dict(q["kw"], closest=closest)
+        tiles = args[0].shape[0]
+        ran = torch.cat([
+            vsi.executed_visits_instanced_ref(
+                *(a if i == 2 else a[c:c + REPLAY_CHUNK]
+                  for i, a in enumerate(args)), **kw)
+            for c in range(0, tiles, REPLAY_CHUNK)])
+        wnd = args[1]
+        live_rays = (wnd[..., 1] >= wnd[..., 0]).sum(1)
+        flop = visit_flop(live_rays, live_tris, args[3], ran)
+        return flop, _nbytes(*args) + tiles * 128 * 4, {
+            "visits_per_tile": f"{float(ran.float().mean()):.3f}"}
+
     results = hold_against_twin(
         "6 instanced kernel", "visit_scan_instanced", passes,
         lambda q: _tile_subset(q["args"], 2, n_tiles),
         vsi.visit_scan_instanced, vsi.visit_scan_instanced_ref,
-        lambda q: q["kw"]["low_bits"], exact_bits=False)
+        lambda q: q["kw"]["low_bits"], exact_bits=False, work=work)
     # K1 on the same passes through the flattened clusters, for scale
     flat = _secondary_passes(
         sc, cs, camf(w / h).to(dev), dev, w, h,
@@ -570,9 +723,24 @@ def phase_pair_kernel_vs_twin(dev, w=W, h=H, n_tiles=SUBSET_TILES):
             pairs_per_live_ray=f"{q['pairs'] / max(live_rays, 1):.3f}",
             pairs_per_ray=f"{q['pairs'] / q['r']:.3f}",
             overflow=bool(q["overflow"]))
+    live_tris = _live_tris(cs.tri_feat, 128)
+
+    def work(q, args, closest, is_subset):
+        """K3's flop over its live pair tiles (the dead tail does no work);
+        bytes of the live tiles' rows, keys and outputs, and the table."""
+        rf_pairs, feats, tile_cluster = args
+        rf = rf_pairs.reshape(-1, 128, 12)
+        live = (rf[..., 11] >= rf[..., 10]).sum(1)
+        n_live = int((live > 0).sum())
+        flop = FLOP_PER_PAIR * float(
+            (live.double() * live_tris[tile_cluster.long()]).sum())
+        nb = n_live * 128 * (12 + 1) * 4 + n_live * 4 + _nbytes(feats)
+        return flop, nb, {"live_pair_tiles": n_live}
+
     return hold_against_twin(
         "8 pair kernel", "pair_scan", passes, subset, ps.pair_scan,
-        ps.pair_scan_ref, lambda q: q["kw"]["k_bits"], exact_bits=False)
+        ps.pair_scan_ref, lambda q: q["kw"]["k_bits"], exact_bits=False,
+        work=work)
 
 
 def phase_pair_slice(dev, w=W, h=H, frames=SLICE_FRAMES):
@@ -707,14 +875,20 @@ def main() -> int:
                               dev)
     launches["pair_scan"] = run("9 pair slice", phase_pair_slice, dev)
 
-    kernels = [{"name": f"{name}[{mode}]", "route": "cuda",
+    kernels = []
+    for name in KERNELS:
+        for mode in ("closest", "any"):
+            c = checks[name][mode]
+            kernels.append({
+                "name": f"{name}[{mode}]", "route": "cuda",
                 "source": f"lumenrenderer_tpu_torch/ops/csrc/{name}.cu",
                 "replaces": REPLACES[name],
                 "launches": launches[name][mode],
-                "max_abs_err": checks[name][mode]["max_abs_err"],
-                "ms": checks[name][mode]["ms"],
-                "plain_ms": checks[name][mode]["plain_ms"]}
-               for name in KERNELS for mode in ("closest", "any")]
+                "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+                "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                "bound_by": c["bound_by"], "library_ms": None,
+                "full_pass_ms": c["full_pass_ms"],
+                "full_pass_bound_ms": c["full_pass_bound_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

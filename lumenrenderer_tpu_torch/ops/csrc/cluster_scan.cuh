@@ -1,7 +1,9 @@
 // Shared device code of the cluster intersection kernels (visit_scan.cu,
-// visit_scan_instanced.cu, pair_scan.cu): one block of 128 threads, one
-// thread per ray (or pair), tests its ray against a cluster's K triangles,
-// Möller–Trumbore written as the bilinear form f (10) · tri_feat (10, 4K).
+// visit_scan_instanced.cu, pair_scan.cu), Möller–Trumbore written as the
+// bilinear form f (10) · tri_feat (10, 4K). The instanced and pair scans
+// use the one-ray-per-thread slab load, test and visit loop below; the
+// visit scan has its own (four rays a thread) and uses the TMA bulk copy
+// and mbarrier helpers at the end.
 #pragma once
 #include <cuda_runtime.h>
 
@@ -113,6 +115,48 @@ __device__ __forceinline__ void scan_visits(const Rays& rays,
         }
         if (done) break;
     }
+}
+
+// Hopper's 1-D bulk copy (TMA) from global into shared memory, completed on
+// an mbarrier that counts the bytes (the visit scan's double-buffered slab).
+__device__ __forceinline__ unsigned smem_addr(const void* p)
+{
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// One expected arrival per phase: the thread that issues the copy.
+__device__ __forceinline__ void mbar_init(unsigned long long* bar)
+{
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                 :: "r"(smem_addr(bar)), "r"(1) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// Copy `bytes` (a multiple of 16, both addresses 16-byte aligned) and
+// complete the barrier's current phase when they have landed.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar)
+{
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+                 "::bytes [%0], [%1], %2, [%3];"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(bytes),
+                    "r"(smem_addr(bar)) : "memory");
+}
+
+// Wait until the barrier's phase with this parity has completed.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity)
+{
+    asm volatile("{\n"
+                 ".reg .pred P1;\n"
+                 "LAB_WAIT:\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+                 "@!P1 bra LAB_WAIT;\n"
+                 "}\n"
+                 :: "r"(smem_addr(bar)), "r"(parity) : "memory");
 }
 
 }  // namespace lumen

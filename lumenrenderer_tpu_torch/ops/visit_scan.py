@@ -1,8 +1,10 @@
 """Kernel K1: the visit scan of the tiled intersector, on Hopper.
 
-Replaces the Pallas TPU kernel `visit_scan` (`_visit_scan_impl`, with its
-VMEM-resident and DMA-streamed variants sharing `_make_compute`) in
-`lumenrenderer_tpu/ops/pallas/intersect.py`.
+Replaces the Pallas TPU kernel `visit_scan`
+(`lumenrenderer_tpu/ops/pallas/intersect.py:325`, `_visit_scan_impl` with
+its VMEM-resident and DMA-streamed variants sharing `_make_compute`). One
+kernel, `csrc/visit_scan.cu`, takes the place of both: here the table stays
+in device memory behind the 50 MB L2.
 
 Contract. Rays come in tiles of 128. For tile t the caller gives its visit
 list: `nv[t]` clusters `sel[t, :nv[t]]`, ordered by conservative entry t whose
@@ -15,19 +17,27 @@ key `(t_bits & ~low_mask) | (visit << k_bits) | slot`, 0x7F000000 for a
 miss; any mode returns 1 where any triangle hits. Dead lanes (tmax < tmin)
 return 0 in closest mode and 1 in any mode; callers mask them.
 
-What bounds it on an H100. Each tile visit is 128 rays x K triangles x 40
-fp32 FMAs plus the test: about 1 MFLOP per visit at K = 128, on a 20 KB
-coefficient slab read from L2 (the whole table, 2.75 MB for the interior
-scene, stays in the 50 MB L2). So it is bound by fp32 issue and by shared
-memory reads, not by device memory. The design: one block per tile and one
-thread per ray, so a ray's running key stays in a register; the slab is
-loaded once per visit into shared memory, transposed so that every thread
-reads the same float4 (a broadcast, no bank conflicts) for 4 FMAs; t is
-formed only for hits, by one exact division. The early-out is a block-wide
-vote (`__syncthreads_and`) after every visit: it is conservative, so the
-result equals a full scan, as on the TPU where it ran every 4 visits. One
-kernel replaces both Pallas variants: the TPU streamed the table when it did
-not fit VMEM, while here the table stays in device memory behind L2.
+What bounds it on an H100: fp32 FMA issue. A visit costs
+live rays × live triangles × 40 FMAs = 80 flop per ray-triangle pair; at
+67 TFLOP/s (fp32, no tensor cores) that is the bound, since the bytes (ray
+features, visit lists, at most a 20 KB slab per visit from L2) take a small
+fraction of it at 3.35 TB/s. Geometry stays exact fp32, so tensor cores
+(TF32 or bf16 splits) are not used.
+
+The design (details in the source): a block of four warps per tile, each
+warp testing an interleaved quarter of the cluster's triangles and each
+lane 4 rays, so one broadcast float4 of the slab feeds 16 FMAs; only the
+live slots of each cluster (`slab_layout`'s `nlive`) are copied and
+tested; signs normalised by XOR with det's sign bit, t by one exact
+division for hits only; K a template parameter (32, 64 or 128; any other K
+raises); the slab table in the kernel's order (`slab_layout`, made per
+call) so that a visit's slab is one contiguous block, copied by one TMA
+bulk copy into one of two shared buffers while the previous visit is
+tested; a conservative block-wide vote before every visit
+(`__syncthreads_and`) that ends the tile when no live ray can still
+improve, so the result equals a full scan. An optional int32 counter
+receives the visits each tile ran; `executed_visits_ref` replays the same
+vote from the twin.
 
 Not carried over: the (T/8, 8, 128) output blocks and 8-tile padding (a TPU
 layout; this returns (T, 128)), the feature-row padding to 16, and the
@@ -46,6 +56,7 @@ from . import build
 
 KEY_MISS = 0x7F000000
 RAY_TILE = 128
+KERNEL_K = (32, 64, 128)     # cluster sizes the kernel is built for
 # launches of the CUDA kernel per mode (the CPU twin does not count)
 LAUNCHES = {"closest": 0, "any": 0}
 
@@ -56,10 +67,11 @@ def reset_launches() -> None:
 
 
 def slab_hits(rf, slab, tmin, tmax, k: int, closest: bool):
-    """The kernels' test (`test_slab` in csrc/cluster_scan.cuh) of ray
-    features rf (T,128,10) against one coefficient slab per tile
-    (T,10,4K) within [tmin, tmax] (T,128,1): hit (T,128,K) bool and, in
-    closest mode, t's float bits (T,128,K) int32 (else None)."""
+    """The kernels' test (`test_rays` in csrc/visit_scan.cu, `test_slab` in
+    csrc/cluster_scan.cuh) of ray features rf (T,128,10) against one
+    coefficient slab per tile (T,10,4K) within [tmin, tmax] (T,128,1):
+    hit (T,128,K) bool and, in closest mode, t's float bits (T,128,K) int32
+    (else None)."""
     res = torch.bmm(rf, slab)                               # (T, 128, 4K)
     det, un, vn, tn = res.split(k, dim=-1)
     s = torch.sign(det)
@@ -73,35 +85,70 @@ def slab_hits(rf, slab, tmin, tmax, k: int, closest: bool):
     return hit, (ts / ad_safe).clamp_min(0.0).view(torch.int32)
 
 
-def scan_visits_ref(rays, feats, sel, nv, tmin, tmax, dead, *, k: int,
-                    k_bits: int, low_bits: int, closest: bool
-                    ) -> torch.Tensor:
-    """Plain twin of the kernels' visit loop (`scan_visits` in
-    csrc/cluster_scan.cuh) without its early-out, which is conservative, so
-    the results are equal. `rays(i)` gives the (T,128,10) features of visit
-    i. Runs every tile for max(nv) visits; memory is (T,128,4K) float32 per
-    visit."""
+def _running_ref(rays, feats, sel, nv, tmin, tmax, dead, *, k: int,
+                 k_bits: int, low_bits: int, closest: bool):
+    """Yield the twin's running (T,128) state before visit 0 and after each
+    visit i < max(nv): the minimum key so far (closest, KEY_MISS for none)
+    or the OR of hits so far (any, bool, dead lanes True)."""
     tiles = sel.shape[0]
     dev = sel.device
     kid = torch.arange(k, dtype=torch.int32, device=dev)
     low_mask = ~((1 << low_bits) - 1)
-    best = torch.full((tiles, RAY_TILE), KEY_MISS, dtype=torch.int32,
-                      device=dev)
-    occ = dead.clone()
-    n_max = int(nv.max()) if tiles else 0
-    for i in range(n_max):
+    state = (torch.full((tiles, RAY_TILE), KEY_MISS, dtype=torch.int32,
+                        device=dev) if closest else dead.clone())
+    yield state
+    for i in range(int(nv.max()) if tiles else 0):
         hit, tb = slab_hits(rays(i), feats[sel[:, i].long()], tmin, tmax, k,
                             closest)
         hit &= (i < nv)[:, None, None]
         if closest:
             key = (tb & low_mask) | (i << k_bits) | kid
             key = torch.where(hit, key, torch.full_like(key, KEY_MISS))
-            best = torch.minimum(best, key.amin(-1))
+            state = torch.minimum(state, key.amin(-1))
         else:
-            occ |= hit.any(-1)
+            state = state | hit.any(-1)
+        yield state
+
+
+def scan_visits_ref(rays, feats, sel, nv, tmin, tmax, dead, *, k: int,
+                    k_bits: int, low_bits: int, closest: bool
+                    ) -> torch.Tensor:
+    """Plain twin of the kernels' visit loop without its early-out, which is
+    conservative, so the results are equal. `rays(i)` gives the (T,128,10)
+    features of visit i. Runs every tile for max(nv) visits; memory is
+    (T,128,4K) float32 per visit."""
+    for state in _running_ref(rays, feats, sel, nv, tmin, tmax, dead, k=k,
+                              k_bits=k_bits, low_bits=low_bits,
+                              closest=closest):
+        pass
     if closest:
-        return torch.where(dead, torch.zeros_like(best), best)
-    return occ.to(torch.int32)
+        return torch.where(dead, torch.zeros_like(state), state)
+    return state.to(torch.int32)
+
+
+def replay_visits_ref(rays, feats, sel, nv, tnb, tmin, tmax, dead, *, k: int,
+                      mv: int, k_bits: int, low_bits: int, closest: bool
+                      ) -> torch.Tensor:
+    """The number of visits each tile runs under the kernels' block-wide
+    vote, replayed from the twin's running state: (T,) int32. Before visit i
+    (i < min(nv, mv)) the tile stops when every lane is dead or, closest,
+    holds a key whose t field lies below that of the entry t `tnb[:, i]`
+    (later visits start no nearer), or, any, is occluded."""
+    n = nv.clamp_max(mv)
+    ran = n.clone()
+    stopped = torch.zeros_like(n, dtype=torch.bool)
+    states = _running_ref(rays, feats, sel, nv, tmin, tmax, dead, k=k,
+                          k_bits=k_bits, low_bits=low_bits, closest=closest)
+    for i, state in enumerate(states):
+        if closest:
+            nxt = tnb[:, min(i, mv - 1)] >> low_bits
+            done = (dead | ((state >> low_bits) < nxt[:, None])).all(1)
+        else:
+            done = state.all(1)
+        stop = done & ~stopped & (i < n)
+        ran = torch.where(stop, i, ran)
+        stopped |= stop
+    return ran.to(torch.int32)
 
 
 def visit_scan_ref(rf_t, feats, sel, nv, tnb, *, k: int, mv: int,
@@ -114,6 +161,34 @@ def visit_scan_ref(rf_t, feats, sel, nv, tnb, *, k: int, mv: int,
                            rf_t[..., 11:12], rf_t[..., 11] < rf_t[..., 10],
                            k=k, k_bits=k_bits, low_bits=low_bits,
                            closest=closest)
+
+
+def executed_visits_ref(rf_t, feats, sel, nv, tnb, *, k: int, mv: int,
+                        k_bits: int, low_bits: int, closest: bool
+                        ) -> torch.Tensor:
+    """Plain twin of the kernel's visit counter: (T,) int32 visits each tile
+    runs (`replay_visits_ref` with the tile's fixed rays)."""
+    rfm = rf_t[..., :10]
+    return replay_visits_ref(lambda i: rfm, feats, sel, nv, tnb,
+                             rf_t[..., 10:11], rf_t[..., 11:12],
+                             rf_t[..., 11] < rf_t[..., 10], k=k, mv=mv,
+                             k_bits=k_bits, low_bits=low_bits,
+                             closest=closest)
+
+
+def slab_layout(feats: torch.Tensor, k: int):
+    """The kernel's order of the coefficient table and its live slots:
+    (slabs (C,K,10,4), nlive (C,) int32). Global (f, q·K + j) goes to
+    ((j·10 + f)·4 + q), so that each cluster's slab is one contiguous block
+    of K·10 float4s (triangle j's ten (det, u, v, t) quadruples in a row).
+    nlive is one past the cluster's last slot with a nonzero coefficient
+    (at least 1): the slots after it are padding, which never hits."""
+    c = feats.shape[0]
+    slabs = feats.view(c, 10, 4, k).permute(0, 3, 1, 2).contiguous()
+    slot = torch.arange(1, k + 1, dtype=torch.int32, device=feats.device)
+    nz = slabs.view(c, k, 40).ne(0).any(-1)
+    nlive = (nz * slot).amax(-1).clamp_min(1) if c else slot[:0]
+    return slabs, nlive.to(torch.int32)
 
 
 def check_scalars(k: int, mv: int, k_bits: int, low_bits: int) -> None:
@@ -131,38 +206,51 @@ def check_scalars(k: int, mv: int, k_bits: int, low_bits: int) -> None:
                          "memory")
 
 
-def _check(rf_t, feats, sel, nv, tnb, k, mv, k_bits, low_bits):
+def _check(rf_t, feats, sel, nv, tnb, k, mv, k_bits, low_bits, visits):
     tiles = rf_t.shape[0]
-    build.check_tensors(rf_t.device, {
+    expect = {
         "rf_t": (rf_t, torch.float32, (tiles, RAY_TILE, 12)),
         "feats": (feats, torch.float32, (feats.shape[0], 10, 4 * k)),
         "sel": (sel, torch.int32, (tiles, mv)),
         "nv": (nv, torch.int32, (tiles,)),
         "tnb": (tnb, torch.int32, (tiles, mv)),
-    })
+    }
+    if visits is not None:
+        expect["visits"] = (visits, torch.int32, (tiles,))
+    build.check_tensors(rf_t.device, expect)
     check_scalars(k, mv, k_bits, low_bits)
 
 
 def visit_scan(rf_t, feats, sel, nv, tnb, *, k: int, mv: int, k_bits: int,
-               low_bits: int, closest: bool) -> torch.Tensor:
+               low_bits: int, closest: bool, visits=None) -> torch.Tensor:
     """Run the visit scan (contract in the module docstring): (T, 128) int32
-    keys (closest) or occlusion bits (any)."""
-    _check(rf_t, feats, sel, nv, tnb, k, mv, k_bits, low_bits)
+    keys (closest) or occlusion bits (any). `visits`, an int32 (T,) tensor,
+    receives the number of visits each tile ran (on the CPU, from
+    `executed_visits_ref`)."""
+    _check(rf_t, feats, sel, nv, tnb, k, mv, k_bits, low_bits, visits)
+    kw = dict(k=k, mv=mv, k_bits=k_bits, low_bits=low_bits, closest=closest)
     if rf_t.device.type == "cpu":
-        return visit_scan_ref(rf_t, feats, sel, nv, tnb, k=k, mv=mv,
-                              k_bits=k_bits, low_bits=low_bits,
-                              closest=closest)
+        if visits is not None:
+            visits.copy_(executed_visits_ref(rf_t, feats, sel, nv, tnb, **kw))
+        return visit_scan_ref(rf_t, feats, sel, nv, tnb, **kw)
     if rf_t.device.type != "cuda":
         raise ValueError(f"visit_scan runs on cpu or cuda, not {rf_t.device}")
+    if k not in KERNEL_K:
+        raise ValueError(f"the visit scan kernel takes K in {KERNEL_K}, not "
+                         f"{k}")
     fn = build.load_function("visit_scan", "visit_scan_launch",
-                             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                              + [ctypes.c_void_p])
     tiles = rf_t.shape[0]
+    # freed on return, but the caching allocator hands their memory only to
+    # work queued after the kernel on this stream
+    slabs, nlive = slab_layout(feats, k)
     out = torch.empty((tiles, RAY_TILE), dtype=torch.int32,
                       device=rf_t.device)
-    build.launch(fn, rf_t.device, rf_t.data_ptr(), feats.data_ptr(),
-                 sel.data_ptr(), nv.data_ptr(), tnb.data_ptr(),
-                 out.data_ptr(), tiles, feats.shape[0], k, mv, k_bits,
-                 low_bits, int(closest))
+    build.launch(fn, rf_t.device, rf_t.data_ptr(), slabs.data_ptr(),
+                 nlive.data_ptr(), sel.data_ptr(), nv.data_ptr(),
+                 tnb.data_ptr(), out.data_ptr(),
+                 None if visits is None else visits.data_ptr(), tiles,
+                 feats.shape[0], k, mv, k_bits, low_bits, int(closest))
     LAUNCHES["closest" if closest else "any"] += 1
     return out

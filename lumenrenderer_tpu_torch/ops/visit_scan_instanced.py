@@ -43,7 +43,8 @@ import ctypes
 import torch
 
 from . import build
-from .visit_scan import RAY_TILE, check_scalars, scan_visits_ref
+from .visit_scan import (RAY_TILE, check_scalars, replay_visits_ref,
+                         scan_visits_ref)
 
 # launches of the CUDA kernel per mode (the CPU twin does not count)
 LAUNCHES = {"closest": 0, "any": 0}
@@ -84,6 +85,20 @@ def visit_scan_instanced_ref(rayblk, wnd, feats, sel_cl, minv12, nv, tnb, *,
         lambda i: object_space_features(rayblk, minv12[:, i]), feats, sel_cl,
         nv, wnd[..., 0:1], wnd[..., 1:2], wnd[..., 1] < wnd[..., 0], k=k,
         k_bits=k_bits, low_bits=low_bits, closest=closest)
+
+
+def executed_visits_instanced_ref(rayblk, wnd, feats, sel_cl, minv12, nv,
+                                  tnb, *, k: int, mv: int, k_bits: int,
+                                  low_bits: int, closest: bool
+                                  ) -> torch.Tensor:
+    """The visits each tile runs under the kernel's vote, replayed from the
+    twin (`replay_visits_ref` with each visit's object-space features):
+    (T,) int32. The kernel votes after each visit, so a tile whose lanes are
+    all dead runs one visit where this counts none; it has no live work."""
+    return replay_visits_ref(
+        lambda i: object_space_features(rayblk, minv12[:, i]), feats, sel_cl,
+        nv, tnb, wnd[..., 0:1], wnd[..., 1:2], wnd[..., 1] < wnd[..., 0], k=k,
+        mv=mv, k_bits=k_bits, low_bits=low_bits, closest=closest)
 
 
 def visit_scan_instanced(rayblk, wnd, feats, sel_cl, minv12, nv, tnb, *,

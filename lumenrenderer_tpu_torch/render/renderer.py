@@ -1,8 +1,9 @@
 """Progressive renderer: port of `lumenrenderer_tpu/render/renderer.py` for
 `accel="tiled"` and `accel="two_level"`, static or dynamic.
 
-The scene and its accel live on `device`. "tiled" clusters the flattened
-world-space triangles (kernel K1 on a CUDA device); "two_level" clusters
+The scene and its accel live on `device`, a CUDA device unless the caller
+passes device="cpu". "tiled" clusters the flattened world-space triangles
+(kernel K1 on a CUDA device); "two_level" clusters
 each unique mesh once in object space and culls (instance, cluster) units
 (kernel K2). On the CPU each kernel runs as its plain PyTorch twin. With
 `dynamic=` (a `scene.dynamic.DynamicScene`) a transform edit rebakes the
@@ -52,8 +53,9 @@ class Renderer:
         twins. candidate_dtype: "high" (the JAX default, a bf16 three-pass
         split there) and "float32" both run exact fp32 here; "bfloat16" is
         not ported. device: where the scene, state and frame live (default:
-        the current CUDA device if there is one, else the CPU). dynamic: a
-        DynamicScene whose build() is `scene`."""
+        the current CUDA device; without one this raises, and device="cpu"
+        runs the kernels' plain twins on the CPU). dynamic: a DynamicScene
+        whose build() is `scene`."""
         if accel not in ("tiled", "two_level"):
             raise NotImplementedError(
                 f"accel={accel!r} is not ported; the PyTorch port has "
@@ -71,7 +73,11 @@ class Renderer:
         if candidate_dtype not in ("high", "float32"):
             raise ValueError(f"unknown candidate_dtype {candidate_dtype!r}")
         if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "Renderer runs on a CUDA device by default and none was "
+                    "found; pass device='cpu' to render on the CPU")
+            device = "cuda"
         self.device = torch.device(device)
         # geometry runs in exact fp32: no TF32 anywhere on the frame's path
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -176,7 +182,8 @@ class Renderer:
     # -- public API -----------------------------------------------------------
 
     def init_state(self, seed: int = 0) -> state_mod.FrameState:
-        return state_mod.init_state(self.config.num_pixels, seed, self.device)
+        return state_mod.init_state(self.config.num_pixels, seed,
+                                    device=self.device)
 
     def render_frame(self, st: state_mod.FrameState, camera: Camera):
         """One progressive frame: (new_state, aux AOV dict). Accumulation

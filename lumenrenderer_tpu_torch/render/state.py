@@ -21,8 +21,8 @@ class FrameState:
     camera_sig: Optional[bytes] = None  # pose that accum was rendered from
 
 
-def init_state(num_pixels: int, seed: int = 0,
-               device: torch.device | str = "cpu") -> FrameState:
+def init_state(num_pixels: int, seed: int = 0, *,
+               device: torch.device | str) -> FrameState:
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return FrameState(

@@ -55,7 +55,7 @@ class DynamicScene:
     produces refreshed (SceneData, accel) pairs on demand.
 
         dyn = DynamicScene(builder)
-        r = Renderer(dyn.build(), cfg, dynamic=dyn)
+        r = Renderer(dyn.build(), cfg, dynamic=dyn)  # on the CUDA device
         dyn.transform(3).translation = (1, 0, 0)   # marks the scene dirty
         r.render_frame(st, cam)                    # rebakes, then renders
     """

@@ -5,7 +5,8 @@ Marked `cuda`: these need an NVIDIA GPU with nvcc (Hopper, sm_90a) and skip
 where torch.cuda.is_available() is False. Run them on the card with
 `python -m pytest --noconftest tests/test_torch_kernels.py -q`.
 Tolerance: keys identical on at least 99.99% of rays, every differing key a
-tie within the key's t resolution; occlusion bits identical.
+tie within the key's t resolution; occlusion bits identical; K1's visit
+counter identical to `executed_visits_ref`.
 """
 import numpy as np
 import pytest
@@ -63,11 +64,63 @@ def _check_against_twin(mod, kernel, twin, q, closest, low_bits):
     assert int((kern < vs.KEY_MISS).sum()) > 1000
 
 
+def _check_counter(args, kw):
+    """K1's visit counter against the replay of its vote on the twin."""
+    visits = torch.full((args[0].shape[0],), -1, dtype=torch.int32,
+                        device=args[0].device)
+    vs.visit_scan(*args, **kw, visits=visits)
+    ref = vs.executed_visits_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(visits, ref)
+    return visits
+
+
+@pytest.mark.parametrize("k", [32, 64, 128])
 @pytest.mark.parametrize("closest", [True, False])
-def test_kernel_matches_twin(dev, closest):
-    q = _inputs(dev)
+def test_kernel_matches_twin(dev, closest, k):
+    q = _inputs(dev, n_tris=4000, k=k)
     _check_against_twin(vs, vs.visit_scan, vs.visit_scan_ref, q, closest,
                         q["kw"]["low_bits"])
+    visits = _check_counter(q["args"], dict(q["kw"], closest=closest))
+    assert int(visits.sum()) > 0
+
+
+@pytest.mark.parametrize("closest", [True, False])
+def test_kernel_edge_tiles(dev, closest):
+    """A tile with nv = mv = 128 visits, one with none, one whose lanes are
+    all dead: keys and bits equal the twin's, the counter the replay's."""
+    q = _inputs(dev, n_tris=5000, k=32)
+    rf_t, feats, sel, nv, tnb = (a.clone() for a in q["args"])
+    kw = dict(q["kw"], closest=closest)
+    assert kw["mv"] == 128 and feats.shape[0] >= 128
+    sel[0] = torch.arange(128, device=dev, dtype=torch.int32)
+    nv[0] = 128
+    tnb[0] = 0            # every entry at t = 0: no early end in closest mode
+    nv[1] = 0
+    rf_t[2, :, 11] = -1.0
+    args = (rf_t, feats, sel, nv, tnb)
+    kern = vs.visit_scan(*args, **kw)
+    ref = vs.visit_scan_ref(*args, **kw)
+    torch.cuda.synchronize()
+    if closest:
+        diff = kern != ref
+        assert float(diff.float().mean()) <= 1e-4
+    else:
+        assert torch.equal(kern, ref)
+    live1 = rf_t[1, :, 11] >= rf_t[1, :, 10]
+    miss = vs.KEY_MISS if closest else 0
+    assert bool((kern[1][live1] == miss).all())
+    assert torch.equal(kern[2], torch.full_like(kern[2], 0 if closest else 1))
+    visits = _check_counter(args, kw)
+    assert int(visits[1]) == 0 and int(visits[2]) == 0
+    if closest:
+        assert int(visits[0]) == 128
+
+
+def test_kernel_rejects_unsupported_cluster_size(dev):
+    q = _inputs(dev, n_tris=300, r=512, k=16)
+    with pytest.raises(ValueError):
+        vs.visit_scan(*q["args"], **q["kw"], closest=True)
 
 
 @pytest.mark.parametrize("closest", [True, False])

@@ -136,7 +136,7 @@ def test_debug_checks_and_png(tmp_path):
     assert data[:8] == b"\x89PNG\r\n\x1a\n" and b"IHDR" in data[:40]
     assert tonemap.to_uint8(torch.tensor([0.0, 0.5, 2.0])).tolist() == \
         [0, 128, 255]
-    st = pstate.init_state(4, seed=1)
+    st = pstate.init_state(4, seed=1, device="cpu")
     st = pstate.reset_accumulation(
         pstate.FrameState(torch.ones(4, 3), 5, 5, st.generator))
     assert st.blend_count == 0 and float(st.accum.abs().sum()) == 0.0
