@@ -21,18 +21,22 @@ non-zero), each with its seconds:
      1 warm-up and 5 timed frames; K1 must launch 5 times per frame in each
      mode; then one more frame under torch.profiler (device kernel time,
      idle share, K1's share, the top kernels);
-  6. K2 against its twin: 1,024 tiles each of the sorted 2560x1440 bounce
-     and shadow passes of the instanced scene (120 box instances and a
-     light: 121 units, 2 unique meshes), closest and any mode, with the
-     visits each tile runs replayed from the twin for the bound, and K1's
-     full-pass times on the same passes through the flattened clusters;
+  6. K2 against its twin: 1,024 tiles each of the 2560x1440 primary pass
+     and sorted bounce and shadow passes of the instanced scene (120 box
+     instances and a light: 121 units, 2 unique meshes), closest and any
+     mode; K2's visit counter against `executed_visits_instanced_ref` on
+     each subset; the kernel on every tile of each pass, with its executed
+     visits per tile, flop, bound and share; and K1's full-pass times on the
+     bounce and shadow passes through the flattened clusters;
   7. the two-level slice: Renderer(accel="two_level", dynamic=...) on that
      scene at 2560x1440, depth 5, Disney + MIS, 1 warm-up and 3 timed
      frames, held against Renderer(accel="tiled"); then instance 0 moves
      by +50 in x and the next frame is held against a fresh build;
   8. K3 against its twin: 1,024 pair tiles, evenly spaced over the live
-     tiles, of the interior scene's sorted 2560x1440 bounce and shadow
-     passes, with the bound of the live pair tiles;
+     tiles, of the interior scene's 2560x1440 primary pass and sorted
+     bounce and shadow passes, with the bound of the live pair tiles; the
+     kernel on every tile of each pass, whose dead tiles (every pair dead,
+     the run-padded tail) must hold the miss key or 0;
   9. the pair slice: render_wavefront with pair_intersectors on the
      interior scene at 2560x1440, depth 5, Disney + MIS, 1 warm-up and 3
      timed frames, held against the tiled frame from the same seed.
@@ -43,9 +47,8 @@ non-zero without a CUDA device or without the package next to it.
 Bounds: a kernel's least time is the larger of its flop over the H100's
 67 TFLOP/s of fp32 (no tensor cores) and its bytes (each input read once,
 each output written once) over 3.35 TB/s. The flop are those these inputs
-need: 80 per (live ray, live triangle) pair of every visit a tile runs (K1:
-the kernel's counter; K2: the vote replayed from the twin) or of every live
-pair tile (K3). No single PyTorch call computes any of the three
+need: 80 per (live ray, live triangle) pair of every visit a tile runs (K1
+and K2: the kernel's counter) or of every live pair tile (K3). No single PyTorch call computes any of the three
 functions, so library_ms is null.
 """
 from __future__ import annotations
@@ -73,7 +76,6 @@ KERNELS = ("visit_scan", "visit_scan_instanced", "pair_scan")
 PEAK_FLOPS = 67e12           # H100 SXM, fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM, HBM3
 FLOP_PER_PAIR = 80           # 40 FMAs per ray-triangle test
-REPLAY_CHUNK = 1024          # tiles per chunk of K2's replay on a full pass
 REPLACES = {
     "visit_scan": "lumenrenderer_tpu/ops/pallas/intersect.py:325",
     "visit_scan_instanced": "lumenrenderer_tpu/ops/pallas/instanced.py:168",
@@ -516,7 +518,8 @@ def phase_instanced_kernel_vs_twin(dev, w=W, h=H, n_tiles=SUBSET_TILES):
     mv = min(ics.num_clusters, KERNEL_VISIT_CAP)
     passes = _secondary_passes(
         sc, cs, camf(w / h).to(dev), dev, w, h,
-        lambda o, d, tn, tx: two_level.scan_inputs(ics, o, d, tn, tx, mv))
+        lambda o, d, tn, tx: two_level.scan_inputs(ics, o, d, tn, tx, mv),
+        primary=True)
     for name, q in passes.items():
         nv = q["args"][5]
         say("6 instanced kernel", rays=name, units=ics.num_clusters,
@@ -525,28 +528,38 @@ def phase_instanced_kernel_vs_twin(dev, w=W, h=H, n_tiles=SUBSET_TILES):
             mean_visits_live_tiles=f"{float(nv[nv > 0].float().mean()):.2f}",
             overflow=bool(q["overflow"]))
     live_tris = _live_tris(ics.tri_feat, ics.tri_id.shape[1])
+    full_visits = {True: [], False: []}
 
     def work(q, args, closest, is_subset):
-        """K2's flop from the visits that its vote lets each tile run,
-        replayed from the twin in chunks of tiles."""
+        """K2's flop from its own visit counter, checked against the replay
+        of its vote on the subset."""
         kw = dict(q["kw"], closest=closest)
         tiles = args[0].shape[0]
-        ran = torch.cat([
-            vsi.executed_visits_instanced_ref(
-                *(a if i == 2 else a[c:c + REPLAY_CHUNK]
-                  for i, a in enumerate(args)), **kw)
-            for c in range(0, tiles, REPLAY_CHUNK)])
+        visits = torch.empty(tiles, dtype=torch.int32, device=dev)
+        vsi.visit_scan_instanced(*args, **kw, visits=visits)
+        if is_subset:
+            ref = vsi.executed_visits_instanced_ref(*args, **kw)
+            if not torch.equal(visits, ref):
+                raise AssertionError(
+                    f"K2's visit counter differs from "
+                    f"executed_visits_instanced_ref on "
+                    f"{int((visits != ref).sum())} of {tiles} tiles")
+        else:
+            full_visits[closest].append(float(visits.float().mean()))
         wnd = args[1]
         live_rays = (wnd[..., 1] >= wnd[..., 0]).sum(1)
-        flop = visit_flop(live_rays, live_tris, args[3], ran)
+        flop = visit_flop(live_rays, live_tris, args[3], visits)
         return flop, _nbytes(*args) + tiles * 128 * 4, {
-            "visits_per_tile": f"{float(ran.float().mean()):.3f}"}
+            "visits_per_tile": f"{float(visits.float().mean()):.3f}"}
 
     results = hold_against_twin(
         "6 instanced kernel", "visit_scan_instanced", passes,
         lambda q: _tile_subset(q["args"], 2, n_tiles),
         vsi.visit_scan_instanced, vsi.visit_scan_instanced_ref,
-        lambda q: q["kw"]["low_bits"], exact_bits=False, work=work)
+        lambda q: q["kw"]["low_bits"], exact_bits=True, work=work)
+    for mode, closest in (("closest", True), ("any", False)):
+        runs = full_visits[closest]
+        results[mode]["visits_per_tile"] = sum(runs) / len(runs)
     # K1 on the same passes through the flattened clusters, for scale
     flat = _secondary_passes(
         sc, cs, camf(w / h).to(dev), dev, w, h,
@@ -694,6 +707,7 @@ def phase_pair_kernel_vs_twin(dev, w=W, h=H, n_tiles=SUBSET_TILES):
 
     from lumenrenderer_tpu_torch.accel import pairs, stream
     from lumenrenderer_tpu_torch.ops import pair_scan as ps
+    from lumenrenderer_tpu_torch.ops import visit_scan as vs
     from lumenrenderer_tpu_torch.render.renderer import KERNEL_VISIT_CAP
 
     sc, camf = _scene(dev)
@@ -702,7 +716,8 @@ def phase_pair_kernel_vs_twin(dev, w=W, h=H, n_tiles=SUBSET_TILES):
     passes = _secondary_passes(
         sc, cs, camf(w / h).to(dev), dev, w, h,
         lambda o, d, tn, tx: pairs.scan_inputs(cs, o, d, tn, tx, mv,
-                                               PAIRS_PER_RAY))
+                                               PAIRS_PER_RAY),
+        primary=True)
 
     def subset(q):
         rf_pairs, feats, tile_cluster = q["args"]
@@ -726,20 +741,31 @@ def phase_pair_kernel_vs_twin(dev, w=W, h=H, n_tiles=SUBSET_TILES):
     live_tris = _live_tris(cs.tri_feat, 128)
 
     def work(q, args, closest, is_subset):
-        """K3's flop over its live pair tiles (the dead tail does no work);
-        bytes of the live tiles' rows, keys and outputs, and the table."""
+        """K3's flop over its live pair tiles (dead tiles do no work);
+        bytes of the live tiles' rows, keys and outputs, and the table. On
+        the full pass, every dead tile must hold the miss key (0)."""
         rf_pairs, feats, tile_cluster = args
         rf = rf_pairs.reshape(-1, 128, 12)
         live = (rf[..., 11] >= rf[..., 10]).sum(1)
         n_live = int((live > 0).sum())
+        extra = {"live_pair_tiles": n_live}
+        if not is_subset:
+            out = ps.pair_scan(*args, **q["kw"], closest=closest)
+            dead = out.reshape(-1, 128)[live == 0]
+            miss = vs.KEY_MISS if closest else 0
+            if not bool((dead == miss).all()):
+                raise AssertionError(
+                    f"K3 wrote a hit on {int((dead != miss).sum())} pairs "
+                    f"of dead tiles")
+            extra["dead_tiles_miss"] = dead.shape[0]
         flop = FLOP_PER_PAIR * float(
             (live.double() * live_tris[tile_cluster.long()]).sum())
         nb = n_live * 128 * (12 + 1) * 4 + n_live * 4 + _nbytes(feats)
-        return flop, nb, {"live_pair_tiles": n_live}
+        return flop, nb, extra
 
     return hold_against_twin(
         "8 pair kernel", "pair_scan", passes, subset, ps.pair_scan,
-        ps.pair_scan_ref, lambda q: q["kw"]["k_bits"], exact_bits=False,
+        ps.pair_scan_ref, lambda q: q["kw"]["k_bits"], exact_bits=True,
         work=work)
 
 
@@ -888,7 +914,9 @@ def main() -> int:
                 "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                 "bound_by": c["bound_by"], "library_ms": None,
                 "full_pass_ms": c["full_pass_ms"],
-                "full_pass_bound_ms": c["full_pass_bound_ms"]})
+                "full_pass_bound_ms": c["full_pass_bound_ms"],
+                **({"visits_per_tile": c["visits_per_tile"]}
+                   if "visits_per_tile" in c else {})})
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

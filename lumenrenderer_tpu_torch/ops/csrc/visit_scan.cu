@@ -12,26 +12,22 @@
 // device memory is not. Every instruction that is not an FFMA takes an
 // FFMA's issue slot.
 //
-// The design against that:
+// The design against that, on the loop that K1, K2 and K3 share
+// (cluster_scan.cuh):
 // - A block of 128 threads per tile: four warps, each testing one
 //   interleaved quarter of the cluster's triangles (slots w, w + 4, ...);
 //   each lane holds 4 rays (lane, lane + 32, ...) and tests them against
 //   the same triangle, so one broadcast float4 from shared memory feeds 16
-//   FMAs (the one-ray version fed 4, and its shared loads rivalled its
-//   FMAs). The warps fold their keys (bits) through shared memory at each
+//   FMAs. The warps fold their keys (bits) through shared memory at each
 //   vote.
 // - Only live slots are tested: padding sits at each cluster's tail, and
 //   `nlive` says where it starts (a third of the interior scene's slots).
 // - The hit test normalises signs by XOR with det's sign bit (no
 //   multiplies) and forms t by the one exact division, for hits only, with
-//   one branch for the lane's 4 rays. Each ray's FMA order over the ten
-//   features is the twin's, so keys and bits equal the one-ray kernel's.
-// - The slab table arrives in the kernel's order, (C, K, 10) float4
-//   (ops/visit_scan.py `slab_layout`), so a visit's live slots are one
-//   contiguous block: one thread copies it with a TMA bulk copy into one of
+//   one branch for the lane's 4 rays.
+// - One thread copies a visit's live slots with a TMA bulk copy into one of
 //   two shared buffers, completed on an mbarrier. The copy for visit i + 1
-//   is in flight while visit i is tested; no other thread spends
-//   instructions or registers on it.
+//   is in flight while visit i is tested.
 // - K is a template parameter (32, 64, 128), which sizes the buffers.
 // - A block-wide vote before every visit ends the tile when no live ray can
 //   still improve (closest: later visits start no nearer than their entry
@@ -57,94 +53,6 @@ constexpr int G = RT / R;       // ray groups: the lanes of a warp
 constexpr int SPLIT = 4;        // warps, one slice of triangles each
 constexpr int THREADS = G * SPLIT;
 static_assert(G == 32, "one warp per slice: its slab reads are broadcasts");
-
-// Test the thread's R rays against slots j0, j0 + SPLIT, ... below nt of a
-// slab. Closest mode folds the packed key
-// (t's float bits & low_mask) | visit_field | slot into best; any mode ORs
-// hits into occ.
-template <bool CLOSEST>
-__device__ __forceinline__ void test_rays(const float4* __restrict__ slab,
-                                          int j0, int nt,
-                                          const float (&rf)[R][NF],
-                                          const float (&tmin)[R],
-                                          const float (&tmax)[R],
-                                          int low_mask, int visit_field,
-                                          int (&best)[R], int (&occ)[R])
-{
-#pragma unroll 1
-    for (int j = j0; j < nt; j += SPLIT) {
-        float det[R], un[R], vn[R], tn[R];
-#pragma unroll
-        for (int r = 0; r < R; ++r) det[r] = un[r] = vn[r] = tn[r] = 0.f;
-#pragma unroll
-        for (int f = 0; f < NF; ++f) {
-            const float4 cf = slab[j * NF + f];
-#pragma unroll
-            for (int r = 0; r < R; ++r) {
-                det[r] = fmaf(rf[r][f], cf.x, det[r]);
-                un[r] = fmaf(rf[r][f], cf.y, un[r]);
-                vn[r] = fmaf(rf[r][f], cf.z, vn[r]);
-                tn[r] = fmaf(rf[r][f], cf.w, tn[r]);
-            }
-        }
-        bool hit[R];
-        bool any_hit = false;
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-            // sign(det) * x, exactly, as a flip of x's sign bit; det == 0
-            // (padding slots) fails ad > 1e-12 either way
-            const unsigned sg = __float_as_uint(det[r]) & 0x80000000u;
-            const float ad = fabsf(det[r]);
-            const float us = __uint_as_float(__float_as_uint(un[r]) ^ sg);
-            const float vs = __uint_as_float(__float_as_uint(vn[r]) ^ sg);
-            const float ts = __uint_as_float(__float_as_uint(tn[r]) ^ sg);
-            hit[r] = (ad > 1e-12f) && (us >= 0.f) && (vs >= 0.f) &&
-                     (us + vs <= ad) && (ts > tmin[r] * ad) &&
-                     (ts <= tmax[r] * ad);
-            any_hit |= hit[r];
-            tn[r] = ts;
-            det[r] = ad;
-        }
-        if (CLOSEST) {
-            // hits are rare: one branch for the thread's R rays
-            if (any_hit) {
-#pragma unroll
-                for (int r = 0; r < R; ++r) {
-                    if (hit[r]) {
-                        const int tb =
-                            __float_as_int(fmaxf(tn[r] / det[r], 0.f));
-                        best[r] = min(best[r],
-                                      (tb & low_mask) | visit_field | j);
-                    }
-                }
-            }
-        } else {
-#pragma unroll
-            for (int r = 0; r < R; ++r) occ[r] |= hit[r] ? 1 : 0;
-        }
-    }
-}
-
-// Fold the warps' keys (bits) of each ray so that every warp holds the
-// ray's minimum (OR). Ends with the block synchronised.
-template <bool CLOSEST>
-__device__ __forceinline__ void combine(int (*part)[RT], int g, int s,
-                                        int (&best)[R], int (&occ)[R])
-{
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-        part[s][g + r * G] = CLOSEST ? best[r] : occ[r];
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-#pragma unroll
-        for (int o = 0; o < SPLIT; ++o) {
-            const int v = part[o][g + r * G];
-            if (CLOSEST) best[r] = min(best[r], v);
-            else occ[r] |= v;
-        }
-    }
-}
 
 // One block per tile: warp s tests slots s, s + SPLIT, ... of each slab;
 // its lane g holds rays g + r * G.
@@ -205,7 +113,7 @@ visit_scan_kernel(const float* __restrict__ rf_t,    // (T, 128, 12)
     for (int i = 0; i < n; ++i) {
         // the vote before visit i (its barrier also publishes the barriers'
         // initialisation and releases the buffer of visit i - 1)
-        combine<CLOSEST>(part, g, s, best, occ);
+        lumen::combine<R, SPLIT, CLOSEST>(part, g, s, best, occ);
         bool done = true;
         if (CLOSEST) {
             const int nxt = ttnb[i] >> low_bits;
@@ -223,15 +131,16 @@ visit_scan_kernel(const float* __restrict__ rf_t,    // (T, 128, 12)
         }
         const int nt = nlive[cluster(i)];
         lumen::mbar_wait(&bar[i & 1], (i >> 1) & 1);
-        test_rays<CLOSEST>(buf + (i & 1) * SLAB, s, nt, rf, tmin, tmax,
-                           low_mask, i << k_bits, best, occ);
+        lumen::test_rays<R, SPLIT, CLOSEST>(buf + (i & 1) * SLAB, s, nt, rf,
+                                            tmin, tmax, low_mask,
+                                            i << k_bits, best, occ);
         ran = i + 1;
     }
     // a slab prefetched for a visit that the vote skipped must land before
     // the block's shared memory is released
     if (tid == 0 && ran > 0 && ran < n)
         lumen::mbar_wait(&bar[ran & 1], (ran >> 1) & 1);
-    combine<CLOSEST>(part, g, s, best, occ);
+    lumen::combine<R, SPLIT, CLOSEST>(part, g, s, best, occ);
     if (s == 0) {
         // dead lanes: closest 0, any 1 (callers mask them)
 #pragma unroll

@@ -1,129 +1,258 @@
-// Instanced visit scan: the visit scan of visit_scan.cu for two-level
-// scenes, whose visits are (instance, cluster) units. Each visit maps the
-// tile's world rays into the instance's object space with its world->object
-// 3x4 affine, then runs the same slab test in world t. Hopper (sm_90a) port
-// of the Pallas kernel `visit_scan_instanced` in
-// lumenrenderer_tpu/ops/pallas/instanced.py; see ops/visit_scan_instanced.py
-// for the contract, the plain PyTorch twin and the design notes.
+// Kernel K2, the instanced visit scan: the visit scan of visit_scan.cu for
+// two-level scenes, whose visits are (instance, cluster) units. Each visit
+// maps the tile's world rays into the instance's object space with its
+// world->object 3x4 affine, then runs the same slab test in world t. Hopper
+// (sm_90a) port of the Pallas kernel `visit_scan_instanced` in
+// lumenrenderer_tpu/ops/pallas/instanced.py:168; see
+// ops/visit_scan_instanced.py for the contract and the plain PyTorch twin.
+//
+// What bounds it on an H100: fp32 FMA issue, as K1: live rays x live
+// triangles x 40 FMAs per visit, beside which the affine (about 30 flops
+// per ray and visit) is small. A unit mesh may hold far fewer triangles than
+// K (a box: 12 of 128 slots), so the per-visit costs (vote, fold, barrier,
+// the affine) weigh more than in K1.
+//
+// The design, on the loop that K1, K2 and K3 share (cluster_scan.cuh):
+// SPLIT slices of triangles per tile, each lane holding R rays' world
+// origin and direction; per visit one thread copies the unit's live slots
+// and its 12 affine floats into one of two shared buffers by TMA bulk
+// copies on one mbarrier (the copy for visit i + 1 in flight while visit i
+// is tested); every lane then forms its rays' object-space features from
+// the affine (a broadcast) and tests them. The buffers hold `cap` slots, the
+// most live slots of any cluster of the table, so a table of small meshes
+// keeps shared memory small and many blocks resident. The affine and the
+// cross product use round-to-nearest intrinsics, which nvcc never
+// contracts into FMAs, in the order of the plain twin, so the ten features
+// equal the twin's bit for bit. K1's vote runs before every visit, so a
+// tile whose lanes are all dead runs none; an optional counter gets the
+// visits each tile ran. K is a template parameter (32, 64, 128): the
+// table's cluster stride.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libvisit_scan_instanced.so visit_scan_instanced.cu
 // Entry: visit_scan_instanced_launch(), plain C, returns cudaGetLastError().
 #include "cluster_scan.cuh"
 
+#ifndef VSI_SPLIT
+#define VSI_SPLIT 4
+#endif
+#ifndef VSI_R
+#define VSI_R 4
+#endif
+
 namespace {
 
+using lumen::KEY_MISS;
 using lumen::NF;
 using lumen::RT;
 
-// The ray in visit i's object space. The affine and the cross product are
-// written with round-to-nearest intrinsics, which nvcc never contracts into
-// FMAs, in the order of the plain twin, so the ten features equal the
-// twin's bit for bit.
-struct InstancedRay {
-    float ox, oy, oz, dx, dy, dz;
-    const float* minv;  // the tile's (mv, 12) affines
+constexpr int R = VSI_R;        // rays per thread
+constexpr int G = RT / R;       // ray groups: the threads of a slice
+constexpr int SPLIT = VSI_SPLIT;  // slices of triangles
+constexpr int THREADS = G * SPLIT;
+constexpr int AFFINE = 3;       // float4s of a visit's 3x4 affine
+static_assert(G % 32 == 0, "whole warps per slice: slab reads broadcast");
 
-    __device__ __forceinline__ void operator()(int i, float (&r)[NF]) const
-    {
-        float m[12];
-#pragma unroll
-        for (int j = 0; j < 12; ++j) m[j] = __ldg(minv + i * 12 + j);
-        const float oox = __fadd_rn(__fadd_rn(__fadd_rn(
-            __fmul_rn(m[0], ox), __fmul_rn(m[1], oy)), __fmul_rn(m[2], oz)),
-            m[3]);
-        const float ooy = __fadd_rn(__fadd_rn(__fadd_rn(
-            __fmul_rn(m[4], ox), __fmul_rn(m[5], oy)), __fmul_rn(m[6], oz)),
-            m[7]);
-        const float ooz = __fadd_rn(__fadd_rn(__fadd_rn(
-            __fmul_rn(m[8], ox), __fmul_rn(m[9], oy)), __fmul_rn(m[10], oz)),
-            m[11]);
-        const float ddx = __fadd_rn(__fadd_rn(
-            __fmul_rn(m[0], dx), __fmul_rn(m[1], dy)), __fmul_rn(m[2], dz));
-        const float ddy = __fadd_rn(__fadd_rn(
-            __fmul_rn(m[4], dx), __fmul_rn(m[5], dy)), __fmul_rn(m[6], dz));
-        const float ddz = __fadd_rn(__fadd_rn(
-            __fmul_rn(m[8], dx), __fmul_rn(m[9], dy)), __fmul_rn(m[10], dz));
-        r[0] = __fsub_rn(__fmul_rn(ooy, ddz), __fmul_rn(ooz, ddy));
-        r[1] = __fsub_rn(__fmul_rn(ooz, ddx), __fmul_rn(oox, ddz));
-        r[2] = __fsub_rn(__fmul_rn(oox, ddy), __fmul_rn(ooy, ddx));
-        r[3] = ddx;
-        r[4] = ddy;
-        r[5] = ddz;
-        r[6] = oox;
-        r[7] = ooy;
-        r[8] = ooz;
-        r[9] = 1.f;
-    }
-};
+// The ray (world origin and direction w) in the object space of the affine
+// m, as the ten features [O x D, D, O, 1].
+__device__ __forceinline__ void object_features(const float* m,
+                                                const float (&w)[6],
+                                                float (&r)[NF])
+{
+    const float ox = w[0], oy = w[1], oz = w[2];
+    const float dx = w[3], dy = w[4], dz = w[5];
+    const float oox = __fadd_rn(__fadd_rn(__fadd_rn(
+        __fmul_rn(m[0], ox), __fmul_rn(m[1], oy)), __fmul_rn(m[2], oz)),
+        m[3]);
+    const float ooy = __fadd_rn(__fadd_rn(__fadd_rn(
+        __fmul_rn(m[4], ox), __fmul_rn(m[5], oy)), __fmul_rn(m[6], oz)),
+        m[7]);
+    const float ooz = __fadd_rn(__fadd_rn(__fadd_rn(
+        __fmul_rn(m[8], ox), __fmul_rn(m[9], oy)), __fmul_rn(m[10], oz)),
+        m[11]);
+    const float ddx = __fadd_rn(__fadd_rn(
+        __fmul_rn(m[0], dx), __fmul_rn(m[1], dy)), __fmul_rn(m[2], dz));
+    const float ddy = __fadd_rn(__fadd_rn(
+        __fmul_rn(m[4], dx), __fmul_rn(m[5], dy)), __fmul_rn(m[6], dz));
+    const float ddz = __fadd_rn(__fadd_rn(
+        __fmul_rn(m[8], dx), __fmul_rn(m[9], dy)), __fmul_rn(m[10], dz));
+    r[0] = __fsub_rn(__fmul_rn(ooy, ddz), __fmul_rn(ooz, ddy));
+    r[1] = __fsub_rn(__fmul_rn(ooz, ddx), __fmul_rn(oox, ddz));
+    r[2] = __fsub_rn(__fmul_rn(oox, ddy), __fmul_rn(ooy, ddx));
+    r[3] = ddx;
+    r[4] = ddy;
+    r[5] = ddz;
+    r[6] = oox;
+    r[7] = ooy;
+    r[8] = ooz;
+    r[9] = 1.f;
+}
 
-// One block per tile, one thread per ray.
-template <bool CLOSEST>
-__global__ void __launch_bounds__(RT)
+// One block per tile: slice s tests slots s, s + SPLIT, ... of each unit's
+// slab; its thread g holds rays g + r * G.
+template <int K, bool CLOSEST>
+__global__ void __launch_bounds__(THREADS)
 visit_scan_instanced_kernel(
     const float* __restrict__ rayblk,  // (T, 8, 128) rows o, d, pad
     const float* __restrict__ wnd,     // (T, 128, 8) cols tmin, tmax, pad
-    const float* __restrict__ feats,   // (C, 10, 4K) object space
+    const float4* __restrict__ slabs,  // (C, K * 10) object space
+    const int* __restrict__ nlive,     // (C,) slots to test, <= cap
     const int* __restrict__ sel_cl,    // (T, mv) cluster ids
     const float* __restrict__ minv12,  // (T, mv, 12) world -> object
     const int* __restrict__ nv,        // (T,) live visits
     const int* __restrict__ tnb,       // (T, mv) world entry-t bits
     int* __restrict__ out,             // (T, 128)
-    int num_clusters, int k, int mv, int k_bits, int low_bits)
+    int* __restrict__ visits,          // (T,) or null
+    int num_clusters, int mv, int k_bits, int low_bits, int cap)
 {
-    extern __shared__ float4 slab[];  // (K, 10) float4
+    // buffer b: cap slots (cap * 10 float4), then the visit's affine
+    extern __shared__ __align__(128) float4 buf[];
+    __shared__ __align__(8) unsigned long long bar[2];
+    __shared__ int part[SPLIT][RT];
 
+    const int stride = cap * NF + AFFINE;
+    const int tid = threadIdx.x;
+    const int g = tid % G;
+    const int s = tid / G;
     const int tile = blockIdx.x;
-    const int lane = threadIdx.x;
-    const float* rb = rayblk + (size_t)tile * 8 * RT + lane;  // coalesced
-    InstancedRay ray;
-    ray.ox = rb[0 * RT];
-    ray.oy = rb[1 * RT];
-    ray.oz = rb[2 * RT];
-    ray.dx = rb[3 * RT];
-    ray.dy = rb[4 * RT];
-    ray.dz = rb[5 * RT];
-    ray.minv = minv12 + (size_t)tile * mv * 12;
-    const float* w = wnd + ((size_t)tile * RT + lane) * 8;
-    const float tmin = w[0];
-    const float tmax = w[1];
-    const bool dead = tmax < tmin;  // padded or terminated lane
+    float wo[R][6], tmin[R], tmax[R];
+    bool dead[R];
+    int best[R], occ[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        const float* rb = rayblk + (size_t)tile * 8 * RT + g + r * G;
+#pragma unroll
+        for (int f = 0; f < 6; ++f) wo[r][f] = rb[f * RT];  // coalesced
+        const float* w = wnd + ((size_t)tile * RT + g + r * G) * 8;
+        tmin[r] = w[0];
+        tmax[r] = w[1];
+        dead[r] = tmax[r] < tmin[r];  // padded or terminated lane
+        best[r] = KEY_MISS;
+        occ[r] = dead[r] ? 1 : 0;
+    }
+    if (tid == 0) {
+        lumen::mbar_init(&bar[0]);
+        lumen::mbar_init(&bar[1]);
+    }
+    const int n = min(nv[tile], mv);
+    const int* tsel = sel_cl + (size_t)tile * mv;
+    const int* ttnb = tnb + (size_t)tile * mv;
+    const int low_mask = ~((1 << low_bits) - 1);
+    auto cluster = [&](int i) {
+        return min(max(tsel[i], 0), num_clusters - 1);
+    };
+    // the unit's live slots and its affine, on one barrier
+    auto fetch = [&](int i) {
+        const int cl = cluster(i);
+        float4* dst = buf + (i & 1) * stride;
+        const unsigned bytes = nlive[cl] * NF * sizeof(float4);
+        lumen::mbar_expect(&bar[i & 1], bytes + AFFINE * sizeof(float4));
+        lumen::bulk_copy(dst, slabs + (size_t)cl * K * NF, bytes, &bar[i & 1]);
+        lumen::bulk_copy(dst + cap * NF, minv12 + ((size_t)tile * mv + i) * 12,
+                         AFFINE * sizeof(float4), &bar[i & 1]);
+    };
 
-    int best = lumen::KEY_MISS;
-    int occ = dead ? 1 : 0;
-    lumen::scan_visits<CLOSEST>(ray, slab, feats, sel_cl + (size_t)tile * mv,
-                                tnb + (size_t)tile * mv, min(nv[tile], mv),
-                                mv, num_clusters, k, k_bits, low_bits, tmin,
-                                tmax, dead, best, occ);
-    // dead lanes: closest 0, any 1 (callers mask them)
-    out[(size_t)tile * RT + lane] = CLOSEST ? (dead ? 0 : best) : occ;
+    int ran = 0;
+    for (int i = 0; i < n; ++i) {
+        // the vote before visit i (its barrier also publishes the barriers'
+        // initialisation and releases the buffer of visit i - 1)
+        lumen::combine<R, SPLIT, CLOSEST>(part, g, s, best, occ);
+        bool done = true;
+        if (CLOSEST) {
+            const int nxt = ttnb[i] >> low_bits;
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+                done &= dead[r] || (best[r] >> low_bits) < nxt;
+        } else {
+#pragma unroll
+            for (int r = 0; r < R; ++r) done &= occ[r] != 0;
+        }
+        if (__syncthreads_and(done)) break;
+        if (tid == 0) {
+            if (i == 0) fetch(0);
+            if (i + 1 < n) fetch(i + 1);
+        }
+        const int nt = nlive[cluster(i)];
+        const float4* slab = buf + (i & 1) * stride;
+        lumen::mbar_wait(&bar[i & 1], (i >> 1) & 1);
+        float m[12];
+        const float* mp = reinterpret_cast<const float*>(slab + cap * NF);
+#pragma unroll
+        for (int j = 0; j < 12; ++j) m[j] = mp[j];
+        float rf[R][NF];
+#pragma unroll
+        for (int r = 0; r < R; ++r) object_features(m, wo[r], rf[r]);
+        lumen::test_rays<R, SPLIT, CLOSEST>(slab, s, nt, rf, tmin, tmax,
+                                            low_mask, i << k_bits, best, occ);
+        ran = i + 1;
+    }
+    // a copy issued for a visit that the vote skipped must land before the
+    // block's shared memory is released
+    if (tid == 0 && ran > 0 && ran < n)
+        lumen::mbar_wait(&bar[ran & 1], (ran >> 1) & 1);
+    lumen::combine<R, SPLIT, CLOSEST>(part, g, s, best, occ);
+    if (s == 0) {
+        // dead lanes: closest 0, any 1 (callers mask them)
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+            out[(size_t)tile * RT + g + r * G] =
+                CLOSEST ? (dead[r] ? 0 : best[r]) : occ[r];
+    }
+    if (visits != nullptr && tid == 0) visits[tile] = ran;
+}
+
+struct Args {
+    const float *rayblk, *wnd;
+    const float4* slabs;
+    const int *nlive, *sel_cl;
+    const float* minv12;
+    const int *nv, *tnb;
+    int *out, *visits;
+    int tiles, num_clusters, mv, k_bits, low_bits, cap;
+};
+
+template <int K, bool CLOSEST>
+int launch_mode(const Args& a, cudaStream_t s)
+{
+    const size_t smem = 2 * ((size_t)a.cap * NF + AFFINE) * sizeof(float4);
+    visit_scan_instanced_kernel<K, CLOSEST><<<a.tiles, THREADS, smem, s>>>(
+        a.rayblk, a.wnd, a.slabs, a.nlive, a.sel_cl, a.minv12, a.nv, a.tnb,
+        a.out, a.visits, a.num_clusters, a.mv, a.k_bits, a.low_bits, a.cap);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <int K>
+int launch(const Args& a, bool closest, cudaStream_t s)
+{
+    if (a.cap < 1 || a.cap > K) return static_cast<int>(cudaErrorInvalidValue);
+    return closest ? launch_mode<K, true>(a, s) : launch_mode<K, false>(a, s);
 }
 
 }  // namespace
 
 extern "C" int visit_scan_instanced_launch(
-    const void* rayblk, const void* wnd, const void* feats,
+    const void* rayblk, const void* wnd, const void* slabs, const void* nlive,
     const void* sel_cl, const void* minv12, const void* nv, const void* tnb,
-    void* out, int tiles, int num_clusters, int k, int mv, int k_bits,
-    int low_bits, int closest, void* stream)
+    void* out, void* visits, int tiles, int num_clusters, int k, int mv,
+    int k_bits, int low_bits, int cap, int closest, void* stream)
 {
     if (tiles == 0) return 0;
-    const size_t smem = (size_t)NF * 4 * k * sizeof(float);
+    const Args a{static_cast<const float*>(rayblk),
+                 static_cast<const float*>(wnd),
+                 static_cast<const float4*>(slabs),
+                 static_cast<const int*>(nlive),
+                 static_cast<const int*>(sel_cl),
+                 static_cast<const float*>(minv12),
+                 static_cast<const int*>(nv),
+                 static_cast<const int*>(tnb),
+                 static_cast<int*>(out),
+                 static_cast<int*>(visits),
+                 tiles, num_clusters, mv, k_bits, low_bits, cap};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const float* a = static_cast<const float*>(rayblk);
-    const float* b = static_cast<const float*>(wnd);
-    const float* c = static_cast<const float*>(feats);
-    const int* d = static_cast<const int*>(sel_cl);
-    const float* e = static_cast<const float*>(minv12);
-    const int* f = static_cast<const int*>(nv);
-    const int* g = static_cast<const int*>(tnb);
-    int* o = static_cast<int*>(out);
-    if (closest) {
-        visit_scan_instanced_kernel<true><<<tiles, RT, smem, s>>>(
-            a, b, c, d, e, f, g, o, num_clusters, k, mv, k_bits, low_bits);
-    } else {
-        visit_scan_instanced_kernel<false><<<tiles, RT, smem, s>>>(
-            a, b, c, d, e, f, g, o, num_clusters, k, mv, k_bits, low_bits);
+    switch (k) {
+    case 32: return launch<32>(a, closest != 0, s);
+    case 64: return launch<64>(a, closest != 0, s);
+    case 128: return launch<128>(a, closest != 0, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
     }
-    return static_cast<int>(cudaGetLastError());
 }

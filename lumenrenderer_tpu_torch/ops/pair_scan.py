@@ -14,14 +14,20 @@ miss; any mode returns 1 where any triangle hits. Padding pairs have
 t_max < t_min and so never hit: they return the miss key or 0, with no
 special case.
 
-What bounds it on an H100: per tile 128 pairs x K triangles x 40 fp32 FMAs
-on one 20 KB slab (K = 128), read from L2: fp32 issue and shared-memory
-reads, as K1. The design: one block per pair tile and one thread per pair;
-the block loads its one slab into shared memory (transposed so a triangle's
-coefficients are broadcast float4s, `csrc/cluster_scan.cuh`) and runs the
-test once. There is no visit loop and no early-out. One CUDA kernel replaces
-both Pallas variants (the table resident in VMEM, or streamed by DMA): the
-table stays in device memory behind the 50 MB L2.
+What bounds it on an H100: per live tile 128 pairs x the cluster's live
+triangles x 40 fp32 FMAs, on a slab of at most 20 KB read from L2: fp32
+issue, as K1. The design is K1's, on the loop the three kernels share
+(`csrc/cluster_scan.cuh`): a block of four warps per pair tile, each warp
+testing an interleaved quarter of the cluster's live slots and each lane
+four pairs, so one broadcast float4 of the slab feeds 16 FMAs; the table in
+the kernels' order (`visit_scan.slab_layout`, made per call), so one TMA
+bulk copy brings a tile's live slots into shared memory while the lanes
+load their pairs. Before the copy the block votes on whether any of its
+pairs is live: the run-padded tail of the stream (about a third of its
+tiles on a bounce pass) writes the miss key or 0 without touching the
+table. K is a template parameter (32, 64 or 128; any other K raises). One
+CUDA kernel replaces both Pallas variants (the table resident in VMEM, or
+streamed by DMA): the table stays in device memory behind the 50 MB L2.
 
 Not carried over: the grid of G = 8 tiles per program (S only needs to be a
 multiple of 128 here), and the FR = 16 feature-row padding.
@@ -36,7 +42,8 @@ import ctypes
 import torch
 
 from . import build
-from .visit_scan import KEY_MISS, RAY_TILE, check_scalars, slab_hits
+from .visit_scan import (KERNEL_K, KEY_MISS, RAY_TILE, check_scalars,
+                         slab_hits, slab_layout)
 
 # launches of the CUDA kernel per mode (the CPU twin does not count)
 LAUNCHES = {"closest": 0, "any": 0}
@@ -82,12 +89,18 @@ def pair_scan(rf_pairs, feats, tile_cluster, *, k: int, k_bits: int,
     if rf_pairs.device.type != "cuda":
         raise ValueError(f"pair_scan runs on cpu or cuda, not "
                          f"{rf_pairs.device}")
+    if k not in KERNEL_K:
+        raise ValueError(f"the pair scan kernel takes K in {KERNEL_K}, not "
+                         f"{k}")
     fn = build.load_function(
         "pair_scan", "pair_scan_launch",
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    # freed on return, but the caching allocator hands their memory only to
+    # work queued after the kernel on this stream
+    slabs, nlive = slab_layout(feats, k)
     out = torch.empty((s,), dtype=torch.int32, device=rf_pairs.device)
-    build.launch(fn, rf_pairs.device, rf_pairs.data_ptr(), feats.data_ptr(),
-                 tile_cluster.data_ptr(), out.data_ptr(), tiles,
-                 feats.shape[0], k, k_bits, int(closest))
+    build.launch(fn, rf_pairs.device, rf_pairs.data_ptr(), slabs.data_ptr(),
+                 nlive.data_ptr(), tile_cluster.data_ptr(), out.data_ptr(),
+                 tiles, feats.shape[0], k, k_bits, int(closest))
     LAUNCHES["closest" if closest else "any"] += 1
     return out

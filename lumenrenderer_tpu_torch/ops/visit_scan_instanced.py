@@ -17,17 +17,22 @@ closest mode returns the minimum key `(t_bits & ~low_mask) | (visit <<
 k_bits) | slot`, 0x7F000000 for a miss, any mode 1 where any triangle hits.
 Dead lanes return 0 in closest mode and 1 in any mode.
 
-What bounds it on an H100: K1's slab test (fp32 issue and shared-memory
-reads, the table behind L2), plus per visit 12 uniform loads and about 30
-flops per ray for the affine and the cross product, small beside the
-128 x K x 40 FMAs of the test. The design is K1's, sharing its visit loop
-and early-out (`csrc/cluster_scan.cuh`): one block per tile, one thread per
-ray; per visit every thread reads the same 12 affine floats (a broadcast),
-forms its object-space features, and tests the slab in shared memory. The
-affine and the cross product use round-to-nearest intrinsics in the twin's
-order, so the features equal the twin's bit for bit and only the slab
-product's summation order differs, as in K1. t is formed by one exact
-division, where the TPU used an approximate reciprocal and a Newton step.
+What bounds it on an H100: K1's slab test (fp32 issue, the table behind
+L2), plus per visit 12 affine floats and about 30 flops per ray for the
+affine and the cross product. The design is K1's, on the loop the three
+kernels share (`csrc/cluster_scan.cuh`): slices of the unit's live slots
+(`visit_scan.slab_layout`, made per call; 12 of 128 for a box) per tile,
+each lane holding the world origin and direction of several rays; per visit
+one TMA bulk copy brings the unit's live slots and its affine into one of
+two shared buffers while the previous visit is tested, and each lane forms
+its rays' object-space features from the affine (a broadcast). The affine
+and the cross product use round-to-nearest intrinsics in the twin's order,
+so the features equal the twin's bit for bit and only the slab product's
+summation order could differ, as in K1. t is formed by one exact division,
+where the TPU used an approximate reciprocal and a Newton step. K1's vote
+runs before every visit; an optional int32 counter receives the visits each
+tile ran, and `executed_visits_instanced_ref` replays the same vote from
+the twin. K is a template parameter (32, 64 or 128; any other K raises).
 
 Not carried over: the T % 8 padding and (T/8, 8, 128) blocks, the FR = 16
 feature-row padding, and the `RESIDENT_BYTES` limit (a VMEM limit; here the
@@ -43,8 +48,8 @@ import ctypes
 import torch
 
 from . import build
-from .visit_scan import (RAY_TILE, check_scalars, replay_visits_ref,
-                         scan_visits_ref)
+from .visit_scan import (KERNEL_K, RAY_TILE, check_scalars,
+                         replay_visits_ref, scan_visits_ref, slab_layout)
 
 # launches of the CUDA kernel per mode (the CPU twin does not count)
 LAUNCHES = {"closest": 0, "any": 0}
@@ -91,10 +96,10 @@ def executed_visits_instanced_ref(rayblk, wnd, feats, sel_cl, minv12, nv,
                                   tnb, *, k: int, mv: int, k_bits: int,
                                   low_bits: int, closest: bool
                                   ) -> torch.Tensor:
-    """The visits each tile runs under the kernel's vote, replayed from the
-    twin (`replay_visits_ref` with each visit's object-space features):
-    (T,) int32. The kernel votes after each visit, so a tile whose lanes are
-    all dead runs one visit where this counts none; it has no live work."""
+    """Plain twin of the kernel's visit counter: (T,) int32 visits each
+    tile runs under the kernel's vote before every visit, replayed from the
+    twin (`replay_visits_ref` with each visit's object-space features); a
+    tile whose lanes are all dead runs none."""
     return replay_visits_ref(
         lambda i: object_space_features(rayblk, minv12[:, i]), feats, sel_cl,
         nv, tnb, wnd[..., 0:1], wnd[..., 1:2], wnd[..., 1] < wnd[..., 0], k=k,
@@ -103,11 +108,13 @@ def executed_visits_instanced_ref(rayblk, wnd, feats, sel_cl, minv12, nv,
 
 def visit_scan_instanced(rayblk, wnd, feats, sel_cl, minv12, nv, tnb, *,
                          k: int, mv: int, k_bits: int, low_bits: int,
-                         closest: bool) -> torch.Tensor:
+                         closest: bool, visits=None) -> torch.Tensor:
     """Run the instanced visit scan (contract in the module docstring):
-    (T, 128) int32 keys (closest) or occlusion bits (any)."""
+    (T, 128) int32 keys (closest) or occlusion bits (any). `visits`, an
+    int32 (T,) tensor, receives the number of visits each tile ran (on the
+    CPU, from `executed_visits_instanced_ref`)."""
     tiles = rayblk.shape[0]
-    build.check_tensors(rayblk.device, {
+    expect = {
         "rayblk": (rayblk, torch.float32, (tiles, 8, RAY_TILE)),
         "wnd": (wnd, torch.float32, (tiles, RAY_TILE, 8)),
         "feats": (feats, torch.float32, (feats.shape[0], 10, 4 * k)),
@@ -115,22 +122,41 @@ def visit_scan_instanced(rayblk, wnd, feats, sel_cl, minv12, nv, tnb, *,
         "minv12": (minv12, torch.float32, (tiles, mv, 12)),
         "nv": (nv, torch.int32, (tiles,)),
         "tnb": (tnb, torch.int32, (tiles, mv)),
-    })
+    }
+    if visits is not None:
+        expect["visits"] = (visits, torch.int32, (tiles,))
+    build.check_tensors(rayblk.device, expect)
     check_scalars(k, mv, k_bits, low_bits)
     args = (rayblk, wnd, feats, sel_cl, minv12, nv, tnb)
     kw = dict(k=k, mv=mv, k_bits=k_bits, low_bits=low_bits, closest=closest)
     if rayblk.device.type == "cpu":
+        if visits is not None:
+            visits.copy_(executed_visits_instanced_ref(*args, **kw))
         return visit_scan_instanced_ref(*args, **kw)
     if rayblk.device.type != "cuda":
         raise ValueError(f"visit_scan_instanced runs on cpu or cuda, not "
                          f"{rayblk.device}")
+    if k not in KERNEL_K:
+        raise ValueError(f"the instanced visit scan kernel takes K in "
+                         f"{KERNEL_K}, not {k}")
+    if minv12.data_ptr() % 16:
+        raise ValueError("minv12 must be 16-byte aligned (TMA bulk copy)")
     fn = build.load_function(
         "visit_scan_instanced", "visit_scan_instanced_launch",
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    # freed on return, but the caching allocator hands their memory only to
+    # work queued after the kernel on this stream
+    slabs, nlive = slab_layout(feats, k)
+    # the shared buffers hold the longest cluster's live slots (one host
+    # sync): a table of small meshes keeps many blocks resident
+    cap = int(nlive.max())
     out = torch.empty((tiles, RAY_TILE), dtype=torch.int32,
                       device=rayblk.device)
-    build.launch(fn, rayblk.device, *(a.data_ptr() for a in args),
-                 out.data_ptr(), tiles, feats.shape[0], k, mv, k_bits,
-                 low_bits, int(closest))
+    build.launch(fn, rayblk.device, rayblk.data_ptr(), wnd.data_ptr(),
+                 slabs.data_ptr(), nlive.data_ptr(), sel_cl.data_ptr(),
+                 minv12.data_ptr(), nv.data_ptr(), tnb.data_ptr(),
+                 out.data_ptr(), None if visits is None else visits.data_ptr(),
+                 tiles, feats.shape[0], k, mv, k_bits, low_bits, cap,
+                 int(closest))
     LAUNCHES["closest" if closest else "any"] += 1
     return out
