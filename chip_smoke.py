@@ -20,7 +20,8 @@ non-zero), each with its seconds:
      scene (600 boxes, 64 lights), 2560x1440, 1 spp, depth 5, Disney + MIS:
      1 warm-up and 5 timed frames; K1 must launch 5 times per frame in each
      mode; then one more frame under torch.profiler (device kernel time,
-     idle share, K1's share, the top kernels);
+     idle share, K1's share, the top kernels), as phases 7 and 9 do for
+     theirs with K2 and K3;
   6. K2 against its twin: 1,024 tiles each of the 2560x1440 primary pass
      and sorted bounce and shadow passes of the instanced scene (120 box
      instances and a light: 121 units, 2 unique meshes), closest and any
@@ -48,8 +49,10 @@ Bounds: a kernel's least time is the larger of its flop over the H100's
 67 TFLOP/s of fp32 (no tensor cores) and its bytes (each input read once,
 each output written once) over 3.35 TB/s. The flop are those these inputs
 need: 80 per (live ray, live triangle) pair of every visit a tile runs (K1
-and K2: the kernel's counter) or of every live pair tile (K3). No single PyTorch call computes any of the three
-functions, so library_ms is null.
+and K2: the kernel's counter) or of every live pair tile (K3); the bytes
+count K2's per-visit inputs (cluster id, entry t, affine) for the visits
+run only. No single PyTorch call computes any of the three functions, so
+library_ms is null.
 """
 from __future__ import annotations
 
@@ -455,13 +458,15 @@ def phase_full_slice(dev, w=W, h=H, frames=TIMED_FRAMES):
     if per_frame != {"closest": cfg.max_depth, "any": cfg.max_depth}:
         raise AssertionError(f"K1 launches per frame {per_frame}, expected "
                              f"{cfg.max_depth} in each mode")
-    _profile_frame(r, st, cam)
+    _profile_frame("5 profile", lambda: r.render_frame(st, cam),
+                   "visit_scan_kernel")
     return launches
 
 
-def _profile_frame(r, st, cam):
-    """One more frame under torch.profiler: device kernel time, idle share
-    of the frame's wall time, K1's share, the top kernels."""
+def _profile_frame(phase, render_one, kernel):
+    """One more frame, render_one(), under torch.profiler: device kernel
+    time, idle share of the frame's wall time, the share of the kernel whose
+    name contains `kernel`, the top kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -469,7 +474,7 @@ def _profile_frame(r, st, cam):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        r.render_frame(st, cam)
+        render_one()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
@@ -485,15 +490,15 @@ def _profile_frame(r, st, cam):
     device_ms = sum(k[0] for k in kernels)
     if device_ms <= 0:
         raise AssertionError("the profiler recorded no device time")
-    k1_ms = sum(k[0] for k in kernels if "visit_scan_kernel" in k[1])
-    say("5 profile", frame_wall_ms=f"{wall_ms:.1f}",
+    k_ms = sum(k[0] for k in kernels if kernel in k[1])
+    say(phase, profile=kernel, frame_wall_ms=f"{wall_ms:.1f}",
         device_kernel_ms=f"{device_ms:.1f}",
         idle_share=f"{1 - device_ms / wall_ms:.3f}",
-        k1_ms=f"{k1_ms:.1f}", k1_share_of_device=f"{k1_ms / device_ms:.3f}",
-        kernels=len(kernels),
-        launches=sum(k[2] for k in kernels))
+        kernel_ms=f"{k_ms:.1f}",
+        kernel_share_of_device=f"{k_ms / device_ms:.3f}",
+        kernels=len(kernels), launches=sum(k[2] for k in kernels))
     for ms, key, count in kernels[:12]:
-        say("5 profile", kernel=repr(key[:90]), ms=f"{ms:.2f}", calls=count)
+        say(phase, kernel=repr(key[:90]), ms=f"{ms:.2f}", calls=count)
 
 
 def _instanced():
@@ -546,10 +551,14 @@ def phase_instanced_kernel_vs_twin(dev, w=W, h=H, n_tiles=SUBSET_TILES):
                     f"{int((visits != ref).sum())} of {tiles} tiles")
         else:
             full_visits[closest].append(float(visits.float().mean()))
-        wnd = args[1]
+        rayblk, wnd, feats, _, _, nv, _ = args
         live_rays = (wnd[..., 1] >= wnd[..., 0]).sum(1)
         flop = visit_flop(live_rays, live_tris, args[3], visits)
-        return flop, _nbytes(*args) + tiles * 128 * 4, {
+        # the rays, the table and, per visit run, its cluster id, entry t
+        # and 12-float affine; keys (bits) and the counter out
+        nb = (_nbytes(rayblk, wnd, feats, nv) + int(visits.sum()) * 56
+              + tiles * (128 + 1) * 4)
+        return flop, nb, {
             "visits_per_tile": f"{float(visits.float().mean()):.3f}"}
 
     results = hold_against_twin(
@@ -656,6 +665,7 @@ def phase_two_level_slice(dev, w=W, h=H, frames=SLICE_FRAMES):
     if min(launches.values()) <= 0:
         raise AssertionError(f"K2 not launched on the two-level path: "
                              f"{launches}")
+    _profile_frame("7 profile", one, "visit_scan_instanced_kernel")
 
     # the same scene and seed through the flattened tiled accel
     rt = Renderer(builder.build(), cfg, accel="tiled", device=dev)
@@ -742,8 +752,9 @@ def phase_pair_kernel_vs_twin(dev, w=W, h=H, n_tiles=SUBSET_TILES):
 
     def work(q, args, closest, is_subset):
         """K3's flop over its live pair tiles (dead tiles do no work);
-        bytes of the live tiles' rows, keys and outputs, and the table. On
-        the full pass, every dead tile must hold the miss key (0)."""
+        bytes of the live tiles' rows and clusters, the dead tiles'
+        windows, every output, and the table. On the full pass, every dead
+        tile must hold the miss key (0)."""
         rf_pairs, feats, tile_cluster = args
         rf = rf_pairs.reshape(-1, 128, 12)
         live = (rf[..., 11] >= rf[..., 10]).sum(1)
@@ -760,7 +771,9 @@ def phase_pair_kernel_vs_twin(dev, w=W, h=H, n_tiles=SUBSET_TILES):
             extra["dead_tiles_miss"] = dead.shape[0]
         flop = FLOP_PER_PAIR * float(
             (live.double() * live_tris[tile_cluster.long()]).sum())
-        nb = n_live * 128 * (12 + 1) * 4 + n_live * 4 + _nbytes(feats)
+        n_dead = rf.shape[0] - n_live
+        nb = (n_live * (128 * 12 + 1) * 4 + n_dead * 128 * 2 * 4
+              + rf.shape[0] * 128 * 4 + _nbytes(feats))
         return flop, nb, extra
 
     return hold_against_twin(
@@ -854,6 +867,8 @@ def phase_pair_slice(dev, w=W, h=H, frames=SLICE_FRAMES):
     if min(launches.values()) <= 0:
         raise AssertionError(f"K3 not launched on the pair path: "
                              f"{launches}")
+    _profile_frame("9 profile", lambda: frames_of(isect, occl, 1, flags),
+                   "pair_scan_kernel")
     t_isect, t_occl = tiled.tiled_intersectors(cs, mv)
     torch.cuda.reset_peak_memory_stats(dev)
     out_t, mean_t, ms_t, ovf_t = frames_of(t_isect, t_occl, frames + 1)

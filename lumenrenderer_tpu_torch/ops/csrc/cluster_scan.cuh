@@ -92,16 +92,11 @@ __device__ __forceinline__ void test_rays(const float4* __restrict__ slab,
 // Fold the slices' keys (bits) of each ray through `part` (SPLIT, RT) in
 // shared memory so that every slice holds the ray's minimum (OR); thread g
 // of slice s holds rays g + r * (RT / R). Ends with the block synchronised.
-// One slice has nothing to fold.
 template <int R, int SPLIT, bool CLOSEST>
 __device__ __forceinline__ void combine(int (*part)[RT], int g, int s,
                                         int (&best)[R], int (&occ)[R])
 {
     constexpr int G = RT / R;
-    if (SPLIT == 1) {
-        __syncthreads();
-        return;
-    }
 #pragma unroll
     for (int r = 0; r < R; ++r)
         part[s][g + r * G] = CLOSEST ? best[r] : occ[r];

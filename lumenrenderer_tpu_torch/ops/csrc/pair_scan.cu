@@ -25,10 +25,6 @@
 // Entry: pair_scan_launch(), plain C, returns cudaGetLastError().
 #include "cluster_scan.cuh"
 
-#ifndef PAIR_SCAN_PERSISTENT
-#define PAIR_SCAN_PERSISTENT 0
-#endif
-
 namespace {
 
 using lumen::KEY_MISS;
@@ -41,87 +37,6 @@ constexpr int SPLIT = 4;        // warps, one slice of triangles each
 constexpr int THREADS = G * SPLIT;
 static_assert(G == 32, "one warp per slice: its slab reads are broadcasts");
 
-// The windows of the thread's pairs of a tile; true if any is live.
-__device__ __forceinline__ bool load_windows(const float* __restrict__ rows,
-                                             int tile, int g,
-                                             float (&tmin)[R],
-                                             float (&tmax)[R])
-{
-    bool live = false;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-        const float* p = rows + ((size_t)tile * RT + g + r * G) * 12;
-        tmin[r] = p[10];
-        tmax[r] = p[11];
-        live |= tmax[r] >= tmin[r];
-    }
-    return live;
-}
-
-__device__ __forceinline__ void load_features(const float* __restrict__ rows,
-                                              int tile, int g,
-                                              float (&rf)[R][NF])
-{
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-        const float* p = rows + ((size_t)tile * RT + g + r * G) * 12;
-#pragma unroll
-        for (int f = 0; f < NF; ++f) rf[r][f] = p[f];
-    }
-}
-
-// Slice 0 writes the tile's results: keys (bits), or the miss key (0).
-template <bool CLOSEST>
-__device__ __forceinline__ void store(int* __restrict__ out, int tile, int g,
-                                      int s, const int (&best)[R],
-                                      const int (&occ)[R])
-{
-    if (s != 0) return;
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-        out[(size_t)tile * RT + g + r * G] = CLOSEST ? best[r] : occ[r];
-}
-
-// Test a live tile against the slab that lands on `bar` with `parity`.
-template <bool CLOSEST>
-__device__ __forceinline__ void test_tile(const float* __restrict__ rows,
-                                          const float4* slab, int nt,
-                                          unsigned long long* bar,
-                                          unsigned parity, int tile, int g,
-                                          int s, const float (&tmin)[R],
-                                          const float (&tmax)[R],
-                                          int low_mask, int (*part)[RT],
-                                          int* __restrict__ out)
-{
-    float rf[R][NF];
-    load_features(rows, tile, g, rf);
-    int best[R], occ[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-        best[r] = KEY_MISS;
-        occ[r] = 0;
-    }
-    lumen::mbar_wait(bar, parity);
-    lumen::test_rays<R, SPLIT, CLOSEST>(slab, s, nt, rf, tmin, tmax, low_mask,
-                                        0, best, occ);
-    lumen::combine<R, SPLIT, CLOSEST>(part, g, s, best, occ);
-    store<CLOSEST>(out, tile, g, s, best, occ);
-}
-
-template <bool CLOSEST>
-__device__ __forceinline__ void store_miss(int* __restrict__ out, int tile,
-                                           int g, int s)
-{
-    int best[R], occ[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-        best[r] = KEY_MISS;
-        occ[r] = 0;
-    }
-    store<CLOSEST>(out, tile, g, s, best, occ);
-}
-
-#if !PAIR_SCAN_PERSISTENT
 // One block per pair tile; warp s tests slots s, s + SPLIT, ...
 template <int K, bool CLOSEST>
 __global__ void __launch_bounds__(THREADS)
@@ -130,7 +45,7 @@ pair_scan_kernel(const float* __restrict__ rows,         // (S, 12)
                  const int* __restrict__ nlive,          // (C,) slots to test
                  const int* __restrict__ tile_cluster,   // (S / 128,)
                  int* __restrict__ out,                  // (S,)
-                 int tiles, int num_clusters, int k_bits)
+                 int num_clusters, int k_bits)
 {
     extern __shared__ __align__(128) float4 slab[];  // (K, 10) float4
     __shared__ __align__(8) unsigned long long bar;
@@ -141,85 +56,46 @@ pair_scan_kernel(const float* __restrict__ rows,         // (S, 12)
     const int s = tid / G;
     const int tile = blockIdx.x;
     float tmin[R], tmax[R];
-    const bool live = load_windows(rows, tile, g, tmin, tmax);
+    int best[R], occ[R];
+    bool live = false;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        const float* p = rows + ((size_t)tile * RT + g + r * G) * 12;
+        tmin[r] = p[10];
+        tmax[r] = p[11];
+        live |= tmax[r] >= tmin[r];
+        best[r] = KEY_MISS;  // dead pairs (t_max < t_min) never hit
+        occ[r] = 0;
+    }
     if (tid == 0) lumen::mbar_init(&bar);
-    // the vote (its barrier also publishes the barrier's initialisation)
-    if (!__syncthreads_or(live)) {
-        store_miss<CLOSEST>(out, tile, g, s);
-        return;
-    }
-    const int cl = min(max(tile_cluster[tile], 0), num_clusters - 1);
-    const int nt = nlive[cl];
-    if (tid == 0)
-        lumen::bulk_load(slab, slabs + (size_t)cl * K * NF,
-                         nt * NF * sizeof(float4), &bar);
-    test_tile<CLOSEST>(rows, slab, nt, &bar, 0, tile, g, s, tmin, tmax,
-                       ~((1 << k_bits) - 1), part, out);
-}
-#else
-// A persistent grid: block b walks tiles b, b + gridDim.x, ... with two
-// slab buffers, fetching the next live tile's slab while testing this one.
-template <int K, bool CLOSEST>
-__global__ void __launch_bounds__(THREADS)
-pair_scan_kernel(const float* __restrict__ rows,
-                 const float4* __restrict__ slabs,
-                 const int* __restrict__ nlive,
-                 const int* __restrict__ tile_cluster,
-                 int* __restrict__ out,
-                 int tiles, int num_clusters, int k_bits)
-{
-    constexpr int SLAB = K * NF;
-    extern __shared__ __align__(128) float4 buf[];  // two slabs
-    __shared__ __align__(8) unsigned long long bar[2];
-    __shared__ int part[SPLIT][RT];
-
-    const int tid = threadIdx.x;
-    const int g = tid % G;
-    const int s = tid / G;
-    const int low_mask = ~((1 << k_bits) - 1);
-    auto cluster = [&](int t) {
-        return min(max(tile_cluster[t], 0), num_clusters - 1);
-    };
-    auto fetch = [&](int t, int b) {
-        const int cl = cluster(t);
-        lumen::bulk_load(buf + b * SLAB, slabs + (size_t)cl * SLAB,
-                         nlive[cl] * NF * sizeof(float4), &bar[b]);
-    };
-    if (tid == 0) {
-        lumen::mbar_init(&bar[0]);
-        lumen::mbar_init(&bar[1]);
-    }
-    int tile = blockIdx.x;
-    float tmin[R], tmax[R];
-    bool live = __syncthreads_or(load_windows(rows, tile, g, tmin, tmax));
-    if (live && tid == 0) fetch(tile, 0);
-    unsigned parity = 0;  // bit b: the phase of buffer b to wait for
-    for (int b = 0; tile < tiles; tile += gridDim.x, b ^= 1) {
-        const int nxt = tile + gridDim.x;
-        float ntmin[R] = {}, ntmax[R] = {};
-        bool next_live = nxt < tiles && load_windows(rows, nxt, g, ntmin,
-                                                     ntmax);
-        // the vote on the next tile; its barrier releases buffer b ^ 1
-        next_live = __syncthreads_or(next_live);
-        if (next_live && tid == 0) fetch(nxt, b ^ 1);
-        if (live) {
-            const int nt = nlive[cluster(tile)];
-            test_tile<CLOSEST>(rows, buf + b * SLAB, nt, &bar[b],
-                               (parity >> b) & 1, tile, g, s, tmin, tmax,
-                               low_mask, part, out);
-            parity ^= 1u << b;
-        } else {
-            store_miss<CLOSEST>(out, tile, g, s);
-        }
-        live = next_live;
+    // the vote (its barrier also publishes the barrier's initialisation):
+    // a tile with no live pair never touches the table
+    if (__syncthreads_or(live)) {
+        const int cl = min(max(tile_cluster[tile], 0), num_clusters - 1);
+        const int nt = nlive[cl];
+        if (tid == 0)
+            lumen::bulk_load(slab, slabs + (size_t)cl * K * NF,
+                             nt * NF * sizeof(float4), &bar);
+        // the pairs' features load while the slab is in flight
+        float rf[R][NF];
 #pragma unroll
         for (int r = 0; r < R; ++r) {
-            tmin[r] = ntmin[r];
-            tmax[r] = ntmax[r];
+            const float* p = rows + ((size_t)tile * RT + g + r * G) * 12;
+#pragma unroll
+            for (int f = 0; f < NF; ++f) rf[r][f] = p[f];
         }
+        lumen::mbar_wait(&bar, 0);
+        lumen::test_rays<R, SPLIT, CLOSEST>(slab, s, nt, rf, tmin, tmax,
+                                            ~((1 << k_bits) - 1), 0, best,
+                                            occ);
+        lumen::combine<R, SPLIT, CLOSEST>(part, g, s, best, occ);
+    }
+    if (s == 0) {
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+            out[(size_t)tile * RT + g + r * G] = CLOSEST ? best[r] : occ[r];
     }
 }
-#endif
 
 struct Args {
     const float* rows;
@@ -232,23 +108,10 @@ struct Args {
 template <int K, bool CLOSEST>
 int launch_mode(const Args& a, cudaStream_t s)
 {
-    auto kernel = pair_scan_kernel<K, CLOSEST>;
-#if !PAIR_SCAN_PERSISTENT
     const size_t smem = (size_t)K * NF * sizeof(float4);
-    const int grid = a.tiles;
-#else
-    const size_t smem = 2 * (size_t)K * NF * sizeof(float4);
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS,
-                                                  smem);
-    const int resident = (per_sm > 0 ? per_sm : 1) * sms;
-    const int grid = a.tiles < resident ? a.tiles : resident;
-#endif
-    kernel<<<grid, THREADS, smem, s>>>(a.rows, a.slabs, a.nlive,
-                                       a.tile_cluster, a.out, a.tiles,
-                                       a.num_clusters, a.k_bits);
+    pair_scan_kernel<K, CLOSEST><<<a.tiles, THREADS, smem, s>>>(
+        a.rows, a.slabs, a.nlive, a.tile_cluster, a.out, a.num_clusters,
+        a.k_bits);
     return static_cast<int>(cudaGetLastError());
 }
 

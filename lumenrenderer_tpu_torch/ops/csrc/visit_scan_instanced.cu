@@ -12,33 +12,26 @@
 // K (a box: 12 of 128 slots), so the per-visit costs (vote, fold, barrier,
 // the affine) weigh more than in K1.
 //
-// The design, on the loop that K1, K2 and K3 share (cluster_scan.cuh):
-// SPLIT slices of triangles per tile, each lane holding R rays' world
-// origin and direction; per visit one thread copies the unit's live slots
+// The design, on the loop that K1, K2 and K3 share (cluster_scan.cuh): a
+// block of four warps per tile, each warp testing an interleaved quarter of
+// a unit's live slots, each lane holding four rays' world origin and
+// direction; per visit one thread copies the unit's live slots
 // and its 12 affine floats into one of two shared buffers by TMA bulk
 // copies on one mbarrier (the copy for visit i + 1 in flight while visit i
 // is tested); every lane then forms its rays' object-space features from
-// the affine (a broadcast) and tests them. The buffers hold `cap` slots, the
-// most live slots of any cluster of the table, so a table of small meshes
-// keeps shared memory small and many blocks resident. The affine and the
-// cross product use round-to-nearest intrinsics, which nvcc never
-// contracts into FMAs, in the order of the plain twin, so the ten features
-// equal the twin's bit for bit. K1's vote runs before every visit, so a
-// tile whose lanes are all dead runs none; an optional counter gets the
-// visits each tile ran. K is a template parameter (32, 64, 128): the
-// table's cluster stride.
+// the affine (a broadcast) and tests them. The affine and the cross product
+// use round-to-nearest intrinsics, which nvcc never contracts into FMAs, in
+// the order of the plain twin, so the ten features equal the twin's bit for
+// bit. K1's vote runs before every visit, so a tile whose lanes are all dead
+// runs none; an optional counter gets the visits each tile ran. K is a
+// template parameter (32, 64, 128), which sizes the buffers. Measured
+// alternatives (one or two warps per tile, two rays a lane, buffers sized
+// to the longest cluster) were no faster on the instanced passes.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libvisit_scan_instanced.so visit_scan_instanced.cu
 // Entry: visit_scan_instanced_launch(), plain C, returns cudaGetLastError().
 #include "cluster_scan.cuh"
-
-#ifndef VSI_SPLIT
-#define VSI_SPLIT 4
-#endif
-#ifndef VSI_R
-#define VSI_R 4
-#endif
 
 namespace {
 
@@ -46,12 +39,12 @@ using lumen::KEY_MISS;
 using lumen::NF;
 using lumen::RT;
 
-constexpr int R = VSI_R;        // rays per thread
-constexpr int G = RT / R;       // ray groups: the threads of a slice
-constexpr int SPLIT = VSI_SPLIT;  // slices of triangles
+constexpr int R = 4;            // rays per thread
+constexpr int G = RT / R;       // ray groups: the lanes of a warp
+constexpr int SPLIT = 4;        // warps, one slice of triangles each
 constexpr int THREADS = G * SPLIT;
 constexpr int AFFINE = 3;       // float4s of a visit's 3x4 affine
-static_assert(G % 32 == 0, "whole warps per slice: slab reads broadcast");
+static_assert(G == 32, "one warp per slice: its slab reads are broadcasts");
 
 // The ray (world origin and direction w) in the object space of the affine
 // m, as the ten features [O x D, D, O, 1].
@@ -88,29 +81,29 @@ __device__ __forceinline__ void object_features(const float* m,
     r[9] = 1.f;
 }
 
-// One block per tile: slice s tests slots s, s + SPLIT, ... of each unit's
-// slab; its thread g holds rays g + r * G.
+// One block per tile: warp s tests slots s, s + SPLIT, ... of each unit's
+// slab; its lane g holds rays g + r * G.
 template <int K, bool CLOSEST>
 __global__ void __launch_bounds__(THREADS)
 visit_scan_instanced_kernel(
     const float* __restrict__ rayblk,  // (T, 8, 128) rows o, d, pad
     const float* __restrict__ wnd,     // (T, 128, 8) cols tmin, tmax, pad
     const float4* __restrict__ slabs,  // (C, K * 10) object space
-    const int* __restrict__ nlive,     // (C,) slots to test, <= cap
+    const int* __restrict__ nlive,     // (C,) slots to test
     const int* __restrict__ sel_cl,    // (T, mv) cluster ids
     const float* __restrict__ minv12,  // (T, mv, 12) world -> object
     const int* __restrict__ nv,        // (T,) live visits
     const int* __restrict__ tnb,       // (T, mv) world entry-t bits
     int* __restrict__ out,             // (T, 128)
     int* __restrict__ visits,          // (T,) or null
-    int num_clusters, int mv, int k_bits, int low_bits, int cap)
+    int num_clusters, int mv, int k_bits, int low_bits)
 {
-    // buffer b: cap slots (cap * 10 float4), then the visit's affine
-    extern __shared__ __align__(128) float4 buf[];
+    constexpr int SLAB = K * NF;            // float4s
+    constexpr int STRIDE = SLAB + AFFINE;   // a slab, then the affine
+    extern __shared__ __align__(128) float4 buf[];  // two buffers
     __shared__ __align__(8) unsigned long long bar[2];
     __shared__ int part[SPLIT][RT];
 
-    const int stride = cap * NF + AFFINE;
     const int tid = threadIdx.x;
     const int g = tid % G;
     const int s = tid / G;
@@ -144,11 +137,11 @@ visit_scan_instanced_kernel(
     // the unit's live slots and its affine, on one barrier
     auto fetch = [&](int i) {
         const int cl = cluster(i);
-        float4* dst = buf + (i & 1) * stride;
+        float4* dst = buf + (i & 1) * STRIDE;
         const unsigned bytes = nlive[cl] * NF * sizeof(float4);
         lumen::mbar_expect(&bar[i & 1], bytes + AFFINE * sizeof(float4));
-        lumen::bulk_copy(dst, slabs + (size_t)cl * K * NF, bytes, &bar[i & 1]);
-        lumen::bulk_copy(dst + cap * NF, minv12 + ((size_t)tile * mv + i) * 12,
+        lumen::bulk_copy(dst, slabs + (size_t)cl * SLAB, bytes, &bar[i & 1]);
+        lumen::bulk_copy(dst + SLAB, minv12 + ((size_t)tile * mv + i) * 12,
                          AFFINE * sizeof(float4), &bar[i & 1]);
     };
 
@@ -173,10 +166,10 @@ visit_scan_instanced_kernel(
             if (i + 1 < n) fetch(i + 1);
         }
         const int nt = nlive[cluster(i)];
-        const float4* slab = buf + (i & 1) * stride;
+        const float4* slab = buf + (i & 1) * STRIDE;
         lumen::mbar_wait(&bar[i & 1], (i >> 1) & 1);
         float m[12];
-        const float* mp = reinterpret_cast<const float*>(slab + cap * NF);
+        const float* mp = reinterpret_cast<const float*>(slab + SLAB);
 #pragma unroll
         for (int j = 0; j < 12; ++j) m[j] = mp[j];
         float rf[R][NF];
@@ -208,23 +201,22 @@ struct Args {
     const float* minv12;
     const int *nv, *tnb;
     int *out, *visits;
-    int tiles, num_clusters, mv, k_bits, low_bits, cap;
+    int tiles, num_clusters, mv, k_bits, low_bits;
 };
 
 template <int K, bool CLOSEST>
 int launch_mode(const Args& a, cudaStream_t s)
 {
-    const size_t smem = 2 * ((size_t)a.cap * NF + AFFINE) * sizeof(float4);
+    const size_t smem = 2 * ((size_t)K * NF + AFFINE) * sizeof(float4);
     visit_scan_instanced_kernel<K, CLOSEST><<<a.tiles, THREADS, smem, s>>>(
         a.rayblk, a.wnd, a.slabs, a.nlive, a.sel_cl, a.minv12, a.nv, a.tnb,
-        a.out, a.visits, a.num_clusters, a.mv, a.k_bits, a.low_bits, a.cap);
+        a.out, a.visits, a.num_clusters, a.mv, a.k_bits, a.low_bits);
     return static_cast<int>(cudaGetLastError());
 }
 
 template <int K>
 int launch(const Args& a, bool closest, cudaStream_t s)
 {
-    if (a.cap < 1 || a.cap > K) return static_cast<int>(cudaErrorInvalidValue);
     return closest ? launch_mode<K, true>(a, s) : launch_mode<K, false>(a, s);
 }
 
@@ -234,7 +226,7 @@ extern "C" int visit_scan_instanced_launch(
     const void* rayblk, const void* wnd, const void* slabs, const void* nlive,
     const void* sel_cl, const void* minv12, const void* nv, const void* tnb,
     void* out, void* visits, int tiles, int num_clusters, int k, int mv,
-    int k_bits, int low_bits, int cap, int closest, void* stream)
+    int k_bits, int low_bits, int closest, void* stream)
 {
     if (tiles == 0) return 0;
     const Args a{static_cast<const float*>(rayblk),
@@ -247,7 +239,7 @@ extern "C" int visit_scan_instanced_launch(
                  static_cast<const int*>(tnb),
                  static_cast<int*>(out),
                  static_cast<int*>(visits),
-                 tiles, num_clusters, mv, k_bits, low_bits, cap};
+                 tiles, num_clusters, mv, k_bits, low_bits};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (k) {
     case 32: return launch<32>(a, closest != 0, s);

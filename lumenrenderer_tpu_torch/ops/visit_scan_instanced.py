@@ -20,9 +20,10 @@ Dead lanes return 0 in closest mode and 1 in any mode.
 What bounds it on an H100: K1's slab test (fp32 issue, the table behind
 L2), plus per visit 12 affine floats and about 30 flops per ray for the
 affine and the cross product. The design is K1's, on the loop the three
-kernels share (`csrc/cluster_scan.cuh`): slices of the unit's live slots
-(`visit_scan.slab_layout`, made per call; 12 of 128 for a box) per tile,
-each lane holding the world origin and direction of several rays; per visit
+kernels share (`csrc/cluster_scan.cuh`): four warps per tile, each on an
+interleaved quarter of the unit's live slots (`visit_scan.slab_layout`, made
+per call; 12 of 128 for a box), each lane holding four rays' world origin
+and direction; per visit
 one TMA bulk copy brings the unit's live slots and its affine into one of
 two shared buffers while the previous visit is tested, and each lane forms
 its rays' object-space features from the affine (a broadcast). The affine
@@ -143,20 +144,16 @@ def visit_scan_instanced(rayblk, wnd, feats, sel_cl, minv12, nv, tnb, *,
         raise ValueError("minv12 must be 16-byte aligned (TMA bulk copy)")
     fn = build.load_function(
         "visit_scan_instanced", "visit_scan_instanced_launch",
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     # freed on return, but the caching allocator hands their memory only to
     # work queued after the kernel on this stream
     slabs, nlive = slab_layout(feats, k)
-    # the shared buffers hold the longest cluster's live slots (one host
-    # sync): a table of small meshes keeps many blocks resident
-    cap = int(nlive.max())
     out = torch.empty((tiles, RAY_TILE), dtype=torch.int32,
                       device=rayblk.device)
     build.launch(fn, rayblk.device, rayblk.data_ptr(), wnd.data_ptr(),
                  slabs.data_ptr(), nlive.data_ptr(), sel_cl.data_ptr(),
                  minv12.data_ptr(), nv.data_ptr(), tnb.data_ptr(),
                  out.data_ptr(), None if visits is None else visits.data_ptr(),
-                 tiles, feats.shape[0], k, mv, k_bits, low_bits, cap,
-                 int(closest))
+                 tiles, feats.shape[0], k, mv, k_bits, low_bits, int(closest))
     LAUNCHES["closest" if closest else "any"] += 1
     return out

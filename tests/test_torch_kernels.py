@@ -5,8 +5,9 @@ Marked `cuda`: these need an NVIDIA GPU with nvcc (Hopper, sm_90a) and skip
 where torch.cuda.is_available() is False. Run them on the card with
 `python -m pytest --noconftest tests/test_torch_kernels.py -q`.
 Tolerance: keys identical on at least 99.99% of rays, every differing key a
-tie within the key's t resolution; occlusion bits identical; K1's visit
-counter identical to `executed_visits_ref`.
+tie within the key's t resolution; occlusion bits identical; K1's and K2's
+visit counters identical to `executed_visits_ref` and
+`executed_visits_instanced_ref`; K3's dead tiles the miss key (0).
 """
 import numpy as np
 import pytest
@@ -123,39 +124,122 @@ def test_kernel_rejects_unsupported_cluster_size(dev):
         vs.visit_scan(*q["args"], **q["kw"], closest=True)
 
 
-@pytest.mark.parametrize("closest", [True, False])
-def test_instanced_kernel_matches_twin(dev, closest):
+def _instanced_inputs(dev, k=32, seed=1):
     b, _ = presets.instanced_boxes(n_inst=120)
     ics = two_level.build_instanced(*two_level.instance_tables(b.instances),
-                                    cluster_size=32).to(dev)
-    g = np.random.default_rng(1)
+                                    cluster_size=k).to(dev)
+    g = np.random.default_rng(seed)
     r = 8192
     o = torch.from_numpy(g.uniform(-4, 4, (r, 3)).astype(np.float32)).to(dev)
     d = torch.nn.functional.normalize(
         torch.from_numpy(g.normal(size=(r, 3)).astype(np.float32)), dim=-1
     ).to(dev)
     tx = torch.where(torch.arange(r, device=dev) % 9 == 0, -1.0, 8.0)
-    q = two_level.scan_inputs(ics, o, d, 1e-3, tx, 128)
+    return two_level.scan_inputs(ics, o, d, 1e-3, tx, 128)
+
+
+def _check_instanced_counter(args, kw):
+    """K2's visit counter against the replay of its vote on the twin."""
+    visits = torch.full((args[0].shape[0],), -1, dtype=torch.int32,
+                        device=args[0].device)
+    vsi.visit_scan_instanced(*args, **kw, visits=visits)
+    ref = vsi.executed_visits_instanced_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(visits, ref)
+    return visits
+
+
+@pytest.mark.parametrize("k", [32, 64, 128])
+@pytest.mark.parametrize("closest", [True, False])
+def test_instanced_kernel_matches_twin(dev, closest, k):
+    q = _instanced_inputs(dev, k)
     _check_against_twin(vsi, vsi.visit_scan_instanced,
                         vsi.visit_scan_instanced_ref, q, closest,
                         q["kw"]["low_bits"])
+    visits = _check_instanced_counter(q["args"], dict(q["kw"],
+                                                      closest=closest))
+    assert int(visits.sum()) > 0
 
 
 @pytest.mark.parametrize("closest", [True, False])
-def test_pair_kernel_matches_twin(dev, closest):
-    g = np.random.default_rng(2)
+def test_instanced_kernel_edge_tiles(dev, closest):
+    """A tile with no visits, one whose lanes are all dead (0 visits), and
+    a unit mesh cut to one live slot: keys and bits equal the twin's, the
+    counter the replay's."""
+    q = _instanced_inputs(dev)
+    rayblk, wnd, feats, sel_cl, minv12, nv, tnb = (a.clone()
+                                                   for a in q["args"])
+    feats.view(-1, 10, 4, 32)[1, :, :, 1:] = 0.0   # the light: one slot
+    assert int(vs.slab_layout(feats, 32)[1][1]) == 1
+    nv[1] = 0
+    wnd[2, :, 1] = -1.0
+    args = (rayblk, wnd, feats, sel_cl, minv12, nv, tnb)
+    kw = dict(q["kw"], closest=closest)
+    _check_against_twin(vsi, vsi.visit_scan_instanced,
+                        vsi.visit_scan_instanced_ref,
+                        {"args": args, "kw": q["kw"]}, closest,
+                        q["kw"]["low_bits"])
+    visits = _check_instanced_counter(args, kw)
+    assert int(visits[1]) == 0 and int(visits[2]) == 0
+
+
+def _pair_inputs(dev, k=64, seed=2):
+    g = np.random.default_rng(seed)
     c = g.uniform(-3, 3, (2000, 1, 3))
     tris = (c + g.normal(size=(2000, 3, 3)) * 0.2).astype(np.float32)
-    cs = stream.build_clusters(torch.from_numpy(tris), cluster_size=64).to(dev)
+    cs = stream.build_clusters(torch.from_numpy(tris), cluster_size=k).to(dev)
     r = 8192
     o = torch.from_numpy(g.uniform(-4, 4, (r, 3)).astype(np.float32)).to(dev)
     d = torch.nn.functional.normalize(
         torch.from_numpy(g.normal(size=(r, 3)).astype(np.float32)), dim=-1
     ).to(dev)
     tx = torch.where(torch.arange(r, device=dev) % 9 == 0, -1.0, 6.0)
-    q = pairs.scan_inputs(cs, o, d, 1e-4, tx, 128, 16)
+    return pairs.scan_inputs(cs, o, d, 1e-4, tx, 128, 16)
+
+
+@pytest.mark.parametrize("k", [32, 64, 128])
+@pytest.mark.parametrize("closest", [True, False])
+def test_pair_kernel_matches_twin(dev, closest, k):
+    q = _pair_inputs(dev, k)
     _check_against_twin(ps, ps.pair_scan, ps.pair_scan_ref, q, closest,
                         q["kw"]["k_bits"])
+
+
+@pytest.mark.parametrize("closest", [True, False])
+def test_pair_kernel_dead_tail_and_edge_tiles(dev, closest):
+    """The stream's run-padded dead tail, a tile of a nonzero cluster made
+    dead, a tile with one live pair, and a cluster cut to one live slot:
+    equal to the twin, dead tiles the miss key (0)."""
+    q = _pair_inputs(dev)
+    rf_pairs, feats, tile_cluster = (a.clone() for a in q["args"])
+    rows = rf_pairs.view(-1, 128, 12)
+    live = (rows[..., 11] >= rows[..., 10]).any(1)
+    assert bool(~live[-1])                          # a dead tail
+    first, second = (live & (tile_cluster > 0)).nonzero()[:2, 0].tolist()
+    rows[first, :, 10], rows[first, :, 11] = 1.0, 0.0
+    rows[second, 1:, 10], rows[second, 1:, 11] = 1.0, 0.0
+    assert bool(rows[second, 0, 11] >= rows[second, 0, 10])
+    cl = int(tile_cluster[second])
+    feats.view(-1, 10, 4, 64)[cl, :, :, 1:] = 0.0  # one live slot
+    assert int(vs.slab_layout(feats, 64)[1][cl]) == 1
+    args = (rf_pairs, feats, tile_cluster)
+    _check_against_twin(ps, ps.pair_scan, ps.pair_scan_ref,
+                        {"args": args, "kw": q["kw"]}, closest,
+                        q["kw"]["k_bits"])
+    kern = ps.pair_scan(*args, **q["kw"], closest=closest).view(-1, 128)
+    torch.cuda.synchronize()
+    dead = (rows[..., 11] < rows[..., 10]).all(1)
+    miss = vs.KEY_MISS if closest else 0
+    assert bool((kern[dead] == miss).all()) and int(dead.sum()) > 1
+
+
+def test_pair_and_instanced_kernels_reject_unsupported_k(dev):
+    q = _pair_inputs(dev, k=16)
+    with pytest.raises(ValueError):
+        ps.pair_scan(*q["args"], **q["kw"], closest=True)
+    q = _instanced_inputs(dev, k=16)
+    with pytest.raises(ValueError):
+        vsi.visit_scan_instanced(*q["args"], **q["kw"], closest=True)
 
 
 def test_kernel_rejects_mixed_devices(dev):

@@ -2,7 +2,6 @@
 """Full-pass times of the PyTorch port's kernels on one NVIDIA GPU (Hopper).
 
     python3 tools/torch_kernel_passes.py ab OLD_TREE NEW_TREE
-    python3 tools/torch_kernel_passes.py variants
 
 `ab` times K1 (visit_scan), K2 (visit_scan_instanced) and K3 (pair_scan) of
 two checkouts of the repository on the same inputs, each in its own process,
@@ -14,38 +13,20 @@ warm-up). The inputs are made by `chip_smoke.py`'s pass capture from this
 checkout with the tree under test's package; both trees' accel code must
 make the same inputs.
 
-`variants` builds K2 and K3 of this checkout with other compile-time
-shapes (K3: one block per pair tile, or a persistent grid with two slab
-buffers; K2: SPLIT slices of triangles and R rays per thread, and its
-shared buffers sized to the longest cluster or to K), prints ptxas's
-registers and spills for each, holds every variant's full-pass output equal
-to the first variant's bit for bit (and the first against the plain twin on
-1,024 tiles), and times each on the same passes.
-
 Each result is one JSON line on stdout, with the card's name and power
 limit. Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
-import ctypes
 import importlib.util
 import json
-import os
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
-PASSES = ("primary", "bounce", "shadow")
 MODES = (("closest", True), ("any", False))
-# (name, source, nvcc defines)
-K3_VARIANTS = (("block_per_tile", "pair_scan", ()),
-               ("persistent", "pair_scan", ("-DPAIR_SCAN_PERSISTENT=1",)))
-K2_VARIANTS = tuple(
-    (f"split{s}_r{r}", "visit_scan_instanced",
-     (f"-DVSI_SPLIT={s}", f"-DVSI_R={r}"))
-    for r in (4, 2) for s in (1, 2, 4))
 
 
 def _chip_smoke():
@@ -142,131 +123,7 @@ def ab(old: str, new: str) -> int:
     return rc
 
 
-def _build_variant(name, source, defines):
-    from lumenrenderer_tpu_torch.ops import build
-
-    out = build.BUILD_DIR / "variants" / f"{source}-{name}.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [build.nvcc_path(), *build.NVCC_FLAGS, *defines, "-o", str(out),
-           str(build.source_path(source))]
-    return out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                 stderr=subprocess.STDOUT, text=True)
-
-
-def _entry(path, entry, n_ptr, n_int):
-    fn = getattr(ctypes.CDLL(str(path)), entry)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def variants() -> int:
-    sys.path.insert(0, str(REPO))
-    import torch
-
-    from lumenrenderer_tpu_torch.ops import build
-    from lumenrenderer_tpu_torch.ops import pair_scan as ps
-    from lumenrenderer_tpu_torch.ops import visit_scan_instanced as vsi
-    from lumenrenderer_tpu_torch.ops.visit_scan import slab_layout
-
-    if not torch.cuda.is_available():
-        print("no CUDA device", file=sys.stderr)
-        return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    cs_mod = _chip_smoke()
-    procs = {v[0]: _build_variant(*v) for v in K3_VARIANTS + K2_VARIANTS}
-    libs = {}
-    for name, (path, proc) in procs.items():
-        log = proc.communicate()[0]
-        ptxas = [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        _emit(variant=name, built=proc.returncode == 0, ptxas=ptxas,
-              log=None if proc.returncode == 0 else log[-4000:])
-        if proc.returncode == 0:
-            libs[name] = path
-    passes = make_passes(dev, ("visit_scan_instanced", "pair_scan"))
-
-    def run_k3(fn, q, closest):
-        rows, feats, tc = q["args"]
-        slabs, nlive = slab_layout(feats, q["kw"]["k"])
-        out = torch.empty(rows.shape[0], dtype=torch.int32, device=dev)
-        err = fn(rows.data_ptr(), slabs.data_ptr(), nlive.data_ptr(),
-                 tc.data_ptr(), out.data_ptr(), tc.shape[0], feats.shape[0],
-                 q["kw"]["k"], q["kw"]["k_bits"], int(closest),
-                 torch.cuda.current_stream().cuda_stream)
-        assert err == 0, f"launch failed: {err}"
-        return out
-
-    layouts = {}
-
-    def run_k2(fn, q, closest, cap_k):
-        """The slab layout and its largest nlive are made once per table,
-        outside the timed calls (reading nlive's maximum syncs the host)."""
-        a = q["args"]
-        kw = q["kw"]
-        key = (a[2].data_ptr(), kw["k"])
-        if key not in layouts:
-            slabs, nlive = slab_layout(a[2], kw["k"])
-            layouts[key] = (slabs, nlive, int(nlive.max()))
-        slabs, nlive, cap_max = layouts[key]
-        out = torch.empty((a[0].shape[0], 128), dtype=torch.int32,
-                          device=dev)
-        err = fn(a[0].data_ptr(), a[1].data_ptr(), slabs.data_ptr(),
-                 nlive.data_ptr(), a[3].data_ptr(), a[4].data_ptr(),
-                 a[5].data_ptr(), a[6].data_ptr(), out.data_ptr(), None,
-                 a[0].shape[0], a[2].shape[0], kw["k"], kw["mv"],
-                 kw["k_bits"], kw["low_bits"], kw["k"] if cap_k else cap_max,
-                 int(closest), torch.cuda.current_stream().cuda_stream)
-        assert err == 0, f"launch failed: {err}"
-        return out
-
-    k3 = [(n, lambda q, c, f=_entry(libs[n], "pair_scan_launch", 5, 5):
-           run_k3(f, q, c)) for n, _, _ in K3_VARIANTS if n in libs]
-    k2 = []
-    for n, _, _ in K2_VARIANTS:
-        if n not in libs:
-            continue
-        f = _entry(libs[n], "visit_scan_instanced_launch", 10, 8)
-        k2.append((n + "_capmax",
-                   lambda q, c, f=f: run_k2(f, q, c, False)))
-        k2.append((n + "_capk", lambda q, c, f=f: run_k2(f, q, c, True)))
-    twins = {"pair_scan": (ps.pair_scan_ref, 2, k3),
-             "visit_scan_instanced": (vsi.visit_scan_instanced_ref, 2, k2)}
-    for kernel, (twin, shared, runs) in twins.items():
-        for name, q in passes[kernel].items():
-            for mode, closest in MODES:
-                first = None
-                for vname, run in runs:
-                    full = run(q, closest)
-                    torch.cuda.synchronize()
-                    if first is None:
-                        first = full
-                        sub = cs_mod._tile_subset(
-                            tuple(x.reshape(-1, 128, 12) if kernel ==
-                                  "pair_scan" and i == 0 else x
-                                  for i, x in enumerate(q["args"])),
-                            shared if kernel != "pair_scan" else 1,
-                            cs_mod.SUBSET_TILES)
-                        if kernel == "pair_scan":
-                            sub = (sub[0].reshape(-1, 12).contiguous(),
-                                   sub[1], sub[2])
-                        got = run({"args": sub, "kw": q["kw"]}, closest)
-                        ref = twin(*sub, **q["kw"], closest=closest)
-                        twin_mism = int((got != ref).sum())
-                    same = bool(torch.equal(full, first))
-                    ms = cs_mod.cuda_time_ms(lambda: run(q, closest))
-                    _emit(kernel=kernel, variant=vname, rays=name, mode=mode,
-                          full_pass_ms=ms, equal_to_first=same,
-                          first_vs_twin_mismatches=twin_mism)
-    _emit(gpu=cs_mod.smi_line())
-    return 0
-
-
 def main() -> int:
-    if len(sys.argv) >= 2 and sys.argv[1] == "variants":
-        return variants()
     if len(sys.argv) == 3 and sys.argv[1] == "time":
         return time_tree(sys.argv[2])
     if len(sys.argv) == 4 and sys.argv[1] == "ab":
@@ -276,5 +133,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    os.environ.setdefault("PYTHONUNBUFFERED", "1")
     sys.exit(main())
