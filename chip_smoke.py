@@ -49,9 +49,10 @@ Bounds: a kernel's least time is the larger of its flop over the H100's
 67 TFLOP/s of fp32 (no tensor cores) and its bytes (each input read once,
 each output written once) over 3.35 TB/s. The flop are those these inputs
 need: 80 per (live ray, live triangle) pair of every visit a tile runs (K1
-and K2: the kernel's counter) or of every live pair tile (K3); the bytes
-count K2's per-visit inputs (cluster id, entry t, affine) for the visits
-run only. No single PyTorch call computes any of the three functions, so
+and K2: the kernel's counter) or of every live pair tile (K3), and K2's 42
+per live ray and visit run for the object-space features; the bytes leave
+out K2's padding rows of `rayblk`, which it never reads, and count K2's
+per-visit inputs (cluster id, entry t, affine) for the visits run only. No single PyTorch call computes any of the three functions, so
 library_ms is null.
 """
 from __future__ import annotations
@@ -79,6 +80,7 @@ KERNELS = ("visit_scan", "visit_scan_instanced", "pair_scan")
 PEAK_FLOPS = 67e12           # H100 SXM, fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM, HBM3
 FLOP_PER_PAIR = 80           # 40 FMAs per ray-triangle test
+AFFINE_FLOP = 42             # K2: a ray's object-space features per visit
 REPLACES = {
     "visit_scan": "lumenrenderer_tpu/ops/pallas/intersect.py:325",
     "visit_scan_instanced": "lumenrenderer_tpu/ops/pallas/instanced.py:168",
@@ -553,11 +555,14 @@ def phase_instanced_kernel_vs_twin(dev, w=W, h=H, n_tiles=SUBSET_TILES):
             full_visits[closest].append(float(visits.float().mean()))
         rayblk, wnd, feats, _, _, nv, _ = args
         live_rays = (wnd[..., 1] >= wnd[..., 0]).sum(1)
-        flop = visit_flop(live_rays, live_tris, args[3], visits)
-        # the rays, the table and, per visit run, its cluster id, entry t
-        # and 12-float affine; keys (bits) and the counter out
-        nb = (_nbytes(rayblk, wnd, feats, nv) + int(visits.sum()) * 56
-              + tiles * (128 + 1) * 4)
+        flop = (visit_flop(live_rays, live_tris, args[3], visits)
+                + AFFINE_FLOP * float((live_rays * visits).sum()))
+        # the rays' o and d (not rayblk's two padding rows, which the kernel
+        # never reads), their windows (each ray's 32 B row is one memory
+        # sector), the table and, per visit run, its cluster id, entry t and
+        # 12-float affine; keys (bits) and the counter out
+        nb = (_nbytes(rayblk[:, :6], wnd, feats, nv)
+              + int(visits.sum()) * 56 + tiles * (128 + 1) * 4)
         return flop, nb, {
             "visits_per_tile": f"{float(visits.float().mean()):.3f}"}
 

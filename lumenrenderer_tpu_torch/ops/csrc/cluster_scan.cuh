@@ -1,7 +1,8 @@
 // Shared device code of the cluster intersection kernels K1 (visit_scan.cu),
 // K2 (visit_scan_instanced.cu) and K3 (pair_scan.cu): Möller–Trumbore
 // written as the bilinear form f (10) · tri_feat (10, 4K), tested by one
-// loop for all three, and the TMA bulk copy that feeds it.
+// loop for all three, the TMA bulk copy that feeds it, and the visit loop
+// of K1 and K2 (`visit_loop`).
 //
 // The loop's shape: a block of SPLIT slices per 128-ray tile, slice s testing
 // the slots s, s + SPLIT, ... of a cluster's live slots; each thread of a
@@ -168,6 +169,115 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* bar,
                  "@!P1 bra LAB_WAIT;\n"
                  "}\n"
                  :: "r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+// The visit loop of K1 and K2 for the block's tile (blockIdx.x): SPLIT
+// warps, thread g of warp s holding the rays g + r * (RT / R) with windows
+// [tmin, tmax] (tmax < tmin: a padded or terminated lane). Before each of the
+// tile's min(nv, mv) visits a block-wide vote ends the tile when no live ray
+// can still improve (closest: visit i starts no nearer than its entry-t key
+// tnb[., i]) or every lane is occluded or dead (any); it is conservative, so
+// the result equals a full scan. Visit i's cluster is sel[., i], clamped to
+// the table; one thread
+// copies its live slots, then the EXTRA float4s that extra(i, dst, bar)
+// copies on the same barrier, into one of two shared buffers, the copy for
+// visit i + 1 in flight while visit i is tested. Each buffer's mbarrier
+// phase parity is its use count. rays(buffer) returns the rays' ten
+// features for the visit (an array of the kernel's registers). Writes the
+// tile's keys (bits) to out (T, 128) (dead lanes: closest 0, any 1; callers
+// mask them) and, unless visits is null, the number of visits run to
+// visits (T,). The dynamic shared memory holds the two buffers:
+// 2 (K · 10 + EXTRA) float4s.
+template <int K, int EXTRA, int R, int SPLIT, bool CLOSEST, class Extra,
+          class Rays>
+__device__ __forceinline__ void visit_loop(
+    const float4* __restrict__ slabs, const int* __restrict__ nlive,
+    const int* __restrict__ sel, const int* __restrict__ nv,
+    const int* __restrict__ tnb, int* __restrict__ out,
+    int* __restrict__ visits, int num_clusters, int mv, int k_bits,
+    int low_bits, const float (&tmin)[R], const float (&tmax)[R],
+    Extra extra, Rays rays)
+{
+    constexpr int G = RT / R;
+    constexpr int SLAB = K * NF;          // float4s
+    constexpr int STRIDE = SLAB + EXTRA;  // one buffer
+    extern __shared__ __align__(128) float4 buf[];
+    __shared__ __align__(8) unsigned long long bar[2];
+    __shared__ int part[SPLIT][RT];
+
+    const int tid = threadIdx.x;
+    const int g = tid % G;
+    const int s = tid / G;
+    const int tile = blockIdx.x;
+    bool dead[R];
+    int best[R], occ[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        dead[r] = tmax[r] < tmin[r];
+        best[r] = KEY_MISS;
+        occ[r] = dead[r] ? 1 : 0;
+    }
+    if (tid == 0) {
+        mbar_init(&bar[0]);
+        mbar_init(&bar[1]);
+    }
+    const int n = min(nv[tile], mv);
+    const int* tsel = sel + (size_t)tile * mv;
+    const int* ttnb = tnb + (size_t)tile * mv;
+    const int low_mask = ~((1 << low_bits) - 1);
+    auto cluster = [&](int i) {
+        return min(max(tsel[i], 0), num_clusters - 1);
+    };
+    // the live slots only (padding is at each cluster's tail)
+    auto fetch = [&](int i) {
+        const int cl = cluster(i);
+        float4* dst = buf + (i & 1) * STRIDE;
+        const unsigned bytes = nlive[cl] * NF * sizeof(float4);
+        mbar_expect(&bar[i & 1], bytes + EXTRA * sizeof(float4));
+        bulk_copy(dst, slabs + (size_t)cl * SLAB, bytes, &bar[i & 1]);
+        extra(i, dst + SLAB, &bar[i & 1]);
+    };
+
+    int ran = 0;
+    for (int i = 0; i < n; ++i) {
+        // the vote before visit i (its barrier also publishes the barriers'
+        // initialisation and releases the buffer of visit i - 1)
+        combine<R, SPLIT, CLOSEST>(part, g, s, best, occ);
+        bool done = true;
+        if (CLOSEST) {
+            const int nxt = ttnb[i] >> low_bits;
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+                done &= dead[r] || (best[r] >> low_bits) < nxt;
+        } else {
+#pragma unroll
+            for (int r = 0; r < R; ++r) done &= occ[r] != 0;
+        }
+        if (__syncthreads_and(done)) break;
+        if (tid == 0) {
+            if (i == 0) fetch(0);
+            if (i + 1 < n) fetch(i + 1);
+        }
+        const int nt = nlive[cluster(i)];
+        const float4* slot = buf + (i & 1) * STRIDE;
+        mbar_wait(&bar[i & 1], (i >> 1) & 1);
+        const float(&rf)[R][NF] = rays(slot);
+        test_rays<R, SPLIT, CLOSEST>(slot, s, nt, rf, tmin, tmax, low_mask,
+                                     i << k_bits, best, occ);
+        ran = i + 1;
+    }
+    // a copy issued for a visit that the vote skipped must land before the
+    // block's shared memory is released
+    if (tid == 0 && ran > 0 && ran < n)
+        mbar_wait(&bar[ran & 1], (ran >> 1) & 1);
+    combine<R, SPLIT, CLOSEST>(part, g, s, best, occ);
+    if (s == 0) {
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+            out[(size_t)tile * RT + g + r * G] =
+                CLOSEST ? (dead[r] ? 0 : best[r]) : occ[r];
+    }
+    if (visits != nullptr && tid == 0) visits[tile] = ran;
 }
 
 }  // namespace lumen

@@ -44,7 +44,6 @@
 
 namespace {
 
-using lumen::KEY_MISS;
 using lumen::NF;
 using lumen::RT;
 
@@ -54,8 +53,9 @@ constexpr int SPLIT = 4;        // warps, one slice of triangles each
 constexpr int THREADS = G * SPLIT;
 static_assert(G == 32, "one warp per slice: its slab reads are broadcasts");
 
-// One block per tile: warp s tests slots s, s + SPLIT, ... of each slab;
-// its lane g holds rays g + r * G.
+// One block per tile (lumen::visit_loop): warp s tests slots s, s + SPLIT,
+// ... of each slab; its lane g holds rays g + r * G, whose features stay in
+// registers across the visits.
 template <int K, bool CLOSEST>
 __global__ void __launch_bounds__(THREADS)
 visit_scan_kernel(const float* __restrict__ rf_t,    // (T, 128, 12)
@@ -68,18 +68,9 @@ visit_scan_kernel(const float* __restrict__ rf_t,    // (T, 128, 12)
                   int* __restrict__ visits,          // (T,) or null
                   int num_clusters, int mv, int k_bits, int low_bits)
 {
-    constexpr int SLAB = K * NF;  // float4s
-    extern __shared__ __align__(128) float4 buf[];  // two slabs
-    __shared__ __align__(8) unsigned long long bar[2];
-    __shared__ int part[SPLIT][RT];
-
-    const int tid = threadIdx.x;
-    const int g = tid % G;
-    const int s = tid / G;
+    const int g = threadIdx.x % G;
     const int tile = blockIdx.x;
     float rf[R][NF], tmin[R], tmax[R];
-    bool dead[R];
-    int best[R], occ[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
         const float* p = rf_t + ((size_t)tile * RT + g + r * G) * 12;
@@ -87,68 +78,11 @@ visit_scan_kernel(const float* __restrict__ rf_t,    // (T, 128, 12)
         for (int f = 0; f < NF; ++f) rf[r][f] = p[f];
         tmin[r] = p[10];
         tmax[r] = p[11];
-        dead[r] = tmax[r] < tmin[r];  // padded or terminated lane
-        best[r] = KEY_MISS;
-        occ[r] = dead[r] ? 1 : 0;
     }
-    if (tid == 0) {
-        lumen::mbar_init(&bar[0]);
-        lumen::mbar_init(&bar[1]);
-    }
-    const int n = min(nv[tile], mv);
-    const int* tsel = sel + (size_t)tile * mv;
-    const int* ttnb = tnb + (size_t)tile * mv;
-    const int low_mask = ~((1 << low_bits) - 1);
-    auto cluster = [&](int i) {
-        return min(max(tsel[i], 0), num_clusters - 1);
-    };
-    // copy the live slots only (padding is at each cluster's tail)
-    auto fetch = [&](int i) {
-        const int cl = cluster(i);
-        lumen::bulk_load(buf + (i & 1) * SLAB, slabs + (size_t)cl * SLAB,
-                         nlive[cl] * NF * sizeof(float4), &bar[i & 1]);
-    };
-
-    int ran = 0;
-    for (int i = 0; i < n; ++i) {
-        // the vote before visit i (its barrier also publishes the barriers'
-        // initialisation and releases the buffer of visit i - 1)
-        lumen::combine<R, SPLIT, CLOSEST>(part, g, s, best, occ);
-        bool done = true;
-        if (CLOSEST) {
-            const int nxt = ttnb[i] >> low_bits;
-#pragma unroll
-            for (int r = 0; r < R; ++r)
-                done &= dead[r] || (best[r] >> low_bits) < nxt;
-        } else {
-#pragma unroll
-            for (int r = 0; r < R; ++r) done &= occ[r] != 0;
-        }
-        if (__syncthreads_and(done)) break;
-        if (tid == 0) {
-            if (i == 0) fetch(0);
-            if (i + 1 < n) fetch(i + 1);
-        }
-        const int nt = nlive[cluster(i)];
-        lumen::mbar_wait(&bar[i & 1], (i >> 1) & 1);
-        lumen::test_rays<R, SPLIT, CLOSEST>(buf + (i & 1) * SLAB, s, nt, rf,
-                                            tmin, tmax, low_mask,
-                                            i << k_bits, best, occ);
-        ran = i + 1;
-    }
-    // a slab prefetched for a visit that the vote skipped must land before
-    // the block's shared memory is released
-    if (tid == 0 && ran > 0 && ran < n)
-        lumen::mbar_wait(&bar[ran & 1], (ran >> 1) & 1);
-    lumen::combine<R, SPLIT, CLOSEST>(part, g, s, best, occ);
-    if (s == 0) {
-        // dead lanes: closest 0, any 1 (callers mask them)
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-            out[(size_t)tile * RT + g + r * G] =
-                CLOSEST ? (dead[r] ? 0 : best[r]) : occ[r];
-    }
-    if (visits != nullptr && tid == 0) visits[tile] = ran;
+    lumen::visit_loop<K, 0, R, SPLIT, CLOSEST>(
+        slabs, nlive, sel, nv, tnb, out, visits, num_clusters, mv, k_bits,
+        low_bits, tmin, tmax, [](int, float4*, unsigned long long*) {},
+        [&](const float4*) -> const float(&)[R][NF] { return rf; });
 }
 
 struct Args {

@@ -35,7 +35,6 @@
 
 namespace {
 
-using lumen::KEY_MISS;
 using lumen::NF;
 using lumen::RT;
 
@@ -81,8 +80,9 @@ __device__ __forceinline__ void object_features(const float* m,
     r[9] = 1.f;
 }
 
-// One block per tile: warp s tests slots s, s + SPLIT, ... of each unit's
-// slab; its lane g holds rays g + r * G.
+// One block per tile (lumen::visit_loop): warp s tests slots s, s + SPLIT,
+// ... of each unit's slab; its lane g holds rays g + r * G, in world space
+// across the visits and in the unit's object space for each.
 template <int K, bool CLOSEST>
 __global__ void __launch_bounds__(THREADS)
 visit_scan_instanced_kernel(
@@ -98,19 +98,9 @@ visit_scan_instanced_kernel(
     int* __restrict__ visits,          // (T,) or null
     int num_clusters, int mv, int k_bits, int low_bits)
 {
-    constexpr int SLAB = K * NF;            // float4s
-    constexpr int STRIDE = SLAB + AFFINE;   // a slab, then the affine
-    extern __shared__ __align__(128) float4 buf[];  // two buffers
-    __shared__ __align__(8) unsigned long long bar[2];
-    __shared__ int part[SPLIT][RT];
-
-    const int tid = threadIdx.x;
-    const int g = tid % G;
-    const int s = tid / G;
+    const int g = threadIdx.x % G;
     const int tile = blockIdx.x;
-    float wo[R][6], tmin[R], tmax[R];
-    bool dead[R];
-    int best[R], occ[R];
+    float wo[R][6], rf[R][NF], tmin[R], tmax[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
         const float* rb = rayblk + (size_t)tile * 8 * RT + g + r * G;
@@ -119,79 +109,25 @@ visit_scan_instanced_kernel(
         const float* w = wnd + ((size_t)tile * RT + g + r * G) * 8;
         tmin[r] = w[0];
         tmax[r] = w[1];
-        dead[r] = tmax[r] < tmin[r];  // padded or terminated lane
-        best[r] = KEY_MISS;
-        occ[r] = dead[r] ? 1 : 0;
     }
-    if (tid == 0) {
-        lumen::mbar_init(&bar[0]);
-        lumen::mbar_init(&bar[1]);
-    }
-    const int n = min(nv[tile], mv);
-    const int* tsel = sel_cl + (size_t)tile * mv;
-    const int* ttnb = tnb + (size_t)tile * mv;
-    const int low_mask = ~((1 << low_bits) - 1);
-    auto cluster = [&](int i) {
-        return min(max(tsel[i], 0), num_clusters - 1);
-    };
-    // the unit's live slots and its affine, on one barrier
-    auto fetch = [&](int i) {
-        const int cl = cluster(i);
-        float4* dst = buf + (i & 1) * STRIDE;
-        const unsigned bytes = nlive[cl] * NF * sizeof(float4);
-        lumen::mbar_expect(&bar[i & 1], bytes + AFFINE * sizeof(float4));
-        lumen::bulk_copy(dst, slabs + (size_t)cl * SLAB, bytes, &bar[i & 1]);
-        lumen::bulk_copy(dst + SLAB, minv12 + ((size_t)tile * mv + i) * 12,
-                         AFFINE * sizeof(float4), &bar[i & 1]);
-    };
-
-    int ran = 0;
-    for (int i = 0; i < n; ++i) {
-        // the vote before visit i (its barrier also publishes the barriers'
-        // initialisation and releases the buffer of visit i - 1)
-        lumen::combine<R, SPLIT, CLOSEST>(part, g, s, best, occ);
-        bool done = true;
-        if (CLOSEST) {
-            const int nxt = ttnb[i] >> low_bits;
+    lumen::visit_loop<K, AFFINE, R, SPLIT, CLOSEST>(
+        slabs, nlive, sel_cl, nv, tnb, out, visits, num_clusters, mv, k_bits,
+        low_bits, tmin, tmax,
+        // the visit's affine lands after the unit's slab, on its barrier
+        [&](int i, float4* dst, unsigned long long* bar) {
+            lumen::bulk_copy(dst, minv12 + ((size_t)tile * mv + i) * 12,
+                             AFFINE * sizeof(float4), bar);
+        },
+        [&](const float4* slot) -> const float(&)[R][NF] {
+            float m[12];
+            const float* mp =
+                reinterpret_cast<const float*>(slot + K * NF);
 #pragma unroll
-            for (int r = 0; r < R; ++r)
-                done &= dead[r] || (best[r] >> low_bits) < nxt;
-        } else {
+            for (int j = 0; j < 12; ++j) m[j] = mp[j];
 #pragma unroll
-            for (int r = 0; r < R; ++r) done &= occ[r] != 0;
-        }
-        if (__syncthreads_and(done)) break;
-        if (tid == 0) {
-            if (i == 0) fetch(0);
-            if (i + 1 < n) fetch(i + 1);
-        }
-        const int nt = nlive[cluster(i)];
-        const float4* slab = buf + (i & 1) * STRIDE;
-        lumen::mbar_wait(&bar[i & 1], (i >> 1) & 1);
-        float m[12];
-        const float* mp = reinterpret_cast<const float*>(slab + SLAB);
-#pragma unroll
-        for (int j = 0; j < 12; ++j) m[j] = mp[j];
-        float rf[R][NF];
-#pragma unroll
-        for (int r = 0; r < R; ++r) object_features(m, wo[r], rf[r]);
-        lumen::test_rays<R, SPLIT, CLOSEST>(slab, s, nt, rf, tmin, tmax,
-                                            low_mask, i << k_bits, best, occ);
-        ran = i + 1;
-    }
-    // a copy issued for a visit that the vote skipped must land before the
-    // block's shared memory is released
-    if (tid == 0 && ran > 0 && ran < n)
-        lumen::mbar_wait(&bar[ran & 1], (ran >> 1) & 1);
-    lumen::combine<R, SPLIT, CLOSEST>(part, g, s, best, occ);
-    if (s == 0) {
-        // dead lanes: closest 0, any 1 (callers mask them)
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-            out[(size_t)tile * RT + g + r * G] =
-                CLOSEST ? (dead[r] ? 0 : best[r]) : occ[r];
-    }
-    if (visits != nullptr && tid == 0) visits[tile] = ran;
+            for (int r = 0; r < R; ++r) object_features(m, wo[r], rf[r]);
+            return rf;
+        });
 }
 
 struct Args {

@@ -67,8 +67,8 @@ def reset_launches() -> None:
 
 
 def slab_hits(rf, slab, tmin, tmax, k: int, closest: bool):
-    """The kernels' test (`test_rays` in csrc/visit_scan.cu, `test_slab` in
-    csrc/cluster_scan.cuh) of ray features rf (T,128,10) against one
+    """The kernels' test (`test_rays` in csrc/cluster_scan.cuh, shared by
+    K1, K2 and K3) of ray features rf (T,128,10) against one
     coefficient slab per tile (T,10,4K) within [tmin, tmax] (T,128,1):
     hit (T,128,K) bool and, in closest mode, t's float bits (T,128,K) int32
     (else None)."""
