@@ -16,6 +16,9 @@ non-zero), each with its seconds:
      flop, bound and share of the bound;
   4. the tiled slice at 320x180: one frame through the kernel and one
      through the twin from the same generator seed;
+  4b. the same for a ReSTIR DI frame of the bench's restir scene (600
+     boxes, 256 lights) at 320x180 (per-pixel RIS: 180 does not divide by
+     16), depth 5, Disney, NEE elsewhere;
   5. the tiled slice at full size: Renderer(accel="tiled") on the interior
      scene (600 boxes, 64 lights), 2560x1440, 1 spp, depth 5, Disney + MIS:
      1 warm-up and 5 timed frames; K1 must launch 5 times per frame in each
@@ -40,7 +43,18 @@ non-zero), each with its seconds:
      the run-padded tail) must hold the miss key or 0;
   9. the pair slice: render_wavefront with pair_intersectors on the
      interior scene at 2560x1440, depth 5, Disney + MIS, 1 warm-up and 3
-     timed frames, held against the tiled frame from the same seed.
+     timed frames, held against the tiled frame from the same seed;
+ 10. the ReSTIR slice (the JAX bench's restir workload):
+     Renderer(accel="tiled") with use_restir on the restir scene (7,722
+     triangles, 512 emissive) at 2560x1440, 1 spp, depth 5, Disney, NEE,
+     the default RestirConfig (tile-candidate RIS), 1 warm-up and 3 timed
+     frames on one camera: ms/frame, peak memory, overflow, reservoir
+     invariants, max M growing from frame 1 to 2, K1 launched 5 times
+     closest and 6 any per frame (4 NEE shadow passes and ReSTIR's 2
+     visibility passes); the 4-frame mean against 4 NEE frames of the same
+     scene and seed, in (0.6, 1.05); one profiled frame; each ReSTIR pass
+     timed with CUDA events on a frame's depth-0 surface; the round trip of
+     light indices bit-cast through float32.
 Then a JSON line of per-kernel results, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}. Needs no network; exits
 non-zero without a CUDA device or without the package next to it.
@@ -73,7 +87,9 @@ PIXEL_RTOL, PIXEL_ATOL = 1e-3, 1e-4
 AOV_TOL = 1e-3               # full slices: primary depth and normal
 MEAN_RTOL = 0.01             # full slices: image means
 TIMED_FRAMES = 5
-SLICE_FRAMES = 3             # timed frames of phases 7 and 9
+SLICE_FRAMES = 3             # timed frames of phases 7, 9 and 10
+RESTIR_LIGHTS = 256          # the JAX bench's restir scene
+RESTIR_RATIO = (0.6, 1.05)   # ReSTIR / NEE image mean (biased reuse)
 N_INSTANCES = 120
 PAIRS_PER_RAY = 8
 KERNELS = ("visit_scan", "visit_scan_instanced", "pair_scan")
@@ -334,10 +350,7 @@ def hold_against_twin(phase, label, passes, subset, kernel, twin, low_bits,
 
 
 def phase_kernel_vs_twin(dev, w=W, h=H, n_tiles=SUBSET_TILES):
-    import torch
-
     from lumenrenderer_tpu_torch.accel import stream, tiled
-    from lumenrenderer_tpu_torch.ops import visit_scan as vs
     from lumenrenderer_tpu_torch.render.renderer import KERNEL_VISIT_CAP
 
     sc, camf = _scene(dev)
@@ -353,12 +366,22 @@ def phase_kernel_vs_twin(dev, w=W, h=H, n_tiles=SUBSET_TILES):
             subset_tiles=n_tiles,
             listed_visits_per_tile=f"{float(q['args'][3].float().mean()):.3f}")
 
+    return _hold_k1("3 kernel", passes, live_tris, n_tiles)
+
+
+def _hold_k1(phase, passes, live_tris, n_tiles):
+    """hold_against_twin for K1 on `passes` (each tiled.scan_inputs), with
+    K1's flop from its own visit counter, checked against the replay of its
+    vote on the subset."""
+    import torch
+
+    from lumenrenderer_tpu_torch.ops import visit_scan as vs
+
     def work(q, args, closest, is_subset):
-        """K1's flop from its own visit counter, checked against the replay
-        of its vote on the subset."""
         kw = dict(q["kw"], closest=closest)
         rf_t, feats, sel, nv, tnb = args
-        visits = torch.empty(rf_t.shape[0], dtype=torch.int32, device=dev)
+        visits = torch.empty(rf_t.shape[0], dtype=torch.int32,
+                             device=rf_t.device)
         vs.visit_scan(*args, **kw, visits=visits)
         if is_subset:
             ref = vs.executed_visits_ref(*args, **kw)
@@ -373,7 +396,7 @@ def phase_kernel_vs_twin(dev, w=W, h=H, n_tiles=SUBSET_TILES):
             "visits_per_tile": f"{float(visits.float().mean()):.3f}"}
 
     return hold_against_twin(
-        "3 kernel", "visit_scan", passes,
+        phase, "visit_scan", passes,
         lambda q: _tile_subset(q["args"], 1, n_tiles), vs.visit_scan,
         vs.visit_scan_ref, lambda q: q["kw"]["low_bits"], exact_bits=True,
         work=work)
@@ -412,6 +435,60 @@ def phase_small_slice(dev, w=SMALL_W, h=SMALL_H):
         finite=finite, mean=f"{float(a.mean()):.6f}")
     if frac < PIXEL_FRACTION or not finite or float(a.mean()) <= 0:
         raise AssertionError(f"kernel and twin frames differ: {frac}")
+
+
+def _restir_scene():
+    from lumenrenderer_tpu_torch.scene import presets
+
+    return presets.interior_scene(n_boxes=600, n_lights=RESTIR_LIGHTS)
+
+
+def _restir_config(w, h, use_restir=True, **kw):
+    from lumenrenderer_tpu_torch.integrator.wavefront import RenderConfig
+
+    return RenderConfig(width=w, height=h, max_depth=5, bsdf="disney",
+                        light_strategy="nee", use_restir=use_restir, **kw)
+
+
+def phase_small_restir(dev, w=SMALL_W, h=SMALL_H):
+    import torch
+
+    from lumenrenderer_tpu_torch.accel import stream, tiled
+    from lumenrenderer_tpu_torch.core import sampling
+    from lumenrenderer_tpu_torch.integrator import wavefront as wf
+    from lumenrenderer_tpu_torch.ops import visit_scan as vs
+    from lumenrenderer_tpu_torch.render.renderer import KERNEL_VISIT_CAP
+    from lumenrenderer_tpu_torch.restir import di
+
+    builder, camf = _restir_scene()
+    sc = builder.build().to(dev)
+    cam = camf(w / h).to(dev)
+    cs = stream.build_clusters(sc.tri_pos, cluster_size=128).to(dev)
+    mv = min(cs.num_clusters, KERNEL_VISIT_CAP)
+    cfg = _restir_config(w, h, extract_tangent=False)
+    imgs = []
+    for scan in (vs.visit_scan, vs.visit_scan_ref):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(7)
+        isect, occl = tiled.tiled_intersectors(cs, mv, scan=scan)
+        restir = di.RestirDI(
+            occl, lambda sd, wo, wi: wf._bsdf_eval(cfg, sd, wo, wi),
+            di.RestirConfig(), w, h)
+        with torch.no_grad():
+            out = wf.render_wavefront(
+                sc, isect, occl, cam, sampling.generator_uniforms(gen), 0,
+                cfg, restir_state=restir.init_state(w * h, device=dev),
+                restir_fn=restir)
+        imgs.append(wf.merge_channels(out))
+    a, b = imgs
+    ok = torch.isclose(a, b, rtol=PIXEL_RTOL, atol=PIXEL_ATOL).all(-1)
+    frac = float(ok.float().mean())
+    finite = bool(torch.isfinite(a).all())
+    say("4b small restir", size=f"{w}x{h}", lights=int(sc.lights.count),
+        ris="per-pixel", pixels_agree=f"{frac:.6f}", finite=finite,
+        mean=f"{float(a.mean()):.6f}")
+    if frac < PIXEL_FRACTION or not finite or float(a.mean()) <= 0:
+        raise AssertionError(f"kernel and twin ReSTIR frames differ: {frac}")
 
 
 def phase_full_slice(dev, w=W, h=H, frames=TIMED_FRAMES):
@@ -465,10 +542,9 @@ def phase_full_slice(dev, w=W, h=H, frames=TIMED_FRAMES):
     return launches
 
 
-def _profile_frame(phase, render_one, kernel):
-    """One more frame, render_one(), under torch.profiler: device kernel
-    time, idle share of the frame's wall time, the share of the kernel whose
-    name contains `kernel`, the top kernels."""
+def _device_kernels(fn):
+    """fn() once under torch.profiler: (wall ms, [(device ms, kernel name,
+    calls)] sorted by time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -476,7 +552,7 @@ def _profile_frame(phase, render_one, kernel):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        render_one()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
@@ -486,9 +562,16 @@ def _profile_frame(phase, render_one, kernel):
         return (us if us is not None else e.self_cuda_time_total) / 1e3
 
     # device-side events only: an aten op's row repeats its kernels' time
-    kernels = sorted(((dev_ms(e), e.key, e.count) for e in events
-                      if e.device_type == torch.autograd.DeviceType.CUDA
-                      and dev_ms(e) > 0), reverse=True)
+    return wall_ms, sorted(((dev_ms(e), e.key, e.count) for e in events
+                            if e.device_type == torch.autograd.DeviceType.CUDA
+                            and dev_ms(e) > 0), reverse=True)
+
+
+def _profile_frame(phase, render_one, kernel):
+    """One more frame, render_one(), under torch.profiler: device kernel
+    time, idle share of the frame's wall time, the share of the kernel whose
+    name contains `kernel`, the top kernels."""
+    wall_ms, kernels = _device_kernels(render_one)
     device_ms = sum(k[0] for k in kernels)
     if device_ms <= 0:
         raise AssertionError("the profiler recorded no device time")
@@ -886,6 +969,201 @@ def phase_pair_slice(dev, w=W, h=H, frames=SLICE_FRAMES):
     return launches
 
 
+def _restir_pass_times(r, st, cam, dev):
+    """CUDA-event times of each ReSTIR pass (mean of 3 after a warm-up) on
+    the depth-0 surface of one frame of Renderer r, with st's history; the
+    visibility passes through the frame's sorted K1 occluder. Returns the
+    RIS pass's peak device memory above what was allocated before it."""
+    import torch
+
+    from lumenrenderer_tpu_torch.accel import sorting, tiled
+    from lumenrenderer_tpu_torch.core import camera as camera_mod
+    from lumenrenderer_tpu_torch.core import sampling
+    from lumenrenderer_tpu_torch.integrator import nee
+    from lumenrenderer_tpu_torch.integrator.surface import \
+        extract_surface_data
+    from lumenrenderer_tpu_torch.restir import di
+
+    cfg, rd = r.config, r._restir_fn
+    rcfg, sc = rd.cfg, r.scene
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    uni = sampling.generator_uniforms(gen)
+    cam = cam.to(dev)
+    w, h = cfg.width, cfg.height
+    with torch.no_grad():
+        o, d = camera_mod.generate_primary_rays(cam, w, h, 0, uni,
+                                                cfg.jitter)
+        t_max = torch.full((w * h,), float(cam.t_max), device=dev)
+        sd = extract_surface_data(sc, o, d, r._isect(o, d, 1e-3, t_max)["tri"],
+                                  with_tangent=cfg.extract_tangent)
+        hit = sd.valid
+        motion = camera_mod.motion_vectors(sd.position, hit, cam, w, h)
+        pts = sc.tri_pos.reshape(-1, 3)
+        _, occl = sorting.sorted_intersectors(r._isect, r._occl,
+                                              pts.amin(0), pts.amax(0))
+        rad_all = nee.all_light_radiance(sc)
+        cdf, pdf = di.build_light_cdf(sc, rad_all)
+        bags = di.fill_light_bags(cdf, rcfg, uni)
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        res_ris = di.ris_primary(sc, sd, bags, pdf, rcfg, w, uni,
+                                 rad_all=rad_all)
+        torch.cuda.synchronize(dev)
+        ris_peak = torch.cuda.max_memory_allocated(dev) - base
+        res_vis = di.visibility_pass(sc, sd, res_ris, occl, hit,
+                                     rad_all=rad_all)
+        res_t = di.temporal_pass(sc, sd, res_vis, st.restir, motion, rcfg, w,
+                                 h, uni, rad_all=rad_all)
+        res_s = di.spatial_pass(sc, sd, res_t, hit, rcfg, w, h, uni,
+                                rad_all=rad_all)
+        res_f = di.visibility_pass(sc, sd, res_s, occl, hit,
+                                   rad_all=rad_all)
+        # K1 on the visibility passes' own rays, sorted as the frame sorts
+        # them: held against its twin, timed, bounded
+        captured = {}
+
+        def capture(name):
+            def fn(o_, d_, tn, tx):
+                captured[name] = tiled.scan_inputs(r.clusters, o_, d_, tn, tx,
+                                                   r.max_visits)
+                return torch.zeros(o_.shape[0], dtype=torch.bool, device=dev)
+            return sorting.sorted_intersectors(
+                r._isect, fn, pts.amin(0), pts.amax(0))[1]
+
+        di.visibility_pass(sc, sd, res_ris, capture("visibility_1"), hit,
+                           rad_all=rad_all)
+        di.visibility_pass(sc, sd, res_s, capture("visibility_2"), hit,
+                           rad_all=rad_all)
+        _hold_k1("10 restir K1", captured,
+                 _live_tris(r.clusters.tri_feat, 128), SUBSET_TILES)
+
+        def cdf_bags():
+            c, _ = di.build_light_cdf(sc, nee.all_light_radiance(sc))
+            di.fill_light_bags(c, rcfg, uni)
+
+        passes = {
+            "cdf_bags": cdf_bags,
+            "ris": lambda: di.ris_primary(sc, sd, bags, pdf, rcfg, w, uni,
+                                          rad_all=rad_all),
+            "visibility_1": lambda: di.visibility_pass(
+                sc, sd, res_ris, occl, hit, rad_all=rad_all),
+            "temporal": lambda: di.temporal_pass(
+                sc, sd, res_vis, st.restir, motion, rcfg, w, h, uni,
+                rad_all=rad_all),
+            "spatial": lambda: di.spatial_pass(sc, sd, res_t, hit, rcfg, w,
+                                               h, uni, rad_all=rad_all),
+            "visibility_2": lambda: di.visibility_pass(
+                sc, sd, res_s, occl, hit, rad_all=rad_all),
+            "shade": lambda: di.shade(sc, sd, -d, res_f, rd.eval_f, hit,
+                                      rad_all=rad_all),
+        }
+        times = {k: cuda_time_ms(fn, reps=3) for k, fn in passes.items()}
+        say("10 restir passes", **{f"{k}_ms": f"{v:.3f}"
+                                   for k, v in times.items()},
+            total_ms=f"{sum(times.values()):.3f}",
+            ris_peak_gib=f"{ris_peak / 2**30:.2f}",
+            hit_pixels=int(hit.sum()))
+        for name in ("ris", "spatial", "shade"):
+            _, kernels = _device_kernels(passes[name])
+            for ms, key, count in kernels[:4]:
+                say("10 restir passes", restir_pass=name,
+                    kernel=repr(key[:90]), ms=f"{ms:.2f}", calls=count)
+
+
+def phase_restir_slice(dev, w=W, h=H, frames=SLICE_FRAMES):
+    import torch
+
+    from lumenrenderer_tpu_torch.ops import visit_scan as vs
+    from lumenrenderer_tpu_torch.render.renderer import Renderer
+
+    builder, camf = _restir_scene()
+    sc, cam = builder.build(), camf(w / h)
+    cfg = _restir_config(w, h)
+    r = Renderer(sc, cfg, accel="tiled", device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    vs.reset_launches()
+    st, _ = r.render_frame(r.init_state(0), cam)
+    warm_ms = r.frame_stats["Total Frame Time"]
+    run = {"st": st, "overflow": r.frame_stats["overflow"],
+           "max_m": [float(st.restir.reservoir.m.max())]}
+
+    def one():
+        run["st"], _ = r.render_frame(run["st"], cam)
+        run["overflow"] |= r.frame_stats["overflow"]
+        run["max_m"].append(float(run["st"].restir.reservoir.m.max()))
+
+    ms = timed_frames(one, frames)
+    launches = dict(vs.LAUNCHES)
+    per_frame = {k: v / (frames + 1) for k, v in launches.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    st = run["st"]
+    img = st.accum
+    finite = bool(torch.isfinite(img).all())
+    mean = float(img.mean())
+    res = st.restir.reservoir
+    n_lights = int(r.scene.lights.count)
+    fields_ok = all(bool(torch.isfinite(f).all() and (f >= 0).all())
+                    for f in (res.w_sum, res.m, res.w_out, res.p_hat,
+                              res.bary))
+    idx_ok = bool(((res.light_idx >= 0) & (res.light_idx < n_lights)).all())
+    say("10 restir slice", size=f"{w}x{h}", tris=sc.num_triangles,
+        lights=n_lights, clusters=r.clusters.num_clusters,
+        max_visits=r.max_visits, warmup_ms=f"{warm_ms:.1f}",
+        ms_per_frame=f"{ms:.1f}",
+        primary_rays_per_s=f"{w * h / ms * 1e3:.4g}",
+        peak_mem_gib=f"{peak / 2**30:.2f}", overflow=run["overflow"],
+        mean=f"{mean:.5f}", finite=finite, valid=bool(st.restir.valid),
+        max_m=json.dumps(run["max_m"]), reservoir_ok=fields_ok,
+        light_idx_ok=idx_ok, launches=json.dumps(launches),
+        launches_per_frame=json.dumps(per_frame))
+    if not finite or mean <= 0 or run["overflow"]:
+        raise AssertionError(f"bad ReSTIR frame: finite={finite} mean={mean} "
+                             f"overflow={run['overflow']}")
+    if not (bool(st.restir.valid) and fields_ok and idx_ok
+            and run["max_m"][1] > run["max_m"][0]):
+        raise AssertionError(f"bad reservoirs: valid={st.restir.valid} "
+                             f"fields_ok={fields_ok} idx_ok={idx_ok} "
+                             f"max M per frame {run['max_m']}")
+    # primary + 4 bounces closest; 4 NEE shadow + 2 ReSTIR visibility any
+    expect = {"closest": cfg.max_depth, "any": cfg.max_depth + 1}
+    if per_frame != expect:
+        raise AssertionError(f"K1 launches per frame {per_frame}, expected "
+                             f"{expect}")
+
+    # light indices ride the spatial pass's packed rows bit-cast to float32
+    li = torch.arange(n_lights, dtype=torch.int32, device=dev)
+    rows = torch.cat([li.view(torch.float32)[:, None],
+                      torch.rand(n_lights, 4, device=dev)], dim=1)
+    perm = torch.randperm(n_lights, device=dev)
+    back = rows[perm][..., 0].view(torch.int32)
+    if not torch.equal(back, li[perm]):
+        raise AssertionError("a light index did not survive its float32 "
+                             "bit-cast round trip")
+
+    # the same scene and seed with NEE at depth 0 instead
+    rn = Renderer(sc, _restir_config(w, h, use_restir=False), accel="tiled",
+                  device=dev)
+    st_n, _ = rn.render_frame(rn.init_state(0), cam)
+    run_n = {"st": st_n}
+
+    def one_n():
+        run_n["st"], _ = rn.render_frame(run_n["st"], cam)
+
+    ms_n = timed_frames(one_n, frames)
+    ratio = mean / float(run_n["st"].accum.mean())
+    say("10 restir slice", reference="NEE, same scene and seed",
+        ms_per_frame=f"{ms_n:.1f}", frames=frames + 1,
+        mean_ratio=f"{ratio:.5f}", bound=json.dumps(RESTIR_RATIO))
+    if not RESTIR_RATIO[0] < ratio < RESTIR_RATIO[1]:
+        raise AssertionError(f"ReSTIR / NEE mean {ratio} outside "
+                             f"{RESTIR_RATIO}")
+    _profile_frame("10 profile", one, "visit_scan_kernel")
+    _restir_pass_times(r, run["st"], cam, dev)
+    return launches
+
+
 def main() -> int:
     if not (REPO / "lumenrenderer_tpu_torch" / "ops" / "csrc"
             / "visit_scan.cu").is_file():
@@ -912,6 +1190,7 @@ def main() -> int:
     run("2 build", phase_build)
     checks = {"visit_scan": run("3 kernel", phase_kernel_vs_twin, dev)}
     run("4 small slice", phase_small_slice, dev)
+    run("4b small restir", phase_small_restir, dev)
     launches = {"visit_scan": run("5 full slice", phase_full_slice, dev)}
     checks["visit_scan_instanced"] = run(
         "6 instanced kernel", phase_instanced_kernel_vs_twin, dev)
@@ -920,6 +1199,7 @@ def main() -> int:
     checks["pair_scan"] = run("8 pair kernel", phase_pair_kernel_vs_twin,
                               dev)
     launches["pair_scan"] = run("9 pair slice", phase_pair_slice, dev)
+    run("10 restir slice", phase_restir_slice, dev)
 
     kernels = []
     for name in KERNELS:

@@ -13,18 +13,33 @@ import torch
 
 from . import vecmath as vm
 
-# uniforms(*shape) -> float32 tensor of U[0,1) draws on the frame's device
+# uniforms(*shape) -> float32 tensor of U[0,1) draws on the frame's device.
+# ReSTIR also calls the source's uniform(*shape) and randint(high, *shape)
+# (int32 draws in [0, high)).
 Uniforms = Callable[..., torch.Tensor]
 
 
-def generator_uniforms(gen: torch.Generator) -> Uniforms:
-    """The production uniform source: draws from `gen` on its device."""
+class GeneratorUniforms:
+    """The production draw source: floats and integers from `gen` on its
+    device."""
 
-    def draw(*shape):
-        return torch.rand(shape, generator=gen, device=gen.device,
+    def __init__(self, gen: torch.Generator):
+        self.gen = gen
+
+    def __call__(self, *shape) -> torch.Tensor:
+        return torch.rand(shape, generator=self.gen, device=self.gen.device,
                           dtype=torch.float32)
 
-    return draw
+    uniform = __call__
+
+    def randint(self, high: int, *shape) -> torch.Tensor:
+        return torch.randint(0, high, shape, generator=self.gen,
+                             device=self.gen.device, dtype=torch.int32)
+
+
+def generator_uniforms(gen: torch.Generator) -> GeneratorUniforms:
+    """The production uniform source: draws from `gen` on its device."""
+    return GeneratorUniforms(gen)
 
 
 def halton(index: torch.Tensor, base: int) -> torch.Tensor:

@@ -37,19 +37,45 @@ class LightSample(NamedTuple):
     valid: torch.Tensor      # (R,) bool
 
 
-def build_light_table(scene: SceneData, selection: str = "cdf") -> LightTable:
+def all_light_radiance(scene: SceneData) -> torch.Tensor:
+    """Dense (L,3) radiance of every light row, computed once per frame."""
+    lights = scene.lights
+    return scene.light_radiance(
+        torch.arange(lights.capacity, device=lights.area.device))
+
+
+def _selection_weights(scene: SceneData, rad: torch.Tensor,
+                       selection: str) -> torch.Tensor:
     """selection: "cdf" (weights = luminance * area, uniform over valid
     lights when all are zero) or "uniform"."""
     lights = scene.lights
-    idx = torch.arange(lights.capacity, device=lights.area.device)
-    rad = scene.light_radiance(idx)
-    valid = (idx < lights.count).float()
+    valid = (torch.arange(lights.capacity, device=lights.area.device)
+             < lights.count).float()
     if selection == "cdf":
         w = torch.where(valid > 0, (vm.luminance(rad) * lights.area)
                         .clamp_min(0.0), 0.0)
-        w = torch.where(w.sum() > 0, w, valid)
-    else:
-        w = valid
+        return torch.where(w.sum() > 0, w, valid)
+    return valid
+
+
+def build_light_cdf(scene: SceneData, light_rad_all=None):
+    """(cdf (L,), sel_pdf (L,)) of the "cdf" selection: ReSTIR's light-bag
+    sampler."""
+    rad = (light_rad_all if light_rad_all is not None
+           else all_light_radiance(scene))
+    w = _selection_weights(scene, rad, "cdf")
+    cdf = torch.cumsum(w, 0)
+    total = cdf[-1].clamp_min(1e-20)
+    return cdf / total, w / total
+
+
+def build_light_table(scene: SceneData, selection: str = "cdf",
+                      light_rad_all=None) -> LightTable:
+    """The per-frame packed light table (selection: "cdf" or "uniform")."""
+    lights = scene.lights
+    rad = (light_rad_all if light_rad_all is not None
+           else all_light_radiance(scene))
+    w = _selection_weights(scene, rad, selection)
     cdf = torch.cumsum(w, 0)
     total = cdf[-1].clamp_min(1e-20)
     aug = torch.cat([lights.packed, rad, (w / total)[:, None]], dim=1)

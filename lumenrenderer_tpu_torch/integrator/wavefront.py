@@ -9,12 +9,14 @@ near-delta lobe. Strategies: "nee", "bsdf", "mis".
 
 Random numbers come from a `Uniforms` source, drawn in a fixed order: the
 (N,2) pixel jitter, then per depth the alpha (N,), NEE (N,3), BSDF (N,4) and
-Russian-roulette (N,) uniforms, each only where the JAX frame draws it.
+Russian-roulette (N,) uniforms, each only where the JAX frame draws it. With
+use_restir, ReSTIR DI (`restir.di.RestirDI`) takes the NEE draw's place at
+depth 0 and draws its own numbers from the same source.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -44,8 +46,8 @@ DEBUG_STAGES = (
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Frame configuration; same names and defaults as the JAX package's
-    `RenderConfig` for the options the port has. use_restir, swizzle and
-    remat are kept only to refuse them."""
+    `RenderConfig` for the options the port has. swizzle and remat are kept
+    only to refuse them."""
 
     width: int = 128
     height: int = 128
@@ -66,7 +68,7 @@ class RenderConfig:
     debug_checks: bool = False
 
     def __post_init__(self):
-        for name in ("use_restir", "swizzle", "remat"):
+        for name in ("swizzle", "remat"):
             if getattr(self, name):
                 raise NotImplementedError(
                     f"RenderConfig.{name} is not ported to PyTorch yet")
@@ -100,15 +102,21 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
                      occlude_fn: Callable, camera: camera_mod.Camera,
                      uniforms: sampling.Uniforms, frame_index: int,
                      cfg: RenderConfig,
+                     restir_state=None,
+                     restir_fn: Optional[Callable] = None,
                      pixel_ids: Optional[torch.Tensor] = None
-                     ) -> Dict[str, torch.Tensor]:
+                     ) -> Dict[str, Any]:
     """Trace one 1-spp frame. Returns direct/indirect/specular (N,3) light
     channels, primary-hit AOVs depth (N,), normal/albedo (N,3), motion (N,2),
-    and the scalars overflow (visit lists truncated) and, with debug_checks,
-    debug_first_bad (0 = clean, else 1 + encoded stage).
+    the scalars overflow (visit lists truncated) and, with debug_checks,
+    debug_first_bad (0 = clean, else 1 + encoded stage), and restir_state
+    (the new reservoir state, or restir_state itself without ReSTIR).
 
     intersect_fn(o, d, tmin, tmax) -> {"t", "tri", "overflow"};
-    occlude_fn(o, d, tmin, tmax) -> (N,) bool."""
+    occlude_fn(o, d, tmin, tmax) -> (N,) bool. With cfg.use_restir,
+    restir_fn(scene, sd, wo, hit_mask, motion, restir_state, uniforms,
+    occlude_fn=) -> (color (N,3), new state) shades depth 0's direct light
+    (a `restir.di.RestirDI`)."""
     if pixel_ids is not None:
         raise NotImplementedError("pixel_ids (frame slices) are not ported")
     dev = camera.eye.device
@@ -224,7 +232,13 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
         else:
             passthrough = zeros(n, dtype=torch.bool)
 
-        if cfg.light_strategy in ("nee", "mis"):
+        if cfg.use_restir and depth == 0 and restir_fn is not None:
+            # the sorted occluder, as NEE's shadow rays use
+            restir_out, restir_state = restir_fn(
+                scene, sd, wo, hit_mask, aovs["motion"], restir_state,
+                uniforms, occlude_fn=occl)
+            direct = direct + throughput * restir_out
+        elif cfg.light_strategy in ("nee", "mis"):
             u3 = uniforms(n, 3)
             ls = nee_mod.sample_light(light_table, u3, sd.position)
             cos_s = vm.dot(sd.normal, ls.wi)
@@ -294,7 +308,7 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
             indirect = indirect + _sel(passthrough, throughput * env, 0.0)
 
     out = {"direct": direct, "indirect": indirect, "specular": specular_ch,
-           **aovs, "overflow": overflow_any}
+           **aovs, "overflow": overflow_any, "restir_state": restir_state}
     if cfg.debug_checks:
         out["debug_first_bad"] = first_bad
     return out

@@ -1,5 +1,6 @@
 """Progressive renderer: port of `lumenrenderer_tpu/render/renderer.py` for
-`accel="tiled"` and `accel="two_level"`, static or dynamic.
+`accel="tiled"` and `accel="two_level"`, static or dynamic, with ReSTIR DI
+when the config asks for it (`use_restir`).
 
 The scene and its accel live on `device`, a CUDA device unless the caller
 passes device="cpu". "tiled" clusters the flattened world-space triangles
@@ -45,7 +46,7 @@ class Renderer:
                  max_visits: int | str = "auto", culling: str = "auto",
                  candidate_dtype: str = "high", device=None,
                  reset_on_camera_move: bool = True, mesh=None, dynamic=None,
-                 builder=None):
+                 builder=None, restir_config=None, restir_fn=None):
         """accel="two_level" needs `builder`, the SceneBuilder of `scene`:
         its instances give the unique meshes (by identity) and transforms.
         max_visits="auto" caps the visit list at min(units, 128) with the
@@ -55,7 +56,9 @@ class Renderer:
         not ported. device: where the scene, state and frame live (default:
         the current CUDA device; without one this raises, and device="cpu"
         runs the kernels' plain twins on the CPU). dynamic: a DynamicScene
-        whose build() is `scene`."""
+        whose build() is `scene`. With config.use_restir, depth 0's direct
+        light is ReSTIR DI: restir_fn, or a `restir.di.RestirDI` of
+        restir_config (default `RestirConfig()`)."""
         if accel not in ("tiled", "two_level"):
             raise NotImplementedError(
                 f"accel={accel!r} is not ported; the PyTorch port has "
@@ -119,6 +122,16 @@ class Renderer:
             max_visits = min(max_visits, KERNEL_VISIT_CAP)
         self.max_visits = int(max_visits)
         self._bind_accel()
+        if restir_fn is None and config.use_restir:
+            from ..restir.di import RestirConfig, RestirDI
+
+            # the frame passes its own (sorted, current) occluder at call
+            # time; the bound one is the default for direct callers
+            restir_fn = RestirDI(
+                self._occl,
+                lambda sd, wo, wi: wavefront._bsdf_eval(config, sd, wo, wi),
+                restir_config or RestirConfig(), config.width, config.height)
+        self._restir_fn = restir_fn
         self._dynamic = dynamic
         # drift baseline for dynamic cluster refits
         self._cluster_area0 = (self._cluster_area(self.clusters)
@@ -182,8 +195,13 @@ class Renderer:
     # -- public API -----------------------------------------------------------
 
     def init_state(self, seed: int = 0) -> state_mod.FrameState:
-        return state_mod.init_state(self.config.num_pixels, seed,
-                                    device=self.device)
+        n = self.config.num_pixels
+        restir0 = None
+        if self._restir_fn is not None and hasattr(self._restir_fn,
+                                                   "init_state"):
+            restir0 = self._restir_fn.init_state(n, device=self.device)
+        return state_mod.init_state(n, seed, device=self.device,
+                                    restir=restir0)
 
     def render_frame(self, st: state_mod.FrameState, camera: Camera):
         """One progressive frame: (new_state, aux AOV dict). Accumulation
@@ -203,12 +221,13 @@ class Renderer:
             out = wavefront.render_wavefront(
                 self.scene, self._isect, self._occl, camera,
                 sampling.generator_uniforms(st.generator), st.frame_index,
-                self.config)
+                self.config, restir_state=st.restir,
+                restir_fn=self._restir_fn)
             accum = tonemap.blend_accumulate(
                 st.accum, wavefront.merge_channels(out), st.blend_count)
         new_st = dataclasses.replace(
             st, accum=accum, blend_count=st.blend_count + 1,
-            frame_index=st.frame_index + 1)
+            frame_index=st.frame_index + 1, restir=out["restir_state"])
         aux = {k: out[k] for k in ("depth", "normal", "albedo", "motion",
                                    "overflow", "debug_first_bad")
                if k in out}

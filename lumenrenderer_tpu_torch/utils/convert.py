@@ -1,9 +1,9 @@
 """Carry state into the port from numpy arrays.
 
-The JAX package's scene, cluster sets and camera, turned into numpy leaves by
-the caller (a mapping of field name to array, nested for sub-structures),
-become the port's dataclasses, so both packages can compute on the same
-arrays. This module takes numpy only.
+The JAX package's scene, cluster sets, camera and ReSTIR state, turned into
+numpy leaves by the caller (a mapping of field name to array, nested for
+sub-structures), become the port's dataclasses, so both packages can compute
+on the same arrays. This module takes numpy only.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import torch
 from ..accel.stream import ClusterSet
 from ..accel.two_level import InstancedClusterSet
 from ..core.camera import Camera
+from ..restir.di import Reservoir, RestirState
 from ..scene.lights import TriangleLights
 from ..scene.materials import MaterialTable
 from ..scene.scene import SceneData, TextureAtlas
@@ -59,3 +60,10 @@ def instanced_from_numpy(leaves: Mapping) -> InstancedClusterSet:
 def camera_from_numpy(leaves: Mapping) -> Camera:
     """Camera from eye, u, v, w, prev_view_proj, t_min and t_max."""
     return _fill(Camera, leaves)
+
+
+def restir_state_from_numpy(leaves: Mapping) -> RestirState:
+    """RestirState (reservoir history and gbuffer) from the JAX RestirState's
+    leaves."""
+    return _fill(RestirState, leaves,
+                 reservoir=_fill(Reservoir, leaves["reservoir"]))

@@ -108,21 +108,65 @@ def jax_instanced_builder(n_inst: int = 20, seed: int = 5):
 
 
 class ListUniforms:
-    """A `Uniforms` source that returns given arrays in order, checking that
-    each draw has the shape the JAX frame drew."""
+    """A draw source that returns given arrays in order, checking that each
+    draw has the shape (and kind: float or integer) the JAX code drew."""
 
     def __init__(self, arrays):
         self.arrays = list(arrays)
 
-    def __call__(self, *shape):
+    def _pop(self, shape, kind):
         a = self.arrays.pop(0)
-        assert a.shape == shape, (a.shape, shape)
-        return torch.from_numpy(np.array(a, np.float32))
+        assert a.shape == shape and a.dtype.kind == kind, (a.shape, a.dtype,
+                                                           shape, kind)
+        return a
+
+    def __call__(self, *shape):
+        return torch.from_numpy(np.array(self._pop(shape, "f"), np.float32))
+
+    uniform = __call__
+
+    def randint(self, high, *shape):
+        a = self._pop(shape, "i")
+        assert a.size == 0 or (0 <= a.min() and a.max() < high)
+        return torch.from_numpy(np.array(a, np.int32))
 
 
-def jax_frame_uniforms(key, cfg, n_rays: int):
+def jax_restir_draws(key, rcfg, w: int, h: int, temporal: bool = True):
+    """The draws `lumenrenderer_tpu`'s RestirDI.__call__ takes from `key` at
+    a w x h frame, in the port's order: the bags' uniforms; RIS's bag and
+    slot integers and barycentric and pick uniforms (tile-candidate or
+    per-pixel shapes, as di.ris_primary chooses); the temporal combine's
+    uniform (when there is a history state); per spatial iteration the
+    angle, radius and pick uniforms."""
+    n = w * h
+    c, s, bt = rcfg.candidates, rcfg.spatial_samples, rcfg.bag_tile
+    k_bag, k_ris, k_t, k_s, _, _ = jax.random.split(key, 6)
+    out = [jax.random.uniform(k_bag, (rcfg.num_bags, rcfg.bag_size))]
+    kb, kc, kp, kr = jax.random.split(k_ris, 4)
+    if rcfg.tile_candidates and w % bt == 0 and h % bt == 0:
+        tiles = (w // bt) * (h // bt)
+        out += [jax.random.randint(kb, (tiles,), 0, rcfg.num_bags),
+                jax.random.randint(kc, (tiles, c), 0, rcfg.bag_size),
+                jax.random.uniform(kp, (tiles, 1, c, 2)),
+                jax.random.uniform(kr, (tiles, bt * bt, 1))]
+    else:
+        out += [jax.random.randint(kb, (1 << 16,), 0, rcfg.num_bags),
+                jax.random.randint(kc, (n, c), 0, rcfg.bag_size),
+                jax.random.uniform(kp, (n, c, 2)),
+                jax.random.uniform(kr, (n, 1))]
+    if temporal:
+        out.append(jax.random.uniform(k_t, (n,)))
+    for it in range(rcfg.spatial_iterations):
+        k1, k2, k3 = jax.random.split(jax.random.fold_in(k_s, it), 3)
+        out += [jax.random.uniform(k1, (n, s)), jax.random.uniform(k2, (n, s)),
+                jax.random.uniform(k3, (n, 1))]
+    return [np.asarray(a) for a in out]
+
+
+def jax_frame_uniforms(key, cfg, n_rays: int, restir_cfg=None):
     """The uniforms `lumenrenderer_tpu`'s render_wavefront draws from `key`,
-    in the order the port draws them."""
+    in the order the port draws them. With cfg.use_restir, restir_cfg's
+    ReSTIR draws (with a history state) replace depth 0's NEE draw."""
     key_j, key = jax.random.split(key)
     out = []
     if cfg.jitter == "random":
@@ -132,7 +176,9 @@ def jax_frame_uniforms(key, cfg, n_rays: int):
         if cfg.alpha_test or cfg.alpha_materials:
             out.append(jax.random.uniform(jax.random.fold_in(dkey, 17),
                                           (n_rays,)))
-        if cfg.light_strategy in ("nee", "mis"):
+        if cfg.use_restir and depth == 0:
+            out += jax_restir_draws(dkey, restir_cfg, cfg.width, cfg.height)
+        elif cfg.light_strategy in ("nee", "mis"):
             out.append(jax.random.uniform(jax.random.fold_in(dkey, 1),
                                           (n_rays, 3)))
         if depth + 1 < cfg.max_depth:

@@ -215,6 +215,6 @@ def test_frame_matches_jax_with_same_uniforms(scene, bsdf, strategy):
 
 
 def test_refusals():
-    for flag in ("use_restir", "swizzle", "remat"):
+    for flag in ("swizzle", "remat"):
         with pytest.raises(NotImplementedError):
             pwf.RenderConfig(**{flag: True})

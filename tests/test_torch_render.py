@@ -162,6 +162,7 @@ def test_port_never_imports_jax():
             "import lumenrenderer_tpu_torch.ops.build; "
             "import lumenrenderer_tpu_torch.ops.visit_scan_instanced; "
             "import lumenrenderer_tpu_torch.ops.pair_scan; "
+            "import lumenrenderer_tpu_torch.restir.di; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'chex', 'lumenrenderer_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
