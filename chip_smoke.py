@@ -54,7 +54,26 @@ non-zero), each with its seconds:
      visibility passes); the 4-frame mean against 4 NEE frames of the same
      scene and seed, in (0.6, 1.05); one profiled frame; each ReSTIR pass
      timed with CUDA events on a frame's depth-0 surface; the round trip of
-     light indices bit-cast through float32.
+     light indices bit-cast through float32;
+ 11. the mega slice (the JAX bench's mega workload): mega_scene(1,000,000
+     triangles, 256 lights), 11,670 clusters of 128, culled through the
+     cluster tree by kernel W; host build seconds (scene, Renderer, tree);
+     W against its twin on every tile of the 2560x1440 primary pass and
+     sorted bounce and shadow passes (raw lists, entry t bits, counts,
+     pops, and the sorted visit lists sel, nv, tnb and overflow all
+     identical), with its full-pass time, pops and admitted clusters per
+     tile, share of tiles over the visit cap and bound; K1 against its twin
+     on 1,024 tiles of each pass and on every tile, as in phase 3; a
+     320x180 depth-3 mega frame through K1 and W and through their twins; the
+     2560x1440 frame through Renderer(accel="tiled") (1 warm-up and 3 timed
+     frames: ms/frame, peak memory, overflow, K1 5 closest and 5 any
+     launches and W 10 per frame), one profiled frame, and frames with and
+     without the ClusterSet's cached kernel layout;
+ 11b. two-level past 2048 units: instanced_boxes(2,100) (2,101 units)
+     at 2560x1440 through accel="two_level" (K2, W on the unit tree), its
+     primary AOVs held against the tiled frame of the same scene with
+     culling="tree" by phase 7's rule; then a 320x180 depth-3 frame
+     through K2 and W and through their twins.
 Then a JSON line of per-kernel results, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}. Needs no network; exits
 non-zero without a CUDA device or without the package next to it.
@@ -66,7 +85,11 @@ need: 80 per (live ray, live triangle) pair of every visit a tile runs (K1
 and K2: the kernel's counter) or of every live pair tile (K3), and K2's 42
 per live ray and visit run for the object-space features; the bytes leave
 out K2's padding rows of `rayblk`, which it never reads, and count K2's
-per-visit inputs (cluster id, entry t, affine) for the visits run only. No single PyTorch call computes any of the three functions, so
+per-visit inputs (cluster id, entry t, affine) for the visits run only.
+Kernel W: BOX_TEST_OPS operations per box test, one for each tile's root
+and two per internal node it popped (its pop counter less the leaves it
+reached); its bytes are the tiles' bounds, the tree, and the lists and
+counts out. No single PyTorch call computes any of the four functions, so
 library_ms is null.
 """
 from __future__ import annotations
@@ -92,7 +115,9 @@ RESTIR_LIGHTS = 256          # the JAX bench's restir scene
 RESTIR_RATIO = (0.6, 1.05)   # ReSTIR / NEE image mean (biased reuse)
 N_INSTANCES = 120
 PAIRS_PER_RAY = 8
-KERNELS = ("visit_scan", "visit_scan_instanced", "pair_scan")
+KERNELS = ("visit_scan", "visit_scan_instanced", "pair_scan", "tree_walk")
+MEGA_TRIS, MEGA_LIGHTS = 1_000_000, 256      # the JAX bench's mega scene
+UNITS_INSTANCES = 2100       # phase 11b: 2,101 units
 PEAK_FLOPS = 67e12           # H100 SXM, fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM, HBM3
 FLOP_PER_PAIR = 80           # 40 FMAs per ray-triangle test
@@ -101,6 +126,8 @@ REPLACES = {
     "visit_scan": "lumenrenderer_tpu/ops/pallas/intersect.py:325",
     "visit_scan_instanced": "lumenrenderer_tpu/ops/pallas/instanced.py:168",
     "pair_scan": "lumenrenderer_tpu/ops/pallas/pair_intersect.py:129",
+    "tree_walk": "lumenrenderer_tpu/accel/tiled.py:113 (XLA while_loop, no "
+                 "Pallas kernel)",
 }
 
 
@@ -370,19 +397,25 @@ def phase_kernel_vs_twin(dev, w=W, h=H, n_tiles=SUBSET_TILES):
 
 
 def _hold_k1(phase, passes, live_tris, n_tiles):
-    """hold_against_twin for K1 on `passes` (each tiled.scan_inputs), with
-    K1's flop from its own visit counter, checked against the replay of its
-    vote on the subset."""
+    """hold_against_twin for K1 on `passes` (each tiled.scan_inputs, all of
+    one ClusterSet, whose cached kernel layout the kernel takes), with K1's
+    flop from its own visit counter, checked against the replay of its vote
+    on the subset."""
     import torch
 
     from lumenrenderer_tpu_torch.ops import visit_scan as vs
+
+    layout = next(iter(passes.values()))["layout"]
+
+    def kernel(*args, **kw):
+        return vs.visit_scan(*args, **kw, layout=layout)
 
     def work(q, args, closest, is_subset):
         kw = dict(q["kw"], closest=closest)
         rf_t, feats, sel, nv, tnb = args
         visits = torch.empty(rf_t.shape[0], dtype=torch.int32,
                              device=rf_t.device)
-        vs.visit_scan(*args, **kw, visits=visits)
+        kernel(*args, **kw, visits=visits)
         if is_subset:
             ref = vs.executed_visits_ref(*args, **kw)
             if not torch.equal(visits, ref):
@@ -397,7 +430,7 @@ def _hold_k1(phase, passes, live_tris, n_tiles):
 
     return hold_against_twin(
         phase, "visit_scan", passes,
-        lambda q: _tile_subset(q["args"], 1, n_tiles), vs.visit_scan,
+        lambda q: _tile_subset(q["args"], 1, n_tiles), kernel,
         vs.visit_scan_ref, lambda q: q["kw"]["low_bits"], exact_bits=True,
         work=work)
 
@@ -567,10 +600,10 @@ def _device_kernels(fn):
                             and dev_ms(e) > 0), reverse=True)
 
 
-def _profile_frame(phase, render_one, kernel):
+def _profile_frame(phase, render_one, kernel, also=()):
     """One more frame, render_one(), under torch.profiler: device kernel
     time, idle share of the frame's wall time, the share of the kernel whose
-    name contains `kernel`, the top kernels."""
+    name contains `kernel` (and of each in `also`), the top kernels."""
     wall_ms, kernels = _device_kernels(render_one)
     device_ms = sum(k[0] for k in kernels)
     if device_ms <= 0:
@@ -582,6 +615,11 @@ def _profile_frame(phase, render_one, kernel):
         kernel_ms=f"{k_ms:.1f}",
         kernel_share_of_device=f"{k_ms / device_ms:.3f}",
         kernels=len(kernels), launches=sum(k[2] for k in kernels))
+    for name in also:
+        a_ms = sum(k[0] for k in kernels if name in k[1])
+        say(phase, profile=name, kernel_ms=f"{a_ms:.2f}",
+            kernel_share_of_device=f"{a_ms / device_ms:.4f}",
+            calls=sum(k[2] for k in kernels if name in k[1]))
     for ms, key, count in kernels[:12]:
         say(phase, kernel=repr(key[:90]), ms=f"{ms:.2f}", calls=count)
 
@@ -690,14 +728,17 @@ def _aov_agreement(aux, ref, low_bits):
     return float(ok.float().mean()), float((ok | tie).float().mean())
 
 
-def _hold_frames(phase, label, aux, ref_aux, mean, ref_mean, low_bits):
+def _hold_frames(phase, label, aux, ref_aux, mean, ref_mean, low_bits,
+                 hold_mean=True):
+    """Raise unless the primary AOVs agree (or tie) on PIXEL_FRACTION of the
+    pixels and, with hold_mean, the image means lie within MEAN_RTOL."""
     strict, frac = _aov_agreement(aux, ref_aux, low_bits)
     rel = abs(mean - ref_mean) / max(abs(ref_mean), 1e-12)
     say(phase, against=label, aov_pixels_agree=f"{strict:.6f}",
         aov_pixels_agree_or_tie=f"{frac:.6f}", tie_key_low_bits=low_bits,
         mean=f"{mean:.6f}", ref_mean=f"{ref_mean:.6f}",
-        mean_rel_diff=f"{rel:.2e}")
-    if frac < PIXEL_FRACTION or rel > MEAN_RTOL:
+        mean_rel_diff=f"{rel:.2e}", mean_held=hold_mean)
+    if frac < PIXEL_FRACTION or (hold_mean and rel > MEAN_RTOL):
         raise AssertionError(f"{phase}: frame differs from {label}: AOVs "
                              f"{frac}, means {mean} vs {ref_mean}")
 
@@ -1164,6 +1205,340 @@ def phase_restir_slice(dev, w=W, h=H, frames=SLICE_FRAMES):
     return launches
 
 
+def _walk_args(acc, o, d, tn, tx):
+    """Kernel W's arguments for one pass over `acc`'s tree: the tile bounds
+    of the rays padded to whole tiles, then the tree's five tensors."""
+    from lumenrenderer_tpu_torch.accel import tiled
+
+    po, pd, ptn, ptx = tiled.pad_rays(o, d, tn, tx, tiled.RAY_TILE)
+    bounds = tiled._tile_bounds(po, pd, ptn, ptx,
+                                po.shape[0] // tiled.RAY_TILE, tiled.RAY_TILE)
+    return (*bounds, acc.tree_lo, acc.tree_hi, acc.tree_child0,
+            acc.tree_child1, acc.tree_leaf_cluster)
+
+
+def _max_abs_diff(pairs) -> float:
+    """Largest |a - b| over the entries of the tensor pairs (0 where equal,
+    infinities and NaNs included)."""
+    import torch
+
+    worst = 0.0
+    for a, b in pairs:
+        a, b = a.double(), b.double()
+        same = (a == b) | (a.isnan() & b.isnan())
+        gap = (a - b).abs().nan_to_num(torch.inf, torch.inf)
+        diff = torch.where(same, 0.0, gap)
+        worst = max(worst, float(diff.max()) if diff.numel() else 0.0)
+    return worst
+
+
+def _hold_walk(phase, name, acc, rays, mv):
+    """Kernel W against its twin on every tile of one pass: raw lists,
+    entry t bits, counts and pops identical, and so the sorted visit lists
+    (sel, nv, tnb, overflow); its largest difference from the twin (0), time,
+    work and bound."""
+    import torch
+
+    from lumenrenderer_tpu_torch.accel import tiled
+    from lumenrenderer_tpu_torch.ops import tree_walk as tw
+
+    args = _walk_args(acc, *rays)
+    kw = dict(tree_depth=acc.tree_depth, mv=mv)
+    tiles = args[0].shape[0]
+    pops = torch.empty(tiles, dtype=torch.int32, device=args[0].device)
+    pops_ref = torch.empty_like(pops)
+    kern = tw.tile_tree_visits(*args, **kw, pops=pops)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    ref = tw.tile_tree_visits_ref(*args, **kw, pops=pops_ref)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    same = (torch.equal(kern[0], ref[0]) and torch.equal(kern[2], ref[2])
+            and torch.equal(kern[1].view(torch.int32),
+                            ref[1].view(torch.int32))
+            and torch.equal(pops, pops_ref))
+    po, pd, ptn, ptx = tiled.pad_rays(*rays, tiled.RAY_TILE)
+    lists = [tiled.visit_lists(acc, po, pd, ptn, ptx, mv, "tree", walk)[:4]
+             for walk in (tw.tile_tree_visits, lambda *a, **k: ref)]
+    same_lists = all(torch.equal(a, b) for a, b in zip(*lists))
+    err = _max_abs_diff([*zip(kern, ref), (pops, pops_ref), *zip(*lists)])
+    if not (same and same_lists):
+        raise AssertionError(f"W differs from its twin on the {name} pass: "
+                             f"raw lists equal {same}, sorted {same_lists}, "
+                             f"max_abs_err {err}")
+    ms = cuda_time_ms(lambda: tw.tile_tree_visits(*args, **kw))
+    count = kern[2].double()
+    inner = float((pops.double() - count).sum())
+    ops = tw.BOX_TEST_OPS * (tiles + 2 * inner)
+    nb = _nbytes(*args) + tiles * (mv * 8 + 4)
+    b_ms, b_by = bound_ms(ops, nb)
+    over = float((count > mv).double().mean())
+    say(phase, kernel="tree_walk", rays=name, tiles=tiles,
+        tree_nodes=args[6].shape[0], tree_depth=acc.tree_depth, mv=mv,
+        identical=True, max_abs_err=err, kernel_ms=f"{ms:.4f}",
+        twin_ms=f"{plain_ms:.1f}",
+        pops_mean=f"{float(pops.double().mean()):.2f}",
+        pops_max=int(pops.max()),
+        admitted_mean=f"{float(count.mean()):.2f}",
+        admitted_p99=f"{float(count.quantile(0.99)):.1f}",
+        admitted_max=int(count.max()), share_over_mv=f"{over:.5f}",
+        overflow=bool(lists[0][3]), ops=f"{ops:.4g}", bytes=nb,
+        bound_ms=f"{b_ms:.5f}", bound_by=b_by, share=f"{b_ms / ms:.4f}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "ops": ops,
+            "bytes": nb, "max_abs_err": err}
+
+
+def _hold_small_frame(phase, scene, camf, dev, bind, scans):
+    """A SMALL_W x SMALL_H depth-3 frame of `scene` through the kernels and
+    through their twins from one generator seed, `bind(scan, walk)` giving
+    the intersectors and `scans` the (kernel, twin) visit scans: raise
+    unless PIXEL_FRACTION of the pixels agree within PIXEL_RTOL and the
+    kernel frame is finite with a positive mean."""
+    import torch
+
+    from lumenrenderer_tpu_torch.core import sampling
+    from lumenrenderer_tpu_torch.integrator import wavefront as wf
+    from lumenrenderer_tpu_torch.ops import tree_walk as tw
+
+    sw, sh = SMALL_W, SMALL_H
+    small = wf.RenderConfig(width=sw, height=sh, max_depth=3, bsdf="disney",
+                            light_strategy="mis", extract_tangent=False)
+    imgs = []
+    for scan, walk in zip(scans, (tw.tile_tree_visits,
+                                  tw.tile_tree_visits_ref)):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(7)
+        isect, occl = bind(scan, walk)
+        with torch.no_grad():
+            out = wf.render_wavefront(scene, isect, occl,
+                                      camf(sw / sh).to(dev),
+                                      sampling.generator_uniforms(gen), 0,
+                                      small)
+        imgs.append(wf.merge_channels(out))
+    a, b = imgs
+    frac = float(torch.isclose(a, b, rtol=PIXEL_RTOL,
+                               atol=PIXEL_ATOL).all(-1).float().mean())
+    finite = bool(torch.isfinite(a).all())
+    say(phase, size=f"{sw}x{sh}", depth=small.max_depth,
+        pixels_agree=f"{frac:.6f}", finite=finite,
+        mean=f"{float(a.mean()):.6f}", twin_mean=f"{float(b.mean()):.6f}",
+        overflow=bool(out["overflow"]))
+    if frac < PIXEL_FRACTION or not finite or float(a.mean()) <= 0:
+        raise AssertionError(f"{phase}: kernel and twin frames differ: "
+                             f"{frac}")
+
+
+def _mega_renderer(dev, w, h):
+    """The mega scene (built once) and its Renderer on `dev`, with the host
+    build seconds: the scene, the Renderer (clusters, their tree, the upload)
+    and, timed inside that build, the tree."""
+    from lumenrenderer_tpu_torch.accel import stream
+    from lumenrenderer_tpu_torch.integrator.wavefront import RenderConfig
+    from lumenrenderer_tpu_torch.render.renderer import Renderer
+    from lumenrenderer_tpu_torch.scene import presets
+
+    t0 = time.perf_counter()
+    builder, camf = presets.mega_scene(n_tris=MEGA_TRIS, n_lights=MEGA_LIGHTS)
+    sc = builder.build()
+    t1 = time.perf_counter()
+    cfg = RenderConfig(width=w, height=h, max_depth=5, bsdf="disney",
+                       light_strategy="mis")
+    box_tree, tree_s = stream.box_tree, []
+
+    def timed_tree(lo, hi):
+        t = time.perf_counter()
+        out = box_tree(lo, hi)
+        tree_s.append(time.perf_counter() - t)
+        return out
+
+    stream.box_tree = timed_tree
+    try:
+        r = Renderer(sc, cfg, accel="tiled", device=dev)
+    finally:
+        stream.box_tree = box_tree
+    t2 = time.perf_counter()
+    cs = r.clusters
+    say("11 mega build", tris=sc.num_triangles, lights=int(sc.lights.count),
+        clusters=cs.num_clusters,
+        live_tris_per_cluster=f"{float(cs.nlive.double().mean()):.2f}",
+        tree_nodes=cs.tree_lo.shape[0], tree_depth=cs.tree_depth,
+        tri_feat_bytes=cs.tri_feat.numel() * 4, max_visits=r.max_visits,
+        culling=r.culling, scene_s=f"{t1 - t0:.2f}",
+        renderer_s=f"{t2 - t1:.2f}", tree_s=f"{sum(tree_s):.2f}")
+    return r, camf
+
+
+def phase_mega(dev, w=W, h=H, frames=SLICE_FRAMES):
+    import torch
+
+    from lumenrenderer_tpu_torch.accel import tiled
+    from lumenrenderer_tpu_torch.core import sampling
+    from lumenrenderer_tpu_torch.integrator import wavefront as wf
+    from lumenrenderer_tpu_torch.ops import tree_walk as tw
+    from lumenrenderer_tpu_torch.ops import visit_scan as vs
+
+    r, camf = _mega_renderer(dev, w, h)
+    cs, mv, cfg = r.clusters, r.max_visits, r.config
+    cam = camf(w / h)
+
+    # W and K1 against their twins on the passes of one frame
+    def capture(o, d, tn, tx):
+        q = tiled.scan_inputs(cs, o, d, tn, tx, mv)
+        q["rays"] = (o, d, tn, tx)
+        return q
+
+    passes = _secondary_passes(r.scene, cs, cam.to(dev), dev, w, h, capture,
+                               primary=True)
+    walk = {name: _hold_walk("11 mega W", name, cs, q["rays"], mv)
+            for name, q in passes.items()}
+    for name, q in passes.items():
+        nv = q["args"][3]
+        say("11 mega K1", rays=name, full_pass_tiles=nv.shape[0],
+            listed_visits_per_tile=f"{float(nv.float().mean()):.3f}",
+            overflow=bool(q["overflow"]))
+    k1 = _hold_k1("11 mega K1", passes, cs.nlive.double(), SUBSET_TILES)
+    del passes
+
+    # depth 3, since the twin walk takes one step of dozens of launches per
+    # node the longest walk pops (23,339, the whole tree, on a bounce pass)
+    _hold_small_frame("11 mega small", r.scene, camf, dev,
+                      lambda scan, walk: tiled.tiled_intersectors(
+                          cs, mv, scan=scan, walk=walk),
+                      (vs.visit_scan, vs.visit_scan_ref))
+
+    # the main path: the full frame through the Renderer
+    torch.cuda.reset_peak_memory_stats(dev)
+    vs.reset_launches()
+    tw.reset_launches()
+    st, _ = r.render_frame(r.init_state(0), cam)
+    warm_ms = r.frame_stats["Total Frame Time"]
+    run = {"st": st, "overflow": r.frame_stats["overflow"]}
+
+    def one():
+        run["st"], _ = r.render_frame(run["st"], cam)
+        run["overflow"] |= r.frame_stats["overflow"]
+
+    ms = timed_frames(one, frames)
+    launches = dict(vs.LAUNCHES)
+    walks = tw.LAUNCHES["walk"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    img = run["st"].accum
+    finite = bool(torch.isfinite(img).all())
+    mean = float(img.mean())
+    per_frame = {k: v / (frames + 1) for k, v in launches.items()}
+    say("11 mega frame", size=f"{w}x{h}", tris=r.scene.num_triangles,
+        clusters=cs.num_clusters, max_visits=mv, warmup_ms=f"{warm_ms:.1f}",
+        ms_per_frame=f"{ms:.1f}",
+        primary_rays_per_s=f"{w * h / ms * 1e3:.4g}",
+        peak_mem_gib=f"{peak / 2**30:.2f}", overflow=run["overflow"],
+        mean=f"{mean:.5f}", finite=finite, launches=json.dumps(launches),
+        launches_per_frame=json.dumps(per_frame),
+        walk_launches_per_frame=walks / (frames + 1))
+    if not finite or mean <= 0:
+        raise AssertionError(f"bad mega frame: finite={finite} mean={mean}")
+    expect = {"closest": cfg.max_depth, "any": cfg.max_depth}
+    if per_frame != expect or walks != 2 * cfg.max_depth * (frames + 1):
+        raise AssertionError(f"K1 launches per frame {per_frame} (expected "
+                             f"{expect}), W launches {walks}")
+    _profile_frame("11 profile", one, "visit_scan_kernel",
+                   also=("tree_walk_kernel",))
+
+    # the frame with the ClusterSet's cached kernel layout and without it
+    def frame_with(scan):
+        isect, occl = tiled.tiled_intersectors(cs, mv, scan=scan)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            wf.render_wavefront(r.scene, isect, occl, cam.to(dev),
+                                sampling.generator_uniforms(gen), 0, cfg)
+        torch.cuda.synchronize(dev)
+        return ((time.perf_counter() - t0) * 1e3,
+                torch.cuda.max_memory_allocated(dev) / 2**30)
+
+    def per_call(*args, layout=None, **kw):
+        return vs.visit_scan(*args, **kw)
+
+    order = (("cached", vs.visit_scan), ("per_call", per_call),
+             ("per_call", per_call), ("cached", vs.visit_scan))
+    got = {"cached": [], "per_call": []}
+    for label, scan in order:
+        got[label].append(frame_with(scan))
+    say("11 mega cache", order="cached, per_call, per_call, cached",
+        **{f"{k}_ms": json.dumps([round(x[0], 1) for x in v])
+           for k, v in got.items()},
+        **{f"{k}_peak_gib": json.dumps([round(x[1], 2) for x in v])
+           for k, v in got.items()})
+    mean_of = lambda key: sum(walk[p][key] for p in walk) / len(walk)
+    return {"k1": k1, "launches": launches, "walk": {
+        "ms": mean_of("ms"), "plain_ms": mean_of("plain_ms"),
+        "bound_ms": mean_of("bound_ms"),
+        "max_abs_err": max(walk[p]["max_abs_err"] for p in walk),
+        "bound_by": bound_ms(sum(walk[p]["ops"] for p in walk),
+                             sum(walk[p]["bytes"] for p in walk))[1],
+        "launches": walks}}
+
+
+def phase_units_past_2048(dev, w=W, h=H):
+    import torch
+
+    from lumenrenderer_tpu_torch.accel import two_level
+    from lumenrenderer_tpu_torch.integrator.wavefront import RenderConfig
+    from lumenrenderer_tpu_torch.ops import tree_walk as tw
+    from lumenrenderer_tpu_torch.ops import visit_scan_instanced as vsi
+    from lumenrenderer_tpu_torch.render.renderer import Renderer
+    from lumenrenderer_tpu_torch.scene import presets
+
+    builder, camf = presets.instanced_boxes(n_inst=UNITS_INSTANCES)
+    cam = camf(w / h)
+    cfg = RenderConfig(width=w, height=h, max_depth=5, bsdf="disney",
+                       light_strategy="mis")
+    r = Renderer(builder.build(), cfg, accel="two_level", builder=builder,
+                 device=dev)
+    vsi.reset_launches()
+    tw.reset_launches()
+    st, aux = r.render_frame(r.init_state(0), cam)
+    launches, walks = dict(vsi.LAUNCHES), tw.LAUNCHES["walk"]
+    overflow = r.frame_stats["overflow"]
+    ms = r.frame_stats["Total Frame Time"]
+    rt = Renderer(builder.build(), cfg, accel="tiled", culling="tree",
+                  device=dev)
+    st_t, aux_t = rt.render_frame(rt.init_state(0), cam)
+    say("11b two-level units", size=f"{w}x{h}",
+        units=r.instanced.num_clusters, unit_tree_depth=r.instanced.tree_depth,
+        max_visits=r.max_visits, first_frame_ms=f"{ms:.1f}",
+        overflow=overflow, k2_launches=json.dumps(launches),
+        walk_launches=walks, reference="tiled, culling=tree",
+        clusters=rt.clusters.num_clusters,
+        reference_ms=f"{rt.frame_stats['Total Frame Time']:.1f}",
+        reference_overflow=rt.frame_stats["overflow"])
+    if min(launches.values()) <= 0 or walks != 2 * cfg.max_depth:
+        raise AssertionError(f"K2 {launches} or W ({walks}) not launched on "
+                             "the unit tree")
+    mean, mean_t = float(st.accum.mean()), float(st_t.accum.mean())
+    if not bool(torch.isfinite(st.accum).all()) or mean <= 0:
+        raise AssertionError(f"bad two-level frame: mean={mean}")
+    low_bits = max(
+        _key_low_bits(r.instanced.num_clusters, 128, r.max_visits),
+        _key_low_bits(rt.clusters.num_clusters, 128, rt.max_visits))
+    # a tile that admits more than 128 units keeps only the first 128 its
+    # walk pops (ROADMAP C-12), and a unit is not a cluster, so the two
+    # frames lose different occluders and bounce hits: only the primary
+    # AOVs are held here, the means are printed; K2 and W are held against
+    # their twins on the whole frame below
+    _hold_frames("11b two-level units", "tiled", aux, aux_t, mean, mean_t,
+                 low_bits, hold_mean=False)
+    _hold_small_frame("11b two-level small", r.scene, camf, dev,
+                      lambda scan, walk: two_level.instanced_intersectors(
+                          r.instanced, r.max_visits, scan=scan, walk=walk),
+                      (vsi.visit_scan_instanced,
+                       vsi.visit_scan_instanced_ref))
+
+
 def main() -> int:
     if not (REPO / "lumenrenderer_tpu_torch" / "ops" / "csrc"
             / "visit_scan.cu").is_file():
@@ -1200,9 +1575,11 @@ def main() -> int:
                               dev)
     launches["pair_scan"] = run("9 pair slice", phase_pair_slice, dev)
     run("10 restir slice", phase_restir_slice, dev)
+    mega = run("11 mega slice", phase_mega, dev)
+    run("11b two-level units", phase_units_past_2048, dev)
 
     kernels = []
-    for name in KERNELS:
+    for name in KERNELS[:3]:
         for mode in ("closest", "any"):
             c = checks[name][mode]
             kernels.append({
@@ -1217,6 +1594,26 @@ def main() -> int:
                 "full_pass_bound_ms": c["full_pass_bound_ms"],
                 **({"visits_per_tile": c["visits_per_tile"]}
                    if "visits_per_tile" in c else {})})
+    for mode in ("closest", "any"):
+        c = mega["k1"][mode]
+        kernels.append({
+            "name": f"visit_scan[{mode}, mega]", "route": "cuda",
+            "source": "lumenrenderer_tpu_torch/ops/csrc/visit_scan.cu",
+            "replaces": REPLACES["visit_scan"],
+            "launches": mega["launches"][mode],
+            **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "full_pass_ms",
+                                 "full_pass_bound_ms")},
+            "library_ms": None})
+    w_ = mega["walk"]
+    kernels.append({
+        "name": "tree_walk", "route": "cuda",
+        "source": "lumenrenderer_tpu_torch/ops/csrc/tree_walk.cu",
+        "replaces": REPLACES["tree_walk"], "launches": w_["launches"],
+        "max_abs_err": w_["max_abs_err"], "ms": w_["ms"],
+        "plain_ms": w_["plain_ms"],
+        "bound_ms": w_["bound_ms"], "bound_by": w_["bound_by"],
+        "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

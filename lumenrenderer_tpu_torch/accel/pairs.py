@@ -4,8 +4,8 @@ Port of `lumenrenderer_tpu/accel/pairs.py`. The tiled intersector makes every
 ray of a 128-ray tile pay for the union of its tile's clusters; this one
 keeps only the (ray, cluster) pairs each ray enters:
 
-1. tile-frustum culling (`tiled._frustum_visits`) gives each tile its
-   candidate clusters;
+1. tile culling (`tiled.cull_tiles`: the frustum up to 2048 clusters, the
+   cluster tree past that) gives each tile its candidate clusters;
 2. `_refine_hits` slab-tests each ray against its tile's candidates within
    its own [t_min, t_max];
 3. `_emit_sorted_pairs` compacts the surviving pairs (at most `p_cap`; more
@@ -20,7 +20,6 @@ Dynamic shapes replace JAX's static ones where that is simpler eagerly:
 `torch.nonzero` (one host sync) then truncation or padding to `p_cap`, and
 scatters into a buffer with one parking slot. The caps (`PAIR_GROUP`,
 `p_cap`, `s_cap`) are the JAX package's, so shapes and `overflow` agree.
-Only frustum culling is ported (at most 2048 clusters).
 """
 from __future__ import annotations
 
@@ -30,7 +29,7 @@ import torch
 
 from ..ops import pair_scan as ps
 from .stream import ClusterSet, ray_features
-from .tiled import KEY_MISS, RAY_TILE, _frustum_visits, pad_rays
+from .tiled import KEY_MISS, RAY_TILE, cull_tiles, pad_rays
 
 PAIR_GROUP = RAY_TILE * 8   # rays pad to this, and p_cap, s_cap round to it
 REFINE_TILES = 2048         # tiles per chunk of the (T,128,mv,3) refine
@@ -114,9 +113,10 @@ def _emit_sorted_pairs(hit, sel, c: int, mv: int, p_cap: int, s_cap: int):
 def scan_inputs(cs: ClusterSet, origins, dirs, t_min, t_max,
                 max_visits: int, max_pairs_per_ray: int) -> Dict:
     """Steps 1-3 and K3's inputs: {"args": (rf_pairs, feats, tile_cluster),
-    "kw": {k, k_bits}}, plus what the reduction needs: idx, dest_orig,
-    sel, mv, the padded and real ray counts rp and r, s_cap, overflow and
-    the (r,) live mask; and `pairs`, the number of admitted pairs."""
+    "kw": {k, k_bits}}, the table's kernel layout, plus what the reduction
+    needs: idx, dest_orig, sel, mv, the padded and real ray counts rp and
+    r, s_cap, overflow and the (r,) live mask; and `pairs`, the number of
+    admitted pairs."""
     r = origins.shape[0]
     dev = origins.device
     c = cs.num_clusters
@@ -125,7 +125,7 @@ def scan_inputs(cs: ClusterSet, origins, dirs, t_min, t_max,
     rp = o.shape[0]
     tiles = rp // RAY_TILE
     mv = min(max_visits, c)
-    sel, valid, _, cull_ovf = _frustum_visits(cs, o, d, tn, tx, tiles, mv)
+    sel, valid, _, cull_ovf = cull_tiles(cs, o, d, tn, tx, tiles, mv)
     hit = _refine_hits(cs, o, d, tn, tx, sel, valid, tiles)
     p_cap = -(-(rp * max_pairs_per_ray) // PAIR_GROUP) * PAIR_GROUP
     s_cap = -(-(p_cap + c * RAY_TILE) // PAIR_GROUP) * PAIR_GROUP
@@ -138,7 +138,7 @@ def scan_inputs(cs: ClusterSet, origins, dirs, t_min, t_max,
     return {
         "args": (rf_pairs, cs.tri_feat, tile_cluster),
         "kw": dict(k=k, k_bits=max((k - 1).bit_length(), 1)),
-        "idx": idx, "dest_orig": dest_orig, "sel": sel, "mv": mv, "rp": rp,
+        "layout": (cs.slabs, cs.nlive), "idx": idx, "dest_orig": dest_orig, "sel": sel, "mv": mv, "rp": rp,
         "r": r, "s_cap": s_cap, "overflow": cull_ovf | pair_ovf,
         "live": (tx >= tn)[:r], "pairs": int(hit.sum()),
     }
@@ -149,7 +149,8 @@ def _query(cs: ClusterSet, origins, dirs, t_min, t_max, max_visits: int,
            ) -> Dict[str, torch.Tensor]:
     q = scan_inputs(cs, origins, dirs, t_min, t_max, max_visits,
                     max_pairs_per_ray)
-    out_s = ps.pair_scan(*q["args"], **q["kw"], closest=closest)
+    out_s = ps.pair_scan(*q["args"], **q["kw"], closest=closest,
+                         layout=q["layout"])
     r, rp, mv = q["r"], q["rp"], q["mv"]
     dev = origins.device
     # step 5: per-pair results back to the rays' candidate slots

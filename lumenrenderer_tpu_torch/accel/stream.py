@@ -4,9 +4,12 @@ Port of `ClusterSet`, `build_clusters` and `ray_features` from
 `lumenrenderer_tpu/accel/stream.py`. Möller–Trumbore is written as a bilinear
 form: with ray features f = [o×d, d, o, 1] (10 per ray) and per-triangle
 coefficient columns, the four quantities det, u·det, v·det and t·det of a
-(rays × triangles) block are one product f · tri_feat. The pair-stream
-intersector of that file is not ported, nor is the second-level cluster tree
-(used only by tree culling, for scenes of more than 2048 clusters).
+(rays × triangles) block are one product f · tri_feat. A second-level SAH
+tree over the cluster boxes (one cluster per leaf) serves tree culling, for
+scenes of more than 2048 clusters. Each ClusterSet also carries its table in
+the kernels' order (`ops.visit_scan.slab_layout`), made once per build or
+refit rather than per kernel call. The pair-stream intersector of that file
+is not ported.
 """
 from __future__ import annotations
 
@@ -17,17 +20,27 @@ import torch
 
 from ..core import vecmath as vm
 from ..core.struct import TensorStruct
-from .sah import build_sah_arrays
+from ..ops.visit_scan import slab_layout
+from .sah import build_sah_arrays, build_sah_boxes
 
 
 @dataclasses.dataclass(frozen=True)
 class ClusterSet(TensorStruct):
-    """C clusters of K triangles each."""
+    """C clusters of K triangles each, the cluster tree over their boxes,
+    and the coefficient table in the kernels' order."""
 
     aabb_lo: torch.Tensor   # (C,3) float32
     aabb_hi: torch.Tensor   # (C,3)
     tri_feat: torch.Tensor  # (C,10,4K) coefficient blocks [det|u|v|t]
     tri_id: torch.Tensor    # (C,K) int32 scene triangle ids, -1 = padding
+    tree_lo: torch.Tensor   # (Nn,3) float32 node boxes, node 0 the root
+    tree_hi: torch.Tensor   # (Nn,3)
+    tree_child0: torch.Tensor   # (Nn,) int32, < 0: leaf -(i + 1)
+    tree_child1: torch.Tensor   # (Nn,) int32
+    tree_leaf_cluster: torch.Tensor  # (Nl,) int32 cluster of leaf i
+    tree_depth: int
+    slabs: torch.Tensor     # (C,K,10,4) tri_feat in the kernels' order
+    nlive: torch.Tensor     # (C,) int32 live slots per cluster
 
     @property
     def num_clusters(self) -> int:
@@ -36,6 +49,10 @@ class ClusterSet(TensorStruct):
     @property
     def tris_per_cluster(self) -> int:
         return self.tri_id.shape[1]
+
+
+TREE_FIELDS = ("tree_lo", "tree_hi", "tree_child0", "tree_child1",
+               "tree_leaf_cluster", "tree_depth")
 
 
 def ray_features(o: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
@@ -49,6 +66,36 @@ def sah_cluster_order(tri_pos: np.ndarray, cluster_size: int) -> np.ndarray:
     tp32 = np.asarray(tri_pos, np.float32)
     order = build_sah_arrays(tp32, leaf_size=cluster_size)[4]
     return order.reshape(-1, cluster_size)
+
+
+def box_tree(lo: np.ndarray, hi: np.ndarray) -> dict:
+    """The `tree_*` fields of a binned-SAH tree over boxes (N,3), one box per
+    leaf. Boxes that are not finite or are padding (|x| >= 1e29) take 0."""
+    clean = lambda a: np.where(np.isfinite(a) & (np.abs(a) < 1e29), a, 0.0)
+    tlo, thi, c0, c1, order, depth = build_sah_boxes(clean(lo), clean(hi),
+                                                     leaf_size=1)
+    t_ = torch.from_numpy
+    return dict(tree_lo=t_(tlo), tree_hi=t_(thi), tree_child0=t_(c0),
+                tree_child1=t_(c1),
+                tree_leaf_cluster=t_(order.astype(np.int32)),
+                tree_depth=depth)
+
+
+def kernel_layout(tri_feat: torch.Tensor) -> dict:
+    """The `slabs` and `nlive` fields of a (C,10,4K) coefficient table."""
+    slabs, nlive = slab_layout(tri_feat, tri_feat.shape[2] // 4)
+    return dict(slabs=slabs, nlive=nlive)
+
+
+def global_box_tree(tree: dict, lo: torch.Tensor, hi: torch.Tensor) -> dict:
+    """`tree` with every node box set to the bounds of the boxes (N,3) whose
+    |x| < 1e30: the conservative tree refit."""
+    big = 1e30
+    glo = torch.where(lo.abs() < big, lo, big).amin(0)
+    ghi = torch.where(hi.abs() < big, hi, -big).amax(0)
+    shape = tree["tree_lo"].shape
+    return dict(tree, tree_lo=glo.expand(shape).contiguous(),
+                tree_hi=ghi.expand(shape).contiguous())
 
 
 def clusters_from_order(tri_pos, tri_id: np.ndarray) -> ClusterSet:
@@ -81,10 +128,11 @@ def clusters_from_order(tri_pos, tri_id: np.ndarray) -> ClusterSet:
     feat[:, 9, 3 * k:4 * k] = np.where(
         valid, -np.einsum("ckj,ckj->ck", p0, n), 0.0)
     t_ = torch.from_numpy
+    tri_feat = t_(feat.astype(np.float32))
     return ClusterSet(
         aabb_lo=t_(lo.astype(np.float32)), aabb_hi=t_(hi.astype(np.float32)),
-        tri_feat=t_(feat.astype(np.float32)),
-        tri_id=t_(ids.astype(np.int32)))
+        tri_feat=tri_feat, tri_id=t_(ids.astype(np.int32)),
+        **box_tree(lo, hi), **kernel_layout(tri_feat))
 
 
 def build_clusters(tri_pos, cluster_size: int = 64) -> ClusterSet:
@@ -97,8 +145,11 @@ def build_clusters(tri_pos, cluster_size: int = 64) -> ClusterSet:
 def refit_clusters(cs: ClusterSet, tri_pos: torch.Tensor) -> ClusterSet:
     """Refit for dynamic scenes, on tri_pos's device in float32 as the JAX
     package's `refit_clusters` computes it (not `build_clusters`' float64
-    host path): membership (tri_id) stays, boxes and Möller–Trumbore
-    coefficients follow the new (T,3,3) world positions."""
+    host path): membership (tri_id) stays, boxes, Möller–Trumbore
+    coefficients and the kernels' layout follow the new (T,3,3) world
+    positions. The tree is refit conservatively, as JAX does: every node box
+    becomes the bounds of all clusters, so tree culling stays sound (it
+    admits every cluster, up to the visit cap)."""
     ids = cs.tri_id.long()
     valid = ids >= 0
     k = cs.tris_per_cluster
@@ -128,4 +179,6 @@ def refit_clusters(cs: ClusterSet, tri_pos: torch.Tensor) -> ClusterSet:
     feat[:, 3:6, 2 * k:3 * k] = z3(-vm.cross(p0, e1))
     feat[:, 6:9, 3 * k:4 * k] = z3(n)
     feat[:, 9, 3 * k:4 * k] = torch.where(valid, -(p0 * n).sum(-1), 0.0)
-    return cs.replace(aabb_lo=lo, aabb_hi=hi, tri_feat=feat)
+    tree = {f: getattr(cs, f) for f in TREE_FIELDS}
+    return cs.replace(aabb_lo=lo, aabb_hi=hi, tri_feat=feat,
+                      **global_box_tree(tree, lo, hi), **kernel_layout(feat))

@@ -1,12 +1,15 @@
 """Tiled intersector: 128-ray tiles against ordered lists of SAH clusters.
 
 Port of `lumenrenderer_tpu/accel/tiled.py` on the path the renderer takes:
-tile-frustum culling builds each tile's visit list (`_frustum_visits`), the
-visit scan (kernel K1, `ops/visit_scan.py`) returns one packed key per ray,
-and the winner is decoded from the key without re-deriving t/u/v
-(`decode=False`; `extract_surface_data` re-derives them exactly). Not
-ported yet: cluster-tree culling for scenes of more than 2048 clusters, the
-dense per-ray culling path, and the in-intersector exact decode.
+tile culling builds each tile's visit list, the visit scan (kernel K1,
+`ops/visit_scan.py`) returns one packed key per ray, and the winner is
+decoded from the key without re-deriving t/u/v (`decode=False`;
+`extract_surface_data` re-derives them exactly). Culling is the JAX Pallas
+path's: `culling="auto"` tests every (tile, cluster) pair against the tile's
+frustum (`_frustum_visits`) up to 2048 clusters and walks the cluster tree
+past that (`_tile_tree_visits`, the walk in `ops/tree_walk.py`); "frustum"
+and "tree" force one. Not ported: the dense per-ray culling path and the
+in-intersector exact decode.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from ..ops import tree_walk as tw
 from ..ops import visit_scan as vs
 from .stream import ClusterSet, ray_features
 
@@ -60,14 +64,10 @@ def pad_rays(origins, dirs, t_min, t_max, group: int):
 def _frustum_visits(cs: ClusterSet, o, d, tn, tx, tiles: int, mv: int):
     """Interval-ray (packet) slab test of every (tile, cluster) pair; `cs` is
     a ClusterSet or any table of boxes `aabb_lo`/`aabb_hi` (two-level units).
+    Memory is (T,C,3) float32 per intermediate.
 
     Returns (order (T,mv) cluster ids, valid (T,mv), tnear (T,mv) ascending,
     overflow ()). Ties in tnear keep cluster-id order, as `lax.top_k` does."""
-    c = cs.aabb_lo.shape[0]
-    if c > MAX_FRUSTUM_CLUSTERS:
-        raise NotImplementedError(
-            f"{c} clusters or units: tree culling (more than "
-            f"{MAX_FRUSTUM_CLUSTERS}) is not ported yet")
     olo, ohi, dlo, dhi, t_cap, any_alive = _tile_bounds(
         o, d, tn, tx, tiles, RAY_TILE)
     eps = 1e-20
@@ -96,6 +96,46 @@ def _frustum_visits(cs: ClusterSet, o, d, tn, tx, tiles: int, mv: int):
         overflow
 
 
+def _tile_tree_visits(acc, o, d, tn, tx, tiles: int, mv: int,
+                      walk: Callable = tw.tile_tree_visits):
+    """Depth-first, near-first walk of `acc`'s tree (a ClusterSet's cluster
+    tree or an InstancedClusterSet's unit tree) by each tile's interval ray
+    (`walk`: kernel W's wrapper `ops.tree_walk.tile_tree_visits`, or its
+    twin); the walk's lists sorted by entry t (stable, as `jnp.argsort`).
+
+    Returns (order (T,mv), valid (T,mv), tnear (T,mv) ascending, inf past
+    the count, overflow ()). A tile that reaches more than mv leaves keeps
+    the first mv it popped, not the nearest (ROADMAP C-12)."""
+    olo, ohi, dlo, dhi, t_cap, any_alive = _tile_bounds(
+        o, d, tn, tx, tiles, RAY_TILE)
+    visits, vtn, count = walk(
+        olo, ohi, dlo, dhi, t_cap, any_alive, acc.tree_lo, acc.tree_hi,
+        acc.tree_child0, acc.tree_child1, acc.tree_leaf_cluster,
+        tree_depth=acc.tree_depth, mv=mv)
+    vtn, idx = torch.sort(vtn, dim=1, stable=True)
+    visits = visits.gather(1, idx)
+    valid = torch.arange(mv, device=o.device)[None] < count[:, None]
+    overflow = (count > mv).any()
+    return visits, valid, torch.where(valid, vtn, torch.inf), overflow
+
+
+def cull_tiles(acc, o, d, tn, tx, tiles: int, mv: int,
+               culling: str = "auto", walk: Callable = tw.tile_tree_visits):
+    """Each tile's visit list by `culling`: "frustum", "tree" (through
+    `walk`), or "auto" (the frustum up to MAX_FRUSTUM_CLUSTERS clusters or
+    units, the tree past that, as the JAX package's Pallas path chooses).
+    Returns what `_frustum_visits` returns."""
+    if culling == "auto":
+        culling = ("frustum" if acc.num_clusters <= MAX_FRUSTUM_CLUSTERS
+                   else "tree")
+    if culling == "frustum":
+        return _frustum_visits(acc, o, d, tn, tx, tiles, mv)
+    if culling == "tree":
+        return _tile_tree_visits(acc, o, d, tn, tx, tiles, mv, walk)
+    raise NotImplementedError(f"culling={culling!r} is not ported; "
+                              "'auto', 'frustum' and 'tree' are")
+
+
 def key_bits(k: int, mv: int) -> Tuple[int, int, int]:
     """(k_bits, s_bits, low_bits) of the packed key for K triangles per
     cluster and mv visits; t keeps 23 - low_bits mantissa bits."""
@@ -107,14 +147,15 @@ def key_bits(k: int, mv: int) -> Tuple[int, int, int]:
     return k_bits, s_bits, low_bits
 
 
-def visit_lists(acc, o, d, tn, tx, max_visits: int):
+def visit_lists(acc, o, d, tn, tx, max_visits: int, culling: str = "auto",
+                walk: Callable = tw.tile_tree_visits):
     """Cull the padded rays' tiles against `acc` (a ClusterSet, or the units
     of an InstancedClusterSet) and lay out the visit scan's list inputs:
     (sel (T,mv) int32, nv (T,) int32, tnb (T,mv) int32 entry-t bits with
     KEY_MISS past nv, overflow (), kw {k, mv, k_bits, low_bits}, s_bits)."""
     mv = min(max_visits, acc.num_clusters)
-    sel, valid, tnear, overflow = _frustum_visits(
-        acc, o, d, tn, tx, o.shape[0] // RAY_TILE, mv)
+    sel, valid, tnear, overflow = cull_tiles(
+        acc, o, d, tn, tx, o.shape[0] // RAY_TILE, mv, culling, walk)
     k_bits, s_bits, low_bits = key_bits(acc.tris_per_cluster, mv)
     nv = valid.sum(1, dtype=torch.int32)
     tn_bits = tnear.clamp_min(0.0).view(torch.int32)
@@ -142,27 +183,32 @@ def decode_winners(out: torch.Tensor, q: Dict):
 
 
 def scan_inputs(cs: ClusterSet, origins, dirs, t_min, t_max,
-                max_visits: int) -> Dict:
+                max_visits: int, culling: str = "auto",
+                walk: Callable = tw.tile_tree_visits) -> Dict:
     """Pad rays to whole tiles, cull, and build the visit scan's inputs:
     {"args": (rf_t, feats, sel, nv, tnb), "kw": {k, mv, k_bits, low_bits}},
-    plus what the decode needs: the visit lists sel, s_bits, overflow, the
-    ray count r and the (r,) live mask."""
+    the table's kernel layout (slabs, nlive), plus what the decode needs:
+    the visit lists sel, s_bits, overflow, the ray count r and the (r,) live
+    mask."""
     r = origins.shape[0]
     o, d, tn, tx = pad_rays(origins, dirs, t_min, t_max, RAY_TILE)
     sel, nv, tnb, overflow, kw, s_bits = visit_lists(cs, o, d, tn, tx,
-                                                     max_visits)
+                                                     max_visits, culling,
+                                                     walk)
     rf_t = torch.cat([ray_features(o, d), tn[:, None], tx[:, None]],
                      dim=1).reshape(-1, RAY_TILE, 12)
     return {"args": (rf_t, cs.tri_feat, sel, nv, tnb), "kw": kw,
-            "sel": sel, "s_bits": s_bits, "overflow": overflow, "r": r,
-            "live": (tx >= tn)[:r]}
+            "layout": (cs.slabs, cs.nlive), "sel": sel, "s_bits": s_bits,
+            "overflow": overflow, "r": r, "live": (tx >= tn)[:r]}
 
 
 def _query(cs: ClusterSet, origins, dirs, t_min, t_max, max_visits: int,
-           closest: bool, scan: Callable = vs.visit_scan
+           closest: bool, scan: Callable = vs.visit_scan,
+           culling: str = "auto", walk: Callable = tw.tile_tree_visits
            ) -> Dict[str, torch.Tensor]:
-    q = scan_inputs(cs, origins, dirs, t_min, t_max, max_visits)
-    out = scan(*q["args"], **q["kw"], closest=closest)
+    q = scan_inputs(cs, origins, dirs, t_min, t_max, max_visits, culling,
+                    walk)
+    out = scan(*q["args"], **q["kw"], closest=closest, layout=q["layout"])
     if not closest:
         return {"occluded": (out.reshape(-1)[:q["r"]] > 0) & q["live"],
                 "overflow": q["overflow"]}
@@ -172,28 +218,39 @@ def _query(cs: ClusterSet, origins, dirs, t_min, t_max, max_visits: int,
 
 
 def intersect_closest(cs: ClusterSet, origins, dirs, t_min, t_max,
-                      max_visits: int = 12, scan: Callable = vs.visit_scan):
+                      max_visits: int = 12, scan: Callable = vs.visit_scan,
+                      culling: str = "auto",
+                      walk: Callable = tw.tile_tree_visits):
     """Closest hits: {"t" (quantized), "tri" (-1 = miss), "overflow"}."""
-    return _query(cs, origins, dirs, t_min, t_max, max_visits, True, scan)
+    return _query(cs, origins, dirs, t_min, t_max, max_visits, True, scan,
+                  culling, walk)
 
 
 def intersect_any(cs: ClusterSet, origins, dirs, t_min, t_max,
-                  max_visits: int = 12, scan: Callable = vs.visit_scan):
+                  max_visits: int = 12, scan: Callable = vs.visit_scan,
+                  culling: str = "auto",
+                  walk: Callable = tw.tile_tree_visits):
     """Occlusion mask (R,) bool."""
     return _query(cs, origins, dirs, t_min, t_max, max_visits, False,
-                  scan)["occluded"]
+                  scan, culling, walk)["occluded"]
 
 
 def tiled_intersectors(cs: ClusterSet, max_visits: int = 12,
-                       scan: Callable = vs.visit_scan) -> Tuple:
+                       scan: Callable = vs.visit_scan,
+                       culling: str = "auto",
+                       walk: Callable = tw.tile_tree_visits) -> Tuple:
     """Bind a ClusterSet into (intersect_fn, occlude_fn) for the wavefront
-    loop. `scan` is the visit scan: the kernel wrapper, or its plain twin
-    `visit_scan_ref` to compare the two on one device."""
+    loop. `scan` is the visit scan and `walk` the tree walk: the kernel
+    wrappers, or their plain twins (`visit_scan_ref`,
+    `tile_tree_visits_ref`) to compare the two on one device. `culling`:
+    see `cull_tiles`."""
 
     def isect(o, d, tn, tx):
-        return intersect_closest(cs, o, d, tn, tx, max_visits, scan)
+        return intersect_closest(cs, o, d, tn, tx, max_visits, scan, culling,
+                                 walk)
 
     def occl(o, d, tn, tx):
-        return intersect_any(cs, o, d, tn, tx, max_visits, scan)
+        return intersect_any(cs, o, d, tn, tx, max_visits, scan, culling,
+                             walk)
 
     return isect, occl

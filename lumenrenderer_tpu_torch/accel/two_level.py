@@ -4,8 +4,9 @@ Port of `lumenrenderer_tpu/accel/two_level.py`. Geometry is clustered once
 per unique mesh, in object space (the BLAS: SAH clusters with Möller–Trumbore
 coefficients, concatenated into one table); instances are a table of
 transforms. A TLAS leaf is a unit, one (instance, cluster) pair, whose world
-box is the instance-transformed object box. Tile-frustum culling
-(`tiled._frustum_visits`) runs over the units, and kernel K2
+box is the instance-transformed object box. Tile culling runs over the
+units as it runs over clusters (`tiled.cull_tiles`: the frustum up to 2048
+units, the unit tree past that), and kernel K2
 (`ops/visit_scan_instanced.py`) maps each tile's rays into the unit's object
 space at every visit. The map keeps the ray's world t, so windows, the packed
 key and the early-out work in world t as in the single-level scan.
@@ -13,30 +14,32 @@ key and the early-out work in world t as in the single-level scan.
 A winner decodes to a virtual triangle id, `inst_tri_base[inst] +` its
 mesh-local id, which indexes the flattened SceneData (`flatten_instances`
 order), so shading is unchanged. `refit_instances` follows new transforms
-in O(units) for dynamic scenes.
+in O(units) for dynamic scenes, and refits the unit tree conservatively.
 
-Not ported: the unit tree and tree culling (more than 2048 units), dense
-culling, and the in-intersector exact decode (`decode=False` only).
+Not ported: dense culling and the in-intersector exact decode
+(`decode=False` only).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence, Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..core.struct import TensorStruct
+from ..ops import tree_walk as tw
 from ..ops import visit_scan_instanced as vsi
-from .stream import build_clusters
+from .stream import (TREE_FIELDS, box_tree, build_clusters, global_box_tree,
+                     kernel_layout)
 from .tiled import RAY_TILE, decode_winners, pad_rays, visit_lists
 
 
 @dataclasses.dataclass(frozen=True)
 class InstancedClusterSet(TensorStruct):
-    """Unit, BLAS and instance tables. `aabb_lo`/`aabb_hi` are the units'
-    world boxes, the fields that frustum culling reads, so culling treats
-    units as it treats clusters."""
+    """Unit, BLAS and instance tables, and the unit tree. `aabb_lo`/`aabb_hi`
+    are the units' world boxes and `tree_*` a tree over them, the fields
+    that culling reads, so culling treats units as it treats clusters."""
 
     aabb_lo: torch.Tensor        # (V,3) world boxes of the units
     aabb_hi: torch.Tensor        # (V,3)
@@ -49,6 +52,14 @@ class InstancedClusterSet(TensorStruct):
     inst_minv: torch.Tensor      # (I,3,4) world -> object affine
     inst_tri_base: torch.Tensor  # (I,) int32 virtual triangle id base
     inst_cluster_base: torch.Tensor  # (I,) int32 first cluster of the mesh
+    tree_lo: torch.Tensor        # (Nn,3) unit tree node boxes
+    tree_hi: torch.Tensor        # (Nn,3)
+    tree_child0: torch.Tensor    # (Nn,) int32, < 0: leaf -(i + 1)
+    tree_child1: torch.Tensor    # (Nn,) int32
+    tree_leaf_cluster: torch.Tensor  # (V,) int32 unit of leaf i
+    tree_depth: int
+    slabs: torch.Tensor          # (C,K,10,4) tri_feat in the kernels' order
+    nlive: torch.Tensor          # (C,) int32 live slots per cluster
     tris_per_cluster: int
 
     @property
@@ -102,38 +113,46 @@ def build_instanced(meshes: Sequence[np.ndarray], inst_mesh: Sequence[int],
     v_lo, v_hi = _unit_boxes(obj_lo[unit_cluster.long()],
                              obj_hi[unit_cluster.long()],
                              torch.from_numpy(mats)[unit_inst.long()])
+    tri_feat = cat("tri_feat")
     return InstancedClusterSet(
         aabb_lo=v_lo, aabb_hi=v_hi, unit_inst=unit_inst,
-        unit_cluster=unit_cluster, tri_feat=cat("tri_feat"),
+        unit_cluster=unit_cluster, tri_feat=tri_feat,
         tri_id=cat("tri_id"), obj_lo=obj_lo, obj_hi=obj_hi,
         inst_minv=torch.from_numpy(minv),
         inst_tri_base=torch.from_numpy(tri_base),
         inst_cluster_base=torch.from_numpy(cl_base),
+        **box_tree(v_lo.numpy(), v_hi.numpy()), **kernel_layout(tri_feat),
         tris_per_cluster=cluster_size)
 
 
 def refit_instances(ics: InstancedClusterSet,
                     transforms: torch.Tensor) -> InstancedClusterSet:
     """New (I,4,4) object -> world transforms: new world -> object affines
-    and unit boxes, in O(units) on the tables' device; no triangle work."""
+    and unit boxes, in O(units) on the tables' device; no triangle work, so
+    the kernel layout stays. The unit tree is refit conservatively, as JAX
+    does: every node box becomes the bounds of all units."""
     minv = torch.linalg.inv(transforms)[:, :3, :4]
     cl = ics.unit_cluster.long()
     v_lo, v_hi = _unit_boxes(ics.obj_lo[cl], ics.obj_hi[cl],
                              transforms[ics.unit_inst.long()])
-    return ics.replace(aabb_lo=v_lo, aabb_hi=v_hi, inst_minv=minv)
+    tree = {f: getattr(ics, f) for f in TREE_FIELDS}
+    return ics.replace(aabb_lo=v_lo, aabb_hi=v_hi, inst_minv=minv,
+                       **global_box_tree(tree, v_lo, v_hi))
 
 
 def scan_inputs(ics: InstancedClusterSet, origins, dirs, t_min, t_max,
-                max_visits: int) -> Dict:
-    """Pad rays to whole tiles, cull the units, and build K2's inputs:
-    {"args": (rayblk, wnd, feats, sel_cl, minv12, nv, tnb),
-    "kw": {k, mv, k_bits, low_bits}}, plus what the decode needs: the
-    (T,mv) unit lists sel, s_bits, overflow, the ray count r and the (r,)
-    live mask."""
+                max_visits: int, culling: str = "auto",
+                walk: Callable = tw.tile_tree_visits) -> Dict:
+    """Pad rays to whole tiles, cull the units (`tiled.cull_tiles`), and
+    build K2's inputs: {"args": (rayblk, wnd, feats, sel_cl, minv12, nv,
+    tnb), "kw": {k, mv, k_bits, low_bits}}, the table's kernel layout, plus
+    what the decode needs: the (T,mv) unit lists sel, s_bits, overflow, the
+    ray count r and the (r,) live mask."""
     r = origins.shape[0]
     o, d, tn, tx = pad_rays(origins, dirs, t_min, t_max, RAY_TILE)
     sel, nv, tnb, overflow, kw, s_bits = visit_lists(ics, o, d, tn, tx,
-                                                     max_visits)
+                                                     max_visits, culling,
+                                                     walk)
     zeros = torch.zeros((o.shape[0], 6), dtype=torch.float32, device=o.device)
     rayblk = torch.cat([o, d, zeros[:, :2]], dim=1).reshape(
         -1, RAY_TILE, 8).transpose(1, 2).contiguous()
@@ -144,15 +163,19 @@ def scan_inputs(ics: InstancedClusterSet, origins, dirs, t_min, t_max,
     return {
         "args": (rayblk, wnd, ics.tri_feat, ics.unit_cluster[sel_l], minv12,
                  nv, tnb),
-        "kw": kw, "sel": sel, "s_bits": s_bits, "overflow": overflow,
+        "kw": kw, "layout": (ics.slabs, ics.nlive), "sel": sel,
+        "s_bits": s_bits, "overflow": overflow,
         "r": r, "live": (tx >= tn)[:r],
     }
 
 
 def _query(ics: InstancedClusterSet, origins, dirs, t_min, t_max,
-           max_visits: int, closest: bool) -> Dict[str, torch.Tensor]:
-    q = scan_inputs(ics, origins, dirs, t_min, t_max, max_visits)
-    out = vsi.visit_scan_instanced(*q["args"], **q["kw"], closest=closest)
+           max_visits: int, closest: bool, culling: str = "auto",
+           scan: Callable = vsi.visit_scan_instanced,
+           walk: Callable = tw.tile_tree_visits) -> Dict[str, torch.Tensor]:
+    q = scan_inputs(ics, origins, dirs, t_min, t_max, max_visits, culling,
+                    walk)
+    out = scan(*q["args"], **q["kw"], closest=closest, layout=q["layout"])
     if not closest:
         return {"occluded": (out.reshape(-1)[:q["r"]] > 0) & q["live"],
                 "overflow": q["overflow"]}
@@ -164,16 +187,22 @@ def _query(ics: InstancedClusterSet, origins, dirs, t_min, t_max,
             "overflow": q["overflow"]}
 
 
-def instanced_intersectors(ics: InstancedClusterSet,
-                           max_visits: int = 128) -> Tuple:
+def instanced_intersectors(ics: InstancedClusterSet, max_visits: int = 128,
+                           culling: str = "auto",
+                           scan: Callable = vsi.visit_scan_instanced,
+                           walk: Callable = tw.tile_tree_visits) -> Tuple:
     """Bind an InstancedClusterSet into (intersect_fn, occlude_fn) for the
-    wavefront loop, with the contract of `tiled.tiled_intersectors`."""
+    wavefront loop, with the contract of `tiled.tiled_intersectors`: `scan`
+    and `walk` are kernels K2 and W, or their twins
+    (`visit_scan_instanced_ref`, `tile_tree_visits_ref`)."""
 
     def isect(o, d, tn, tx):
-        return _query(ics, o, d, tn, tx, max_visits, True)
+        return _query(ics, o, d, tn, tx, max_visits, True, culling, scan,
+                      walk)
 
     def occl(o, d, tn, tx):
-        return _query(ics, o, d, tn, tx, max_visits, False)["occluded"]
+        return _query(ics, o, d, tn, tx, max_visits, False, culling, scan,
+                      walk)["occluded"]
 
     return isect, occl
 

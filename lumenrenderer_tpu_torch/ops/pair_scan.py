@@ -20,7 +20,8 @@ issue, as K1. The design is K1's, on the loop the three kernels share
 (`csrc/cluster_scan.cuh`): a block of four warps per pair tile, each warp
 testing an interleaved quarter of the cluster's live slots and each lane
 four pairs, so one broadcast float4 of the slab feeds 16 FMAs; the table in
-the kernels' order (`visit_scan.slab_layout`, made per call), so one TMA
+the kernels' order (`visit_scan.slab_layout`, carried by the ClusterSet,
+else made per call), so one TMA
 bulk copy brings a tile's live slots into shared memory while the lanes
 load their pairs. Before the copy the block votes on whether any of its
 pairs is live: the run-padded tail of the stream (about a third of its
@@ -43,7 +44,7 @@ import torch
 
 from . import build
 from .visit_scan import (KERNEL_K, KEY_MISS, RAY_TILE, check_scalars,
-                         slab_hits, slab_layout)
+                         layout_expect, slab_hits, slab_layout)
 
 # launches of the CUDA kernel per mode (the CPU twin does not count)
 LAUNCHES = {"closest": 0, "any": 0}
@@ -55,9 +56,10 @@ def reset_launches() -> None:
 
 
 def pair_scan_ref(rf_pairs, feats, tile_cluster, *, k: int, k_bits: int,
-                  closest: bool) -> torch.Tensor:
+                  closest: bool, layout=None) -> torch.Tensor:
     """Plain PyTorch twin of the kernel: one (128, 10)·(10, 4K) product per
     pair tile. Memory is (S / 128, 128, 4K) float32."""
+    del layout  # only the kernel reads it
     rf = rf_pairs.reshape(-1, RAY_TILE, 12)
     hit, tb = slab_hits(rf[..., :10].contiguous(), feats[tile_cluster.long()],
                         rf[..., 10:11], rf[..., 11:12], k, closest)
@@ -70,9 +72,10 @@ def pair_scan_ref(rf_pairs, feats, tile_cluster, *, k: int, k_bits: int,
 
 
 def pair_scan(rf_pairs, feats, tile_cluster, *, k: int, k_bits: int,
-              closest: bool) -> torch.Tensor:
+              closest: bool, layout=None) -> torch.Tensor:
     """Run the pair scan (contract in the module docstring): (S,) int32 keys
-    (closest) or occlusion bits (any)."""
+    (closest) or occlusion bits (any). `layout`: as for
+    `visit_scan.visit_scan`."""
     s = rf_pairs.shape[0]
     if s % RAY_TILE:
         raise ValueError(f"{s} pairs: not a multiple of {RAY_TILE}")
@@ -81,6 +84,7 @@ def pair_scan(rf_pairs, feats, tile_cluster, *, k: int, k_bits: int,
         "rf_pairs": (rf_pairs, torch.float32, (s, 12)),
         "feats": (feats, torch.float32, (feats.shape[0], 10, 4 * k)),
         "tile_cluster": (tile_cluster, torch.int32, (tiles,)),
+        **layout_expect(feats, k, layout),
     })
     check_scalars(k, 1, k_bits, k_bits)   # one visit, no visit field
     if rf_pairs.device.type == "cpu":
@@ -95,9 +99,9 @@ def pair_scan(rf_pairs, feats, tile_cluster, *, k: int, k_bits: int,
     fn = build.load_function(
         "pair_scan", "pair_scan_launch",
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    # freed on return, but the caching allocator hands their memory only to
-    # work queued after the kernel on this stream
-    slabs, nlive = slab_layout(feats, k)
+    # made here, they are freed on return, but the caching allocator hands
+    # their memory only to work queued after the kernel on this stream
+    slabs, nlive = slab_layout(feats, k) if layout is None else layout
     out = torch.empty((s,), dtype=torch.int32, device=rf_pairs.device)
     build.launch(fn, rf_pairs.device, rf_pairs.data_ptr(), slabs.data_ptr(),
                  nlive.data_ptr(), tile_cluster.data_ptr(), out.data_ptr(),

@@ -30,8 +30,9 @@ lane 4 rays, so one broadcast float4 of the slab feeds 16 FMAs; only the
 live slots of each cluster (`slab_layout`'s `nlive`) are copied and
 tested; signs normalised by XOR with det's sign bit, t by one exact
 division for hits only; K a template parameter (32, 64 or 128; any other K
-raises); the slab table in the kernel's order (`slab_layout`, made per
-call) so that a visit's slab is one contiguous block, copied by one TMA
+raises); the slab table in the kernel's order (`slab_layout`, made once
+per build or refit and carried by the ClusterSet, else per call) so that a
+visit's slab is one contiguous block, copied by one TMA
 bulk copy into one of two shared buffers while the previous visit is
 tested; a conservative block-wide vote before every visit
 (`__syncthreads_and`) that ends the tile when no live ray can still
@@ -152,10 +153,10 @@ def replay_visits_ref(rays, feats, sel, nv, tnb, tmin, tmax, dead, *, k: int,
 
 
 def visit_scan_ref(rf_t, feats, sel, nv, tnb, *, k: int, mv: int,
-                   k_bits: int, low_bits: int, closest: bool
+                   k_bits: int, low_bits: int, closest: bool, layout=None
                    ) -> torch.Tensor:
     """Plain PyTorch twin of the kernel (same contract, no early-out)."""
-    del tnb, mv  # only the kernel's early-out reads them
+    del tnb, mv, layout  # only the kernel reads them
     rfm = rf_t[..., :10]
     return scan_visits_ref(lambda i: rfm, feats, sel, nv, rf_t[..., 10:11],
                            rf_t[..., 11:12], rf_t[..., 11] < rf_t[..., 10],
@@ -206,7 +207,18 @@ def check_scalars(k: int, mv: int, k_bits: int, low_bits: int) -> None:
                          "memory")
 
 
-def _check(rf_t, feats, sel, nv, tnb, k, mv, k_bits, low_bits, visits):
+def layout_expect(feats, k: int, layout) -> dict:
+    """check_tensors entries of a (slabs, nlive) layout of `feats`, if any
+    (shared by K1, K2 and K3)."""
+    if layout is None:
+        return {}
+    c = feats.shape[0]
+    return {"slabs": (layout[0], torch.float32, (c, k, 10, 4)),
+            "nlive": (layout[1], torch.int32, (c,))}
+
+
+def _check(rf_t, feats, sel, nv, tnb, k, mv, k_bits, low_bits, visits,
+           layout):
     tiles = rf_t.shape[0]
     expect = {
         "rf_t": (rf_t, torch.float32, (tiles, RAY_TILE, 12)),
@@ -214,6 +226,7 @@ def _check(rf_t, feats, sel, nv, tnb, k, mv, k_bits, low_bits, visits):
         "sel": (sel, torch.int32, (tiles, mv)),
         "nv": (nv, torch.int32, (tiles,)),
         "tnb": (tnb, torch.int32, (tiles, mv)),
+        **layout_expect(feats, k, layout),
     }
     if visits is not None:
         expect["visits"] = (visits, torch.int32, (tiles,))
@@ -222,12 +235,16 @@ def _check(rf_t, feats, sel, nv, tnb, k, mv, k_bits, low_bits, visits):
 
 
 def visit_scan(rf_t, feats, sel, nv, tnb, *, k: int, mv: int, k_bits: int,
-               low_bits: int, closest: bool, visits=None) -> torch.Tensor:
+               low_bits: int, closest: bool, visits=None, layout=None
+               ) -> torch.Tensor:
     """Run the visit scan (contract in the module docstring): (T, 128) int32
     keys (closest) or occlusion bits (any). `visits`, an int32 (T,) tensor,
     receives the number of visits each tile ran (on the CPU, from
-    `executed_visits_ref`)."""
-    _check(rf_t, feats, sel, nv, tnb, k, mv, k_bits, low_bits, visits)
+    `executed_visits_ref`). `layout`, the (slabs, nlive) of `feats` from
+    `slab_layout` (as a ClusterSet carries them), spares the kernel path
+    laying the table out on every call."""
+    _check(rf_t, feats, sel, nv, tnb, k, mv, k_bits, low_bits, visits,
+           layout)
     kw = dict(k=k, mv=mv, k_bits=k_bits, low_bits=low_bits, closest=closest)
     if rf_t.device.type == "cpu":
         if visits is not None:
@@ -242,9 +259,9 @@ def visit_scan(rf_t, feats, sel, nv, tnb, *, k: int, mv: int, k_bits: int,
                              [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                              + [ctypes.c_void_p])
     tiles = rf_t.shape[0]
-    # freed on return, but the caching allocator hands their memory only to
-    # work queued after the kernel on this stream
-    slabs, nlive = slab_layout(feats, k)
+    # made here, they are freed on return, but the caching allocator hands
+    # their memory only to work queued after the kernel on this stream
+    slabs, nlive = slab_layout(feats, k) if layout is None else layout
     out = torch.empty((tiles, RAY_TILE), dtype=torch.int32,
                       device=rf_t.device)
     build.launch(fn, rf_t.device, rf_t.data_ptr(), slabs.data_ptr(),

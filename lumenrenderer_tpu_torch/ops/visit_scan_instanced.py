@@ -21,8 +21,9 @@ What bounds it on an H100: K1's slab test (fp32 issue, the table behind
 L2), plus per visit 12 affine floats and about 30 flops per ray for the
 affine and the cross product. The design is K1's, on the loop the three
 kernels share (`csrc/cluster_scan.cuh`): four warps per tile, each on an
-interleaved quarter of the unit's live slots (`visit_scan.slab_layout`, made
-per call; 12 of 128 for a box), each lane holding four rays' world origin
+interleaved quarter of the unit's live slots (`visit_scan.slab_layout`,
+carried by the InstancedClusterSet, else made per call; 12 of 128 for a
+box), each lane holding four rays' world origin
 and direction; per visit
 one TMA bulk copy brings the unit's live slots and its affine into one of
 two shared buffers while the previous visit is tested, and each lane forms
@@ -49,7 +50,7 @@ import ctypes
 import torch
 
 from . import build
-from .visit_scan import (KERNEL_K, RAY_TILE, check_scalars,
+from .visit_scan import (KERNEL_K, RAY_TILE, check_scalars, layout_expect,
                          replay_visits_ref, scan_visits_ref, slab_layout)
 
 # launches of the CUDA kernel per mode (the CPU twin does not count)
@@ -83,10 +84,10 @@ def object_space_features(rayblk: torch.Tensor, m: torch.Tensor
 
 def visit_scan_instanced_ref(rayblk, wnd, feats, sel_cl, minv12, nv, tnb, *,
                              k: int, mv: int, k_bits: int, low_bits: int,
-                             closest: bool) -> torch.Tensor:
+                             closest: bool, layout=None) -> torch.Tensor:
     """Plain PyTorch twin of the kernel (same contract, no early-out): K1's
     twin loop with the object-space features of each visit."""
-    del tnb, mv  # only the kernel's early-out reads them
+    del tnb, mv, layout  # only the kernel reads them
     return scan_visits_ref(
         lambda i: object_space_features(rayblk, minv12[:, i]), feats, sel_cl,
         nv, wnd[..., 0:1], wnd[..., 1:2], wnd[..., 1] < wnd[..., 0], k=k,
@@ -109,11 +110,13 @@ def executed_visits_instanced_ref(rayblk, wnd, feats, sel_cl, minv12, nv,
 
 def visit_scan_instanced(rayblk, wnd, feats, sel_cl, minv12, nv, tnb, *,
                          k: int, mv: int, k_bits: int, low_bits: int,
-                         closest: bool, visits=None) -> torch.Tensor:
+                         closest: bool, visits=None, layout=None
+                         ) -> torch.Tensor:
     """Run the instanced visit scan (contract in the module docstring):
     (T, 128) int32 keys (closest) or occlusion bits (any). `visits`, an
     int32 (T,) tensor, receives the number of visits each tile ran (on the
-    CPU, from `executed_visits_instanced_ref`)."""
+    CPU, from `executed_visits_instanced_ref`). `layout`: as for
+    `visit_scan.visit_scan`."""
     tiles = rayblk.shape[0]
     expect = {
         "rayblk": (rayblk, torch.float32, (tiles, 8, RAY_TILE)),
@@ -123,6 +126,7 @@ def visit_scan_instanced(rayblk, wnd, feats, sel_cl, minv12, nv, tnb, *,
         "minv12": (minv12, torch.float32, (tiles, mv, 12)),
         "nv": (nv, torch.int32, (tiles,)),
         "tnb": (tnb, torch.int32, (tiles, mv)),
+        **layout_expect(feats, k, layout),
     }
     if visits is not None:
         expect["visits"] = (visits, torch.int32, (tiles,))
@@ -145,9 +149,9 @@ def visit_scan_instanced(rayblk, wnd, feats, sel_cl, minv12, nv, tnb, *,
     fn = build.load_function(
         "visit_scan_instanced", "visit_scan_instanced_launch",
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    # freed on return, but the caching allocator hands their memory only to
-    # work queued after the kernel on this stream
-    slabs, nlive = slab_layout(feats, k)
+    # made here, they are freed on return, but the caching allocator hands
+    # their memory only to work queued after the kernel on this stream
+    slabs, nlive = slab_layout(feats, k) if layout is None else layout
     out = torch.empty((tiles, RAY_TILE), dtype=torch.int32,
                       device=rayblk.device)
     build.launch(fn, rayblk.device, rayblk.data_ptr(), wnd.data_ptr(),

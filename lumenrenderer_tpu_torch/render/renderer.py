@@ -6,7 +6,10 @@ The scene and its accel live on `device`, a CUDA device unless the caller
 passes device="cpu". "tiled" clusters the flattened world-space triangles
 (kernel K1 on a CUDA device); "two_level" clusters
 each unique mesh once in object space and culls (instance, cluster) units
-(kernel K2). On the CPU each kernel runs as its plain PyTorch twin. With
+(kernel K2). Culling tests each tile's frustum against every cluster or
+unit up to 2048 of them and walks their tree past that (kernel W); the
+`culling` argument can force either. On the CPU each kernel runs as its
+plain PyTorch twin. With
 `dynamic=` (a `scene.dynamic.DynamicScene`) a transform edit rebakes the
 scene and refits the accel before the next frame.
 """
@@ -51,7 +54,9 @@ class Renderer:
         its instances give the unique meshes (by identity) and transforms.
         max_visits="auto" caps the visit list at min(units, 128) with the
         kernels, min(units, 24) ("tiled") or 64 ("two_level") with the CPU
-        twins. candidate_dtype: "high" (the JAX default, a bf16 three-pass
+        twins. culling: "auto" (frustum up to 2048 clusters or units, the
+        tree past that), "frustum" or "tree" ("dense" is not ported).
+        candidate_dtype: "high" (the JAX default, a bf16 three-pass
         split there) and "float32" both run exact fp32 here; "bfloat16" is
         not ported. device: where the scene, state and frame live (default:
         the current CUDA device; without one this raises, and device="cpu"
@@ -68,9 +73,10 @@ class Renderer:
                              "for the instance and mesh tables")
         if mesh is not None:
             raise NotImplementedError("mesh (multi-device) is not ported")
-        if culling not in ("auto", "frustum"):
+        if culling not in ("auto", "frustum", "tree"):
             raise NotImplementedError(
-                f"culling={culling!r} is not ported; only 'frustum'")
+                f"culling={culling!r} is not ported; 'auto', 'frustum' and "
+                "'tree' are")
         if candidate_dtype == "bfloat16":
             raise NotImplementedError("bfloat16 candidates are not ported")
         if candidate_dtype not in ("high", "float32"):
@@ -98,6 +104,7 @@ class Renderer:
             config = dataclasses.replace(config, alpha_materials=True)
         self.config = config
         self.accel_kind = accel
+        self.culling = culling
         self.scene = scene.to(self.device)
         self.clusters = None
         self.instanced = None
@@ -145,10 +152,10 @@ class Renderer:
     def _bind_accel(self):
         if self.accel_kind == "tiled":
             self._isect, self._occl = tiled.tiled_intersectors(
-                self.clusters, self.max_visits)
+                self.clusters, self.max_visits, culling=self.culling)
         else:
             self._isect, self._occl = two_level.instanced_intersectors(
-                self.instanced, self.max_visits)
+                self.instanced, self.max_visits, culling=self.culling)
 
     # -- dynamic scenes -------------------------------------------------------
 

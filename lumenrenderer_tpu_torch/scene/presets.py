@@ -1,10 +1,9 @@
 """Built-in test scenes: port of `lumenrenderer_tpu/scene/presets.py`.
 
-`cornell_box`, `furnace_scene` and `interior_scene` build the same geometry
-and materials as the JAX presets (same numpy seed). `instanced_boxes` is the
-two-level scene of the JAX package's tests (`tests/test_two_level.py`),
-which has no JAX preset. `mega_scene` is not
-ported: it needs cluster-tree culling (more than 2048 clusters).
+`cornell_box`, `furnace_scene`, `interior_scene` and `mega_scene` build the
+same geometry and materials as the JAX presets (same numpy seed).
+`instanced_boxes` is the two-level scene of the JAX package's tests
+(`tests/test_two_level.py`), which has no JAX preset.
 """
 from __future__ import annotations
 
@@ -249,6 +248,74 @@ def instanced_boxes(n_inst: int = 20, seed: int = 5):
     def make_camera(aspect: float = 1.0) -> Camera:
         return Camera.look_at((0.0, 1.0, 9.0), (0.0, 0.0, 0.0),
                               fov_y_deg=50.0, aspect=aspect)
+
+    return b, make_camera
+
+
+def mega_scene(n_tris: int = 1_000_000, n_lights: int = 256, seed: int = 0):
+    """About n_tris triangles: a field of perturbed boxes under many
+    down-facing area lights, built vectorised as one mesh so the host build
+    stays fast at millions of triangles. At the default size it has more
+    than 2048 clusters, so the tiled intersector culls through the cluster
+    tree."""
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder(light_capacity=max(n_lights * 2, 512))
+    n_box = max(n_tris // 12, 1)
+    side = 200.0
+
+    mats = [
+        b.add_material(
+            MaterialSpec(
+                base_color=tuple(rng.uniform(0.2, 0.9, 3)),
+                roughness=float(rng.uniform(0.15, 1.0)),
+                metallic=float(rng.uniform(0, 1) < 0.15),
+            )
+        )
+        for _ in range(32)
+    ]
+
+    # unit box template (24 vertices, 12 triangles), outward faces
+    tmpl = box_mesh((0, 0, 0), (1, 1, 1), 0)
+    tv = tmpl.positions
+    ti = tmpl.indices
+    centers = rng.uniform(2, side - 2, (n_box, 3)).astype(np.float32)
+    centers[:, 1] = rng.uniform(0, 12, n_box)  # pile near the ground
+    scales = rng.uniform(0.3, 2.0, (n_box, 3)).astype(np.float32)
+    verts = (tv[None] * scales[:, None, :] + centers[:, None, :]).reshape(-1, 3)
+    idx = (ti[None] + (np.arange(n_box) * 24)[:, None, None]).reshape(-1, 3)
+    tri_mats = np.repeat(
+        np.array(mats, np.int32)[rng.integers(0, len(mats), n_box)], 12)
+    b.add_instance(InstanceHost(mesh=MeshHost(
+        positions=verts.astype(np.float32), indices=idx.astype(np.int32),
+        material_ids=tri_mats)))
+    g = b.add_material(MaterialSpec(base_color=(0.5, 0.5, 0.5), roughness=1.0))
+    b.add_instance(InstanceHost(mesh=make_quad_mesh(
+        [(0, 0, side), (side, 0, side), (side, 0, 0), (0, 0, 0)], g)))
+    # lights: one mesh of emissive quads facing down
+    lc = rng.uniform(4, side - 4, (n_lights, 3)).astype(np.float32)
+    lc[:, 1] = rng.uniform(14, 25, n_lights)
+    ls = rng.uniform(0.5, 2.0, n_lights).astype(np.float32)
+    lm = b.add_material(MaterialSpec(base_color=(0, 0, 0),
+                                     emissive=(600.0, 560.0, 500.0)))
+    lv, li = [], []
+    for i in range(n_lights):
+        base = 4 * i
+        x, y, z = lc[i]
+        s = ls[i]
+        lv += [(x - s, y, z - s), (x + s, y, z - s), (x + s, y, z + s),
+               (x - s, y, z + s)]
+        li += [[base, base + 1, base + 2], [base, base + 2, base + 3]]
+    b.add_instance(InstanceHost(mesh=MeshHost(
+        positions=np.array(lv, np.float32), indices=np.array(li, np.int32),
+        material_ids=lm)))
+
+    def make_camera(aspect: float = 1.0) -> Camera:
+        return Camera.look_at(
+            eye=(side / 2, 14.0, side - 4.0),
+            target=(side / 2, 4.0, side / 2),
+            fov_y_deg=55.0,
+            aspect=aspect,
+        )
 
     return b, make_camera
 

@@ -13,7 +13,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from ..accel.stream import ClusterSet
+from ..accel.stream import ClusterSet, kernel_layout
 from ..accel.two_level import InstancedClusterSet
 from ..core.camera import Camera
 from ..restir.di import Reservoir, RestirState
@@ -23,7 +23,8 @@ from ..scene.scene import SceneData, TextureAtlas
 
 
 def _fill(cls, leaves: Mapping, **nested):
-    """cls(**fields) with each field taken from `leaves` as a tensor."""
+    """cls(**fields) with each field taken from `leaves` as a tensor, except
+    those given in `nested`."""
     kw = {}
     for f in dataclasses.fields(cls):
         if f.name in nested:
@@ -45,16 +46,22 @@ def scene_from_numpy(leaves: Mapping) -> SceneData:
 
 
 def clusters_from_numpy(leaves: Mapping) -> ClusterSet:
-    """ClusterSet from aabb_lo, aabb_hi, tri_feat and tri_id (other leaves,
-    such as the cluster tree, are ignored)."""
-    return _fill(ClusterSet, leaves)
+    """ClusterSet from the JAX ClusterSet's leaves (aabb_lo, aabb_hi,
+    tri_feat, tri_id, the cluster tree's `tree_*` and tree_depth); the
+    kernels' layout is made from tri_feat."""
+    return _fill(ClusterSet, leaves, tree_depth=int(leaves["tree_depth"]),
+                 **kernel_layout(torch.from_numpy(np.array(
+                     leaves["tri_feat"]))))
 
 
 def instanced_from_numpy(leaves: Mapping) -> InstancedClusterSet:
-    """InstancedClusterSet from the JAX InstancedClusterSet's leaves (the
-    unit tree's `tree_*` leaves are ignored)."""
+    """InstancedClusterSet from the JAX InstancedClusterSet's leaves, the
+    unit tree's included; the kernels' layout is made from tri_feat."""
     return _fill(InstancedClusterSet, leaves,
-                 tris_per_cluster=int(leaves["tris_per_cluster"]))
+                 tris_per_cluster=int(leaves["tris_per_cluster"]),
+                 tree_depth=int(leaves["tree_depth"]),
+                 **kernel_layout(torch.from_numpy(np.array(
+                     leaves["tri_feat"]))))
 
 
 def camera_from_numpy(leaves: Mapping) -> Camera:

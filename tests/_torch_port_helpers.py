@@ -24,6 +24,19 @@ def rng(seed: int = 0) -> np.random.Generator:
     return np.random.default_rng(seed)
 
 
+def coherent_rays(g, tiles, spread=4.0, cone=0.15):
+    """128 rays per tile from nearby origins in a cone around one direction,
+    as camera and sorted secondary rays come."""
+    o = np.repeat(g.uniform(-spread, spread, (tiles, 1, 3)), 128, 1)
+    o = o + g.normal(size=o.shape) * 0.05
+    base = g.normal(size=(tiles, 1, 3))
+    d = (base / np.linalg.norm(base, axis=-1, keepdims=True)
+         + g.normal(size=(tiles, 128, 3)) * cone)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return o.reshape(-1, 3).astype(np.float32), d.reshape(-1, 3).astype(
+        np.float32)
+
+
 def to_numpy_tree(obj):
     """JAX pytree (chex/flax dataclass, dict, array) -> nested dict of numpy
     arrays; python scalars pass through."""

@@ -1,5 +1,5 @@
-"""Kernels K1 (ops/csrc/visit_scan.cu), K2 (visit_scan_instanced.cu) and K3
-(pair_scan.cu) on the card against their plain twins.
+"""Kernels K1 (ops/csrc/visit_scan.cu), K2 (visit_scan_instanced.cu), K3
+(pair_scan.cu) and W (tree_walk.cu) on the card against their plain twins.
 
 Marked `cuda`: these need an NVIDIA GPU with nvcc (Hopper, sm_90a) and skip
 where torch.cuda.is_available() is False. Run them on the card with
@@ -7,7 +7,8 @@ where torch.cuda.is_available() is False. Run them on the card with
 Tolerance: keys identical on at least 99.99% of rays, every differing key a
 tie within the key's t resolution; occlusion bits identical; K1's and K2's
 visit counters identical to `executed_visits_ref` and
-`executed_visits_instanced_ref`; K3's dead tiles the miss key (0).
+`executed_visits_instanced_ref`; K3's dead tiles the miss key (0); W's
+lists, entry t (bit for bit), counts and pops identical to its twin's.
 """
 import numpy as np
 import pytest
@@ -16,6 +17,7 @@ import torch
 from lumenrenderer_tpu_torch.accel import pairs, stream, tiled, two_level
 from lumenrenderer_tpu_torch.integrator.wavefront import RenderConfig
 from lumenrenderer_tpu_torch.ops import pair_scan as ps
+from lumenrenderer_tpu_torch.ops import tree_walk as tw
 from lumenrenderer_tpu_torch.ops import visit_scan as vs
 from lumenrenderer_tpu_torch.ops import visit_scan_instanced as vsi
 from lumenrenderer_tpu_torch.render.renderer import Renderer
@@ -268,3 +270,87 @@ def test_two_level_frame_launches_both_modes(dev):
     img = r.render(camf(64 / 48), spp=2)
     assert np.isfinite(img).all() and img.mean() > 0.0
     assert vsi.LAUNCHES["closest"] == 6 and vsi.LAUNCHES["any"] == 6
+
+
+def _walk_inputs(dev, n_tris=3000, k=32, tiles=256, seed=3):
+    """Tile bounds of coherent 128-ray tiles (every seventh ray dead, tile 3
+    all dead) and the cluster tree of random triangles, on the card."""
+    g = np.random.default_rng(seed)
+    c = g.uniform(-3, 3, (n_tris, 1, 3))
+    tris = (c + g.normal(size=(n_tris, 3, 3)) * 0.15).astype(np.float32)
+    cs = stream.build_clusters(torch.from_numpy(tris), cluster_size=k).to(dev)
+    o = np.repeat(g.uniform(-4, 4, (tiles, 1, 3)), 128, 1)
+    base = g.normal(size=(tiles, 1, 3))
+    d = base / np.linalg.norm(base, axis=-1, keepdims=True) + g.normal(
+        size=(tiles, 128, 3)) * 0.15
+    to = lambda a: torch.from_numpy(a.reshape(-1, 3).astype(np.float32)).to(
+        dev)
+    r = tiles * 128
+    tx = torch.where(torch.arange(r, device=dev) % 7 == 0, -1.0, 1e9)
+    tx[3 * 128:4 * 128] = -1.0
+    tn = torch.full((r,), 1e-4, device=dev)
+    bounds = tiled._tile_bounds(to(o), torch.nn.functional.normalize(
+        to(d), dim=-1), tn, tx, tiles, 128)
+    tree = (cs.tree_lo, cs.tree_hi, cs.tree_child0, cs.tree_child1,
+            cs.tree_leaf_cluster)
+    return bounds, tree, cs
+
+
+def _check_walk(bounds, tree, depth, mv):
+    """W against its twin: lists, entry t bits, counts and pops identical."""
+    tiles = bounds[0].shape[0]
+    dev = bounds[0].device
+    pops = torch.full((tiles,), -1, dtype=torch.int32, device=dev)
+    pops_ref = torch.full_like(pops, -1)
+    tw.reset_launches()
+    kern = tw.tile_tree_visits(*bounds, *tree, tree_depth=depth, mv=mv,
+                               pops=pops)
+    ref = tw.tile_tree_visits_ref(*bounds, *tree, tree_depth=depth, mv=mv,
+                                  pops=pops_ref)
+    torch.cuda.synchronize()
+    assert tw.LAUNCHES["walk"] == 1
+    visits, vtn, count = kern
+    assert torch.equal(visits, ref[0]) and torch.equal(count, ref[2])
+    assert torch.equal(vtn.view(torch.int32), ref[1].view(torch.int32))
+    assert torch.equal(pops, pops_ref)
+    return kern, pops
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+@pytest.mark.parametrize("mv", [128, 1])
+def test_tree_walk_matches_twin(dev, mv, seed):
+    bounds, tree, cs = _walk_inputs(dev, seed=seed)
+    (_, _, count), pops = _check_walk(bounds, tree, cs.tree_depth, mv)
+    assert int(count[3]) == 0 and int(pops[3]) == 0
+    assert int(count.max()) > mv and int(pops.sum()) > 1000
+
+
+def test_tree_walk_one_leaf_tree_and_dead_tiles(dev):
+    bounds, tree, cs = _walk_inputs(dev, n_tris=20, k=32)
+    assert cs.num_clusters == 1 and tree[0].shape[0] == 1
+    (visits, vtn, count), _ = _check_walk(bounds, tree, cs.tree_depth, 4)
+    assert int(count.max()) == 1 and bool((visits == 0).all())
+    bounds, tree, cs = _walk_inputs(dev)
+    dead = tuple(bounds[:5]) + (torch.zeros_like(bounds[5]),)
+    (visits, vtn, count), pops = _check_walk(dead, tree, cs.tree_depth, 8)
+    assert int(count.sum()) == 0 and int(pops.sum()) == 0
+    assert bool((vtn == torch.inf).all()) and bool((visits == 0).all())
+
+
+def test_tree_walk_rejects_a_deeper_tree_than_its_stack(dev):
+    bounds, tree, cs = _walk_inputs(dev, n_tris=300)
+    with pytest.raises(ValueError):
+        tw.tile_tree_visits(*bounds, *tree, tree_depth=tw.MAX_STACK - 1,
+                            mv=8)
+
+
+def test_mega_frame_launches_the_walk_per_query(dev):
+    b, camf = presets.mega_scene(n_tris=24_000, n_lights=8)
+    r = Renderer(b.build(), RenderConfig(width=64, height=48, max_depth=3),
+                 culling="tree", device=dev)
+    vs.reset_launches()
+    tw.reset_launches()
+    img = r.render(camf(64 / 48), spp=2)
+    assert np.isfinite(img).all() and img.mean() > 0.0
+    assert vs.LAUNCHES["closest"] == 6 and vs.LAUNCHES["any"] == 6
+    assert tw.LAUNCHES["walk"] == 12

@@ -146,7 +146,7 @@ def test_renderer_refusals():
     sc = presets.furnace_scene()[0].build()
     cfg = RenderConfig(width=8, height=8)
     for kw in ({"accel": "sah"}, {"accel": "brute"}, {"mesh": object()},
-               {"candidate_dtype": "bfloat16"}, {"culling": "tree"}):
+               {"candidate_dtype": "bfloat16"}, {"culling": "dense"}):
         with pytest.raises(NotImplementedError):
             Renderer(sc, cfg, device="cpu", **kw)
     with pytest.raises(ValueError):     # two_level needs the SceneBuilder
@@ -162,6 +162,8 @@ def test_port_never_imports_jax():
             "import lumenrenderer_tpu_torch.ops.build; "
             "import lumenrenderer_tpu_torch.ops.visit_scan_instanced; "
             "import lumenrenderer_tpu_torch.ops.pair_scan; "
+            "import lumenrenderer_tpu_torch.ops.tree_walk; "
+            "import lumenrenderer_tpu_torch.scene.presets; "
             "import lumenrenderer_tpu_torch.restir.di; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'chex', 'lumenrenderer_tpu')]; "
