@@ -6,7 +6,7 @@
 Phases, one line each or more (any failure raises, so the exit code is
 non-zero), each with its seconds:
   1. environment: torch, CUDA, nvcc, the card's name and power limit;
-  2. build kernels K1, K2 and K3 (ops/csrc/*.cu) with nvcc from this
+  2. build kernels K1, K2, K3 and W (ops/csrc/*.cu) with nvcc from this
      checkout, one nvcc each, all at once; ptxas registers and spills;
   3. K1 against its plain PyTorch twin on the card: 1,024 tiles each of the
      interior scene's 2560x1440 primary pass and sorted bounce and shadow
@@ -59,11 +59,13 @@ non-zero), each with its seconds:
      triangles, 256 lights), 11,670 clusters of 128, culled through the
      cluster tree by kernel W; host build seconds (scene, Renderer, tree);
      W against its twin on every tile of the 2560x1440 primary pass and
-     sorted bounce and shadow passes (raw lists, entry t bits, counts,
-     pops, and the sorted visit lists sel, nv, tnb and overflow all
-     identical), with its full-pass time, pops and admitted clusters per
-     tile, share of tiles over the visit cap and bound; K1 against its twin
-     on 1,024 tiles of each pass and on every tile, as in phase 3; a
+     sorted bounce and shadow passes (raw lists, entry t bits, counts, and
+     the sorted visit lists sel, nv, tnb and overflow all identical), with
+     its full-pass time, the twin's pops (the stopped one-node-a-step
+     walk) beside the kernel's own, the admitted
+     clusters per tile from one uncapped call, the share of tiles over the
+     visit cap and the bound; K1 against its twin on 1,024 tiles of each
+     pass and on every tile, as in phase 3; a
      320x180 depth-3 mega frame through K1 and W and through their twins; the
      2560x1440 frame through Renderer(accel="tiled") (1 warm-up and 3 timed
      frames: ms/frame, peak memory, overflow, K1 5 closest and 5 any
@@ -72,8 +74,10 @@ non-zero), each with its seconds:
  11b. two-level past 2048 units: instanced_boxes(2,100) (2,101 units)
      at 2560x1440 through accel="two_level" (K2, W on the unit tree), its
      primary AOVs held against the tiled frame of the same scene with
-     culling="tree" by phase 7's rule; then a 320x180 depth-3 frame
-     through K2 and W and through their twins.
+     culling="tree" by phase 7's rule; W on the unit tree against its twin
+     on every tile of the primary, bounce and shadow passes, as in phase
+     11; then a 320x180 depth-3 frame through K2 and W and through their
+     twins.
 Then a JSON line of per-kernel results, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}. Needs no network; exits
 non-zero without a CUDA device or without the package next to it.
@@ -87,8 +91,9 @@ per live ray and visit run for the object-space features; the bytes leave
 out K2's padding rows of `rayblk`, which it never reads, and count K2's
 per-visit inputs (cluster id, entry t, affine) for the visits run only.
 Kernel W: BOX_TEST_OPS operations per box test, one for each tile's root
-and two per internal node it popped (its pop counter less the leaves it
-reached); its bytes are the tiles' bounds, the tree, and the lists and
+and two per internal node of the one-node-a-step walk stopped at mv + 1
+leaves (the twin's pop counter less the leaves it counted: the kernel pops
+other nodes); its bytes are the tiles' bounds, the tree, and the lists and
 counts out. No single PyTorch call computes any of the four functions, so
 library_ms is null.
 """
@@ -1234,16 +1239,17 @@ def _max_abs_diff(pairs) -> float:
 
 def _hold_walk(phase, name, acc, rays, mv):
     """Kernel W against its twin on every tile of one pass: raw lists,
-    entry t bits, counts and pops identical, and so the sorted visit lists
-    (sel, nv, tnb, overflow); its largest difference from the twin (0), time,
-    work and bound."""
+    entry t bits and counts identical, and so the sorted visit lists (sel,
+    nv, tnb, overflow); its largest difference from the twin (0), its time,
+    the work of the twin's stopped walk (its pops) and the bound; the
+    admitted clusters per tile from one uncapped call."""
     import torch
 
     from lumenrenderer_tpu_torch.accel import tiled
     from lumenrenderer_tpu_torch.ops import tree_walk as tw
 
     args = _walk_args(acc, *rays)
-    kw = dict(tree_depth=acc.tree_depth, mv=mv)
+    kw = dict(tree_depth=acc.tree_depth, mv=mv, nodes=acc.tree_nodes)
     tiles = args[0].shape[0]
     pops = torch.empty(tiles, dtype=torch.int32, device=args[0].device)
     pops_ref = torch.empty_like(pops)
@@ -1257,37 +1263,44 @@ def _hold_walk(phase, name, acc, rays, mv):
     plain_ms = start.elapsed_time(end)
     same = (torch.equal(kern[0], ref[0]) and torch.equal(kern[2], ref[2])
             and torch.equal(kern[1].view(torch.int32),
-                            ref[1].view(torch.int32))
-            and torch.equal(pops, pops_ref))
+                            ref[1].view(torch.int32)))
     po, pd, ptn, ptx = tiled.pad_rays(*rays, tiled.RAY_TILE)
     lists = [tiled.visit_lists(acc, po, pd, ptn, ptx, mv, "tree", walk)[:4]
              for walk in (tw.tile_tree_visits, lambda *a, **k: ref)]
     same_lists = all(torch.equal(a, b) for a, b in zip(*lists))
-    err = _max_abs_diff([*zip(kern, ref), (pops, pops_ref), *zip(*lists)])
+    err = _max_abs_diff([*zip(kern, ref), *zip(*lists)])
     if not (same and same_lists):
         raise AssertionError(f"W differs from its twin on the {name} pass: "
                              f"raw lists equal {same}, sorted {same_lists}, "
                              f"max_abs_err {err}")
     ms = cuda_time_ms(lambda: tw.tile_tree_visits(*args, **kw))
-    count = kern[2].double()
-    inner = float((pops.double() - count).sum())
+    count = ref[2].double()
+    inner = float((pops_ref.double() - count).sum())
     ops = tw.BOX_TEST_OPS * (tiles + 2 * inner)
     nb = _nbytes(*args) + tiles * (mv * 8 + 4)
     b_ms, b_by = bound_ms(ops, nb)
     over = float((count > mv).double().mean())
+    leaves = args[10].shape[0]
+    admitted = tw.tile_tree_visits(*args, **dict(kw, mv=leaves))[2]
+    admitted = admitted.double()
     say(phase, kernel="tree_walk", rays=name, tiles=tiles,
         tree_nodes=args[6].shape[0], tree_depth=acc.tree_depth, mv=mv,
         identical=True, max_abs_err=err, kernel_ms=f"{ms:.4f}",
         twin_ms=f"{plain_ms:.1f}",
-        pops_mean=f"{float(pops.double().mean()):.2f}",
-        pops_max=int(pops.max()),
-        admitted_mean=f"{float(count.mean()):.2f}",
-        admitted_p99=f"{float(count.quantile(0.99)):.1f}",
-        admitted_max=int(count.max()), share_over_mv=f"{over:.5f}",
+        pops_mean=f"{float(pops_ref.double().mean()):.2f}",
+        pops_max=int(pops_ref.max()),
+        kernel_pops_mean=f"{float(pops.double().mean()):.2f}",
+        kernel_pops_max=int(pops.max()),
+        admitted_mean=f"{float(admitted.mean()):.2f}",
+        admitted_p99=f"{float(admitted.quantile(0.99)):.1f}",
+        admitted_max=int(admitted.max()), share_over_mv=f"{over:.5f}",
         overflow=bool(lists[0][3]), ops=f"{ops:.4g}", bytes=nb,
         bound_ms=f"{b_ms:.5f}", bound_by=b_by, share=f"{b_ms / ms:.4f}")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "ops": ops,
-            "bytes": nb, "max_abs_err": err}
+    if not torch.equal(admitted > mv, count > mv):
+        raise AssertionError(f"W's uncapped and capped calls disagree on "
+                             f"the overflowing tiles of the {name} pass")
+    return {"ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "ops": ops, "bytes": nb, "max_abs_err": err}
 
 
 def _hold_small_frame(phase, scene, camf, dev, bind, scans):
@@ -1401,8 +1414,8 @@ def phase_mega(dev, w=W, h=H, frames=SLICE_FRAMES):
     k1 = _hold_k1("11 mega K1", passes, cs.nlive.double(), SUBSET_TILES)
     del passes
 
-    # depth 3, since the twin walk takes one step of dozens of launches per
-    # node the longest walk pops (23,339, the whole tree, on a bounce pass)
+    # depth 3 keeps the twin frame short: the twin walk takes one step of
+    # dozens of launches per node its longest stopped walk pops
     _hold_small_frame("11 mega small", r.scene, camf, dev,
                       lambda scan, walk: tiled.tiled_intersectors(
                           cs, mv, scan=scan, walk=walk),
@@ -1443,7 +1456,7 @@ def phase_mega(dev, w=W, h=H, frames=SLICE_FRAMES):
         raise AssertionError(f"K1 launches per frame {per_frame} (expected "
                              f"{expect}), W launches {walks}")
     _profile_frame("11 profile", one, "visit_scan_kernel",
-                   also=("tree_walk_kernel",))
+                   also=("tree_walk_",))
 
     # the frame with the ClusterSet's cached kernel layout and without it
     def frame_with(scan):
@@ -1475,8 +1488,7 @@ def phase_mega(dev, w=W, h=H, frames=SLICE_FRAMES):
            for k, v in got.items()})
     mean_of = lambda key: sum(walk[p][key] for p in walk) / len(walk)
     return {"k1": k1, "launches": launches, "walk": {
-        "ms": mean_of("ms"), "plain_ms": mean_of("plain_ms"),
-        "bound_ms": mean_of("bound_ms"),
+        "ms": mean_of("ms"), "plain_ms": mean_of("plain_ms"), "bound_ms": mean_of("bound_ms"),
         "max_abs_err": max(walk[p]["max_abs_err"] for p in walk),
         "bound_by": bound_ms(sum(walk[p]["ops"] for p in walk),
                              sum(walk[p]["bytes"] for p in walk))[1],
@@ -1532,6 +1544,18 @@ def phase_units_past_2048(dev, w=W, h=H):
     # their twins on the whole frame below
     _hold_frames("11b two-level units", "tiled", aux, aux_t, mean, mean_t,
                  low_bits, hold_mean=False)
+
+    # W on the unit tree against its twin on every tile of one frame's
+    # passes (their hits from the tiled frame's clusters)
+    def capture(o, d, tn, tx):
+        return {"rays": (o, d, tn, tx),
+                "overflow": torch.zeros((), dtype=torch.bool, device=dev)}
+
+    passes = _secondary_passes(rt.scene, rt.clusters, cam.to(dev), dev, w, h,
+                               capture, primary=True)
+    for name, q in passes.items():
+        _hold_walk("11b two-level W", name, r.instanced, q["rays"],
+                   r.max_visits)
     _hold_small_frame("11b two-level small", r.scene, camf, dev,
                       lambda scan, walk: two_level.instanced_intersectors(
                           r.instanced, r.max_visits, scan=scan, walk=walk),

@@ -7,8 +7,9 @@ coefficient columns, the four quantities det, u·det, v·det and t·det of a
 (rays × triangles) block are one product f · tri_feat. A second-level SAH
 tree over the cluster boxes (one cluster per leaf) serves tree culling, for
 scenes of more than 2048 clusters. Each ClusterSet also carries its table in
-the kernels' order (`ops.visit_scan.slab_layout`), made once per build or
-refit rather than per kernel call. The pair-stream intersector of that file
+the kernels' order (`ops.visit_scan.slab_layout`) and its tree as kernel W's
+node records (`ops.tree_walk.node_records`), made once per build or refit
+rather than per kernel call. The pair-stream intersector of that file
 is not ported.
 """
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 from ..core import vecmath as vm
 from ..core.struct import TensorStruct
+from ..ops.tree_walk import node_records
 from ..ops.visit_scan import slab_layout
 from .sah import build_sah_arrays, build_sah_boxes
 
@@ -39,6 +41,7 @@ class ClusterSet(TensorStruct):
     tree_child1: torch.Tensor   # (Nn,) int32
     tree_leaf_cluster: torch.Tensor  # (Nl,) int32 cluster of leaf i
     tree_depth: int
+    tree_nodes: torch.Tensor    # (Nn,16) the tree as kernel W's records
     slabs: torch.Tensor     # (C,K,10,4) tri_feat in the kernels' order
     nlive: torch.Tensor     # (C,) int32 live slots per cluster
 
@@ -68,17 +71,26 @@ def sah_cluster_order(tri_pos: np.ndarray, cluster_size: int) -> np.ndarray:
     return order.reshape(-1, cluster_size)
 
 
+def walk_layout(tree: dict) -> dict:
+    """The `tree_nodes` field of a dict of the `tree_*` fields."""
+    return dict(tree_nodes=node_records(
+        tree["tree_lo"], tree["tree_hi"], tree["tree_child0"],
+        tree["tree_child1"], tree["tree_leaf_cluster"]))
+
+
 def box_tree(lo: np.ndarray, hi: np.ndarray) -> dict:
     """The `tree_*` fields of a binned-SAH tree over boxes (N,3), one box per
-    leaf. Boxes that are not finite or are padding (|x| >= 1e29) take 0."""
+    leaf, and its `tree_nodes`. Boxes that are not finite or are padding
+    (|x| >= 1e29) take 0."""
     clean = lambda a: np.where(np.isfinite(a) & (np.abs(a) < 1e29), a, 0.0)
     tlo, thi, c0, c1, order, depth = build_sah_boxes(clean(lo), clean(hi),
                                                      leaf_size=1)
     t_ = torch.from_numpy
-    return dict(tree_lo=t_(tlo), tree_hi=t_(thi), tree_child0=t_(c0),
+    tree = dict(tree_lo=t_(tlo), tree_hi=t_(thi), tree_child0=t_(c0),
                 tree_child1=t_(c1),
                 tree_leaf_cluster=t_(order.astype(np.int32)),
                 tree_depth=depth)
+    return dict(tree, **walk_layout(tree))
 
 
 def kernel_layout(tri_feat: torch.Tensor) -> dict:
@@ -89,13 +101,14 @@ def kernel_layout(tri_feat: torch.Tensor) -> dict:
 
 def global_box_tree(tree: dict, lo: torch.Tensor, hi: torch.Tensor) -> dict:
     """`tree` with every node box set to the bounds of the boxes (N,3) whose
-    |x| < 1e30: the conservative tree refit."""
+    |x| < 1e30, and its `tree_nodes`: the conservative tree refit."""
     big = 1e30
     glo = torch.where(lo.abs() < big, lo, big).amin(0)
     ghi = torch.where(hi.abs() < big, hi, -big).amax(0)
     shape = tree["tree_lo"].shape
-    return dict(tree, tree_lo=glo.expand(shape).contiguous(),
+    tree = dict(tree, tree_lo=glo.expand(shape).contiguous(),
                 tree_hi=ghi.expand(shape).contiguous())
+    return dict(tree, **walk_layout(tree))
 
 
 def clusters_from_order(tri_pos, tri_id: np.ndarray) -> ClusterSet:

@@ -111,7 +111,7 @@ def _tile_tree_visits(acc, o, d, tn, tx, tiles: int, mv: int,
     visits, vtn, count = walk(
         olo, ohi, dlo, dhi, t_cap, any_alive, acc.tree_lo, acc.tree_hi,
         acc.tree_child0, acc.tree_child1, acc.tree_leaf_cluster,
-        tree_depth=acc.tree_depth, mv=mv)
+        tree_depth=acc.tree_depth, mv=mv, nodes=acc.tree_nodes)
     vtn, idx = torch.sort(vtn, dim=1, stable=True)
     visits = visits.gather(1, idx)
     valid = torch.arange(mv, device=o.device)[None] < count[:, None]

@@ -58,6 +58,7 @@ class InstancedClusterSet(TensorStruct):
     tree_child1: torch.Tensor    # (Nn,) int32
     tree_leaf_cluster: torch.Tensor  # (V,) int32 unit of leaf i
     tree_depth: int
+    tree_nodes: torch.Tensor     # (Nn,16) the unit tree as W's records
     slabs: torch.Tensor          # (C,K,10,4) tri_feat in the kernels' order
     nlive: torch.Tensor          # (C,) int32 live slots per cluster
     tris_per_cluster: int

@@ -5,10 +5,8 @@ The JAX package walks the cluster tree (or the two-level unit tree) per
 one `lax.while_loop` per tile under `vmap`, which XLA compiles into one
 device loop. It has no Pallas kernel. Run eagerly in PyTorch, the same walk
 needs one host-driven step (dozens of launches) per node popped by the
-longest walk: at 2560x1440 on the mega scene about two thousand steps for
-the primary pass and more than twenty thousand for a bounce pass, whose
-worst tiles walk the whole tree; so the port writes the walk as a kernel of
-its own, `csrc/tree_walk.cu`.
+longest walk, so the port writes the walk as a kernel of its own,
+`csrc/tree_walk.cu`.
 
 Contract. Tile t is the interval ray of its live rays: origins within
 [olo[t], ohi[t]], directions within [dlo[t], dhi[t]] (T,3), the largest
@@ -24,29 +22,26 @@ tn <= t_cap; its entry t is max(tn, 0). From the root (if it possibly hits
 and the tile is alive) the walk pops a node: a leaf appends its cluster and
 entry t at slot `count` while count < mv, and counts; an internal node
 pushes each child that possibly hits, the far one first (near: strictly
-smaller entry t of the second child swaps them). Returns (visits (T,mv)
-int32, 0 past the count, vtn (T,mv) float32 entry t, inf past the count,
-count (T,) int32 leaves reached, which may exceed mv), in pop order: the
-caller sorts. Entry t is +0.0, never -0.0, so the lists are equal bit for
-bit wherever they are computed.
+smaller entry t of the second child swaps them). The walk stops once it has
+counted mv + 1 leaves. Returns (visits (T,mv) int32, 0 past the count, vtn
+(T,mv) float32 entry t, inf past the count, count (T,) int32 = min(leaves
+reached, mv + 1)), in pop order: the caller sorts. JAX's walk does not stop,
+so its count may be larger, but its lists, its valid mask (slot < count)
+and its overflow (count > mv) are the same. Entry t is +0.0, never -0.0, so
+the lists are equal bit for bit wherever they are computed.
 
-What bounds it on an H100: the walk of the longest tile. Each pop loads two
-32-byte child boxes (the tree, 0.75 MB at the mega scene, stays in L2) and
-tests them, a chain of dependent loads, and a tile's pops run one after the
-other. The work the bound counts is small: each tile's rays in, its lists
-out, 2 box tests of about 90 operations per internal node popped.
-
-The design, a simple one: one thread per tile, its stack of at most
-MAX_STACK node ids and entry t in local memory (the walk never holds more
-than tree_depth + 1, so a deeper tree raises), the reciprocals formed once
-per tile by IEEE division (the build has no fast-math), the tests in the
-twin's operation order, so the lists equal the twin's bit for bit. An
-optional int32 (T,) counter receives the nodes each tile popped.
+The kernel (csrc/tree_walk.cu has the design): a warp per tile walks up to
+32 nodes a step from a shared stack kept in the order of the leaves'
+near/far paths, reading each node's two child boxes and ids as one 64-byte
+record (`node_records`: the sets carry them as `tree_nodes`, made at build,
+refit and conversion, passed as `nodes=`). An optional int32 (T,) counter
+receives the nodes each tile handled: for the twin the nodes its walk
+popped, for the kernel its expanded nodes and the leaves it listed.
 
 On a CPU tensor the wrapper runs `tile_tree_visits_ref`, the plain PyTorch
 twin (one vectorised step per pop over the tiles still walking, as many
-steps as the longest walk has pops); on a CUDA tensor it launches the
-kernel or raises.
+steps as the longest stopped walk has pops); on a CUDA tensor it launches
+the kernel or raises.
 """
 from __future__ import annotations
 
@@ -56,9 +51,10 @@ import torch
 
 from . import build
 
-MAX_STACK = 64               # the kernel's stack entries (csrc/tree_walk.cu)
+SHARED_BYTES = 227 * 1024    # a block's most shared memory (H100)
 BOX_TEST_OPS = 90            # operations of one box test, for the bound
 COMPACT_EVERY = 16           # twin steps between narrowing its tiles
+WARP = 32                    # the kernel's nodes a step (csrc)
 # launches of the CUDA kernel (the CPU twin does not count)
 LAUNCHES = {"walk": 0}
 
@@ -90,14 +86,46 @@ def box_test(blo, bhi, olo, ohi, inv_a, inv_b, zero, cap):
     return hit, tn.clamp_min(0.0) + 0.0
 
 
+def node_records(tree_lo, tree_hi, child0, child1, leaf_cluster):
+    """(Nn,16) float32, one 64-byte record per node for the kernel: child
+    0's box lo and hi, child 1's, then two int32 bit-cast into the floats,
+    each child's id (>= 0: an internal node, else -(cluster + 1) for a
+    leaf), and two zeros. A leaf's row holds node 0's children and is never
+    read. The boxes are the tree's own floats."""
+    c0 = child0.long().clamp_min(0)
+    c1 = child1.long().clamp_min(0)
+
+    def ref(c):
+        kid = child0[c].long()
+        leaf = -leaf_cluster[(-kid - 1).clamp_min(0)].long() - 1
+        return torch.where(kid >= 0, c, leaf).to(torch.int32)
+
+    ids = torch.stack([ref(c0), ref(c1), torch.zeros_like(child0),
+                       torch.zeros_like(child0)], 1).view(torch.float32)
+    return torch.cat([tree_lo[c0], tree_hi[c0], tree_lo[c1], tree_hi[c1],
+                      ids], 1).contiguous()
+
+
+def stack_entries(tree_depth: int) -> int:
+    """Entries of the kernel's shared stack that no walk of a tree with
+    `tree_depth` levels can exceed (csrc/tree_walk.cu gives the bound):
+    64 per level for pending nodes, 65 per level for leaves held back, and
+    one step's growth; 8 bytes each. At 40 levels that is 4,998 entries,
+    39 KiB."""
+    return (2 * WARP * max(tree_depth - 1, 0)
+            + (2 * WARP + 1) * max(tree_depth - 2, 0) + WARP)
+
+
 def tile_tree_visits_ref(olo, ohi, dlo, dhi, t_cap, any_alive, tree_lo,
                          tree_hi, child0, child1, leaf_cluster, *,
-                         tree_depth: int, mv: int, pops=None):
-    """Plain PyTorch twin of the kernel (same contract): each step pops one
-    node of every tile still walking, with masked writes; the set of tiles
-    still walking is narrowed, a host sync on a CUDA device, every
-    COMPACT_EVERY steps there and every step on the CPU. `pops`, an int32
-    (T,) tensor, receives the nodes each tile popped."""
+                         tree_depth: int, mv: int, pops=None, nodes=None):
+    """Plain PyTorch twin of the kernel (same contract; `nodes` is not
+    read, the twin walks the tree's own arrays): each step pops one
+    node of every tile still walking, with masked writes; a tile stops at
+    mv + 1 leaves. The set of tiles still walking is narrowed, a host sync
+    on a CUDA device, every COMPACT_EVERY steps there and every step on the
+    CPU. `pops`, an int32 (T,) tensor, receives the nodes each tile
+    popped."""
     tiles = olo.shape[0]
     dev = olo.device
     inv_a, inv_b, zero = _reciprocals(dlo, dhi)
@@ -144,7 +172,7 @@ def tile_tree_visits_ref(olo, ohi, dlo, dhi, t_cap, any_alive, tree_lo,
             stack[a, top] = torch.where(hit, child, stack[a, top])
             tstack[a, top] = torch.where(hit, t_child, tstack[a, top])
             top = top + hit
-        sp[a] = top
+        sp[a] = torch.where(cnt + leaf > mv, 0, top)         # mv + 1: stop
         step += 1
         if step % compact == 0:
             a = a[sp[a] > 0]
@@ -155,11 +183,14 @@ def tile_tree_visits_ref(olo, ohi, dlo, dhi, t_cap, any_alive, tree_lo,
 
 def tile_tree_visits(olo, ohi, dlo, dhi, t_cap, any_alive, tree_lo, tree_hi,
                      child0, child1, leaf_cluster, *, tree_depth: int,
-                     mv: int, pops=None):
+                     mv: int, nodes, pops=None):
     """Walk the tree for every tile (contract in the module docstring):
     (visits (T,mv) int32, vtn (T,mv) float32, count (T,) int32) in pop
-    order. `pops`, an int32 (T,) tensor, receives the nodes each tile
-    popped (on the CPU, from the twin)."""
+    order. `nodes` is the tree's `node_records` (the sets' `tree_nodes`).
+    `pops`, an int32 (T,) tensor, receives the nodes each tile handled (on
+    the CPU, from the twin). Raises where the kernel's stack would not fit
+    a block's shared memory, and where a walk outgrew the stack that
+    `stack_entries` allots (a host sync)."""
     tiles = olo.shape[0]
     nn = tree_lo.shape[0]
     f32 = torch.float32
@@ -172,6 +203,7 @@ def tile_tree_visits(olo, ohi, dlo, dhi, t_cap, any_alive, tree_lo, tree_hi,
         "child0": (child0, torch.int32, (nn,)),
         "child1": (child1, torch.int32, (nn,)),
         "leaf_cluster": (leaf_cluster, torch.int32, (leaf_cluster.shape[0],)),
+        "nodes": (nodes, f32, (nn, 16)),
     }
     if pops is not None:
         expect["pops"] = (pops, torch.int32, (tiles,))
@@ -186,18 +218,24 @@ def tile_tree_visits(olo, ohi, dlo, dhi, t_cap, any_alive, tree_lo, tree_hi,
     if olo.device.type != "cuda":
         raise ValueError(f"tile_tree_visits runs on cpu or cuda, not "
                          f"{olo.device}")
-    if tree_depth + 2 > MAX_STACK:
+    entries = stack_entries(tree_depth)
+    if 8 * entries > SHARED_BYTES:
         raise ValueError(f"a tree of depth {tree_depth} needs a stack of "
-                         f"{tree_depth + 2}; the kernel holds {MAX_STACK}")
+                         f"{8 * entries} bytes; a block holds {SHARED_BYTES}")
     fn = build.load_function("tree_walk", "tree_walk_launch",
-                             [ctypes.c_void_p] * 15 + [ctypes.c_int] * 2
+                             [ctypes.c_void_p] * 17 + [ctypes.c_int] * 3
                              + [ctypes.c_void_p])
     dev = olo.device
     visits = torch.empty((tiles, mv), dtype=torch.int32, device=dev)
     vtn = torch.empty((tiles, mv), dtype=f32, device=dev)
     count = torch.empty((tiles,), dtype=torch.int32, device=dev)
-    build.launch(fn, dev, *(x.data_ptr() for x in args), visits.data_ptr(),
-                 vtn.data_ptr(), count.data_ptr(),
-                 None if pops is None else pops.data_ptr(), tiles, mv)
+    error = torch.zeros((1,), dtype=torch.int32, device=dev)
+    build.launch(fn, dev, *(x.data_ptr() for x in args), nodes.data_ptr(),
+                 visits.data_ptr(), vtn.data_ptr(), count.data_ptr(),
+                 None if pops is None else pops.data_ptr(), error.data_ptr(),
+                 tiles, mv, entries)
     LAUNCHES["walk"] += 1
+    if int(error):
+        raise RuntimeError(f"a walk of the depth-{tree_depth} tree outgrew "
+                           f"its stack of {entries} entries")
     return visits, vtn, count

@@ -13,7 +13,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from ..accel.stream import ClusterSet, kernel_layout
+from ..accel.stream import (TREE_FIELDS, ClusterSet, kernel_layout,
+                            walk_layout)
 from ..accel.two_level import InstancedClusterSet
 from ..core.camera import Camera
 from ..restir.di import Reservoir, RestirState
@@ -45,23 +46,30 @@ def scene_from_numpy(leaves: Mapping) -> SceneData:
         textures=_fill(TextureAtlas, leaves["textures"]))
 
 
+def _layouts(leaves: Mapping) -> dict:
+    """tree_depth and the kernels' layouts (slabs, nlive, tree_nodes) from a
+    JAX cluster or instanced set's leaves."""
+    tree = {f: torch.from_numpy(np.array(leaves[f])) for f in TREE_FIELDS
+            if f != "tree_depth"}
+    return dict(tree_depth=int(leaves["tree_depth"]), **walk_layout(tree),
+                **kernel_layout(torch.from_numpy(np.array(
+                    leaves["tri_feat"]))))
+
+
 def clusters_from_numpy(leaves: Mapping) -> ClusterSet:
     """ClusterSet from the JAX ClusterSet's leaves (aabb_lo, aabb_hi,
     tri_feat, tri_id, the cluster tree's `tree_*` and tree_depth); the
-    kernels' layout is made from tri_feat."""
-    return _fill(ClusterSet, leaves, tree_depth=int(leaves["tree_depth"]),
-                 **kernel_layout(torch.from_numpy(np.array(
-                     leaves["tri_feat"]))))
+    kernels' layout is made from tri_feat and the tree."""
+    return _fill(ClusterSet, leaves, **_layouts(leaves))
 
 
 def instanced_from_numpy(leaves: Mapping) -> InstancedClusterSet:
     """InstancedClusterSet from the JAX InstancedClusterSet's leaves, the
-    unit tree's included; the kernels' layout is made from tri_feat."""
+    unit tree's included; the kernels' layout is made from tri_feat and the
+    tree."""
     return _fill(InstancedClusterSet, leaves,
                  tris_per_cluster=int(leaves["tris_per_cluster"]),
-                 tree_depth=int(leaves["tree_depth"]),
-                 **kernel_layout(torch.from_numpy(np.array(
-                     leaves["tri_feat"]))))
+                 **_layouts(leaves))
 
 
 def camera_from_numpy(leaves: Mapping) -> Camera:

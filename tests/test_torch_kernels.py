@@ -8,7 +8,7 @@ Tolerance: keys identical on at least 99.99% of rays, every differing key a
 tie within the key's t resolution; occlusion bits identical; K1's and K2's
 visit counters identical to `executed_visits_ref` and
 `executed_visits_instanced_ref`; K3's dead tiles the miss key (0); W's
-lists, entry t (bit for bit), counts and pops identical to its twin's.
+lists, entry t (bit for bit) and counts identical to its twin's.
 """
 import numpy as np
 import pytest
@@ -272,13 +272,18 @@ def test_two_level_frame_launches_both_modes(dev):
     assert vsi.LAUNCHES["closest"] == 6 and vsi.LAUNCHES["any"] == 6
 
 
-def _walk_inputs(dev, n_tris=3000, k=32, tiles=256, seed=3):
+def _walk_inputs(dev, n_tris=3000, k=32, tiles=256, seed=3, refit=False):
     """Tile bounds of coherent 128-ray tiles (every seventh ray dead, tile 3
-    all dead) and the cluster tree of random triangles, on the card."""
+    all dead) and the cluster tree of random triangles, on the card; with
+    `refit`, the tree of a refit, every node the global box."""
     g = np.random.default_rng(seed)
     c = g.uniform(-3, 3, (n_tris, 1, 3))
-    tris = (c + g.normal(size=(n_tris, 3, 3)) * 0.15).astype(np.float32)
-    cs = stream.build_clusters(torch.from_numpy(tris), cluster_size=k).to(dev)
+    tris = torch.from_numpy((c + g.normal(size=(n_tris, 3, 3)) * 0.15)
+                            .astype(np.float32))
+    cs = stream.build_clusters(tris, cluster_size=k)
+    if refit:
+        cs = stream.refit_clusters(cs, tris + 0.05)
+    cs = cs.to(dev)
     o = np.repeat(g.uniform(-4, 4, (tiles, 1, 3)), 128, 1)
     base = g.normal(size=(tiles, 1, 3))
     d = base / np.linalg.norm(base, axis=-1, keepdims=True) + g.normal(
@@ -296,15 +301,16 @@ def _walk_inputs(dev, n_tris=3000, k=32, tiles=256, seed=3):
     return bounds, tree, cs
 
 
-def _check_walk(bounds, tree, depth, mv):
-    """W against its twin: lists, entry t bits, counts and pops identical."""
+def _check_walk(bounds, tree, nodes, depth, mv):
+    """W against its twin: lists, entry t bits and counts identical; the
+    same tiles walk at all (the kernel pops other nodes than the twin)."""
     tiles = bounds[0].shape[0]
     dev = bounds[0].device
     pops = torch.full((tiles,), -1, dtype=torch.int32, device=dev)
     pops_ref = torch.full_like(pops, -1)
     tw.reset_launches()
     kern = tw.tile_tree_visits(*bounds, *tree, tree_depth=depth, mv=mv,
-                               pops=pops)
+                               nodes=nodes, pops=pops)
     ref = tw.tile_tree_visits_ref(*bounds, *tree, tree_depth=depth, mv=mv,
                                   pops=pops_ref)
     torch.cuda.synchronize()
@@ -312,36 +318,55 @@ def _check_walk(bounds, tree, depth, mv):
     visits, vtn, count = kern
     assert torch.equal(visits, ref[0]) and torch.equal(count, ref[2])
     assert torch.equal(vtn.view(torch.int32), ref[1].view(torch.int32))
-    assert torch.equal(pops, pops_ref)
-    return kern, pops
+    assert bool(((pops > 0) == (pops_ref > 0)).all())
+    return kern, pops_ref
 
 
+@pytest.mark.parametrize("refit", [False, True])
 @pytest.mark.parametrize("seed", [3, 4])
-@pytest.mark.parametrize("mv", [128, 1])
-def test_tree_walk_matches_twin(dev, mv, seed):
-    bounds, tree, cs = _walk_inputs(dev, seed=seed)
-    (_, _, count), pops = _check_walk(bounds, tree, cs.tree_depth, mv)
+@pytest.mark.parametrize("mv", [128, 4, 1])
+def test_tree_walk_matches_twin(dev, mv, seed, refit):
+    bounds, tree, cs = _walk_inputs(dev, seed=seed, refit=refit)
+    (_, _, count), pops = _check_walk(bounds, tree, cs.tree_nodes,
+                                      cs.tree_depth, mv)
     assert int(count[3]) == 0 and int(pops[3]) == 0
-    assert int(count.max()) > mv and int(pops.sum()) > 1000
+    assert int(count.max()) == mv + 1 and int(pops.sum()) > 1000
 
 
 def test_tree_walk_one_leaf_tree_and_dead_tiles(dev):
     bounds, tree, cs = _walk_inputs(dev, n_tris=20, k=32)
     assert cs.num_clusters == 1 and tree[0].shape[0] == 1
-    (visits, vtn, count), _ = _check_walk(bounds, tree, cs.tree_depth, 4)
+    (visits, vtn, count), _ = _check_walk(bounds, tree, cs.tree_nodes,
+                                          cs.tree_depth, 4)
     assert int(count.max()) == 1 and bool((visits == 0).all())
     bounds, tree, cs = _walk_inputs(dev)
     dead = tuple(bounds[:5]) + (torch.zeros_like(bounds[5]),)
-    (visits, vtn, count), pops = _check_walk(dead, tree, cs.tree_depth, 8)
+    (visits, vtn, count), pops = _check_walk(dead, tree, cs.tree_nodes,
+                                             cs.tree_depth, 8)
     assert int(count.sum()) == 0 and int(pops.sum()) == 0
     assert bool((vtn == torch.inf).all()) and bool((visits == 0).all())
 
 
 def test_tree_walk_rejects_a_deeper_tree_than_its_stack(dev):
     bounds, tree, cs = _walk_inputs(dev, n_tris=300)
+    deep = next(d for d in range(64, 1024)
+                if 8 * tw.stack_entries(d) > tw.SHARED_BYTES)
+    tw.tile_tree_visits(*bounds, *tree, tree_depth=deep - 1, mv=8,
+                        nodes=cs.tree_nodes)
     with pytest.raises(ValueError):
-        tw.tile_tree_visits(*bounds, *tree, tree_depth=tw.MAX_STACK - 1,
-                            mv=8)
+        tw.tile_tree_visits(*bounds, *tree, tree_depth=deep, mv=8,
+                            nodes=cs.tree_nodes)
+
+
+def test_tree_walk_raises_where_a_walk_outgrows_its_stack(dev):
+    """The kernel checks each step's stack size against the one it was
+    given: a stack sized for a one-level tree cannot hold the walk of a
+    deeper one, and the wrapper raises rather than clip."""
+    bounds, tree, cs = _walk_inputs(dev, seed=3, refit=True)
+    assert tw.stack_entries(1) == tw.WARP < tw.stack_entries(cs.tree_depth)
+    with pytest.raises(RuntimeError, match="outgrew"):
+        tw.tile_tree_visits(*bounds, *tree, tree_depth=1, mv=128,
+                            nodes=cs.tree_nodes)
 
 
 def test_mega_frame_launches_the_walk_per_query(dev):

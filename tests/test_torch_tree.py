@@ -51,6 +51,12 @@ def _windows(g, r, any_mode):
     return tn, tx
 
 
+def _same_bits(a, b):
+    """float32 tensors equal bit for bit (ids bit-cast into node records
+    can be NaN patterns)."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def _jax_clusters(seed=0, count=3000, k=16):
     return jstream.build_clusters(jnp.asarray(random_tris(rng(seed), count)),
                                   cluster_size=k)
@@ -80,19 +86,30 @@ def test_cluster_tree_matches_jax():
     np.testing.assert_array_equal(n(tree["tree_hi"])[0], [1, 1, 1])
 
 
-@pytest.mark.parametrize("mode,mv", [("closest", None), ("any", None),
-                                     ("closest", 4)])
-def test_tree_walk_matches_jax(mode, mv):
+@pytest.mark.parametrize("mode,mv,refit", [
+    ("closest", None, False), ("any", None, False), ("closest", 4, False),
+    ("closest", 4, True), ("closest", 48, True)])
+def test_tree_walk_matches_jax(mode, mv, refit):
+    """On a refit tree every node is the global box, so every live tile
+    admits every cluster up to the cap, with entry t tied throughout."""
     g = rng(1)
-    cs = _jax_clusters()
+    tris = random_tris(rng(0), 3000)
+    cs = jstream.build_clusters(jnp.asarray(tris), cluster_size=16)
+    pcs = port_clusters(cs)
+    if refit:
+        moved = tris + np.float32(0.1) * g.normal(size=tris.shape).astype(
+            np.float32)
+        cs = jstream.refit_clusters(cs, jnp.asarray(moved))
+        pcs = pstream.refit_clusters(pcs, t(moved))
+        np.testing.assert_array_equal(n(pcs.tree_lo), np.asarray(cs.tree_lo))
+        assert (n(pcs.tree_lo) == n(pcs.tree_lo)[0]).all()
     tiles = 32
     o, d = coherent_rays(g, tiles)
     tn, tx = _windows(g, tiles * 128, mode == "any")
     mv = mv or cs.num_clusters
     ref = jtiled._tile_tree_visits(cs, *map(jnp.asarray, (o, d, tn, tx)),
                                    tiles, mv)
-    got = ptiled._tile_tree_visits(port_clusters(cs), t(o), t(d), t(tn),
-                                   t(tx), tiles, mv)
+    got = ptiled._tile_tree_visits(pcs, t(o), t(d), t(tn), t(tx), tiles, mv)
     for name, a, b in zip(("order", "valid", "tnear", "overflow"), got, ref):
         if name == "tnear":
             np.testing.assert_allclose(n(a), np.asarray(b), rtol=1e-6)
@@ -100,39 +117,22 @@ def test_tree_walk_matches_jax(mode, mv):
             np.testing.assert_array_equal(n(a), np.asarray(b), err_msg=name)
     counts = np.asarray(ref[1]).sum(1)
     assert counts[3] == 0 and counts.max() > 3
-    assert bool(ref[3]) == (mv == 4)
-    if mv != 4:     # the walk admits fewer clusters than every one
+    assert bool(ref[3]) == (mv < cs.num_clusters)
+    if refit:       # every tile whose rays meet the global box is full
+        assert (counts == mv).mean() > 0.5
+        assert (np.asarray(ref[2])[np.asarray(ref[1])] == 0).any()
+    elif mv != 4:   # the walk admits fewer clusters than every one
         assert 0 < counts.mean() < 0.5 * cs.num_clusters
 
 
-def test_tree_walk_twin_pops_and_raw_lists():
-    """The wrapper on CPU tensors runs the twin uncounted; its pop counter
-    counts every node popped, leaves included."""
-    g = rng(2)
-    cs = port_clusters(_jax_clusters(seed=2))
-    o, d = coherent_rays(g, 8)
-    tn, tx = _windows(g, 8 * 128, False)
-    bounds = ptiled._tile_bounds(t(o), t(d), t(tn), t(tx), 8, 128)
-    tree = (cs.tree_lo, cs.tree_hi, cs.tree_child0, cs.tree_child1,
-            cs.tree_leaf_cluster)
-    pops = torch.full((8,), -1, dtype=torch.int32)
-    ptw.reset_launches()
-    visits, vtn, count = ptw.tile_tree_visits(
-        *bounds, *tree, tree_depth=cs.tree_depth, mv=cs.num_clusters,
-        pops=pops)
-    assert ptw.LAUNCHES == {"walk": 0}
-    assert int(count[3]) == 0 and int(pops[3]) == 0
-    # one tile walked node by node in plain Python
-    i = int(count.argmax())
-    inv_a, inv_b, zero = ptw._reciprocals(bounds[2][i:i + 1],
-                                          bounds[3][i:i + 1])
-    tile = (bounds[0][i:i + 1], bounds[1][i:i + 1], inv_a, inv_b, zero,
-            bounds[4][i:i + 1])
+def _serial_walk(cs, tile, mv):
+    """The serial walk of one tile in plain Python, stopped at mv + 1
+    leaves: ([(cluster, entry t)], nodes popped)."""
     test = lambda node: ptw.box_test(cs.tree_lo[node:node + 1],
                                      cs.tree_hi[node:node + 1], *tile)
     hit, tn0 = test(0)
     stack, leaves, n_pops = [(0, float(tn0))] if bool(hit) else [], [], 0
-    while stack:
+    while stack and len(leaves) <= mv:
         node, node_tn = stack.pop()
         n_pops += 1
         c0, c1 = int(cs.tree_child0[node]), int(cs.tree_child1[node])
@@ -143,26 +143,155 @@ def test_tree_walk_twin_pops_and_raw_lists():
         near, far = ((c1, t1, h1), (c0, t0, h0)) if t1 < t0 else (
             (c0, t0, h0), (c1, t1, h1))
         stack += [(c, float(tc)) for c, tc, h in (far, near) if bool(h)]
-    assert int(pops[i]) == n_pops and int(count[i]) == len(leaves) > 10
-    assert n(visits[i, :len(leaves)]).tolist() == [c for c, _ in leaves]
-    assert n(vtn[i, :len(leaves)]).tolist() == [v for _, v in leaves]
-    live = torch.arange(cs.num_clusters)[None] < count[:, None]
+    return leaves, n_pops
+
+
+def _tile_args(bounds, i):
+    """box_test's tile arguments for tile i of `bounds`."""
+    inv_a, inv_b, zero = ptw._reciprocals(bounds[2][i:i + 1],
+                                          bounds[3][i:i + 1])
+    return (bounds[0][i:i + 1], bounds[1][i:i + 1], inv_a, inv_b, zero,
+            bounds[4][i:i + 1])
+
+
+@pytest.mark.parametrize("small_mv", [False, True])
+def test_tree_walk_twin_pops_and_raw_lists(small_mv):
+    """The wrapper on CPU tensors runs the twin uncounted; its pop counter
+    counts every node popped, leaves included, and it stops at mv + 1
+    leaves, as a plain-Python walk does."""
+    g = rng(2)
+    cs = port_clusters(_jax_clusters(seed=2))
+    o, d = coherent_rays(g, 8)
+    tn, tx = _windows(g, 8 * 128, False)
+    bounds = ptiled._tile_bounds(t(o), t(d), t(tn), t(tx), 8, 128)
+    tree = (cs.tree_lo, cs.tree_hi, cs.tree_child0, cs.tree_child1,
+            cs.tree_leaf_cluster)
+    mv = 4 if small_mv else cs.num_clusters
+    pops = torch.full((8,), -1, dtype=torch.int32)
+    ptw.reset_launches()
+    visits, vtn, count = ptw.tile_tree_visits(
+        *bounds, *tree, tree_depth=cs.tree_depth, mv=mv, nodes=cs.tree_nodes,
+        pops=pops)
+    assert ptw.LAUNCHES == {"walk": 0}
+    assert int(count[3]) == 0 and int(pops[3]) == 0
+    assert int(count.max()) <= mv + 1
+    # each live tile walked node by node in plain Python
+    for i in (i for i in range(8) if i != 3):
+        leaves, n_pops = _serial_walk(cs, _tile_args(bounds, i), mv)
+        k = min(len(leaves), mv)
+        assert int(pops[i]) == n_pops and int(count[i]) == len(leaves)
+        assert n(visits[i, :k]).tolist() == [c for c, _ in leaves[:k]]
+        assert n(vtn[i, :k]).tolist() == [v for _, v in leaves[:k]]
+    assert int(count.max()) == (mv + 1 if small_mv else int(count.max()))
+    assert int(count.max()) > (4 if small_mv else 10)
+    live = torch.arange(mv)[None] < count[:, None]
     assert bool(torch.isfinite(vtn[live]).all()) and bool(
         (vtn[~live] == torch.inf).all())
     assert bool((vtn >= 0).all()) and not bool(torch.signbit(vtn).any())
     with pytest.raises(ValueError):
         ptw.tile_tree_visits(bounds[0].double(), *bounds[1:], *tree,
-                             tree_depth=cs.tree_depth, mv=4)
+                             tree_depth=cs.tree_depth, mv=4,
+                             nodes=cs.tree_nodes)
 
 
-def _walk_counts(acc, o, d, tn, tx):
-    """Leaves each tile's walk reaches (for telling overflowing tiles)."""
+def _warp_walk(cs, recs, tile, alive, mv):
+    """Kernel W (csrc/tree_walk.cu, tree_walk_warp) in
+    plain Python for one tile: its stack in path order (top last), the
+    leaves on top listed first, then up to WARP entries a step, a node's
+    children from its record written back near before far. Returns
+    ([(cluster, entry t)], the stack's largest size)."""
+    hit, tn = ptw.box_test(cs.tree_lo[:1], cs.tree_hi[:1], *tile)
+    c0 = int(cs.tree_child0[0])
+    root = -int(cs.tree_leaf_cluster[-c0 - 1]) - 1 if c0 < 0 else 0
+    stack = [(root, float(tn))] if bool(hit) and alive else []
+    ids = recs[:, 12:14].contiguous().view(torch.int32)
+    leaves, largest = [], len(stack)
+    while stack and len(leaves) <= mv:
+        top = stack[-ptw.WARP:][::-1]                # path order
+        lead = next((j for j, e in enumerate(top) if e[0] >= 0), len(top))
+        if lead:
+            leaves += top[:min(lead, mv + 1 - len(leaves))]
+            del stack[len(stack) - lead:]
+            continue
+        nodes = torch.tensor([e[0] for e in top if e[0] >= 0])
+        r = recs[nodes]
+        h0, t0 = ptw.box_test(r[:, 0:3], r[:, 3:6], *tile)
+        h1, t1 = ptw.box_test(r[:, 6:9], r[:, 9:12], *tile)
+        out, j = [], 0
+        for e in top:
+            if e[0] < 0:
+                out.append(e)
+                continue
+            kids = [(int(ids[e[0], 0]), float(t0[j]), bool(h0[j])),
+                    (int(ids[e[0], 1]), float(t1[j]), bool(h1[j]))]
+            if t1[j] < t0[j]:
+                kids.reverse()
+            out += [(c, tc) for c, tc, h in kids if h]   # near, then far
+            j += 1
+        stack[len(stack) - len(top):] = out[::-1]
+        largest = max(largest, len(stack))
+    return [(-c - 1, tc) for c, tc in leaves], largest
+
+
+@pytest.mark.parametrize("mv", [1, 4, 48])
+@pytest.mark.parametrize("refit", [False, True])
+def test_tree_walk_warp_order_equals_the_serial_walk(mv, refit):
+    """Kernel W's path-ordered stack lists the twin's leaves, entry t
+    bits and counts on every tile, ties at t = 0 included (origins inside
+    boxes; on a refit tree every node ties), and never holds more entries
+    than `stack_entries` allots;
+    `node_records` carries the tree's own floats and each child's id."""
+    g = rng(8)
+    tris = random_tris(g, 3000)
+    cs = pstream.build_clusters(torch.from_numpy(tris), cluster_size=16)
+    if refit:
+        cs = pstream.refit_clusters(cs, t(tris) + 0.05)
+    tiles = 24
+    o, d = coherent_rays(g, tiles)
+    tn, tx = _windows(g, tiles * 128, False)
+    bounds = ptiled._tile_bounds(t(o), t(d), t(tn), t(tx), tiles, 128)
+    tree = (cs.tree_lo, cs.tree_hi, cs.tree_child0, cs.tree_child1,
+            cs.tree_leaf_cluster)
+    recs = cs.tree_nodes
+    assert _same_bits(recs, ptw.node_records(*tree))
+    inner = (cs.tree_child0 >= 0).nonzero()[:, 0]
+    kids = cs.tree_child0[inner].long(), cs.tree_child1[inner].long()
+    for k, (c, lo) in enumerate(zip(kids, (0, 6))):
+        assert torch.equal(recs[inner, lo:lo + 3], cs.tree_lo[c])
+        assert torch.equal(recs[inner, lo + 3:lo + 6], cs.tree_hi[c])
+        ref = recs[inner, 12 + k].contiguous().view(torch.int32).long()
+        leaf = cs.tree_child0[c] < 0
+        assert torch.equal(ref[~leaf], c[~leaf])
+        assert torch.equal(-ref[leaf] - 1, cs.tree_leaf_cluster[
+            -cs.tree_child0[c[leaf]].long() - 1].long())
+    visits, vtn, count = ptw.tile_tree_visits_ref(
+        *bounds, *tree, tree_depth=cs.tree_depth, mv=mv)
+    cap, largest, zeros = ptw.stack_entries(cs.tree_depth), 0, 0
+    for i in range(tiles):
+        leaves, big = _warp_walk(cs, recs, _tile_args(bounds, i),
+                                 bool(bounds[5][i]), mv)
+        largest = max(largest, big)
+        k = min(len(leaves), mv)
+        assert len(leaves) == int(count[i]), i
+        assert [c for c, _ in leaves[:k]] == n(visits[i, :k]).tolist(), i
+        got = torch.tensor([v for _, v in leaves[:k]], dtype=torch.float32)
+        assert torch.equal(got.view(torch.int32),
+                           vtn[i, :k].view(torch.int32)), i
+        zeros += int((got == 0).sum())
+    assert 1 < largest <= cap and zeros > 0
+    assert int(count.max()) == mv + 1 and int(count[3]) == 0
+
+
+def _walk_counts(acc, o, d, tn, tx, mv):
+    """Leaves each tile's walk reaches, up to mv + 1 (count <= mv: the tile
+    does not overflow)."""
     tiles = -(-o.shape[0] // 128)
     po, pd, ptn, ptx = ptiled.pad_rays(t(o), t(d), t(tn), t(tx), 128)
     bounds = ptiled._tile_bounds(po, pd, ptn, ptx, tiles, 128)
     return n(ptw.tile_tree_visits(
         *bounds, acc.tree_lo, acc.tree_hi, acc.tree_child0, acc.tree_child1,
-        acc.tree_leaf_cluster, tree_depth=acc.tree_depth, mv=1)[2])
+        acc.tree_leaf_cluster, tree_depth=acc.tree_depth, mv=mv,
+        nodes=acc.tree_nodes)[2])
 
 
 def test_tree_queries_match_pallas_and_brute():
@@ -193,7 +322,8 @@ def test_tree_queries_match_pallas_and_brute():
     np.testing.assert_array_equal(occ, occ_j)
     # brute on the tiles whose walk stays within mv
     ok = np.repeat(_walk_counts(pcs, o, d, np.full(r, 1e-4, np.float32),
-                                np.full(r, 1e9, np.float32)) <= mv, 128)[:r]
+                                np.full(r, 1e9, np.float32), mv) <= mv,
+                   128)[:r]
     assert 0.25 < ok.mean() < 1.0       # some tiles overflow, most do not
     rb = brute.intersect_closest(jnp.asarray(tris), o, d, 1e-4, 1e9)
     tri_b, t_b = np.asarray(rb["tri"]), np.asarray(rb["t"])
@@ -202,7 +332,7 @@ def test_tree_queries_match_pallas_and_brute():
     assert (np.abs(t_p[hb] - t_b[hb]) / t_b[hb]).max() <= 2 * res_t
     assert (tri[hb] == tri_b[hb]).mean() > 0.99 and hb.sum() > 200
     ok_a = np.repeat(_walk_counts(pcs, o, d, np.full(r, 1e-4, np.float32),
-                                  np.full(r, 2.0, np.float32)) <= mv,
+                                  np.full(r, 2.0, np.float32), mv) <= mv,
                      128)[:r]
     occ_b = np.asarray(brute.intersect_any(jnp.asarray(tris), o, d, 1e-4,
                                            2.0))
@@ -235,7 +365,8 @@ def test_auto_culling_picks_the_tree_past_2048_clusters(monkeypatch):
     ptiled.intersect_closest(small, t(o), t(d), 1e-4, 1e9, max_visits=128)
     assert calls[1:] == ["_frustum_visits"]
     ok = np.repeat(_walk_counts(big, o, d, np.full(r, 1e-4, np.float32),
-                                np.full(r, 1e9, np.float32)) <= 128, 128)
+                                np.full(r, 1e9, np.float32), 128) <= 128,
+                   128)
     rb = brute.intersect_closest(jnp.asarray(tris), o, d, 1e-4, 1e9)
     tri, tri_b = n(got["tri"]), np.asarray(rb["tri"])
     assert (tri_b[ok] >= 0).sum() > 50
@@ -286,7 +417,8 @@ def test_refits_give_the_conservative_tree():
     res = ptiled.intersect_closest(got, t(o), t(d), 1e-4, 1e9,
                                    max_visits=128, culling="tree")
     ok = np.repeat(_walk_counts(got, o, d, np.full(512, 1e-4, np.float32),
-                                np.full(512, 1e9, np.float32)) <= 128, 128)
+                                np.full(512, 1e9, np.float32), 128) <= 128,
+                   128)
     rb = brute.intersect_closest(jnp.asarray(moved), o, d, 1e-4, 1e9)
     assert ok.all() == (got.num_clusters <= 128)
     tri = n(res["tri"])
@@ -314,9 +446,10 @@ def test_refits_give_the_conservative_tree():
 
 
 def test_kernel_layout_rides_the_cluster_set():
-    """build, refit and convert carry the table in the kernels' order; the
-    wrappers check a given layout's shapes and, on the CPU, give the twin's
-    result with or without it."""
+    """build, refit and convert carry the table in the kernels' order and
+    the tree as kernel W's node records; the wrappers check a given
+    layout's shapes and, on the CPU, give the twin's result with or without
+    it."""
     from lumenrenderer_tpu_torch.ops import visit_scan as pvs
 
     g = rng(7)
@@ -337,3 +470,24 @@ def test_kernel_layout_rides_the_cluster_set():
     moved = pstream.refit_clusters(cs, t(tris) + 0.5)
     assert torch.equal(moved.slabs,
                        pvs.slab_layout(moved.tri_feat, 32)[0])
+    records = lambda s: ptw.node_records(*(getattr(s, f) for f in TREE))
+    jcs = _jax_clusters(seed=7, count=600, k=32)
+    for s in (cs, moved, port_clusters(jcs),
+              port_clusters(jstream.refit_clusters(jcs, jnp.asarray(tris)))):
+        assert _same_bits(s.tree_nodes, records(s))
+    assert bool((moved.tree_nodes[:, :6] == torch.cat(
+        [moved.tree_lo[0], moved.tree_hi[0]])).all())
+    meshes = [g.uniform(-0.5, 0.5, (30, 3, 3)).astype(np.float32)]
+    tfs = np.stack([np.eye(4, dtype=np.float32)] * 3)
+    tfs[:, 0, 3] = [0, 1, 2]
+    ics = ptwo.build_instanced(meshes, [0] * 3, list(tfs), cluster_size=32)
+    tfs[1, 1, 3] = 0.5
+    for s in (ics, ptwo.refit_instances(ics, torch.from_numpy(tfs)),
+              port_instanced(jtwo.build_instanced(meshes, [0] * 3, list(tfs),
+                                                  cluster_size=32))):
+        assert _same_bits(s.tree_nodes, records(s))
+    with pytest.raises(ValueError):
+        ptw.tile_tree_visits(*ptiled._tile_bounds(t(o), t(d), *(torch.full(
+            (o.shape[0],), v) for v in (1e-4, 1e9)), 2, 128),
+            *(getattr(cs, f) for f in TREE), tree_depth=cs.tree_depth, mv=4,
+            nodes=cs.tree_nodes[:, :12])
