@@ -77,7 +77,23 @@ non-zero), each with its seconds:
      culling="tree" by phase 7's rule; W on the unit tree against its twin
      on every tile of the primary, bounce and shadow passes, as in phase
      11; then a 320x180 depth-3 frame through K2 and W and through their
-     twins.
+     twins;
+ 12. the gradient slice (the JAX bench's BENCH_GRAD workload): the mean of
+     the 2560x1440 interior frame (600 boxes, 64 lights, depth 5, Disney,
+     MIS, remat on) differentiated with respect to every material's
+     emissive through Renderer(accel="tiled")'s intersectors, each call
+     from a fresh generator of one seed: the forward without and with a
+     graph and the backward (ms, mean of 3 after a warm-up), bench.py's
+     ratio (forward and backward over the forward), peak memory of each,
+     K1's launches per forward and backward (5 closest, 5 any: the
+     recompute launches none), a profile of the backward; the gradient
+     finite, > 0 on the lights and >= 0 elsewhere, equal to the frame's
+     mean through linearity and to a central difference at 1 +- 0.25
+     (rtol 2e-3), and to the gradient without remat (rtol 1e-5, with its
+     peak memory); a 320x180 gradient through K1 equal to one through its
+     twin (rtol 1e-5); 3 Adam steps of `parallel.train.make_train_step` on
+     the emissive toward a target rendered at twice the emission, each
+     lowering the loss.
 Then a JSON line of per-kernel results, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}. Needs no network; exits
 non-zero without a CUDA device or without the package next to it.
@@ -100,6 +116,7 @@ library_ms is null.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -123,6 +140,9 @@ PAIRS_PER_RAY = 8
 KERNELS = ("visit_scan", "visit_scan_instanced", "pair_scan", "tree_walk")
 MEGA_TRIS, MEGA_LIGHTS = 1_000_000, 256      # the JAX bench's mega scene
 UNITS_INSTANCES = 2100       # phase 11b: 2,101 units
+GRAD_RTOL = 2e-3             # phase 12: linearity, central difference
+REMAT_RTOL = 1e-5            # phase 12: remat off, K1 against its twin
+TRAIN_STEPS, TRAIN_LR = 3, 0.05
 PEAK_FLOPS = 67e12           # H100 SXM, fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM, HBM3
 FLOP_PER_PAIR = 80           # 40 FMAs per ray-triangle test
@@ -1563,6 +1583,215 @@ def phase_units_past_2048(dev, w=W, h=H):
                        vsi.visit_scan_instanced_ref))
 
 
+def _emission_frame(scene, isect, occl, cam, cfg, seed: int = 0):
+    """The JAX bench's BENCH_GRAD loss as a function of every material's
+    emissive (M,3): the mean of the merged frame. Each call draws from a
+    fresh generator of `seed`, as the bench reuses one key."""
+    import torch
+
+    from lumenrenderer_tpu_torch.core import sampling
+    from lumenrenderer_tpu_torch.integrator import wavefront as wf
+
+    def frame(em):
+        gen = torch.Generator(device=cam.eye.device)
+        gen.manual_seed(seed)
+        sc = scene.replace(materials=scene.materials.replace(emissive=em))
+        out = wf.render_wavefront(sc, isect, occl, cam,
+                                  sampling.generator_uniforms(gen), 0, cfg)
+        return wf.merge_channels(out).mean()
+
+    return frame
+
+
+def _grad(frame, em):
+    """(frame(em), d frame / d em) from one forward and backward."""
+    leaf = em.detach().clone().requires_grad_(True)
+    loss = frame(leaf)
+    loss.backward()
+    return float(loss.detach()), leaf.grad
+
+
+def _rel_err(a, b) -> float:
+    """Largest |a - b| / |b| over the entries where b is not 0 (a must be 0
+    where b is)."""
+    nz = b != 0
+    if bool((a[~nz] != 0).any()):
+        return float("inf")
+    return float(((a - b).abs()[nz] / b.abs()[nz]).max())
+
+
+def phase_gradients(dev, w=W, h=H, frames=SLICE_FRAMES):
+    """The JAX bench's BENCH_GRAD workload (bench.py:100-148): the gradient
+    of the interior frame's mean with respect to every material's emissive,
+    remat on, through Renderer(accel="tiled")'s intersectors (K1)."""
+    import dataclasses
+
+    import torch
+
+    from lumenrenderer_tpu_torch.accel import tiled
+    from lumenrenderer_tpu_torch.core import sampling
+    from lumenrenderer_tpu_torch.integrator import wavefront as wf
+    from lumenrenderer_tpu_torch.ops import visit_scan as vs
+    from lumenrenderer_tpu_torch.parallel import train
+    from lumenrenderer_tpu_torch.render.renderer import Renderer
+    from lumenrenderer_tpu_torch.scene import presets
+
+    gib = 2.0 ** 30
+    torch.cuda.empty_cache()       # earlier phases' cached blocks
+    builder, camf = presets.interior_scene(n_boxes=600, n_lights=64)
+    r = Renderer(builder.build(),
+                 wf.RenderConfig(width=w, height=h, max_depth=5,
+                                 bsdf="disney", light_strategy="mis",
+                                 remat=True),
+                 accel="tiled", device=dev)
+    scene, cfg, cam = r.scene, r.config, camf(w / h).to(dev)
+    em0 = scene.materials.emissive
+    frame = _emission_frame(scene, r._isect, r._occl, cam, cfg)
+
+    with torch.no_grad():
+        frame(em0)
+        torch.cuda.reset_peak_memory_stats(dev)
+        fwd_ms = timed_frames(lambda: frame(em0), frames)
+    peak_fwd = torch.cuda.max_memory_allocated(dev)
+
+    _grad(frame, em0)                                  # warm
+    graph_ms, bwd_ms, peak_graph, peak_bwd, held = [], [], 0, 0, 0
+    for _ in range(frames):
+        leaf = em0.clone().requires_grad_(True)
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        loss = frame(leaf)
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        peak_graph = max(peak_graph, torch.cuda.max_memory_allocated(dev))
+        held = max(held, torch.cuda.memory_allocated(dev) - base)
+        torch.cuda.reset_peak_memory_stats(dev)
+        loss.backward()
+        torch.cuda.synchronize(dev)
+        bwd_ms.append((time.perf_counter() - t1) * 1e3)
+        graph_ms.append((t1 - t0) * 1e3)
+        peak_bwd = max(peak_bwd, torch.cuda.max_memory_allocated(dev))
+    graph_ms, bwd_ms = sum(graph_ms) / frames, sum(bwd_ms) / frames
+
+    # the main path: K1 launches of one forward and backward
+    vs.reset_launches()
+    mean, grad = _grad(frame, em0)
+    launches = dict(vs.LAUNCHES)
+    say("12 gradients", size=f"{w}x{h}", depth=cfg.max_depth,
+        materials=em0.shape[0], lights=int(scene.lights.count),
+        forward_ms=f"{fwd_ms:.1f}", forward_graph_ms=f"{graph_ms:.1f}",
+        backward_ms=f"{bwd_ms:.1f}",
+        ratio=f"{(graph_ms + bwd_ms) / fwd_ms:.3f}",
+        backward_over_forward=f"{bwd_ms / fwd_ms:.3f}",
+        peak_forward_gib=f"{peak_fwd / gib:.2f}",
+        peak_forward_graph_gib=f"{peak_graph / gib:.2f}",
+        graph_held_gib=f"{held / gib:.2f}",
+        peak_backward_gib=f"{peak_bwd / gib:.2f}",
+        k1_launches_fwd_bwd=json.dumps(launches))
+    if launches != {"closest": cfg.max_depth, "any": cfg.max_depth}:
+        raise AssertionError(f"K1 launches per forward and backward "
+                             f"{launches}, expected {cfg.max_depth} in each "
+                             "mode (the recompute launches none)")
+
+    leaf = em0.clone().requires_grad_(True)
+    loss = frame(leaf)
+    torch.cuda.synchronize(dev)
+    # the row gathers' backward: a sort of the rows' indices, then the
+    # accumulation onto the attribute and light tables
+    _profile_frame("12 profile backward", loss.backward, "visit_scan_kernel",
+                   also=("indexing_backward", "RadixSort"))
+
+    # once without remat
+    frame_nr = _emission_frame(scene, r._isect, r._occl, cam,
+                               dataclasses.replace(cfg, remat=False))
+    del leaf, loss
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    mean_nr, grad_nr = _grad(frame_nr, em0)
+    nr_ms = (time.perf_counter() - t0) * 1e3
+    peak_nr = torch.cuda.max_memory_allocated(dev)
+
+    light = em0.amax(-1) > 0
+    slope = float((grad * em0).sum())     # d mean / d s of em0 * s at s = 1
+    with torch.no_grad():
+        fd = (float(frame(em0 * 1.25)) - float(frame(em0 * 0.75))) / 0.5
+    remat_err = _rel_err(grad, grad_nr)
+    say("12 gradients", finite=bool(torch.isfinite(grad).all()),
+        light_rows_positive=bool((grad[light] > 0).all()),
+        rows_nonnegative=bool((grad >= 0).all()), mean=f"{mean:.6f}",
+        d_mean_d_scale=f"{slope:.6f}",
+        linearity_rel_err=f"{abs(slope - mean) / mean:.3e}",
+        central_difference=f"{fd:.6f}",
+        central_rel_err=f"{abs(slope - fd) / abs(fd):.3e}",
+        no_remat_ms=f"{nr_ms:.1f}",
+        peak_no_remat_gib=f"{peak_nr / gib:.2f}",
+        remat_vs_no_remat_rel_err=f"{remat_err:.3e}")
+    if not (bool(torch.isfinite(grad).all()) and bool((grad[light] > 0).all())
+            and bool((grad >= 0).all())):
+        raise AssertionError("gradients not finite, or a light's not > 0, "
+                             "or a row's < 0")
+    if abs(slope - mean) > GRAD_RTOL * mean or \
+            abs(slope - fd) > GRAD_RTOL * abs(fd):
+        raise AssertionError(f"d mean / d s {slope} against the mean {mean} "
+                             f"and the central difference {fd}")
+    if abs(mean_nr - mean) > 1e-6 * mean or remat_err > REMAT_RTOL:
+        raise AssertionError(f"remat changed the frame ({mean_nr} vs {mean}) "
+                             f"or its gradient (rel err {remat_err})")
+
+    # a 320x180 gradient through K1 and through its twin
+    small = dataclasses.replace(cfg, width=SMALL_W, height=SMALL_H)
+    scam = camf(SMALL_W / SMALL_H).to(dev)
+    grads = [_grad(_emission_frame(scene, *tiled.tiled_intersectors(
+        r.clusters, r.max_visits, scan=scan), scam, small), em0)[1]
+        for scan in (vs.visit_scan, vs.visit_scan_ref)]
+    twin_err = _rel_err(*grads)
+    say("12 gradients small", size=f"{SMALL_W}x{SMALL_H}",
+        kernel_vs_twin_rel_err=f"{twin_err:.3e}", rtol=REMAT_RTOL)
+    if twin_err > REMAT_RTOL:
+        raise AssertionError(f"gradient through K1 and its twin differ: "
+                             f"{twin_err}")
+
+    # a few training steps toward a target rendered at twice the emission
+    def draws():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        return sampling.generator_uniforms(gen)
+
+    params0, _ = train.split_params(scene)
+    bright = train.merge_params(
+        scene, {**params0, "emissive": params0["emissive"] * 2.0})
+    with torch.no_grad():
+        target = wf.merge_channels(wf.render_wavefront(
+            bright, r._isect, r._occl, cam, draws(), 0, cfg))
+    init, step = train.make_train_step(
+        scene, r._isect, r._occl, cam, cfg,
+        lambda ps: torch.optim.Adam([ps["emissive"]], lr=TRAIN_LR))
+    run = {"st": init(), "losses": []}
+
+    def one_step():
+        run["st"], loss = step(run["st"], draws(), 0, target)
+        run["losses"].append(float(loss))
+
+    step_ms = timed_frames(one_step, TRAIN_STEPS)
+    with torch.no_grad():
+        img = wf.merge_channels(wf.render_wavefront(
+            train.merge_params(scene, run["st"].params), r._isect, r._occl,
+            cam, draws(), 0, cfg))
+        after = float(((img - target) ** 2).mean())
+    losses = run["losses"] + [after]
+    say("12 train", steps=TRAIN_STEPS, params="emissive",
+        optimizer=f"Adam(lr={TRAIN_LR})",
+        ms_per_step=f"{step_ms:.1f}",
+        losses=json.dumps([round(x, 6) for x in losses]))
+    if not all(math.isfinite(x) for x in losses) or not all(
+            b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"the training loss did not fall: {losses}")
+
+
 def main() -> int:
     if not (REPO / "lumenrenderer_tpu_torch" / "ops" / "csrc"
             / "visit_scan.cu").is_file():
@@ -1601,6 +1830,7 @@ def main() -> int:
     run("10 restir slice", phase_restir_slice, dev)
     mega = run("11 mega slice", phase_mega, dev)
     run("11b two-level units", phase_units_past_2048, dev)
+    run("12 gradients", phase_gradients, dev)
 
     kernels = []
     for name in KERNELS[:3]:

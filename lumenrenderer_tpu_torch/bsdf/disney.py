@@ -152,7 +152,9 @@ def _eval_transmission(g, sd, wo_l, wi_l):
     f_t = ((1.0 - f_r) * d * g2 * oh.abs() * jac
            / (cos_o * cos_i.abs()).clamp_min(1e-8))
     w = (1.0 - sd.metallic) * g.spec_trans
-    color = torch.sqrt(sd.base_color.clamp_min(0.0))
+    # clamped above 0: sqrt's gradient at 0 is inf, and 0 * inf would make a
+    # black base color's gradient NaN (lights are black)
+    color = torch.sqrt(sd.base_color.clamp_min(1e-30))
     f_trans = _where0(trans_side[..., None], (f_t * w)[..., None] * color)
     pdf_trans = _where0(trans_side, common.ggx_vndf_pdf_aniso(wo_l, h, ax, ay)
                         * jac * (1.0 - f_r))
@@ -220,6 +222,9 @@ def sample(sd, wo, u):
                        torch.where(pick_spec[..., None], wi_spec,
                                    torch.where(pick_cc[..., None], wi_cc,
                                                wi_trans)))
+    # the sampled direction is sampling machinery: no gradient flows back
+    # through the warps (whose sqrt(0) corners give NaN), f stays live
+    wi_l = wi_l.detach()
     wi = vm.to_world_frame(wi_l, t, b, n)
     f, pdf = evaluate(sd, wo, wi)
     # the Fresnel reflection off a transmissive microfacet looks like the

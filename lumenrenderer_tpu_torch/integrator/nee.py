@@ -47,12 +47,14 @@ def all_light_radiance(scene: SceneData) -> torch.Tensor:
 def _selection_weights(scene: SceneData, rad: torch.Tensor,
                        selection: str) -> torch.Tensor:
     """selection: "cdf" (weights = luminance * area, uniform over valid
-    lights when all are zero) or "uniform"."""
+    lights when all are zero) or "uniform". The weights carry no gradient:
+    the selection pdf is sampling machinery, the radiance columns stay
+    live."""
     lights = scene.lights
     valid = (torch.arange(lights.capacity, device=lights.area.device)
              < lights.count).float()
     if selection == "cdf":
-        w = torch.where(valid > 0, (vm.luminance(rad) * lights.area)
+        w = torch.where(valid > 0, (vm.luminance(rad.detach()) * lights.area)
                         .clamp_min(0.0), 0.0)
         return torch.where(w.sum() > 0, w, valid)
     return valid

@@ -2,23 +2,37 @@
 `lumenrenderer_tpu/integrator/wavefront.py`.
 
 One 1-spp frame as a loop over depths of masked fixed-size ray batches, run
-eagerly under `torch.no_grad()` (forward only). Light channels: DIRECT gets
-primary-hit emission and primary NEE; INDIRECT gets bounce NEE and, with MIS,
-weighted BSDF-sampled emission; SPECULAR gets paths whose first bounce took a
-near-delta lobe. Strategies: "nee", "bsdf", "mis".
+eagerly. Light channels: DIRECT gets primary-hit emission and primary NEE;
+INDIRECT gets bounce NEE and, with MIS, weighted BSDF-sampled emission;
+SPECULAR gets paths whose first bounce took a near-delta lobe. Strategies:
+"nee", "bsdf", "mis".
+
+The frame is differentiable with respect to the scene's shading parameters
+(materials, emission, environment) under the JAX package's detached-sampling
+discipline (`RenderConfig.detach_sampling`): hits, sampled directions,
+pdfs, MIS and Russian-roulette weights carry no gradient, so the gradient is
+that of the estimator along the sampled paths. The intersectors' inputs and
+outputs are always detached: the kernels return integer keys and bits, and
+no graph is built over the rays' features. With `RenderConfig.remat`,
+depths >= 1 run under `torch.utils.checkpoint` and are recomputed in the
+backward; their intersections and shadow-ray bits are kept from the forward,
+so the recompute launches no intersector.
 
 Random numbers come from a `Uniforms` source, drawn in a fixed order: the
 (N,2) pixel jitter, then per depth the alpha (N,), NEE (N,3), BSDF (N,4) and
-Russian-roulette (N,) uniforms, each only where the JAX frame draws it. With
-use_restir, ReSTIR DI (`restir.di.RestirDI`) takes the NEE draw's place at
-depth 0 and draws its own numbers from the same source.
+Russian-roulette (N,) uniforms, each only where the JAX frame draws it.
+Depths >= 1 take theirs before the depth runs, so a recompute sees the same
+numbers. With use_restir, ReSTIR DI (`restir.di.RestirDI`) takes the NEE
+draw's place at depth 0 and draws its own numbers from the same source.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from ..bsdf import disney as disney_mod
 from ..bsdf import lambert
@@ -46,8 +60,12 @@ DEBUG_STAGES = (
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Frame configuration; same names and defaults as the JAX package's
-    `RenderConfig` for the options the port has. swizzle and remat are kept
-    only to refuse them."""
+    `RenderConfig` for the options the port has. swizzle is kept only to
+    refuse it.
+
+    detach_sampling: hits, sampled directions, pdfs, MIS and RR weights
+    carry no gradient (keep True). remat: depths >= 1 are recomputed in the
+    backward instead of keeping their intermediates."""
 
     width: int = 128
     height: int = 128
@@ -61,6 +79,7 @@ class RenderConfig:
     jitter: str = "random"        # "halton" | "random" | "center"
     alpha_test: bool = False      # treat OPAQUE materials as BLEND too
     alpha_materials: bool = False  # per-material alpha mode and sidedness
+    detach_sampling: bool = True
     swizzle: bool = False
     sort_secondary: bool = True
     extract_tangent: bool = True
@@ -68,10 +87,9 @@ class RenderConfig:
     debug_checks: bool = False
 
     def __post_init__(self):
-        for name in ("swizzle", "remat"):
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"RenderConfig.{name} is not ported to PyTorch yet")
+        if self.swizzle:
+            raise NotImplementedError(
+                "RenderConfig.swizzle is not ported to PyTorch yet")
 
     @property
     def num_pixels(self) -> int:
@@ -98,6 +116,69 @@ def _sel(mask, a, b):
     return torch.where(mask[:, None], a, b)
 
 
+def _detach(x):
+    return x.detach() if isinstance(x, torch.Tensor) else x
+
+
+def _detached(query: Callable) -> Callable:
+    """An intersector (or occluder, or its sorted form) with no gradient in
+    or out: t_max depends on `alive`, which depends on the throughput, and
+    neither the sort nor a kernel's wrapper may build a graph over the
+    rays."""
+
+    def call(o, d, tn, tx):
+        out = query(o.detach(), d.detach(), _detach(tn), _detach(tx))
+        if isinstance(out, dict):
+            return {k: _detach(v) for k, v in out.items()}
+        return out.detach()
+
+    return call
+
+
+class _Drawn:
+    """A draw source over a depth's uniforms drawn ahead, in order."""
+
+    def __init__(self, draws):
+        self._draws = list(draws)
+
+    def __call__(self, *shape):
+        u = self._draws.pop(0)
+        if tuple(u.shape) != shape:
+            raise RuntimeError(f"drew {tuple(u.shape)} ahead, asked {shape}")
+        return u
+
+
+def _draw_ahead(cfg: RenderConfig, depth: int, n: int,
+                uniforms: sampling.Uniforms):
+    """A depth's uniforms (depth >= 1), in the order its body asks for
+    them: alpha, NEE, BSDF, Russian roulette, each where it is drawn."""
+    shapes = []
+    if cfg.alpha_test or cfg.alpha_materials:
+        shapes.append((n,))
+    if cfg.light_strategy in ("nee", "mis"):
+        shapes.append((n, 3))
+    if depth + 1 < cfg.max_depth:
+        shapes.append((n, 4))
+        if depth >= cfg.rr_start_depth:
+            shapes.append((n,))
+    return tuple(uniforms(*s) for s in shapes)
+
+
+class _Once:
+    """An occluder that runs on its first call and returns that result
+    again when a checkpointed depth is recomputed in the backward: the
+    shadow rays are detached, so the bits would be the same."""
+
+    def __init__(self, occlude_fn: Callable):
+        self.occlude_fn = occlude_fn
+        self.out = None
+
+    def __call__(self, *args):
+        if self.out is None:
+            self.out = self.occlude_fn(*args)
+        return self.out
+
+
 def render_wavefront(scene: SceneData, intersect_fn: Callable,
                      occlude_fn: Callable, camera: camera_mod.Camera,
                      uniforms: sampling.Uniforms, frame_index: int,
@@ -116,27 +197,33 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
     occlude_fn(o, d, tmin, tmax) -> (N,) bool. With cfg.use_restir,
     restir_fn(scene, sd, wo, hit_mask, motion, restir_state, uniforms,
     occlude_fn=) -> (color (N,3), new state) shades depth 0's direct light
-    (a `restir.di.RestirDI`)."""
+    (a `restir.di.RestirDI`).
+
+    Differentiable when run with gradients enabled: e.g. the mean of
+    `merge_channels(out)` backpropagates into `scene.materials` and
+    `scene.env_radiance` tensors that require grad."""
     if pixel_ids is not None:
         raise NotImplementedError("pixel_ids (frame slices) are not ported")
     dev = camera.eye.device
     n = cfg.num_pixels
     f32 = torch.float32
+    sg = _detach if cfg.detach_sampling else (lambda x: x)
 
     def zeros(*shape, dtype=f32):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     ray_o, ray_d = camera_mod.generate_primary_rays(
         camera, cfg.width, cfg.height, frame_index, uniforms, cfg.jitter)
-    throughput = torch.ones((n, 3), dtype=f32, device=dev)
-    alive = torch.ones(n, dtype=torch.bool, device=dev)
-    prev_pdf = torch.full((n,), torch.inf, dtype=f32, device=dev)
-    prev_specular = torch.ones(n, dtype=torch.bool, device=dev)
-    first_specular = zeros(n, dtype=torch.bool)
-    beer_sigma = zeros(n, 3)
-    direct, indirect, specular_ch = zeros(n, 3), zeros(n, 3), zeros(n, 3)
+    carry = (ray_o, ray_d,
+             torch.ones((n, 3), dtype=f32, device=dev),          # throughput
+             torch.ones(n, dtype=torch.bool, device=dev),        # alive
+             torch.full((n,), torch.inf, dtype=f32, device=dev),  # prev_pdf
+             torch.ones(n, dtype=torch.bool, device=dev),  # prev_specular
+             zeros(n, dtype=torch.bool),                   # first_specular
+             zeros(n, 3),                                  # beer_sigma
+             zeros(n, 3), zeros(n, 3), zeros(n, 3),  # direct, indirect, spec
+             zeros(dtype=torch.int32))                     # first_bad
     overflow_any = zeros(dtype=torch.bool)
-    first_bad = zeros(dtype=torch.int32)
     aovs: Dict[str, torch.Tensor] = {}
 
     def chk(fb, stage: str, depth_i: int, *arrs):
@@ -157,19 +244,30 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
         pts = scene.tri_pos.reshape(-1, 3)
         s_isect, occl = sorting_mod.sorted_intersectors(
             intersect_fn, occlude_fn, pts.amin(0), pts.amax(0))
+    isect, s_isect, occl = map(_detached, (intersect_fn, s_isect, occl))
     alpha_on = cfg.alpha_test or cfg.alpha_materials
     env = scene.env_radiance[None, :]
 
-    for depth in range(cfg.max_depth):
-        # dead lanes get t_max < t_min: skipped and left out of tile bounds
-        t_max_ray = torch.where(alive, camera.t_max, -1.0)
-        hits = (s_isect if depth > 0 else intersect_fn)(
-            ray_o, ray_d, t_min, t_max_ray)
-        overflow_any = overflow_any | hits["overflow"]
+    def trace_depth(depth: int, carry, hits, draws, occl_d):
+        """One depth after its intersection: shading, NEE, the next
+        bounce. draws: the frame's source (depth 0) or the depth's
+        uniforms drawn ahead; occl_d: the (sorted) occluder."""
+        nonlocal restir_state
+        (ray_o, ray_d, throughput, alive, prev_pdf, prev_specular,
+         first_specular, beer_sigma, direct, indirect, specular_ch,
+         first_bad) = carry
+        uni = _Drawn(draws) if isinstance(draws, tuple) else draws
         first_bad = chk(first_bad, "intersect", depth,
                         torch.where(torch.isinf(hits["t"]), 0.0, hits["t"]))
         sd = extract_surface_data(scene, ray_o, ray_d, hits["tri"],
-                                  with_tangent=cfg.extract_tangent)
+                                  with_tangent=cfg.extract_tangent,
+                                  detach_geom=cfg.detach_sampling)
+        if cfg.detach_sampling:
+            # geometry does not depend on the differentiated parameters
+            sd = sd.replace(position=sg(sd.position), normal=sg(sd.normal),
+                            geo_normal=sg(sd.geo_normal),
+                            tangent=sg(sd.tangent), t=sg(sd.t),
+                            uv=sg(sd.uv))
         hit_mask = sd.valid & alive
         wo = -ray_d
         first_bad = chk(first_bad, "extract_surface_data", depth,
@@ -209,7 +307,8 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
             lpdf = nee_mod.light_pdf_solid_angle(light_table, ray_d, sd.t,
                                                  sd.light_row)
             w = torch.where(prev_specular, 1.0,
-                            sampling.power_heuristic(prev_pdf, lpdf))
+                            sg(sampling.power_heuristic(prev_pdf, lpdf)))
+            # the mask goes into the scalar, before it meets a live value
             em_w = em * torch.where(hit_mask, w, 0.0)[:, None]
             specular_ch = specular_ch + _sel(first_specular, em_w, 0.0)
             indirect = indirect + _sel(first_specular, 0.0, em_w)
@@ -218,7 +317,7 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
 
         # per-material alpha and sidedness: pass through without shading
         if alpha_on:
-            a_u = uniforms(n)
+            a_u = uni(n)
             gm = GatheredMaterial(sd.mat_rows)
             mode = gm.alpha_mode
             stochastic = mode == 2.0
@@ -235,27 +334,29 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
         if cfg.use_restir and depth == 0 and restir_fn is not None:
             # the sorted occluder, as NEE's shadow rays use
             restir_out, restir_state = restir_fn(
-                scene, sd, wo, hit_mask, aovs["motion"], restir_state,
-                uniforms, occlude_fn=occl)
+                scene, sd, wo, hit_mask, aovs["motion"], restir_state, uni,
+                occlude_fn=occl_d)
             direct = direct + throughput * restir_out
         elif cfg.light_strategy in ("nee", "mis"):
-            u3 = uniforms(n, 3)
-            ls = nee_mod.sample_light(light_table, u3, sd.position)
+            ls = nee_mod.sample_light(light_table, uni(n, 3), sd.position)
             cos_s = vm.dot(sd.normal, ls.wi)
             f_val, bsdf_pdf = _bsdf_eval(cfg, sd, wo, ls.wi)
             pdf_sa = nee_mod.pdf_solid_angle(ls)
             contrib_valid = (hit_mask & ls.valid & (cos_s > 0.0)
                              & (pdf_sa > 1e-12)
                              & (vm.luminance(ls.radiance) > 0.0))
-            mis_w = (sampling.power_heuristic(pdf_sa, bsdf_pdf)
+            mis_w = (sg(sampling.power_heuristic(pdf_sa, bsdf_pdf))
                      if cfg.light_strategy == "mis" else 1.0)
             so = sd.position + sd.geo_normal * RAY_EPS
-            occluded = occl(so, ls.wi, RAY_EPS,
-                            torch.where(contrib_valid,
-                                        ls.dist - 2.0 * RAY_EPS, -1.0))
+            occluded = occl_d(so, ls.wi, RAY_EPS,
+                              torch.where(contrib_valid,
+                                          ls.dist - 2.0 * RAY_EPS, -1.0))
+            # validity and occlusion go into the detached scalar before
+            # the product, so no inf or NaN meets a live gradient
             scale = torch.where(
                 contrib_valid & ~occluded,
-                cos_s.clamp_min(0.0) * mis_w / pdf_sa.clamp_min(1e-12), 0.0)
+                sg(cos_s).clamp_min(0.0) * mis_w
+                / sg(pdf_sa).clamp_min(1e-12), 0.0)
             shadowed = throughput * f_val * ls.radiance * scale[:, None]
             first_bad = chk(first_bad, "nee/shade_direct", depth, shadowed)
             if depth == 0:
@@ -266,16 +367,19 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
                 indirect = indirect + _sel(first_specular, 0.0, shadowed)
 
         if depth + 1 < cfg.max_depth:
-            u_b = uniforms(n, 4)
-            wi, f_val, pdf, is_spec = _bsdf_sample(cfg, sd, wo, u_b)
+            wi, f_val, pdf, is_spec = _bsdf_sample(cfg, sd, wo, uni(n, 4))
+            # the direction and its density are sampling machinery; f is
+            # the integrand and stays live
+            wi = sg(wi)
             cos_i = vm.dot(sd.normal, wi).abs()
             valid_bounce = (hit_mask & (pdf > 1e-9)
                             & torch.isfinite(wi).all(-1))
-            new_tp = throughput * f_val * (cos_i / pdf.clamp_min(1e-9))[:, None]
+            new_tp = throughput * f_val * (
+                sg(cos_i) / sg(pdf).clamp_min(1e-9))[:, None]
             new_tp = _sel(valid_bounce, new_tp, 0.0)
             if depth >= cfg.rr_start_depth:
-                p_survive = new_tp.amax(-1).clamp(cfg.rr_min_prob, 1.0)
-                survive = uniforms(n) < p_survive
+                p_survive = sg(new_tp.amax(-1).clamp(cfg.rr_min_prob, 1.0))
+                survive = uni(n) < p_survive
                 new_tp = _sel(survive, new_tp / p_survive[:, None], 0.0)
                 valid_bounce = valid_bounce & survive
             side = torch.sign(vm.dot(sd.geo_normal, wi))[..., None]
@@ -287,7 +391,8 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
             ray_o = _sel(next_alive, next_o, ray_o)
             ray_d = _sel(next_alive, next_d, ray_d)
             throughput = _sel(passthrough, throughput, new_tp)
-            prev_pdf = torch.where(passthrough, prev_pdf, pdf)
+            # the previous pdf feeds only the detached MIS weight
+            prev_pdf = torch.where(passthrough, prev_pdf, sg(pdf))
             prev_specular = torch.where(passthrough, prev_specular, is_spec)
             if depth == 0:
                 first_specular = is_spec & valid_bounce & ~passthrough
@@ -296,7 +401,7 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
                 crossing = valid_bounce & (vm.dot(sd.geo_normal, wi) < 0.0)
                 sigma_mat = -torch.log(GatheredMaterial(sd.mat_rows)
                                        .transmittance.clamp(1e-6, 1.0))
-                beer_sigma = _sel(crossing & sd.front_face, sigma_mat,
+                beer_sigma = _sel(crossing & sd.front_face, sg(sigma_mat),
                                   beer_sigma)
                 beer_sigma = _sel(crossing & ~sd.front_face, 0.0, beer_sigma)
             alive = next_alive & (throughput.amax(-1) > 0.0)
@@ -306,11 +411,36 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
         elif alpha_on:
             # passthrough at the depth horizon still sees the environment
             indirect = indirect + _sel(passthrough, throughput * env, 0.0)
+        return (ray_o, ray_d, throughput, alive, prev_pdf, prev_specular,
+                first_specular, beer_sigma, direct, indirect, specular_ch,
+                first_bad)
 
-    out = {"direct": direct, "indirect": indirect, "specular": specular_ch,
+    for depth in range(cfg.max_depth):
+        ray_o, ray_d, alive = carry[0], carry[1], carry[3]
+        # dead lanes get t_max < t_min: skipped and left out of tile bounds
+        t_max_ray = torch.where(alive, camera.t_max, -1.0)
+        hits = (s_isect if depth > 0 else isect)(ray_o, ray_d, t_min,
+                                                 t_max_ray)
+        overflow_any = overflow_any | hits["overflow"]
+        if depth == 0:
+            carry = trace_depth(0, carry, hits, uniforms, occl)
+            continue
+        body = functools.partial(trace_depth, depth)
+        args = (carry, hits, _draw_ahead(cfg, depth, n, uniforms),
+                _Once(occl))
+        if cfg.remat and torch.is_grad_enabled():
+            # depth 0 stays live (its AOVs and ReSTIR state); deeper depths
+            # keep only their inputs and are recomputed in the backward.
+            # The draws are tensors passed in, so no RNG state is replayed.
+            carry = torch.utils.checkpoint.checkpoint(
+                body, *args, use_reentrant=False, preserve_rng_state=False)
+        else:
+            carry = body(*args)
+
+    out = {"direct": carry[8], "indirect": carry[9], "specular": carry[10],
            **aovs, "overflow": overflow_any, "restir_state": restir_state}
     if cfg.debug_checks:
-        out["debug_first_bad"] = first_bad
+        out["debug_first_bad"] = carry[11]
     return out
 
 

@@ -123,12 +123,14 @@ def fill_light_bags(cdf: torch.Tensor, cfg: RestirConfig,
 # target pdf
 # ---------------------------------------------------------------------------
 
-def _target_phat(scene, sd, light_idx, bary, rad_all=None, at_position=None,
-                 at_normal=None, at_albedo_lum=None, prow=None):
+def _target_phat(scene, sd, light_idx, bary, rad_all=None,
+                 detach_radiance=True, at_position=None, at_normal=None,
+                 at_albedo_lum=None, prow=None):
     """Unshadowed target pdf in area measure at the pixel's surface,
     luminance(albedo/pi * L * cos_s * cos_l / d^2), with the direction and
     distance to the sample: (p_hat, wi, dist). at_*: evaluate at another
     surface than sd's; prow: the light rows, when the caller has them.
+    detach_radiance: p_hat is sampling machinery, so L carries no gradient.
 
     Sample axes broadcast against the surface by rank: a sample array one
     rank above the surface adds a sample axis (per-pixel candidates, the
@@ -140,6 +142,8 @@ def _target_phat(scene, sd, light_idx, bary, rad_all=None, at_position=None,
     p = (prow[..., 0:3] + bary[..., 0:1] * prow[..., 3:6]
          + bary[..., 1:2] * prow[..., 6:9])
     rad = rad_all[li] if rad_all is not None else scene.light_radiance(li)
+    if detach_radiance:
+        rad = rad.detach()
     pos = at_position if at_position is not None else sd.position
     nrm = at_normal if at_normal is not None else sd.normal
     alb = (at_albedo_lum if at_albedo_lum is not None
@@ -458,7 +462,7 @@ def spatial_pass(scene, sd, res, hit_mask, cfg, width, height, draws,
 
 def shade(scene, sd, wo, res: Reservoir, eval_f, hit_mask, rad_all=None):
     """The reservoir's sample shaded into the DIRECT channel: f * L * G * W,
-    (N,3)."""
+    (N,3). G and W carry no gradient; f and L do."""
     li = res.light_idx.clamp_min(0).long()
     prow = scene.lights.packed[li]
     p = (prow[:, 0:3] + res.bary[:, 0:1] * prow[:, 3:6]
@@ -471,8 +475,8 @@ def shade(scene, sd, wo, res: Reservoir, eval_f, hit_mask, rad_all=None):
     g = cos_s * cos_l / (dist * dist)
     rad = rad_all[li] if rad_all is not None else scene.light_radiance(li)
     f_val, _ = eval_f(sd, wo, wi)
-    w = res.w_out
-    scale = torch.where(hit_mask & (w > 0), g * w, 0.0)
+    w = res.w_out.detach()
+    scale = torch.where(hit_mask & (w > 0), g.detach() * w, 0.0)
     return f_val * rad * scale[:, None]
 
 

@@ -1,14 +1,15 @@
 """Carry state into the port from numpy arrays.
 
-The JAX package's scene, cluster sets, camera and ReSTIR state, turned into
-numpy leaves by the caller (a mapping of field name to array, nested for
-sub-structures), become the port's dataclasses, so both packages can compute
-on the same arrays. This module takes numpy only.
+The JAX package's scene, cluster sets, camera, ReSTIR state and training
+parameters, turned into numpy leaves by the caller (a mapping of field name
+to array, nested for sub-structures), become the port's dataclasses (or
+tensors), so both packages can compute on the same arrays. This module takes
+numpy only.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -17,6 +18,7 @@ from ..accel.stream import (TREE_FIELDS, ClusterSet, kernel_layout,
                             walk_layout)
 from ..accel.two_level import InstancedClusterSet
 from ..core.camera import Camera
+from ..parallel.train import MATERIAL_PARAMS
 from ..restir.di import Reservoir, RestirState
 from ..scene.lights import TriangleLights
 from ..scene.materials import MaterialTable
@@ -75,6 +77,14 @@ def instanced_from_numpy(leaves: Mapping) -> InstancedClusterSet:
 def camera_from_numpy(leaves: Mapping) -> Camera:
     """Camera from eye, u, v, w, prev_view_proj, t_min and t_max."""
     return _fill(Camera, leaves)
+
+
+def params_from_numpy(leaves: Mapping) -> Dict[str, torch.Tensor]:
+    """The training parameters (base_color, roughness, metallic, emissive,
+    env_radiance; the JAX `split_params` dict) as float32 tensors, for
+    `parallel.train`'s init_state."""
+    return {k: torch.from_numpy(np.array(leaves[k], np.float32))
+            for k in (*MATERIAL_PARAMS, "env_radiance")}
 
 
 def restir_state_from_numpy(leaves: Mapping) -> RestirState:

@@ -215,6 +215,5 @@ def test_frame_matches_jax_with_same_uniforms(scene, bsdf, strategy):
 
 
 def test_refusals():
-    for flag in ("swizzle", "remat"):
-        with pytest.raises(NotImplementedError):
-            pwf.RenderConfig(**{flag: True})
+    with pytest.raises(NotImplementedError):
+        pwf.RenderConfig(swizzle=True)

@@ -165,6 +165,7 @@ def test_port_never_imports_jax():
             "import lumenrenderer_tpu_torch.ops.tree_walk; "
             "import lumenrenderer_tpu_torch.scene.presets; "
             "import lumenrenderer_tpu_torch.restir.di; "
+            "import lumenrenderer_tpu_torch.parallel.train; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'chex', 'lumenrenderer_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
