@@ -74,14 +74,11 @@ def _attr_table(scene: SceneData, with_tangent: bool):
 
 def extract_surface_data(scene: SceneData, ray_o: torch.Tensor,
                          ray_d: torch.Tensor, hit_tri: torch.Tensor,
-                         with_tangent: bool = True,
-                         detach_geom: bool = False) -> SurfaceData:
+                         with_tangent: bool = True) -> SurfaceData:
     """Shading data for hits `hit_tri` (-1 = miss). t, u and v are
     re-derived exactly from the triangle; an intersector supplies only the
     triangle. with_tangent=False skips the tangent columns (callers that
-    prove no material is anisotropic) and builds a frame from the normal.
-    detach_geom: t, u and v carry no gradient (1 / det reaches about 1e14
-    near the det guard)."""
+    prove no material is anisotropic) and builds a frame from the normal."""
     valid = hit_tri >= 0
     table, col = _attr_table(scene, with_tangent)
     att = table[hit_tri.clamp_min(0).long()]
@@ -101,8 +98,6 @@ def extract_surface_data(scene: SceneData, ray_o: torch.Tensor,
     hit_u = vm.dot(tvec, pvec) * inv_det
     hit_v = vm.dot(ray_d, qvec) * inv_det
     t_exact = vm.dot(e2, qvec) * inv_det
-    if detach_geom:
-        hit_u, hit_v, t_exact = hit_u.detach(), hit_v.detach(), t_exact.detach()
     valid = valid & okd
     zero = torch.zeros_like(t_exact)
     hit_t = torch.where(valid, t_exact, torch.inf)

@@ -21,9 +21,9 @@ so the recompute launches no intersector.
 Random numbers come from a `Uniforms` source, drawn in a fixed order: the
 (N,2) pixel jitter, then per depth the alpha (N,), NEE (N,3), BSDF (N,4) and
 Russian-roulette (N,) uniforms, each only where the JAX frame draws it.
-Depths >= 1 take theirs before the depth runs, so a recompute sees the same
-numbers. With use_restir, ReSTIR DI (`restir.di.RestirDI`) takes the NEE
-draw's place at depth 0 and draws its own numbers from the same source.
+A depth recomputed under remat replays the numbers its forward drew. With
+use_restir, ReSTIR DI (`restir.di.RestirDI`) takes the NEE draw's place at
+depth 0 and draws its own numbers from the same source.
 """
 from __future__ import annotations
 
@@ -135,48 +135,49 @@ def _detached(query: Callable) -> Callable:
     return call
 
 
-class _Drawn:
-    """A draw source over a depth's uniforms drawn ahead, in order."""
+class _Replay:
+    """A callable (a depth's uniform source, or its occluder) whose results
+    are recorded on a checkpointed depth's forward and returned again, in
+    order, when the depth is recomputed in the backward: the recompute sees
+    the same numbers and shadow-ray bits (the shadow rays are detached) and
+    launches no intersector. The body alone defines the order of calls."""
 
-    def __init__(self, draws):
-        self._draws = list(draws)
-
-    def __call__(self, *shape):
-        u = self._draws.pop(0)
-        if tuple(u.shape) != shape:
-            raise RuntimeError(f"drew {tuple(u.shape)} ahead, asked {shape}")
-        return u
-
-
-def _draw_ahead(cfg: RenderConfig, depth: int, n: int,
-                uniforms: sampling.Uniforms):
-    """A depth's uniforms (depth >= 1), in the order its body asks for
-    them: alpha, NEE, BSDF, Russian roulette, each where it is drawn."""
-    shapes = []
-    if cfg.alpha_test or cfg.alpha_materials:
-        shapes.append((n,))
-    if cfg.light_strategy in ("nee", "mis"):
-        shapes.append((n, 3))
-    if depth + 1 < cfg.max_depth:
-        shapes.append((n, 4))
-        if depth >= cfg.rr_start_depth:
-            shapes.append((n,))
-    return tuple(uniforms(*s) for s in shapes)
-
-
-class _Once:
-    """An occluder that runs on its first call and returns that result
-    again when a checkpointed depth is recomputed in the backward: the
-    shadow rays are detached, so the bits would be the same."""
-
-    def __init__(self, occlude_fn: Callable):
-        self.occlude_fn = occlude_fn
-        self.out = None
+    def __init__(self, fn: Callable):
+        self.fn = fn
+        self.results = []
+        self.pos = None  # None while recording, else the next to replay
 
     def __call__(self, *args):
-        if self.out is None:
-            self.out = self.occlude_fn(*args)
-        return self.out
+        if self.pos is None:
+            self.results.append(self.fn(*args))
+            return self.results[-1]
+        if self.pos == len(self.results):
+            raise RuntimeError("recomputed depth asked for more than its "
+                               "forward drew")
+        self.pos += 1
+        return self.results[self.pos - 1]
+
+
+def _replayed(body: Callable, *sources: _Replay) -> Callable:
+    """body(*args, *sources), with the sources replayed from their start on
+    each pass after the first, and a pass that runs to its end checked to
+    have consumed all that the first recorded. (A recompute that stops
+    early once the backward has its tensors never reaches the check.)"""
+
+    def run(*args):
+        replay = sources[0].pos is not None
+        for s in sources:
+            s.pos = 0 if replay else None
+        out = body(*args, *sources)
+        for s in sources:
+            if replay and s.pos != len(s.results):
+                raise RuntimeError(
+                    f"recomputed depth used {s.pos} of the {len(s.results)} "
+                    "results its forward recorded")
+            s.pos = 0
+        return out
+
+    return run
 
 
 def render_wavefront(scene: SceneData, intersect_fn: Callable,
@@ -248,22 +249,21 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
     alpha_on = cfg.alpha_test or cfg.alpha_materials
     env = scene.env_radiance[None, :]
 
-    def trace_depth(depth: int, carry, hits, draws, occl_d):
+    def trace_depth(depth: int, carry, hits, uni, occl_d):
         """One depth after its intersection: shading, NEE, the next
-        bounce. draws: the frame's source (depth 0) or the depth's
-        uniforms drawn ahead; occl_d: the (sorted) occluder."""
+        bounce. uni: the draw source; occl_d: the (sorted) occluder."""
         nonlocal restir_state
         (ray_o, ray_d, throughput, alive, prev_pdf, prev_specular,
          first_specular, beer_sigma, direct, indirect, specular_ch,
          first_bad) = carry
-        uni = _Drawn(draws) if isinstance(draws, tuple) else draws
         first_bad = chk(first_bad, "intersect", depth,
                         torch.where(torch.isinf(hits["t"]), 0.0, hits["t"]))
         sd = extract_surface_data(scene, ray_o, ray_d, hits["tri"],
-                                  with_tangent=cfg.extract_tangent,
-                                  detach_geom=cfg.detach_sampling)
+                                  with_tangent=cfg.extract_tangent)
         if cfg.detach_sampling:
-            # geometry does not depend on the differentiated parameters
+            # geometry does not depend on the differentiated parameters;
+            # detached here, no gradient meets t, u, v's 1 / det (about
+            # 1e14 near the det guard)
             sd = sd.replace(position=sg(sd.position), normal=sg(sd.normal),
                             geo_normal=sg(sd.geo_normal),
                             tangent=sg(sd.tangent), t=sg(sd.t),
@@ -422,20 +422,18 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
         hits = (s_isect if depth > 0 else isect)(ray_o, ray_d, t_min,
                                                  t_max_ray)
         overflow_any = overflow_any | hits["overflow"]
-        if depth == 0:
-            carry = trace_depth(0, carry, hits, uniforms, occl)
-            continue
-        body = functools.partial(trace_depth, depth)
-        args = (carry, hits, _draw_ahead(cfg, depth, n, uniforms),
-                _Once(occl))
-        if cfg.remat and torch.is_grad_enabled():
+        if depth > 0 and cfg.remat and torch.is_grad_enabled():
             # depth 0 stays live (its AOVs and ReSTIR state); deeper depths
-            # keep only their inputs and are recomputed in the backward.
-            # The draws are tensors passed in, so no RNG state is replayed.
+            # keep only their inputs and are recomputed in the backward,
+            # replaying their draws and shadow bits, so no RNG state is
+            # restored
+            body = _replayed(functools.partial(trace_depth, depth),
+                             _Replay(uniforms), _Replay(occl))
             carry = torch.utils.checkpoint.checkpoint(
-                body, *args, use_reentrant=False, preserve_rng_state=False)
+                body, carry, hits, use_reentrant=False,
+                preserve_rng_state=False)
         else:
-            carry = body(*args)
+            carry = trace_depth(depth, carry, hits, uniforms, occl)
 
     out = {"direct": carry[8], "indirect": carry[9], "specular": carry[10],
            **aovs, "overflow": overflow_any, "restir_state": restir_state}

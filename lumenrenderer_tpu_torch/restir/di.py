@@ -123,14 +123,13 @@ def fill_light_bags(cdf: torch.Tensor, cfg: RestirConfig,
 # target pdf
 # ---------------------------------------------------------------------------
 
-def _target_phat(scene, sd, light_idx, bary, rad_all=None,
-                 detach_radiance=True, at_position=None, at_normal=None,
-                 at_albedo_lum=None, prow=None):
+def _target_phat(scene, sd, light_idx, bary, rad_all=None, at_position=None,
+                 at_normal=None, at_albedo_lum=None, prow=None):
     """Unshadowed target pdf in area measure at the pixel's surface,
     luminance(albedo/pi * L * cos_s * cos_l / d^2), with the direction and
     distance to the sample: (p_hat, wi, dist). at_*: evaluate at another
     surface than sd's; prow: the light rows, when the caller has them.
-    detach_radiance: p_hat is sampling machinery, so L carries no gradient.
+    p_hat is sampling machinery, so L carries no gradient.
 
     Sample axes broadcast against the surface by rank: a sample array one
     rank above the surface adds a sample axis (per-pixel candidates, the
@@ -141,9 +140,8 @@ def _target_phat(scene, sd, light_idx, bary, rad_all=None,
         prow = scene.lights.packed[li]
     p = (prow[..., 0:3] + bary[..., 0:1] * prow[..., 3:6]
          + bary[..., 1:2] * prow[..., 6:9])
-    rad = rad_all[li] if rad_all is not None else scene.light_radiance(li)
-    if detach_radiance:
-        rad = rad.detach()
+    rad = (rad_all[li] if rad_all is not None
+           else scene.light_radiance(li)).detach()
     pos = at_position if at_position is not None else sd.position
     nrm = at_normal if at_normal is not None else sd.normal
     alb = (at_albedo_lum if at_albedo_lum is not None

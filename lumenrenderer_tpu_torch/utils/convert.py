@@ -18,7 +18,6 @@ from ..accel.stream import (TREE_FIELDS, ClusterSet, kernel_layout,
                             walk_layout)
 from ..accel.two_level import InstancedClusterSet
 from ..core.camera import Camera
-from ..parallel.train import MATERIAL_PARAMS
 from ..restir.di import Reservoir, RestirState
 from ..scene.lights import TriangleLights
 from ..scene.materials import MaterialTable
@@ -80,11 +79,11 @@ def camera_from_numpy(leaves: Mapping) -> Camera:
 
 
 def params_from_numpy(leaves: Mapping) -> Dict[str, torch.Tensor]:
-    """The training parameters (base_color, roughness, metallic, emissive,
-    env_radiance; the JAX `split_params` dict) as float32 tensors, for
+    """The training parameters (the JAX `split_params` dict: base_color,
+    roughness, metallic, emissive, env_radiance) as float32 tensors, for
     `parallel.train`'s init_state."""
-    return {k: torch.from_numpy(np.array(leaves[k], np.float32))
-            for k in (*MATERIAL_PARAMS, "env_radiance")}
+    return {k: torch.from_numpy(np.array(v, np.float32))
+            for k, v in leaves.items()}
 
 
 def restir_state_from_numpy(leaves: Mapping) -> RestirState:

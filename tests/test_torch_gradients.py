@@ -240,8 +240,9 @@ def test_light_table_gradient_matches_jax(selection):
 
 
 def test_intersectors_see_no_gradient():
-    """The frame detaches what it hands the intersectors, sorted or not,
-    and what they return."""
+    """The frame detaches what it hands the intersectors, sorted or not
+    (the spies see it), and `_detached`, through which it calls them, also
+    detaches what they return."""
     _, _, _, psc, pcam, (pi, po) = _setup()
     seen = []
 
@@ -249,10 +250,7 @@ def test_intersectors_see_no_gradient():
         def call(o, d, tn, tx):
             seen.append([x.requires_grad for x in (o, d, tx)
                          if isinstance(x, torch.Tensor)])
-            out = query(o, d, tn, tx)
-            if isinstance(out, dict):
-                out["tri"] = out["tri"].float().requires_grad_().long()
-            return out
+            return query(o, d, tn, tx)
         return call
 
     em = psc.materials.emissive.clone().requires_grad_()
@@ -264,6 +262,35 @@ def test_intersectors_see_no_gradient():
     assert len(seen) == 2 * CONFIGS["disney"]["max_depth"]
     assert not any(any(s) for s in seen)
     assert (n(em.grad) >= 0).all() and n(em.grad).max() > 0
+
+    # an intersector whose outputs are live
+    live = torch.tensor(2.0, requires_grad=True)
+    o = torch.zeros(4, 3)
+    hits = pwf._detached(lambda o, d, tn, tx: {"t": tx * live,
+                                                "tri": torch.zeros(4)})(
+        o, o, 0.0, o[:, 1])
+    t_out = pwf._detached(lambda o, d, tn, tx: tx * live)(o, o, 0.0, o[:, 1])
+    assert not any(v.requires_grad for v in (*hits.values(), t_out))
+
+
+def test_replay_holds_a_recompute_to_what_its_forward_recorded():
+    """A checkpointed depth's draw source and occluder return on each later
+    pass what the first pass recorded, in order; a pass that asks for more,
+    or runs to its end having asked for fewer, raises."""
+    draws = iter(range(10))
+    asks = [3]
+
+    def body(x, uni, occl):
+        return [uni() for _ in range(asks[0])] + [occl(x)]
+
+    src, occl = pwf._Replay(lambda: next(draws)), pwf._Replay(lambda x: -x)
+    run = pwf._replayed(body, src, occl)
+    assert run(5) == [0, 1, 2, -5]
+    assert run(7) == [0, 1, 2, -5]
+    assert next(draws) == 3
+    for asks[0] in (4, 2):
+        with pytest.raises(RuntimeError, match="recomputed depth"):
+            run(5)
 
 
 def test_restir_gradient_matches_jax():
