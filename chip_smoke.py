@@ -93,7 +93,29 @@ non-zero), each with its seconds:
      peak memory); a 320x180 gradient through K1 equal to one through its
      twin (rtol 1e-5); 3 Adam steps of `parallel.train.make_train_step` on
      the emissive toward a target rendered at twice the emission, each
-     lowering the loss.
+     lowering the loss;
+ 13. the textured slice: presets.interior_scene(600, 64) given UVs (the
+     room's quads 0-5, the boxes a box projection divided by 4) and 16
+     textures made from a numpy seed (checker and value noise; base colour
+     2 at 2048^2 and 6 at 1024^2, 4 normal and 4 metal-rough maps at
+     1024^2), written as .gltf, .bin and PNGs in a temporary directory;
+     13a: the scene cache built cold by `scene/cache.load_or_build` and
+     loaded warm (host seconds, every leaf equal), then a 320x180 depth-3
+     textured frame through K1 and through its twin as phase 11's small
+     frames; 13b: Renderer(accel="tiled") at 2560x1440, 1 spp, depth 5,
+     Disney, MIS, mipmaps on: 1 warm-up and 3 timed frames (ms/frame, peak
+     memory, atlas bytes, overflow false, K1 5 closest and 5 any launches a
+     frame), one profiled frame, the sampler's texel gather of one level at
+     the primary hits timed as `take_rows` and as PyTorch's row gather
+     (CUDA events, with its bytes bound), the 3-frame mean with mipmaps
+     off within 5% of the mipmapped one, and the same scene without its
+     textures timed beside it; 13c: the gradient of the mean of a 640x360 depth-5
+     frame (remat on) with respect to the atlas texels and the emissive:
+     forward and backward ms, peak memory, a profile of the backward, the
+     gradient finite and non-zero on every sampled base-colour texture,
+     linear in emission, and (Lambert, no Russian roulette, so no sampling
+     decision depends on the base colour) against a central difference of
+     the room's base-colour texture's scale at 1 +- 0.01 (rtol 2e-3).
 Then a JSON line of per-kernel results, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}. Needs no network; exits
 non-zero without a CUDA device or without the package next to it.
@@ -1323,12 +1345,14 @@ def _hold_walk(phase, name, acc, rays, mv):
             "bound_ms": b_ms, "ops": ops, "bytes": nb, "max_abs_err": err}
 
 
-def _hold_small_frame(phase, scene, camf, dev, bind, scans):
+def _hold_small_frame(phase, scene, camf, dev, bind, scans,
+                      extract_tangent=False):
     """A SMALL_W x SMALL_H depth-3 frame of `scene` through the kernels and
     through their twins from one generator seed, `bind(scan, walk)` giving
     the intersectors and `scans` the (kernel, twin) visit scans: raise
     unless PIXEL_FRACTION of the pixels agree within PIXEL_RTOL and the
-    kernel frame is finite with a positive mean."""
+    kernel frame is finite with a positive mean. extract_tangent: on for
+    scenes with normal maps."""
     import torch
 
     from lumenrenderer_tpu_torch.core import sampling
@@ -1337,7 +1361,8 @@ def _hold_small_frame(phase, scene, camf, dev, bind, scans):
 
     sw, sh = SMALL_W, SMALL_H
     small = wf.RenderConfig(width=sw, height=sh, max_depth=3, bsdf="disney",
-                            light_strategy="mis", extract_tangent=False)
+                            light_strategy="mis",
+                            extract_tangent=extract_tangent)
     imgs = []
     for scan, walk in zip(scans, (tw.tile_tree_visits,
                                   tw.tile_tree_visits_ref)):
@@ -1792,6 +1817,441 @@ def phase_gradients(dev, w=W, h=H, frames=SLICE_FRAMES):
         raise AssertionError(f"the training loss did not fall: {losses}")
 
 
+# -- phase 13: a textured glTF interior through the cache -------------------
+
+TEX_SEED = 9
+MIP_MEAN_RTOL = 0.05         # 13b: level-0 against mipmapped 3-frame mean
+GRAD_W, GRAD_H = 640, 360    # 13c
+TEX_FD_STEP = 0.01           # 13c: central difference of a texture's scale
+
+
+def _texture_image(g, size, kind):
+    """A (size, size, 3) uint8 texture from `g`: a checker of two random
+    colours times value noise ("base"), a normal map from the noise's
+    slopes ("normal"), or metal-rough with roughness (G) from the noise
+    and metallic (B) patches ("mr")."""
+    import numpy as np
+
+    def noise(cells):
+        grid = g.uniform(0, 1, (cells + 1, cells + 1))
+        x = np.linspace(0, cells, size, endpoint=False)
+        i = x.astype(np.int64)
+        f = x - i
+        rows = grid[i] * (1 - f)[:, None] + grid[i + 1] * f[:, None]
+        return rows[:, i] * (1 - f) + rows[:, i + 1] * f
+
+    n = 0.65 * noise(8) + 0.35 * noise(64)
+    if kind == "base":
+        yy, xx = np.mgrid[0:size, 0:size] // (size // 16)
+        c0, c1 = g.uniform(0.15, 0.95, (2, 3))
+        img = np.where(((xx + yy) % 2 == 0)[..., None], c0, c1) \
+            * (0.55 + 0.45 * n)[..., None]
+    elif kind == "normal":
+        dy, dx = np.gradient(n * size / 24.0)
+        v = np.stack([-dx, -dy, np.ones_like(n)], -1)
+        img = v / np.linalg.norm(v, axis=-1, keepdims=True) * 0.5 + 0.5
+    else:
+        img = np.stack([np.zeros_like(n), 0.25 + 0.75 * n,
+                        (noise(4) > 0.7).astype(np.float64)], -1)
+    return np.clip(img * 255.0 + 0.5, 0, 255).astype(np.uint8)
+
+
+def _box_uv(pos):
+    """Per-vertex UVs of a box face's four vertices: the two coordinates in
+    the face's plane, divided by 4."""
+    import numpy as np
+
+    uv = np.empty((pos.shape[0], 2), np.float32)
+    for f in range(0, pos.shape[0], 4):
+        quad = pos[f:f + 4]
+        axis = int(np.argmin(quad.max(0) - quad.min(0)))
+        uv[f:f + 4] = np.delete(quad, axis, axis=1) / 4.0
+    return uv
+
+
+def write_textured_interior(directory):
+    """presets.interior_scene(600, 64) as a textured glTF in `directory`:
+    asset.gltf, asset.bin and 16 PNGs (written with render/tonemap's
+    save_png). Returns the path of the .gltf, its camera factory and the
+    per-image sizes."""
+    import numpy as np
+
+    from lumenrenderer_tpu_torch.render.tonemap import save_png
+    from lumenrenderer_tpu_torch.scene import presets
+
+    builder, camf = presets.interior_scene(n_boxes=600, n_lights=64)
+    g = np.random.default_rng(TEX_SEED)
+    kinds = ["base"] * 8 + ["normal"] * 4 + ["mr"] * 4
+    sizes = [2048, 2048] + [1024] * 14
+    for i, (kind, size) in enumerate(zip(kinds, sizes)):
+        save_png(str(Path(directory) / f"tex{i}.png"),
+                 _texture_image(g, size, kind))
+    # room (material 16): base 0, normal 8, metal-rough 12; box material i:
+    # base i % 8, and for i < 7 normal 8 + i % 4 and metal-rough 12 + i % 4
+    tex = {16: (0, 8, 12)}
+    for i in range(16):
+        tex[i] = (i % 8,) + ((8 + i % 4, 12 + i % 4) if i < 7 else ())
+    materials = []
+    for m, spec in enumerate(builder.materials):
+        em = np.asarray(spec.emissive, np.float64)
+        strength = float(em.max())
+        pbr = {"baseColorFactor": list(spec.base_color) + [1.0],
+               "metallicFactor": spec.metallic,
+               "roughnessFactor": spec.roughness}
+        mat = {"pbrMetallicRoughness": pbr, "doubleSided": True}
+        if strength > 0:
+            mat["emissiveFactor"] = list(em / strength)
+            mat["extensions"] = {"KHR_materials_emissive_strength": {
+                "emissiveStrength": strength}}
+        ids = tex.get(m, ())
+        if ids:
+            pbr["baseColorTexture"] = {"index": ids[0]}
+        if len(ids) == 3:
+            mat["normalTexture"] = {"index": ids[1]}
+            pbr["metallicRoughnessTexture"] = {"index": ids[2]}
+        materials.append(mat)
+    blob, views, accessors, meshes = [], [], [], []
+    offset = 0
+
+    def add(arr, ctype, kind):
+        nonlocal offset
+        raw = np.ascontiguousarray(arr).tobytes()
+        views.append({"buffer": 0, "byteOffset": offset,
+                      "byteLength": len(raw)})
+        accessors.append({"bufferView": len(views) - 1,
+                          "componentType": ctype, "count": int(arr.shape[0]),
+                          "type": kind})
+        blob.append(raw)
+        offset += len(raw)
+        return len(accessors) - 1
+
+    n_walls = 5
+    for k, inst in enumerate(builder.instances):
+        mesh = inst.mesh
+        attrs = {"POSITION": add(mesh.positions, 5126, "VEC3"),
+                 "NORMAL": add(mesh.normals, 5126, "VEC3")}
+        if k < n_walls:
+            attrs["TEXCOORD_0"] = add(np.array(
+                [(0, 0), (5, 0), (5, 5), (0, 5)], np.float32), 5126, "VEC2")
+        elif int(mesh.material_ids[0]) < 16:
+            attrs["TEXCOORD_0"] = add(_box_uv(mesh.positions), 5126, "VEC2")
+        meshes.append({"primitives": [{
+            "attributes": attrs,
+            "indices": add(mesh.indices.reshape(-1).astype(np.uint32), 5125,
+                           "SCALAR"),
+            "material": int(mesh.material_ids[0])}]})
+    doc = {"asset": {"version": "2.0"},
+           "buffers": [{"uri": "asset.bin", "byteLength": offset}],
+           "bufferViews": views, "accessors": accessors,
+           "images": [{"uri": f"tex{i}.png"} for i in range(len(kinds))],
+           "textures": [{"source": i} for i in range(len(kinds))],
+           "materials": materials, "meshes": meshes,
+           "nodes": [{"mesh": k} for k in range(len(meshes))],
+           "scenes": [{"nodes": list(range(len(meshes)))}], "scene": 0}
+    (Path(directory) / "asset.bin").write_bytes(b"".join(blob))
+    path = Path(directory) / "asset.gltf"
+    path.write_text(json.dumps(doc))
+    return str(path), camf, sizes
+
+
+def _strip_textures(scene):
+    """The scene with no textures: the white atlas, every texture id -1."""
+    import torch
+
+    from lumenrenderer_tpu_torch.scene.textures import build_texture_atlas
+
+    m = scene.materials
+    none = {f: torch.full_like(getattr(m, f), -1) for f in (
+        "base_color_tex", "emissive_tex", "normal_tex", "metal_rough_tex")}
+    return scene.replace(
+        textures=build_texture_atlas([]).to(scene.tri_pos.device),
+        materials=m.replace(**none))
+
+
+def _frames(r, cam, frames):
+    """A warm-up frame and `frames` timed ones: (ms/frame, warm-up ms,
+    state, overflow of any)."""
+    st, _ = r.render_frame(r.init_state(0), cam)
+    warm_ms = r.frame_stats["Total Frame Time"]
+    run = {"st": st, "overflow": r.frame_stats["overflow"]}
+
+    def one():
+        run["st"], _ = r.render_frame(run["st"], cam)
+        run["overflow"] |= r.frame_stats["overflow"]
+
+    ms = timed_frames(one, frames)
+    return ms, warm_ms, run["st"], run["overflow"]
+
+
+def _texel_gather(sc, isect, cam, w, h):
+    """The sampler's texel gather of one mip level at the primary hits
+    (the indices `textures.take_rows` receives there), timed with CUDA
+    events as take_rows and as PyTorch's row gather texels[idx]: (rows,
+    take_rows ms, row gather ms, bound ms)."""
+    import torch
+
+    from lumenrenderer_tpu_torch.core import sampling
+    from lumenrenderer_tpu_torch.core.camera import generate_primary_rays
+    from lumenrenderer_tpu_torch.integrator.surface import \
+        extract_surface_data
+    from lumenrenderer_tpu_torch.scene import textures
+
+    seen, take = [], textures.take_rows
+
+    def spy(table, idx):
+        seen.append(idx)
+        return take(table, idx)
+
+    gen = torch.Generator(device=cam.eye.device)
+    gen.manual_seed(1)
+    o, d = generate_primary_rays(cam, w, h, 0,
+                                 sampling.generator_uniforms(gen), "random")
+    textures.take_rows = spy
+    try:
+        with torch.no_grad():
+            extract_surface_data(sc, o, d, isect(o, d, 1e-3, 1e9)["tri"],
+                                 mip_spread=2.0 * torch.linalg.norm(cam.v) / h)
+    finally:
+        textures.take_rows = take
+    texels, idx = sc.textures.texels, seen[0]
+    if not torch.equal(take(texels, idx), texels[idx]):
+        raise AssertionError("take_rows differs from the row gather")
+    # each index read once, each gathered row read once and written once
+    nbytes = idx.numel() * (idx.element_size() + 2 * 16)
+    return (idx.numel(), cuda_time_ms(lambda: take(texels, idx)),
+            cuda_time_ms(lambda: texels[idx]), nbytes / PEAK_BYTES * 1e3)
+
+
+def _texture_frame(scene, isect, occl, cam, cfg, seed: int = 0):
+    """The mean of the merged frame as a function of (texels, emissive),
+    each call from a fresh generator of `seed`."""
+    import torch
+
+    from lumenrenderer_tpu_torch.core import sampling
+    from lumenrenderer_tpu_torch.integrator import wavefront as wf
+
+    def frame(texels, em):
+        gen = torch.Generator(device=cam.eye.device)
+        gen.manual_seed(seed)
+        sc = scene.replace(
+            textures=scene.textures.replace(texels=texels),
+            materials=scene.materials.replace(emissive=em))
+        out = wf.render_wavefront(sc, isect, occl, cam,
+                                  sampling.generator_uniforms(gen), 0, cfg)
+        return wf.merge_channels(out).mean()
+
+    return frame
+
+
+def phase_textured(dev, w=W, h=H, frames=SLICE_FRAMES):
+    """Phase 13: the interior as a textured glTF asset, through the scene
+    cache, at 2560x1440 (13b), and its texel gradient (13c)."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from lumenrenderer_tpu_torch.accel import stream, tiled
+    from lumenrenderer_tpu_torch.integrator import wavefront as wf
+    from lumenrenderer_tpu_torch.ops import visit_scan as vs
+    from lumenrenderer_tpu_torch.render.renderer import (KERNEL_VISIT_CAP,
+                                                         Renderer)
+    from lumenrenderer_tpu_torch.scene import cache
+
+    gib = 2.0 ** 30
+    torch.cuda.empty_cache()
+    # 13a: write the asset, build its cache cold, load it warm
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path, camf, sizes = write_textured_interior(tmp)
+        t1 = time.perf_counter()
+        cold = cache.load_or_build(path)
+        t2 = time.perf_counter()
+        warm = cache.load_or_build(path)
+        t3 = time.perf_counter()
+        cache_bytes = Path(path + cache.CACHE_EXT).stat().st_size
+        png_bytes = sum(p.stat().st_size for p in Path(tmp).glob("*.png"))
+    for name in cache.LEAVES:
+        a, b = cold, warm
+        for part in name.split("."):
+            a, b = getattr(a, part), getattr(b, part)
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"the cached leaf {name} differs")
+    atlas = cold.textures
+    atlas_bytes = atlas.texels.numel() * atlas.texels.element_size()
+    say("13a cache", tris=cold.num_triangles, textures=atlas.count - 1,
+        sizes=json.dumps(sizes), texels=atlas.texels.shape[0],
+        atlas_bytes=atlas_bytes, png_bytes=png_bytes,
+        cache_file_bytes=cache_bytes, write_asset_s=f"{t1 - t0:.2f}",
+        cold_build_s=f"{t2 - t1:.2f}", warm_load_s=f"{t3 - t2:.2f}",
+        leaves_equal=len(cache.LEAVES))
+    del warm
+    sc = cold.to(dev)
+    cs = stream.build_clusters(sc.tri_pos, cluster_size=128).to(dev)
+    mv = min(cs.num_clusters, KERNEL_VISIT_CAP)
+    _hold_small_frame(
+        "13a textured small", sc, camf, dev,
+        lambda scan, walk: tiled.tiled_intersectors(cs, mv, scan=scan,
+                                                    walk=walk),
+        (vs.visit_scan, vs.visit_scan_ref), extract_tangent=True)
+    del cs
+
+    # 13b: the 2560x1440 frame, mipmapped, level 0, and without textures
+    cam = camf(w / h)
+    cfg = wf.RenderConfig(width=w, height=h, max_depth=5, bsdf="disney",
+                          light_strategy="mis", mipmaps=True)
+    r = Renderer(sc, cfg, accel="tiled", device=dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    vs.reset_launches()
+    ms, warm_ms, st, overflow = _frames(r, cam, frames)
+    launches = dict(vs.LAUNCHES)
+    per_frame = {k: v / (frames + 1) for k, v in launches.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    img = st.accum
+    finite, mean = bool(torch.isfinite(img).all()), float(img.mean())
+    say("13b textured frame", size=f"{w}x{h}", tris=sc.num_triangles,
+        clusters=r.clusters.num_clusters, extract_tangent=
+        r.config.extract_tangent, alpha_materials=r.config.alpha_materials,
+        warmup_ms=f"{warm_ms:.1f}", ms_per_frame=f"{ms:.1f}",
+        primary_rays_per_s=f"{w * h / ms * 1e3:.4g}",
+        peak_mem_gib=f"{peak / gib:.2f}", atlas_bytes=atlas_bytes,
+        overflow=overflow, mean=f"{mean:.5f}", finite=finite,
+        launches=json.dumps(launches),
+        launches_per_frame=json.dumps(per_frame))
+    if not finite or mean <= 0 or overflow:
+        raise AssertionError(f"bad textured frame: finite={finite} "
+                             f"mean={mean} overflow={overflow}")
+    if per_frame != {"closest": cfg.max_depth, "any": cfg.max_depth}:
+        raise AssertionError(f"K1 launches per textured frame {per_frame}, "
+                             f"expected {cfg.max_depth} in each mode")
+    _profile_frame("13b profile", lambda: r.render_frame(st, cam),
+                   "visit_scan_kernel", also=("take_put", "index"))
+    rows, take_ms, row_ms, gather_bound = _texel_gather(
+        r.scene, r._isect, cam.to(dev), w, h)
+    say("13b texel gather", level_rows=rows, take_rows_ms=f"{take_ms:.3f}",
+        row_gather_ms=f"{row_ms:.3f}", bound_ms=f"{gather_bound:.3f}",
+        bound_by="bytes")
+    r_nomip = Renderer(sc, dataclasses.replace(cfg, mipmaps=False),
+                       accel="tiled", device=dev)
+    ms_nomip, _, st_nomip, _ = _frames(r_nomip, cam, frames - 1)
+    del r_nomip
+    r_plain = Renderer(_strip_textures(sc), cfg, accel="tiled", device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms_plain, _, st_plain, _ = _frames(r_plain, cam, frames)
+    peak_plain = torch.cuda.max_memory_allocated(dev)
+    del r_plain
+    # the same three frames' means: level 0 against mipmapped
+    mean3 = float(st_nomip.accum.mean())
+    _, _, st_mip3, _ = _frames(r, cam, frames - 1)
+    mip3 = float(st_mip3.accum.mean())
+    say("13b textured frame", mipmaps_off_ms=f"{ms_nomip:.1f}",
+        mip_3_frame_mean=f"{mip3:.6f}", level0_3_frame_mean=f"{mean3:.6f}",
+        ratio=f"{mean3 / mip3:.4f}", untextured_ms=f"{ms_plain:.1f}",
+        untextured_peak_gib=f"{peak_plain / gib:.2f}",
+        untextured_mean=f"{float(st_plain.accum.mean()):.5f}",
+        textures_cost_ms=f"{ms - ms_plain:.1f}")
+    if abs(mean3 / mip3 - 1.0) > MIP_MEAN_RTOL:
+        raise AssertionError(f"level-0 and mipmapped frame means differ: "
+                             f"{mean3} against {mip3}")
+    del st, st_nomip, st_plain, st_mip3, r
+    torch.cuda.empty_cache()
+    _texture_gradients(sc, camf, dev)
+    return launches
+
+
+def _texture_gradients(sc, camf, dev, w=GRAD_W, h=GRAD_H):
+    """13c: d mean / d (texels, emissive) of a w x h depth-5 frame, remat
+    on, through Renderer(accel="tiled")'s intersectors."""
+    import dataclasses
+
+    import torch
+
+    from lumenrenderer_tpu_torch.integrator import wavefront as wf
+    from lumenrenderer_tpu_torch.render.renderer import Renderer
+
+    gib = 2.0 ** 30
+    cam = camf(w / h).to(dev)
+    cfg = wf.RenderConfig(width=w, height=h, max_depth=5, bsdf="disney",
+                          light_strategy="mis", remat=True)
+    r = Renderer(sc, cfg, accel="tiled", device=dev)
+    cfg = r.config
+    frame = _texture_frame(r.scene, r._isect, r._occl, cam, cfg)
+    tex0, em0 = r.scene.textures.texels, r.scene.materials.emissive
+    with torch.no_grad():
+        frame(tex0, em0)
+        fwd_ms = timed_frames(lambda: frame(tex0, em0), 3)
+
+    def grad_call():
+        tex = tex0.clone().requires_grad_(True)
+        em = em0.clone().requires_grad_(True)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        loss = frame(tex, em)
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize(dev)
+        t2 = time.perf_counter()
+        return (float(loss.detach()), tex.grad, em.grad, (t1 - t0) * 1e3,
+                (t2 - t1) * 1e3, torch.cuda.max_memory_allocated(dev))
+
+    mean, g_tex, g_em, graph_ms, bwd_ms, peak = grad_call()
+    atlas = r.scene.textures
+    offs = atlas.offset.tolist() + [atlas.texels.shape[0]]
+    base_ids = sorted({i for i in r.scene.materials.base_color_tex.tolist()
+                       if i >= 0})
+    nz = [int((g_tex[offs[i + 1]:offs[i + 2], :3] != 0).any(-1).sum())
+          for i in base_ids]
+    finite = bool(torch.isfinite(g_tex).all() and torch.isfinite(g_em).all())
+    slope_em = float((g_em * em0).sum())
+    say("13c texture gradients", size=f"{w}x{h}", depth=cfg.max_depth,
+        remat=cfg.remat, forward_ms=f"{fwd_ms:.1f}",
+        forward_graph_ms=f"{graph_ms:.1f}", backward_ms=f"{bwd_ms:.1f}",
+        peak_backward_gib=f"{peak / gib:.2f}", finite=finite,
+        base_color_texels_with_gradient=json.dumps(nz),
+        mean=f"{mean:.6f}", d_mean_d_emission_scale=f"{slope_em:.6f}",
+        emission_linearity_rel_err=f"{abs(slope_em - mean) / mean:.3e}")
+    if not finite or min(nz) <= 0:
+        raise AssertionError("texel gradients not finite, or zero on a "
+                             "sampled base-colour texture")
+    if abs(slope_em - mean) > GRAD_RTOL * mean:
+        raise AssertionError(f"d mean / d emission scale {slope_em} against "
+                             f"the mean {mean}")
+    tex = tex0.clone().requires_grad_(True)
+    em = em0.clone().requires_grad_(True)
+    loss = frame(tex, em)
+    torch.cuda.synchronize(dev)
+    _profile_frame("13c profile backward", loss.backward, "visit_scan_kernel",
+                   also=("indexing_backward", "take_put", "RadixSort"))
+    del tex, em, loss, g_tex, g_em
+    # a central difference on the scale of the room's base-colour texture
+    # (id 0): with Lambert and no Russian roulette no sampling decision
+    # depends on the base colour, so the frame is a polynomial in the scale
+    lam = dataclasses.replace(cfg, bsdf="lambert",
+                              rr_start_depth=cfg.max_depth)
+    frame_l = _texture_frame(r.scene, r._isect, r._occl, cam, lam)
+    lo, hi = offs[1], offs[2]
+    tex = tex0.clone().requires_grad_(True)
+    frame_l(tex, em0).backward()
+    slope = float((tex.grad[lo:hi] * tex0[lo:hi]).sum())
+    scaled = {}
+    with torch.no_grad():
+        for s in (1 + TEX_FD_STEP, 1 - TEX_FD_STEP):
+            t_s = tex0.clone()
+            t_s[lo:hi] *= s
+            scaled[s] = float(frame_l(t_s, em0))
+    fd = (scaled[1 + TEX_FD_STEP] - scaled[1 - TEX_FD_STEP]) / (
+        2 * TEX_FD_STEP)
+    say("13c texture gradients", check="lambert, no RR, texture 0 scale",
+        d_mean_d_scale=f"{slope:.6f}", central_difference=f"{fd:.6f}",
+        central_rel_err=f"{abs(slope - fd) / abs(fd):.3e}")
+    if not abs(slope - fd) <= GRAD_RTOL * abs(fd) or fd <= 0:
+        raise AssertionError(f"d mean / d texture scale {slope} against the "
+                             f"central difference {fd}")
+
+
 def main() -> int:
     if not (REPO / "lumenrenderer_tpu_torch" / "ops" / "csrc"
             / "visit_scan.cu").is_file():
@@ -1831,6 +2291,7 @@ def main() -> int:
     mega = run("11 mega slice", phase_mega, dev)
     run("11b two-level units", phase_units_past_2048, dev)
     run("12 gradients", phase_gradients, dev)
+    textured = run("13 textured", phase_textured, dev)
 
     kernels = []
     for name in KERNELS[:3]:
@@ -1847,7 +2308,9 @@ def main() -> int:
                 "full_pass_ms": c["full_pass_ms"],
                 "full_pass_bound_ms": c["full_pass_bound_ms"],
                 **({"visits_per_tile": c["visits_per_tile"]}
-                   if "visits_per_tile" in c else {})})
+                   if "visits_per_tile" in c else {}),
+                **({"launches_textured": textured[mode]}
+                   if name == "visit_scan" else {})})
     for mode in ("closest", "any"):
         c = mega["k1"][mode]
         kernels.append({

@@ -64,8 +64,10 @@ class RenderConfig:
     refuse it.
 
     detach_sampling: hits, sampled directions, pdfs, MIS and RR weights
-    carry no gradient (keep True). remat: depths >= 1 are recomputed in the
-    backward instead of keeping their intermediates."""
+    carry no gradient (keep True). mipmaps: a textured scene's textures are
+    sampled trilinearly at the ray footprint's mip level (bilinear at level
+    0 when off; no cost without textures). remat: depths >= 1 are
+    recomputed in the backward instead of keeping their intermediates."""
 
     width: int = 128
     height: int = 128
@@ -82,6 +84,7 @@ class RenderConfig:
     detach_sampling: bool = True
     swizzle: bool = False
     sort_secondary: bool = True
+    mipmaps: bool = True
     extract_tangent: bool = True
     remat: bool = False
     debug_checks: bool = False
@@ -215,6 +218,12 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
 
     ray_o, ray_d = camera_mod.generate_primary_rays(
         camera, cfg.width, cfg.height, frame_index, uniforms, cfg.jitter)
+    # ray-footprint mip selection: the per-pixel angular spread (the
+    # camera's half-screen vector v spans height / 2 pixels) and the path
+    # length so far (bounce rays keep widening)
+    use_mips = cfg.mipmaps and scene.textures.count > 1
+    mip_spread = (2.0 * torch.linalg.norm(camera.v) / cfg.height
+                  if use_mips else None)
     carry = (ray_o, ray_d,
              torch.ones((n, 3), dtype=f32, device=dev),          # throughput
              torch.ones(n, dtype=torch.bool, device=dev),        # alive
@@ -223,7 +232,8 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
              zeros(n, dtype=torch.bool),                   # first_specular
              zeros(n, 3),                                  # beer_sigma
              zeros(n, 3), zeros(n, 3), zeros(n, 3),  # direct, indirect, spec
-             zeros(dtype=torch.int32))                     # first_bad
+             zeros(dtype=torch.int32),                     # first_bad
+             zeros(n) if use_mips else None)               # path_dist
     overflow_any = zeros(dtype=torch.bool)
     aovs: Dict[str, torch.Tensor] = {}
 
@@ -255,11 +265,15 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
         nonlocal restir_state
         (ray_o, ray_d, throughput, alive, prev_pdf, prev_specular,
          first_specular, beer_sigma, direct, indirect, specular_ch,
-         first_bad) = carry
+         first_bad, path_dist) = carry
         first_bad = chk(first_bad, "intersect", depth,
                         torch.where(torch.isinf(hits["t"]), 0.0, hits["t"]))
         sd = extract_surface_data(scene, ray_o, ray_d, hits["tri"],
+                                  mip_spread=mip_spread, mip_dist0=path_dist,
+                                  detach_geom=cfg.detach_sampling,
                                   with_tangent=cfg.extract_tangent)
+        if use_mips:
+            path_dist = path_dist + torch.where(sd.valid, sg(sd.t), 0.0)
         if cfg.detach_sampling:
             # geometry does not depend on the differentiated parameters;
             # detached here, no gradient meets t, u, v's 1 / det (about
@@ -413,7 +427,7 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
             indirect = indirect + _sel(passthrough, throughput * env, 0.0)
         return (ray_o, ray_d, throughput, alive, prev_pdf, prev_specular,
                 first_specular, beer_sigma, direct, indirect, specular_ch,
-                first_bad)
+                first_bad, path_dist)
 
     for depth in range(cfg.max_depth):
         ray_o, ray_d, alive = carry[0], carry[1], carry[3]

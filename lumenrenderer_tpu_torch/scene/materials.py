@@ -30,7 +30,7 @@ TEXTURE_COLUMNS = ("base_color_tex", "emissive_tex", "normal_tex",
 class MaterialTable(TensorStruct):
     """Row i = material i. Vector params are (M,3), scalars (M,); alpha_mode
     is 0 OPAQUE, 1 MASK, 2 BLEND; double_sided 0 culls back faces. Texture
-    ids are int32, -1 = none (the port renders untextured scenes only)."""
+    ids are int32 builder ids into the scene's atlas, -1 = none."""
 
     base_color: torch.Tensor
     emissive: torch.Tensor

@@ -1,8 +1,6 @@
 """The scene as a dataclass of tensors, and its host-side builder.
 
-Port of `lumenrenderer_tpu/scene/scene.py` and of the untextured part of
-`scene/textures.py`: the atlas holds only the builtin white texel (slot 0).
-Textures and volumes are refused.
+Port of `lumenrenderer_tpu/scene/scene.py`. Volumes are refused.
 """
 from __future__ import annotations
 
@@ -15,37 +13,8 @@ import torch
 from ..core.struct import TensorStruct
 from . import lights as lights_mod
 from .geometry import FlatGeometry, InstanceHost, flatten_instances
-from .materials import (TEXTURE_COLUMNS, MaterialSpec, MaterialTable,
-                        build_material_table)
-
-MAX_MIPS = 14
-
-
-@dataclasses.dataclass(frozen=True)
-class TextureAtlas(TensorStruct):
-    """Texel pool with per-texture offsets and mip levels (same leaves as
-    the JAX atlas). The port builds only the one-slot white atlas."""
-
-    texels: torch.Tensor      # (P,4)
-    offset: torch.Tensor      # (K,)
-    width: torch.Tensor       # (K,)
-    height: torch.Tensor      # (K,)
-    mip_offset: torch.Tensor  # (K,MAX_MIPS)
-    n_mips: torch.Tensor      # (K,)
-
-    @property
-    def count(self) -> int:
-        return self.offset.shape[0]
-
-
-def white_atlas() -> TextureAtlas:
-    i32 = torch.int32
-    return TextureAtlas(
-        texels=torch.ones((1, 4), dtype=torch.float32),
-        offset=torch.zeros(1, dtype=i32), width=torch.ones(1, dtype=i32),
-        height=torch.ones(1, dtype=i32),
-        mip_offset=torch.zeros((1, MAX_MIPS), dtype=i32),
-        n_mips=torch.ones(1, dtype=i32))
+from .materials import MaterialSpec, MaterialTable, build_material_table
+from .textures import TextureAtlas, build_texture_atlas
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,12 +34,6 @@ class SceneData(TensorStruct):
     inst_emission_override: torch.Tensor  # (I,3)
     env_radiance: torch.Tensor            # (3,) constant environment light
 
-    def __post_init__(self):
-        if self.textures.count > 1:
-            raise NotImplementedError(
-                "textured scenes are not ported yet: the PyTorch port "
-                "renders untextured scenes only")
-
     @property
     def num_triangles(self) -> int:
         return self.tri_pos.shape[0]
@@ -87,6 +50,7 @@ class SceneBuilder:
 
     instances: List[InstanceHost] = dataclasses.field(default_factory=list)
     materials: List[MaterialSpec] = dataclasses.field(default_factory=list)
+    texture_images: List[np.ndarray] = dataclasses.field(default_factory=list)
     light_capacity: Optional[int] = None
     env_radiance: tuple = (0.0, 0.0, 0.0)
 
@@ -98,8 +62,11 @@ class SceneBuilder:
         self.instances.append(inst)
         return len(self.instances) - 1
 
-    def add_texture(self, image) -> int:
-        raise NotImplementedError("textures are not ported yet")
+    def add_texture(self, image: np.ndarray) -> int:
+        """image: (H,W,4) (or 1 or 3 channels) float32 or uint8. Returns the
+        texture id for MaterialSpec's *_tex fields."""
+        self.texture_images.append(image)
+        return len(self.texture_images) - 1
 
     def add_volume(self, *args, **kwargs) -> int:
         raise NotImplementedError("volumes are not ported yet")
@@ -107,9 +74,6 @@ class SceneBuilder:
     def build(self) -> SceneData:
         """Bake the scene into CPU tensors; move it with `.to(device)`."""
         specs = self.materials or [MaterialSpec()]
-        if any(getattr(s, c) >= 0 for s in specs for c in TEXTURE_COLUMNS):
-            raise NotImplementedError(
-                "a material references a texture; textures are not ported")
         geom: FlatGeometry = flatten_instances(self.instances)
         emissive_np = np.array([s.emissive for s in specs],
                                np.float32).reshape(-1, 3)
@@ -121,7 +85,7 @@ class SceneBuilder:
             materials=build_material_table(specs),
             lights=lights_mod.extract_lights(geom, emissive_np,
                                              capacity=self.light_capacity),
-            textures=white_atlas(),
+            textures=build_texture_atlas(self.texture_images),
             inst_emission_mode=t_(geom.inst_emission_mode),
             inst_emission_override=t_(geom.inst_emission_override),
             env_radiance=torch.tensor(self.env_radiance, dtype=torch.float32),

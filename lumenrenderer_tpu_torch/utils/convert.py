@@ -21,7 +21,8 @@ from ..core.camera import Camera
 from ..restir.di import Reservoir, RestirState
 from ..scene.lights import TriangleLights
 from ..scene.materials import MaterialTable
-from ..scene.scene import SceneData, TextureAtlas
+from ..scene.scene import SceneData
+from ..scene.textures import TextureAtlas
 
 
 def _fill(cls, leaves: Mapping, **nested):
@@ -37,7 +38,8 @@ def _fill(cls, leaves: Mapping, **nested):
 
 
 def scene_from_numpy(leaves: Mapping) -> SceneData:
-    """SceneData from the JAX SceneData's leaves (volumes must be None)."""
+    """SceneData from the JAX SceneData's leaves, its texture atlas whole
+    (volumes must be None)."""
     if leaves.get("volumes") is not None:
         raise NotImplementedError("volumes are not ported")
     return _fill(

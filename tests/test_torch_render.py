@@ -164,6 +164,8 @@ def test_port_never_imports_jax():
             "import lumenrenderer_tpu_torch.ops.pair_scan; "
             "import lumenrenderer_tpu_torch.ops.tree_walk; "
             "import lumenrenderer_tpu_torch.scene.presets; "
+            "import lumenrenderer_tpu_torch.scene.cache; "
+            "import lumenrenderer_tpu_torch.scene.gltf; "
             "import lumenrenderer_tpu_torch.restir.di; "
             "import lumenrenderer_tpu_torch.parallel.train; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

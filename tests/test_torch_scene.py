@@ -78,11 +78,16 @@ def test_scene_moves_to_device_and_back():
 
 
 def test_textures_and_volumes_refused():
+    """Volumes are refused; textures are accepted (they were refused before
+    the port had them): add_texture returns ids, and a textured material
+    builds an atlas with the white slot 0 and one slot per image."""
     b = SceneBuilder()
-    with pytest.raises(NotImplementedError):
-        b.add_texture(np.ones((2, 2, 4), np.float32))
+    assert b.add_texture(np.ones((2, 2, 4), np.float32)) == 0
+    assert b.add_texture(np.zeros((3, 5, 3), np.uint8)) == 1
     with pytest.raises(NotImplementedError):
         b.add_volume(np.ones((2, 2, 2)), (0, 0, 0), (1, 1, 1))
-    b.add_material(MaterialSpec(base_color_tex=0))
-    with pytest.raises(NotImplementedError):
-        b.build()
+    b.add_material(MaterialSpec(base_color_tex=0, normal_tex=1))
+    sc = b.build()
+    assert sc.textures.count == 3
+    assert n(sc.textures.width).tolist() == [1, 2, 5]
+    assert int(sc.materials.base_color_tex[0]) == 0
