@@ -115,7 +115,31 @@ non-zero), each with its seconds:
      gradient finite and non-zero on every sampled base-colour texture,
      linear in emission, and (Lambert, no Russian roulette, so no sampling
      decision depends on the base colour) against a central difference of
-     the room's base-colour texture's scale at 1 +- 0.01 (rtol 2e-3).
+     the room's base-colour texture's scale at 1 +- 0.01 (rtol 2e-3);
+ 14. volumes: a 384^3 cloud (sphere_density(384, 0.4, 0.15) times
+     noise_density(384, 11), sigma_t 0.5, albedo 0.9) in a box a third of
+     the interior's room across; 14a: the port's .nvdb reader against the
+     SDK's values for tests/data/sphere_fog.nvdb, the cloud's host seconds
+     (grid, dense, sparse) and device bytes, its centre transmittance (in
+     0.2-0.6), and 320x180 depth-3 frames with the .nvdb fog re-seated in
+     the room and with the dense cloud, each through K1 and its twin as
+     phase 11's; 14b: Renderer(accel="tiled") at 2560x1440, depth 5,
+     Disney, MIS, volume_steps 5, volume_depths 2, Riemann: 1 warm-up and
+     3 timed frames (ms/frame, peak, K1 5 closest and 15 any launches a
+     frame: 5 NEE and 10 march light-ray passes), the volumetric channel
+     non-zero, one profiled frame, and the room without the cloud timed
+     beside it; 14c: the sparse cloud (its mean within 1e-5 of the dense
+     frame's), then ratio tracking (ms/frame, launches, a profile, its mean
+     within 10% of Riemann's); 14d: the restir workload of phase 10 in the
+     cloud, timed against the same frame without it, and its mean below
+     the same frame's (same draws) with the cloud's extinction at 0, its
+     direct channel at most that frame's everywhere;
+     14e: d mean / d density at 2560x1440, remat on (forward, backward,
+     peak, K1 5 + 15 launches a forward and backward, a profile of the
+     backward), d mean / d bricks of the sparse cloud, remat off within
+     1e-5, a 320x180 gradient through K1 against its twin (1e-5), and on a
+     BSDF-sampled frame without Russian roulette a central difference of
+     the density's scale at 1 +- 0.01 (rtol 1e-2).
 Then a JSON line of per-kernel results, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}. Needs no network; exits
 non-zero without a CUDA device or without the package next to it.
@@ -2252,6 +2276,473 @@ def _texture_gradients(sc, camf, dev, w=GRAD_W, h=GRAD_H):
                              f"central difference {fd}")
 
 
+# -- phase 14: volumes -------------------------------------------------------
+
+NVDB_ASSET = REPO / "tests" / "data" / "sphere_fog.nvdb"
+CLOUD_RES, CLOUD_SEED = 384, 11
+# a third of the 20 m room across, under its lights and in the camera's view
+CLOUD_BOX = ((6.5, 3.5, 5.5), (13.5, 10.5, 12.5))
+CLOUD_SIGMA_T, CLOUD_ALBEDO = 0.5, 0.9
+CENTRE_T = (0.2, 0.6)        # 14a: transmittance through the cloud's centre
+SPARSE_RTOL = 1e-5           # 14c: sparse against dense image mean
+RATIO_RTOL = 0.10            # 14c: ratio tracking against Riemann
+VOL_FD_STEP = 0.01           # 14e: central difference of the density scale
+VOL_FD_RTOL = 1e-2
+
+
+def _cloud_volumes():
+    """The cloud, sphere_density(384, 0.4, 0.15) * noise_density(384, seed),
+    as a dense and a sparse volume set on the host, with the host seconds
+    of the grid and of each set."""
+    from lumenrenderer_tpu_torch.volume import grid
+
+    t0 = time.perf_counter()
+    cloud = (grid.sphere_density(CLOUD_RES, 0.4, 0.15)
+             * grid.noise_density(CLOUD_RES, CLOUD_SEED))
+    t1 = time.perf_counter()
+    args = ([cloud], [CLOUD_BOX[0]], [CLOUD_BOX[1]])
+    kw = dict(sigma_t=[CLOUD_SIGMA_T], albedo=[CLOUD_ALBEDO])
+    dense = grid.make_volume_set(*args, **kw)
+    t2 = time.perf_counter()
+    sparse = grid.build_sparse(*args, **kw)
+    t3 = time.perf_counter()
+    return dense, sparse, {"grid_s": t1 - t0,
+                           "dense_s": t2 - t1, "sparse_s": t3 - t2}
+
+
+def _volume_bytes(vols) -> int:
+    return sum(getattr(vols, f).numel() * getattr(vols, f).element_size()
+               for f in ("density", "index", "bricks", "aabb_lo", "aabb_hi",
+                         "sigma_t", "albedo") if hasattr(vols, f))
+
+
+def _check_nvdb():
+    """The port's reader against the SDK's ground truth for the repo's
+    sphere_fog.nvdb (the values tests/test_volume_sparse.py holds)."""
+    from lumenrenderer_tpu_torch.volume import nvdb
+
+    g = nvdb.load_nvdb(str(NVDB_ASSET))[0]
+    dense = g.to_dense()
+    lo = g.index_bbox_min
+    probes = {ijk: float(dense[tuple(i - o for i, o in zip(ijk, lo))])
+              for ijk in ((0, 0, 0), (4, 2, -4), (8, 4, -8), (12, 6, -12))}
+    want = {(0, 0, 0): 1.0, (4, 2, -4): 1.0, (8, 4, -8): 0.266667,
+            (12, 6, -12): 0.0}
+    say("14a nvdb", name=g.name, voxel_size=g.voxel_size[0],
+        voxels=g.voxel_count, leaves=len(g.bricks),
+        probes=json.dumps({str(k): v for k, v in probes.items()}))
+    if (g.name != "sphere_fog" or abs(g.voxel_size[0] - 1 / 16) > 1e-12
+            or g.voxel_count != 8733
+            or any(abs(probes[k] - v) > 1e-5 for k, v in want.items())):
+        raise AssertionError("the .nvdb reader disagrees with the SDK")
+
+
+def _volume_frame(scene, isect, occl, cam, cfg, leaf: str, seed: int = 0):
+    """The mean of the merged frame as a function of the volume set's
+    `leaf` (density or bricks), each call from a fresh generator of
+    `seed`."""
+    import torch
+
+    from lumenrenderer_tpu_torch.core import sampling
+    from lumenrenderer_tpu_torch.integrator import wavefront as wf
+
+    def frame(grid):
+        gen = torch.Generator(device=cam.eye.device)
+        gen.manual_seed(seed)
+        sc = scene.replace(volumes=scene.volumes.replace(**{leaf: grid}))
+        out = wf.render_wavefront(sc, isect, occl, cam,
+                                  sampling.generator_uniforms(gen), 0, cfg)
+        return wf.merge_channels(out).mean()
+
+    return frame
+
+
+def _frame_run(phase, r, cam, frames, expect_any, **fields):
+    """A warm-up and `frames` timed frames of Renderer r with K1's counts
+    set to 0 before and read after; raise on a bad image or on K1 launches
+    other than 5 closest and expect_any any a frame. Returns (ms/frame,
+    state, launches, mean)."""
+    import torch
+
+    from lumenrenderer_tpu_torch.ops import visit_scan as vs
+
+    dev = r.device
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    vs.reset_launches()
+    ms, warm_ms, st, overflow = _frames(r, cam, frames)
+    launches = dict(vs.LAUNCHES)
+    per_frame = {k: v / (frames + 1) for k, v in launches.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    img = st.accum
+    finite, mean = bool(torch.isfinite(img).all()), float(img.mean())
+    say(phase, size=f"{r.config.width}x{r.config.height}",
+        warmup_ms=f"{warm_ms:.1f}", ms_per_frame=f"{ms:.1f}",
+        peak_mem_gib=f"{peak / 2**30:.2f}", overflow=overflow,
+        mean=f"{mean:.6f}", finite=finite, launches=json.dumps(launches),
+        launches_per_frame=json.dumps(per_frame), **fields)
+    if not finite or mean <= 0 or overflow:
+        raise AssertionError(f"{phase}: bad frame: finite={finite} "
+                             f"mean={mean} overflow={overflow}")
+    want = {"closest": r.config.max_depth, "any": expect_any}
+    if per_frame != want:
+        raise AssertionError(f"{phase}: K1 launches per frame {per_frame}, "
+                             f"expected {want}")
+    return ms, st, launches, mean
+
+
+def _one_frame(r, cam, scene=None, seed: int = 0):
+    """One frame of Renderer r's intersectors and ReSTIR (and its scene, or
+    `scene`) through render_wavefront, from a fresh state of `seed`: its
+    output channels."""
+    import torch
+
+    from lumenrenderer_tpu_torch.core import sampling
+    from lumenrenderer_tpu_torch.integrator import wavefront as wf
+
+    st = r.init_state(seed)
+    with torch.no_grad():
+        return wf.render_wavefront(
+            r.scene if scene is None else scene, r._isect, r._occl,
+            cam.to(r.device),
+            sampling.generator_uniforms(st.generator), 0, r.config,
+            restir_state=st.restir, restir_fn=r._restir_fn)
+
+
+def _volumes_small(dev, plain, camf):
+    """14a: the reader, the cloud on the host (dense and sparse sets, their
+    bytes, the centre transmittance), and 320x180 frames with the .nvdb
+    fog and with the dense cloud through K1 and its twin."""
+    import torch
+
+    from lumenrenderer_tpu_torch.accel import stream, tiled
+    from lumenrenderer_tpu_torch.ops import visit_scan as vs
+    from lumenrenderer_tpu_torch.render.renderer import KERNEL_VISIT_CAP
+    from lumenrenderer_tpu_torch.volume import march, nvdb
+
+    _check_nvdb()
+    dense, sparse, host_s = _cloud_volumes()
+    vol = dense.to(dev)
+    centre = torch.tensor([[(CLOUD_BOX[0][i] + CLOUD_BOX[1][i]) / 2
+                            for i in range(2)] + [0.0]], device=dev)
+    t_centre = float(march.transmittance_only(
+        vol, centre, torch.tensor([[0.0, 0.0, 1.0]], device=dev), 1e-3,
+        torch.tensor([20.0], device=dev), steps=1024)[0])
+    say("14a cloud", res=CLOUD_RES, voxels=vol.density.numel(),
+        dense_bytes=_volume_bytes(dense), sparse_bytes=_volume_bytes(sparse),
+        sparse_bricks=sparse.bricks.shape[0],
+        cells=sparse.index.numel(), grid_host_s=f"{host_s['grid_s']:.2f}",
+        dense_host_s=f"{host_s['dense_s']:.2f}",
+        sparse_host_s=f"{host_s['sparse_s']:.2f}",
+        sigma_t=CLOUD_SIGMA_T, centre_transmittance=f"{t_centre:.4f}")
+    if not CENTRE_T[0] <= t_centre <= CENTRE_T[1]:
+        raise AssertionError(f"the cloud's centre transmittance {t_centre} "
+                             f"is outside {CENTRE_T}")
+    fog = nvdb.sparse_from_nvdb(str(NVDB_ASSET), sigma_t=2.0,
+                                albedo=CLOUD_ALBEDO,
+                                world_override=CLOUD_BOX)
+    cs = stream.build_clusters(plain.tri_pos, cluster_size=128).to(dev)
+    mv = min(cs.num_clusters, KERNEL_VISIT_CAP)
+    for label, vols in (("nvdb", fog), ("dense cloud", dense)):
+        _hold_small_frame(
+            f"14a small {label}", plain.replace(volumes=vols).to(dev), camf,
+            dev, lambda scan, walk: tiled.tiled_intersectors(
+                cs, mv, scan=scan, walk=walk),
+            (vs.visit_scan, vs.visit_scan_ref))
+    return dense, sparse
+
+
+def _volume_frames(dev, plain, dense, sparse, cam, cfg, frames):
+    """14b: the dense cloud at full size with Riemann, profiled, and the
+    room without it; 14c: the sparse cloud (the dense frame's image), then
+    ratio tracking. Returns 14b's K1 launches."""
+    import dataclasses
+
+    import torch
+
+    from lumenrenderer_tpu_torch.render.renderer import Renderer
+
+    march_any = cfg.volume_steps * cfg.volume_depths
+    r = Renderer(plain.replace(volumes=dense), cfg, accel="tiled",
+                 device=dev)
+    ms, st, launches, mean = _frame_run(
+        "14b dense cloud", r, cam, frames, cfg.max_depth + march_any,
+        volume_bytes=_volume_bytes(dense), transmittance="riemann")
+    v_ch = _one_frame(r, cam)["volumetric"]
+    lit = int((v_ch.amax(-1) > 0).sum())
+    finite = bool(torch.isfinite(v_ch).all())
+    say("14b dense cloud", volumetric_pixels=lit,
+        volumetric_mean=f"{float(v_ch.mean()):.6f}",
+        volumetric_finite=finite)
+    if lit == 0 or not finite:
+        raise AssertionError("the volumetric channel is empty or not finite")
+    del v_ch
+    _profile_frame("14b profile", lambda: r.render_frame(st, cam),
+                   "visit_scan_kernel", also=("take_put", "put_kernel"))
+    del r, st
+    r = Renderer(plain, cfg, accel="tiled", device=dev)
+    ms_plain, _, _, mean_plain = _frame_run(
+        "14b without the cloud", r, cam, frames, cfg.max_depth)
+    say("14b dense cloud", cloud_cost_ms=f"{ms - ms_plain:.1f}",
+        mean_over_plain=f"{mean / mean_plain:.4f}")
+    del r
+
+    r = Renderer(plain.replace(volumes=sparse), cfg, accel="tiled",
+                 device=dev)
+    ms_sp, _, _, mean_sp = _frame_run(
+        "14c sparse cloud", r, cam, frames, cfg.max_depth + march_any,
+        volume_bytes=_volume_bytes(sparse), transmittance="riemann")
+    sp_err = abs(mean_sp - mean) / mean
+    say("14c sparse cloud", dense_mean=f"{mean:.6f}",
+        sparse_mean=f"{mean_sp:.6f}", rel_err=f"{sp_err:.3e}",
+        rtol=SPARSE_RTOL)
+    if sp_err > SPARSE_RTOL:
+        raise AssertionError(f"sparse and dense cloud frames differ: "
+                             f"{mean_sp} against {mean}")
+    del r
+    r = Renderer(plain.replace(volumes=sparse), dataclasses.replace(
+        cfg, volume_transmittance="ratio"), accel="tiled", device=dev)
+    ms_ratio, st, _, mean_ratio = _frame_run(
+        "14c ratio tracking", r, cam, frames, cfg.max_depth + march_any,
+        transmittance="ratio")
+    ratio_err = abs(mean_ratio - mean_sp) / mean_sp
+    say("14c ratio tracking", riemann_mean=f"{mean_sp:.6f}",
+        ratio_mean=f"{mean_ratio:.6f}", rel_diff=f"{ratio_err:.4f}",
+        rtol=RATIO_RTOL, ratio_over_riemann_ms=f"{ms_ratio / ms_sp:.3f}")
+    if ratio_err > RATIO_RTOL:
+        raise AssertionError(f"ratio tracking's mean {mean_ratio} is not "
+                             f"within {RATIO_RTOL} of Riemann's {mean_sp}")
+    _profile_frame("14c profile ratio", lambda: r.render_frame(st, cam),
+                   "visit_scan_kernel", also=("take_put",))
+    return launches
+
+
+def _volume_restir(dev, dense, w, h, frames, march_any):
+    """14d: the restir workload of phase 10 in the cloud, timed against
+    the same frame without it, and held against the same frame and draws
+    with the cloud's extinction at 0."""
+    import torch
+
+    from lumenrenderer_tpu_torch.integrator import wavefront as wf
+    from lumenrenderer_tpu_torch.render.renderer import Renderer
+
+    builder, camf = _restir_scene()
+    plain = builder.build()
+    cfg = _restir_config(w, h)
+    cam = camf(w / h)
+    r = Renderer(plain.replace(volumes=dense), cfg, accel="tiled",
+                 device=dev)
+    # NEE's 4 shadow passes, ReSTIR's 2 visibility passes, the march's
+    ms_c, st, _, mean_c = _frame_run("14d restir cloud", r, cam, frames,
+                                     cfg.max_depth + 1 + march_any)
+    # the same frame without the cloud, paired: the cloud's extinction at 0
+    # (transmittance 1 everywhere, no in-scattering) with the same draws,
+    # which the unpaired frames do not share (the march draws first); at
+    # depth 0 the reservoirs do not depend on the density, so the cloud's
+    # direct light is at most the clear one's everywhere
+    out = _one_frame(r, cam)
+    clear = r.scene.volumes.replace(
+        sigma_t=torch.zeros_like(r.scene.volumes.sigma_t))
+    out0 = _one_frame(r, cam, r.scene.replace(volumes=clear))
+    paired_ok = bool((out["direct"] <= out0["direct"] * (1 + 1e-5)
+                      + 1e-7).all())
+    d_c, d_0 = float(out["direct"].mean()), float(out0["direct"].mean())
+    m_c = float(wf.merge_channels(out).mean())
+    m_0 = float(wf.merge_channels(out0).mean())
+    vol_c = float(out["volumetric"].mean())
+    del r, st, out, out0
+    r = Renderer(plain, cfg, accel="tiled", device=dev)
+    ms_p, _, _, mean_p = _frame_run("14d restir without the cloud", r, cam,
+                                    frames, cfg.max_depth + 1)
+    say("14d restir cloud", cloud_cost_ms=f"{ms_c - ms_p:.1f}",
+        unpaired_mean_over_plain=f"{mean_c / mean_p:.4f}",
+        frame_mean=f"{m_c:.6f}", clear_frame_mean=f"{m_0:.6f}",
+        mean_over_clear=f"{m_c / m_0:.4f}", direct_mean=f"{d_c:.6f}",
+        clear_direct_mean=f"{d_0:.6f}", direct_over_clear=f"{d_c / d_0:.4f}",
+        direct_at_most_clear_everywhere=paired_ok,
+        volumetric_mean=f"{vol_c:.6f}")
+    if not (m_c < m_0 and paired_ok and d_c < d_0):
+        raise AssertionError(
+            f"the ReSTIR frame in the cloud is not darker than the same "
+            f"frame with its extinction at 0: mean {m_c} against {m_0}, "
+            f"direct {d_c} against {d_0} (at most everywhere: "
+            f"{paired_ok})")
+
+
+def _grad_call(frame, grid, dev):
+    """(frame(grid), d frame / d grid, forward ms, backward ms, peak bytes)
+    of one forward with a graph and its backward."""
+    import torch
+
+    leaf = grid.clone().requires_grad_(True)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    loss = frame(leaf)
+    torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize(dev)
+    t2 = time.perf_counter()
+    return (float(loss.detach()), leaf.grad, (t1 - t0) * 1e3,
+            (t2 - t1) * 1e3, torch.cuda.max_memory_allocated(dev))
+
+
+def _profile_backward(phase, frame, grid, also):
+    """One backward of frame(grid) under torch.profiler."""
+    import torch
+
+    loss = frame(grid.clone().requires_grad_(True))
+    torch.cuda.synchronize()
+    _profile_frame(phase, loss.backward, "visit_scan_kernel", also=also)
+
+
+def _volume_gradients(dev, plain, dense, sparse, camf, cfg, frames):
+    """14e: d mean / d density at full size, remat on (and d mean /
+    d bricks of the sparse cloud), remat off, K1 against its twin at
+    320x180, and a central difference of the density's scale."""
+    import dataclasses
+
+    import torch
+
+    from lumenrenderer_tpu_torch.accel import tiled
+    from lumenrenderer_tpu_torch.ops import visit_scan as vs
+    from lumenrenderer_tpu_torch.render.renderer import Renderer
+
+    gib = 2.0 ** 30
+    torch.cuda.empty_cache()
+    r = Renderer(plain.replace(volumes=dense),
+                 dataclasses.replace(cfg, remat=True), accel="tiled",
+                 device=dev)
+    gcfg, cam = r.config, camf(cfg.width / cfg.height).to(dev)
+    d0 = r.scene.volumes.density
+    frame = _volume_frame(r.scene, r._isect, r._occl, cam, gcfg, "density")
+    with torch.no_grad():
+        frame(d0)
+        fwd_ms = timed_frames(lambda: frame(d0), frames)
+    _grad_call(frame, d0, dev)                            # warm
+    vs.reset_launches()
+    mean_g, g, graph_ms, bwd_ms, peak = _grad_call(frame, d0, dev)
+    g_launches = dict(vs.LAUNCHES)
+    with_grad = int(g.ne(0).sum())
+    finite = bool(torch.isfinite(g).all())
+    say("14e density gradient", size=f"{cfg.width}x{cfg.height}",
+        remat=gcfg.remat, voxels=g.numel(), forward_ms=f"{fwd_ms:.1f}",
+        forward_graph_ms=f"{graph_ms:.1f}", backward_ms=f"{bwd_ms:.1f}",
+        ratio=f"{(graph_ms + bwd_ms) / fwd_ms:.3f}",
+        backward_over_forward=f"{bwd_ms / fwd_ms:.3f}",
+        peak_gib=f"{peak / gib:.2f}", finite=finite,
+        voxels_with_gradient=with_grad,
+        d_mean_d_scale=f"{float((g * d0).sum()):.6e}",
+        k1_launches_fwd_bwd=json.dumps(g_launches))
+    if not finite or with_grad == 0:
+        raise AssertionError("the density gradient is not finite, or zero")
+    want = {"closest": gcfg.max_depth,
+            "any": gcfg.max_depth + cfg.volume_steps * cfg.volume_depths}
+    if g_launches != want:
+        raise AssertionError(f"K1 launches per forward and backward "
+                             f"{g_launches}, expected {want} (the recompute "
+                             "launches none)")
+    _profile_backward("14e profile backward", frame, d0,
+                      ("take_put", "indexing_backward"))
+
+    # the sparse bricks: every sample in empty space reads the shared zero
+    # brick (slot 0), so its 729 floats take most of the atomic adds
+    sp = plain.replace(volumes=sparse).to(dev)
+    frame_b = _volume_frame(sp, r._isect, r._occl, cam, gcfg, "bricks")
+    mean_b, g_b, graph_b, bwd_b, peak_b = _grad_call(
+        frame_b, sp.volumes.bricks, dev)
+    finite_b = bool(torch.isfinite(g_b).all())
+    say("14e bricks gradient", bricks=g_b.shape[0],
+        forward_graph_ms=f"{graph_b:.1f}", backward_ms=f"{bwd_b:.1f}",
+        peak_gib=f"{peak_b / gib:.2f}", finite=finite_b,
+        bricks_with_gradient=int(g_b.ne(0).flatten(1).any(1).sum()),
+        zero_brick_gradient=f"{float(g_b[0].abs().sum()):.3e}",
+        mean_rel_to_dense=f"{abs(mean_b - mean_g) / mean_g:.3e}")
+    if not finite_b or not bool(g_b.ne(0).any()):
+        raise AssertionError("the bricks' gradient is not finite, or zero")
+    del g_b
+    _profile_backward("14e profile bricks backward", frame_b,
+                      sp.volumes.bricks, ("take_put",))
+    del sp, frame_b
+
+    # remat off: the march's replay changes nothing
+    torch.cuda.empty_cache()
+    frame_nr = _volume_frame(r.scene, r._isect, r._occl, cam,
+                             dataclasses.replace(gcfg, remat=False),
+                             "density")
+    mean_nr, g_nr, _, bwd_nr, peak_nr = _grad_call(frame_nr, d0, dev)
+    remat_err = float((g_nr - g).abs().max() / g.abs().max())
+    say("14e density gradient", remat_off_backward_ms=f"{bwd_nr:.1f}",
+        remat_off_peak_gib=f"{peak_nr / gib:.2f}",
+        remat_vs_off_max_err=f"{remat_err:.3e}", rtol=REMAT_RTOL)
+    if abs(mean_nr - mean_g) > 1e-6 * mean_g or remat_err > REMAT_RTOL:
+        raise AssertionError(f"remat changed the frame ({mean_nr} vs "
+                             f"{mean_g}) or its gradient ({remat_err})")
+    del g_nr, frame_nr
+    torch.cuda.empty_cache()
+
+    # a 320x180 gradient through K1 and through its twin
+    small = dataclasses.replace(gcfg, width=SMALL_W, height=SMALL_H)
+    scam = camf(SMALL_W / SMALL_H).to(dev)
+    grads = [_grad_call(_volume_frame(r.scene, *tiled.tiled_intersectors(
+        r.clusters, r.max_visits, scan=scan), scam, small, "density"),
+        d0, dev)[1] for scan in (vs.visit_scan, vs.visit_scan_ref)]
+    twin_err = float((grads[0] - grads[1]).abs().max()
+                     / grads[1].abs().max())
+    say("14e density gradient small", size=f"{SMALL_W}x{SMALL_H}",
+        kernel_vs_twin_max_err=f"{twin_err:.3e}", rtol=REMAT_RTOL)
+    if twin_err > REMAT_RTOL:
+        raise AssertionError(f"density gradients through K1 and its twin "
+                             f"differ: {twin_err}")
+    del grads
+
+    # a central difference of the density's scale, on a frame where no
+    # sampling decision depends on the density: no Russian roulette, and
+    # BSDF sampling only (NEE's shadow transmittance is detached)
+    fd_cfg = dataclasses.replace(gcfg, light_strategy="bsdf",
+                                 rr_start_depth=gcfg.max_depth)
+    frame_fd = _volume_frame(r.scene, r._isect, r._occl, cam, fd_cfg,
+                             "density")
+    g_fd = _grad_call(frame_fd, d0, dev)[1]
+    slope = float((g_fd * d0).sum())
+    with torch.no_grad():
+        f_hi = float(frame_fd(d0 * (1 + VOL_FD_STEP)))
+        f_lo = float(frame_fd(d0 * (1 - VOL_FD_STEP)))
+    fd = (f_hi - f_lo) / (2 * VOL_FD_STEP)
+    say("14e density gradient", check="bsdf, no RR, density scale",
+        d_mean_d_scale=f"{slope:.6e}", central_difference=f"{fd:.6e}",
+        central_rel_err=f"{abs(slope - fd) / abs(fd):.3e}",
+        rtol=VOL_FD_RTOL)
+    if not abs(slope - fd) <= VOL_FD_RTOL * abs(fd):
+        raise AssertionError(f"d mean / d density scale {slope} against the "
+                             f"central difference {fd}")
+
+
+def phase_volumes(dev, w=W, h=H, frames=SLICE_FRAMES):
+    """Phase 14: a 384³ cloud in the 2560x1440 interior frame: the .nvdb
+    reader and small frames through K1 and its twin (14a), the dense cloud
+    (14b), the sparse one and ratio tracking (14c), ReSTIR in the cloud
+    (14d), the density gradient (14e). Returns 14b's K1 launches."""
+    import torch
+
+    from lumenrenderer_tpu_torch.integrator import wavefront as wf
+    from lumenrenderer_tpu_torch.scene import presets
+
+    torch.cuda.empty_cache()
+    builder, camf = presets.interior_scene(n_boxes=600, n_lights=64)
+    plain = builder.build()
+    dense, sparse = _volumes_small(dev, plain, camf)
+    cfg = wf.RenderConfig(width=w, height=h, max_depth=5, bsdf="disney",
+                          light_strategy="mis", volume_steps=5,
+                          volume_depths=2)
+    launches = _volume_frames(dev, plain, dense, sparse, camf(w / h), cfg,
+                              frames)
+    _volume_restir(dev, dense, w, h, frames,
+                   cfg.volume_steps * cfg.volume_depths)
+    _volume_gradients(dev, plain, dense, sparse, camf, cfg, frames)
+    return launches
+
 def main() -> int:
     if not (REPO / "lumenrenderer_tpu_torch" / "ops" / "csrc"
             / "visit_scan.cu").is_file():
@@ -2292,6 +2783,7 @@ def main() -> int:
     run("11b two-level units", phase_units_past_2048, dev)
     run("12 gradients", phase_gradients, dev)
     textured = run("13 textured", phase_textured, dev)
+    volume = run("14 volumes", phase_volumes, dev)
 
     kernels = []
     for name in KERNELS[:3]:
@@ -2309,7 +2801,8 @@ def main() -> int:
                 "full_pass_bound_ms": c["full_pass_bound_ms"],
                 **({"visits_per_tile": c["visits_per_tile"]}
                    if "visits_per_tile" in c else {}),
-                **({"launches_textured": textured[mode]}
+                **({"launches_textured": textured[mode],
+                    "launches_volume": volume[mode]}
                    if name == "visit_scan" else {})})
     for mode in ("closest", "any"):
         c = mega["k1"][mode]

@@ -19,11 +19,21 @@ backward; their intersections and shadow-ray bits are kept from the forward,
 so the recompute launches no intersector.
 
 Random numbers come from a `Uniforms` source, drawn in a fixed order: the
-(N,2) pixel jitter, then per depth the alpha (N,), NEE (N,3), BSDF (N,4) and
+(N,2) pixel jitter, then per depth the volume march's (`volume.march`, at
+depths below `volume_depths` of a scene with volumes), the alpha (N,), NEE
+(N,3) and NEE's shadow transmittance (with volumes), BSDF (N,4) and
 Russian-roulette (N,) uniforms, each only where the JAX frame draws it.
 A depth recomputed under remat replays the numbers its forward drew. With
 use_restir, ReSTIR DI (`restir.di.RestirDI`) takes the NEE draw's place at
 depth 0 and draws its own numbers from the same source.
+
+Volumes (`SceneData.volumes`): at depths below `volume_depths` the segment
+to the hit (or 1e8 on a miss) marches `volume_steps` steps through each
+volume's box, adding in-scattered light (each step samples a light and
+casts a ray to it through the frame's occluder) to the VOLUMETRIC channel
+and attenuating the throughput; NEE's shadow rays are attenuated by the
+transmittance `volume_transmittance` estimates ("riemann" or "ratio"),
+detached.
 """
 from __future__ import annotations
 
@@ -41,6 +51,7 @@ from ..core import sampling
 from ..core import vecmath as vm
 from ..scene.materials import GatheredMaterial
 from ..scene.scene import SceneData
+from ..volume import march as vmarch
 from . import nee as nee_mod
 from .surface import SurfaceData, extract_surface_data
 
@@ -67,7 +78,10 @@ class RenderConfig:
     carry no gradient (keep True). mipmaps: a textured scene's textures are
     sampled trilinearly at the ray footprint's mip level (bilinear at level
     0 when off; no cost without textures). remat: depths >= 1 are
-    recomputed in the backward instead of keeping their intermediates."""
+    recomputed in the backward instead of keeping their intermediates.
+    volume_steps, volume_depths: march steps a segment, and how many depths
+    march (a scene with volumes); volume_transmittance: NEE's shadow
+    transmittance estimator, "riemann" (5 steps) or "ratio"."""
 
     width: int = 128
     height: int = 128
@@ -82,6 +96,9 @@ class RenderConfig:
     alpha_test: bool = False      # treat OPAQUE materials as BLEND too
     alpha_materials: bool = False  # per-material alpha mode and sidedness
     detach_sampling: bool = True
+    volume_steps: int = 5
+    volume_depths: int = 2
+    volume_transmittance: str = "riemann"   # "riemann" | "ratio"
     swizzle: bool = False
     sort_secondary: bool = True
     mipmaps: bool = True
@@ -192,8 +209,9 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
                      pixel_ids: Optional[torch.Tensor] = None
                      ) -> Dict[str, Any]:
     """Trace one 1-spp frame. Returns direct/indirect/specular (N,3) light
-    channels, primary-hit AOVs depth (N,), normal/albedo (N,3), motion (N,2),
-    the scalars overflow (visit lists truncated) and, with debug_checks,
+    channels, volumetric (N,3) (None for a scene without volumes),
+    primary-hit AOVs depth (N,), normal/albedo (N,3), motion (N,2), the
+    scalars overflow (visit lists truncated) and, with debug_checks,
     debug_first_bad (0 = clean, else 1 + encoded stage), and restir_state
     (the new reservoir state, or restir_state itself without ReSTIR).
 
@@ -233,7 +251,8 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
              zeros(n, 3),                                  # beer_sigma
              zeros(n, 3), zeros(n, 3), zeros(n, 3),  # direct, indirect, spec
              zeros(dtype=torch.int32),                     # first_bad
-             zeros(n) if use_mips else None)               # path_dist
+             zeros(n) if use_mips else None,               # path_dist
+             None if scene.volumes is None else zeros(n, 3))  # volumetric
     overflow_any = zeros(dtype=torch.bool)
     aovs: Dict[str, torch.Tensor] = {}
 
@@ -265,7 +284,7 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
         nonlocal restir_state
         (ray_o, ray_d, throughput, alive, prev_pdf, prev_specular,
          first_specular, beer_sigma, direct, indirect, specular_ch,
-         first_bad, path_dist) = carry
+         first_bad, path_dist, volumetric) = carry
         first_bad = chk(first_bad, "intersect", depth,
                         torch.where(torch.isinf(hits["t"]), 0.0, hits["t"]))
         sd = extract_surface_data(scene, ray_o, ray_d, hits["tri"],
@@ -295,6 +314,19 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
         if cfg.bsdf == "disney" and depth > 0:
             seg = torch.where(sd.valid, sd.t.clamp_max(1e6), 0.0)
             throughput = throughput * torch.exp(-beer_sigma * seg[:, None])
+
+        # volumetric segment: in-scattering and transmittance up to the hit
+        if scene.volumes is not None and depth < cfg.volume_depths:
+            v_scatter, v_trans = vmarch.volume_scatter(
+                scene.volumes, light_table, ray_o, ray_d, t_min,
+                torch.where(sd.valid, sd.t, 1e8), uni, occl_d,
+                steps=cfg.volume_steps, detach_sampling=cfg.detach_sampling,
+                alive=alive)
+            volumetric = volumetric + _sel(alive, throughput * v_scatter,
+                                           0.0)
+            throughput = throughput * _sel(alive, v_trans[:, None], 1.0)
+            first_bad = chk(first_bad, "volumetric", depth, volumetric,
+                            throughput)
 
         # miss: environment light
         env_contrib = _sel(alive & ~sd.valid, throughput * env, 0.0)
@@ -371,6 +403,13 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
                 contrib_valid & ~occluded,
                 sg(cos_s).clamp_min(0.0) * mis_w
                 / sg(pdf_sa).clamp_min(1e-12), 0.0)
+            if scene.volumes is not None:
+                # participating media along the shadow segment (always 5
+                # steps with "riemann", as in the JAX package)
+                scale = scale * sg(vmarch.transmittance_only(
+                    scene.volumes, so, ls.wi, RAY_EPS,
+                    torch.where(contrib_valid, ls.dist - 2.0 * RAY_EPS, 0.0),
+                    uniforms=uni, estimator=cfg.volume_transmittance))
             shadowed = throughput * f_val * ls.radiance * scale[:, None]
             first_bad = chk(first_bad, "nee/shade_direct", depth, shadowed)
             if depth == 0:
@@ -427,7 +466,7 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
             indirect = indirect + _sel(passthrough, throughput * env, 0.0)
         return (ray_o, ray_d, throughput, alive, prev_pdf, prev_specular,
                 first_specular, beer_sigma, direct, indirect, specular_ch,
-                first_bad, path_dist)
+                first_bad, path_dist, volumetric)
 
     for depth in range(cfg.max_depth):
         ray_o, ray_d, alive = carry[0], carry[1], carry[3]
@@ -450,7 +489,8 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
             carry = trace_depth(depth, carry, hits, uniforms, occl)
 
     out = {"direct": carry[8], "indirect": carry[9], "specular": carry[10],
-           **aovs, "overflow": overflow_any, "restir_state": restir_state}
+           "volumetric": carry[13], **aovs, "overflow": overflow_any,
+           "restir_state": restir_state}
     if cfg.debug_checks:
         out["debug_first_bad"] = carry[11]
     return out
@@ -466,4 +506,7 @@ def decode_debug_stage(first_bad: int) -> Optional[str]:
 
 def merge_channels(out: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Sum the light channels into the radiance image (N,3)."""
-    return out["direct"] + out["indirect"] + out["specular"]
+    img = out["direct"] + out["indirect"] + out["specular"]
+    if out.get("volumetric") is not None:
+        img = img + out["volumetric"]
+    return img

@@ -11,7 +11,8 @@ Random numbers come from a draw source `draws` with `uniform(*shape)` (float32
 U[0,1)) and `randint(high, *shape)` (int32 in [0, high)), drawn in this order:
 the bags' uniforms; RIS's bag and slot integers, barycentric and pick
 uniforms; the temporal combine's uniform (when there is a history); per
-spatial iteration the angle, radius and pick uniforms.
+spatial iteration the angle, radius and pick uniforms; in a scene with
+volumes, the shading's transmittance uniform last.
 """
 from __future__ import annotations
 
@@ -293,12 +294,21 @@ def visibility_pass(scene, sd, res: Reservoir, occlude_fn, hit_mask,
                        w_sum=torch.where(kill, 0.0, res.w_sum))
 
 
-def volumetric_transmittance(*args, **kwargs):
-    """The winner's Beer-Lambert transmittance at shading; the port's
-    scenes have no volumes, so RestirDI never applies it."""
-    raise NotImplementedError(
-        "volumes are not ported: ReSTIR's volumetric transmittance needs "
-        "them")
+def volumetric_transmittance(scene, sd, res: Reservoir, volumes, draws,
+                             hit_mask, rad_all=None) -> torch.Tensor:
+    """(N,) Beer-Lambert transmittance of participating media along the
+    winner's shadow segment, detached: applied once at shading, never
+    folded into the reservoirs (it would compound through reuse). Always
+    the 5-step Riemann estimator, one (N,) draw, as in the JAX package."""
+    from ..volume import march as vmarch
+
+    _, wi, dist = _target_phat(scene, sd, res.light_idx, res.bary,
+                               rad_all=rad_all)
+    o = sd.position + sd.geo_normal * SHADOW_EPS
+    return vmarch.transmittance_only(
+        volumes, o, wi, SHADOW_EPS,
+        torch.where(hit_mask, dist - 2 * SHADOW_EPS, 0.0),
+        uniforms=draws.uniform).detach()
 
 
 def _combine(scene, sd, res_a: Reservoir, res_b: Reservoir, phat_b_here,
@@ -526,6 +536,10 @@ class RestirDI:
                                     rad_all=rad_all)
         color = shade(scene, sd, wo, res_final, self.eval_f, hit_mask,
                       rad_all=rad_all)
+        if scene.volumes is not None:
+            color = color * volumetric_transmittance(
+                scene, sd, res_final, scene.volumes, draws, hit_mask,
+                rad_all=rad_all)[:, None]
         new_state = RestirState(
             # biased mode carries the visibility-zeroed reservoirs forward;
             # unbiased keeps the pre-shading ones

@@ -3,8 +3,14 @@
 A built `SceneData` is saved as one `np.savez_compressed` file in the JAX
 package's format, so either package reads the other's cache: arrays
 `leaf_0` ... `leaf_48` in the order JAX flattens its scene (field names
-sorted at every level), and `__has_volumes__`. `load_or_build("x.gltf")`
-uses `x.gltf.lumen.npz` while it is newer than the source.
+sorted at every level), then a dense `VolumeSet`'s five leaves (in their
+declaration order, as JAX flattens them), and `__has_volumes__`.
+`load_or_build("x.gltf")` uses `x.gltf.lumen.npz` while it is newer than
+the source.
+
+Sparse volumes are refused both ways: JAX writes a `SparseVolumeSet`'s six
+leaves but reads any volume file back as a dense `VolumeSet`, so its own
+files of sparse scenes load wrong (ROADMAP C-17).
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..volume.grid import SparseVolumeSet, VolumeSet
 from .lights import TriangleLights
 from .materials import MaterialTable
 from .scene import SceneData
@@ -41,31 +48,48 @@ LEAVES = (
     "textures.offset", "textures.texels", "textures.width",
     "tri_inst", "tri_mat", "tri_normal", "tri_pos", "tri_tangent", "tri_uv",
 )
+VOLUME_LEAVES = tuple(f"volumes.{f.name}"
+                      for f in dataclasses.fields(VolumeSet))
 _PARTS = {"lights": TriangleLights, "materials": MaterialTable,
           "textures": TextureAtlas}
+_SPARSE_REFUSED = ("sparse volumes have no cache file: the JAX package "
+                   "reads them back as dense ones (ROADMAP C-17)")
+
+
+def _leaf_names(scene_has_volumes: bool):
+    return LEAVES + (VOLUME_LEAVES if scene_has_volumes else ())
 
 
 def save_scene(path: str, scene: SceneData) -> None:
-    """Write `scene` (on any device) to `path` (.npz)."""
+    """Write `scene` (on any device) to `path` (.npz). A scene with sparse
+    volumes raises NotImplementedError."""
+    if isinstance(scene.volumes, SparseVolumeSet):
+        raise NotImplementedError(_SPARSE_REFUSED)
+    has_volumes = scene.volumes is not None
     arrays = {}
-    for i, name in enumerate(LEAVES):
+    for i, name in enumerate(_leaf_names(has_volumes)):
         obj = scene
         for part in name.split("."):
             obj = getattr(obj, part)
         arrays[f"leaf_{i}"] = obj.detach().cpu().numpy()
-    arrays["__has_volumes__"] = np.asarray(False)
+    arrays["__has_volumes__"] = np.asarray(has_volumes)
     np.savez_compressed(path, **arrays)
 
 
 def load_scene(path: str) -> SceneData:
-    """Read a cache file into a SceneData of CPU tensors."""
+    """Read a cache file into a SceneData of CPU tensors. A file of a scene
+    with sparse volumes (one leaf more than a dense one) raises
+    NotImplementedError."""
     with np.load(path) as z:
-        if bool(z["__has_volumes__"]):
-            raise NotImplementedError(
-                f"{path} holds volumes, which are not ported")
+        names = _leaf_names(bool(z["__has_volumes__"]))
+        if f"leaf_{len(names)}" in z.files:
+            raise NotImplementedError(f"{path}: {_SPARSE_REFUSED}")
         leaves = {name: torch.from_numpy(z[f"leaf_{i}"])
-                  for i, name in enumerate(LEAVES)}
+                  for i, name in enumerate(names)}
     fields = {k: v for k, v in leaves.items() if "." not in k}
+    if len(names) > len(LEAVES):
+        fields["volumes"] = VolumeSet(**{
+            name.split(".")[1]: leaves[name] for name in VOLUME_LEAVES})
     for part, cls in _PARTS.items():
         fields[part] = cls(**{f.name: leaves[f"{part}.{f.name}"]
                               for f in dataclasses.fields(cls)})

@@ -1,6 +1,6 @@
 """The scene as a dataclass of tensors, and its host-side builder.
 
-Port of `lumenrenderer_tpu/scene/scene.py`. Volumes are refused.
+Port of `lumenrenderer_tpu/scene/scene.py`.
 """
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from ..core.struct import TensorStruct
+from ..volume.grid import build_sparse, make_volume_set
 from . import lights as lights_mod
 from .geometry import FlatGeometry, InstanceHost, flatten_instances
 from .materials import MaterialSpec, MaterialTable, build_material_table
@@ -33,6 +34,8 @@ class SceneData(TensorStruct):
     inst_emission_mode: torch.Tensor      # (I,) int32
     inst_emission_override: torch.Tensor  # (I,3)
     env_radiance: torch.Tensor            # (3,) constant environment light
+    # volume.grid.VolumeSet or SparseVolumeSet, or None
+    volumes: Optional[object] = None
 
     @property
     def num_triangles(self) -> int:
@@ -53,6 +56,7 @@ class SceneBuilder:
     texture_images: List[np.ndarray] = dataclasses.field(default_factory=list)
     light_capacity: Optional[int] = None
     env_radiance: tuple = (0.0, 0.0, 0.0)
+    volume_specs: list = dataclasses.field(default_factory=list)
 
     def add_material(self, spec: MaterialSpec) -> int:
         self.materials.append(spec)
@@ -68,8 +72,16 @@ class SceneBuilder:
         self.texture_images.append(image)
         return len(self.texture_images) - 1
 
-    def add_volume(self, *args, **kwargs) -> int:
-        raise NotImplementedError("volumes are not ported yet")
+    def add_volume(self, density, aabb_lo, aabb_hi, sigma_t=1.0, albedo=0.9,
+                   sparse: bool = False) -> int:
+        """Add a density-grid volume: density (X,Y,Z) over the world box
+        [aabb_lo, aabb_hi]. sparse=True builds a SparseVolumeSet (8³ index
+        and apron bricks, memory in proportion to occupancy). Every volume
+        of a scene shares one layout and one resolution: the first
+        volume's `sparse` flag picks the layout. Returns the volume id."""
+        self.volume_specs.append(
+            (density, aabb_lo, aabb_hi, sigma_t, albedo, sparse))
+        return len(self.volume_specs) - 1
 
     def build(self) -> SceneData:
         """Bake the scene into CPU tensors; move it with `.to(device)`."""
@@ -78,6 +90,15 @@ class SceneBuilder:
         emissive_np = np.array([s.emissive for s in specs],
                                np.float32).reshape(-1, 3)
         t_ = torch.from_numpy
+        volumes = None
+        if self.volume_specs:
+            make = build_sparse if self.volume_specs[0][5] else make_volume_set
+            volumes = make(
+                [np.asarray(s[0], np.float32) for s in self.volume_specs],
+                [s[1] for s in self.volume_specs],
+                [s[2] for s in self.volume_specs],
+                sigma_t=[s[3] for s in self.volume_specs],
+                albedo=[s[4] for s in self.volume_specs])
         return SceneData(
             tri_pos=t_(geom.tri_pos), tri_normal=t_(geom.tri_normal),
             tri_uv=t_(geom.tri_uv), tri_tangent=t_(geom.tri_tangent),
@@ -89,4 +110,4 @@ class SceneBuilder:
             inst_emission_mode=t_(geom.inst_emission_mode),
             inst_emission_override=t_(geom.inst_emission_override),
             env_radiance=torch.tensor(self.env_radiance, dtype=torch.float32),
-        )
+            volumes=volumes)

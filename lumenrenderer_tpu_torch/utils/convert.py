@@ -9,7 +9,7 @@ numpy only.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -23,6 +23,7 @@ from ..scene.lights import TriangleLights
 from ..scene.materials import MaterialTable
 from ..scene.scene import SceneData
 from ..scene.textures import TextureAtlas
+from ..volume.grid import SparseVolumeSet, VolumeSet
 
 
 def _fill(cls, leaves: Mapping, **nested):
@@ -37,16 +38,27 @@ def _fill(cls, leaves: Mapping, **nested):
     return cls(**kw)
 
 
+def _volumes(leaves: Optional[Mapping]):
+    """VolumeSet, or SparseVolumeSet (its leaves have `index`, and `res`
+    the sample grid's resolution), from the JAX volume set's leaves; None
+    for None."""
+    if leaves is None:
+        return None
+    if "index" in leaves:
+        return _fill(SparseVolumeSet, leaves,
+                     res=tuple(int(s) for s in np.asarray(leaves["res"])))
+    return _fill(VolumeSet, leaves)
+
+
 def scene_from_numpy(leaves: Mapping) -> SceneData:
-    """SceneData from the JAX SceneData's leaves, its texture atlas whole
-    (volumes must be None)."""
-    if leaves.get("volumes") is not None:
-        raise NotImplementedError("volumes are not ported")
+    """SceneData from the JAX SceneData's leaves, its texture atlas and its
+    volumes (dense or sparse, or None) whole."""
     return _fill(
         SceneData, leaves,
         materials=_fill(MaterialTable, leaves["materials"]),
         lights=_fill(TriangleLights, leaves["lights"]),
-        textures=_fill(TextureAtlas, leaves["textures"]))
+        textures=_fill(TextureAtlas, leaves["textures"]),
+        volumes=_volumes(leaves.get("volumes")))
 
 
 def _layouts(leaves: Mapping) -> dict:

@@ -144,16 +144,18 @@ class ListUniforms:
         return torch.from_numpy(np.array(a, np.int32))
 
 
-def jax_restir_draws(key, rcfg, w: int, h: int, temporal: bool = True):
+def jax_restir_draws(key, rcfg, w: int, h: int, temporal: bool = True,
+                     volumes: bool = False):
     """The draws `lumenrenderer_tpu`'s RestirDI.__call__ takes from `key` at
     a w x h frame, in the port's order: the bags' uniforms; RIS's bag and
     slot integers and barycentric and pick uniforms (tile-candidate or
     per-pixel shapes, as di.ris_primary chooses); the temporal combine's
     uniform (when there is a history state); per spatial iteration the
-    angle, radius and pick uniforms."""
+    angle, radius and pick uniforms; with volumes, the shading's
+    transmittance uniform."""
     n = w * h
     c, s, bt = rcfg.candidates, rcfg.spatial_samples, rcfg.bag_tile
-    k_bag, k_ris, k_t, k_s, _, _ = jax.random.split(key, 6)
+    k_bag, k_ris, k_t, k_s, _, k_v2 = jax.random.split(key, 6)
     out = [jax.random.uniform(k_bag, (rcfg.num_bags, rcfg.bag_size))]
     kb, kc, kp, kr = jax.random.split(k_ris, 4)
     if rcfg.tile_candidates and w % bt == 0 and h % bt == 0:
@@ -173,27 +175,68 @@ def jax_restir_draws(key, rcfg, w: int, h: int, temporal: bool = True):
         k1, k2, k3 = jax.random.split(jax.random.fold_in(k_s, it), 3)
         out += [jax.random.uniform(k1, (n, s)), jax.random.uniform(k2, (n, s)),
                 jax.random.uniform(k3, (n, 1))]
+    if volumes:
+        out.append(jax.random.uniform(k_v2, (n,)))
     return [np.asarray(a) for a in out]
 
 
-def jax_frame_uniforms(key, cfg, n_rays: int, restir_cfg=None):
+def jax_march_draws(key, n_volumes: int, steps: int, n_rays: int):
+    """The draws of `lumenrenderer_tpu`'s volume_scatter from `key`: per
+    volume v (key fold_in(key, v)) u0 from fold_in 7, then per step i an
+    (R,3) light sample from fold_in 100 + i."""
+    out = []
+    for v in range(n_volumes):
+        kv = jax.random.fold_in(key, v)
+        out.append(jax.random.uniform(jax.random.fold_in(kv, 7), (n_rays,)))
+        out += [jax.random.uniform(jax.random.fold_in(kv, 100 + i),
+                                   (n_rays, 3)) for i in range(steps)]
+    return out
+
+
+def jax_transmittance_draws(key, n_volumes: int, estimator: str,
+                            n_rays: int, max_events: int = 64):
+    """The draws of `lumenrenderer_tpu`'s transmittance_only from `key`:
+    Riemann one (R,) for every volume; ratio tracking, per volume v, the
+    events' (R,) uniforms from fold_in(fold_in(key, v), i), stacked into
+    the (max_events, R) draw the port takes."""
+    if estimator == "ratio":
+        return [jnp.stack([
+            jax.random.uniform(jax.random.fold_in(
+                jax.random.fold_in(key, v), i), (n_rays,))
+            for i in range(max_events)]) for v in range(n_volumes)]
+    return [jax.random.uniform(key, (n_rays,))]
+
+
+def jax_frame_uniforms(key, cfg, n_rays: int, restir_cfg=None,
+                       n_volumes: int = 0):
     """The uniforms `lumenrenderer_tpu`'s render_wavefront draws from `key`,
     in the order the port draws them. With cfg.use_restir, restir_cfg's
-    ReSTIR draws (with a history state) replace depth 0's NEE draw."""
+    ReSTIR draws (with a history state) replace depth 0's NEE draw. With
+    n_volumes volumes, the march's draws (fold_in(dkey, 23)) come first at
+    depths below cfg.volume_depths, and NEE's shadow transmittance draws
+    (fold_in(nkey, 9)) after NEE's."""
     key_j, key = jax.random.split(key)
     out = []
     if cfg.jitter == "random":
         out.append(jax.random.uniform(key_j, (n_rays, 2)))
     for depth in range(cfg.max_depth):
         dkey = jax.random.fold_in(key, depth)
+        if n_volumes and depth < cfg.volume_depths:
+            out += jax_march_draws(jax.random.fold_in(dkey, 23), n_volumes,
+                                   cfg.volume_steps, n_rays)
         if cfg.alpha_test or cfg.alpha_materials:
             out.append(jax.random.uniform(jax.random.fold_in(dkey, 17),
                                           (n_rays,)))
         if cfg.use_restir and depth == 0:
-            out += jax_restir_draws(dkey, restir_cfg, cfg.width, cfg.height)
+            out += jax_restir_draws(dkey, restir_cfg, cfg.width, cfg.height,
+                                    volumes=n_volumes > 0)
         elif cfg.light_strategy in ("nee", "mis"):
-            out.append(jax.random.uniform(jax.random.fold_in(dkey, 1),
-                                          (n_rays, 3)))
+            nkey = jax.random.fold_in(dkey, 1)
+            out.append(jax.random.uniform(nkey, (n_rays, 3)))
+            if n_volumes:
+                out += jax_transmittance_draws(
+                    jax.random.fold_in(nkey, 9), n_volumes,
+                    cfg.volume_transmittance, n_rays)
         if depth + 1 < cfg.max_depth:
             out.append(jax.random.uniform(jax.random.fold_in(dkey, 2),
                                           (n_rays, 4)))

@@ -37,6 +37,7 @@ from lumenrenderer_tpu_torch.integrator.wavefront import RenderConfig
 from lumenrenderer_tpu_torch.render.renderer import Renderer
 from lumenrenderer_tpu_torch.scene import cache as pcache
 from lumenrenderer_tpu_torch.scene import gltf as pgltf
+from lumenrenderer_tpu_torch.scene import presets as ppresets
 
 Image = pytest.importorskip("PIL.Image", reason="the asset tests write "
                             "their PNG and JPEG files with Pillow")
@@ -437,10 +438,44 @@ def test_load_or_build_by_mtime(tmp_path):
     assert os.path.exists(other)
 
 
+def _volume_cornell(package, sparse=False):
+    """The Cornell box with two dense (or sparse) volumes."""
+    b, _ = package.cornell_box()
+    g = np.random.default_rng(8)
+    for i in range(2):
+        b.add_volume(g.uniform(0, 2, (6, 9, 5)).astype(np.float32),
+                     (0.1, 0.1 * i, 0.2), (0.6, 0.5, 0.9), sigma_t=2.0 + i,
+                     albedo=0.7, sparse=sparse)
+    return b.build()
+
+
+def _assert_volumes_equal(port_vols, jax_vols):
+    for name, want in to_numpy_tree(jax_vols).items():
+        have = n(getattr(port_vols, name))
+        assert have.dtype == want.dtype, name
+        np.testing.assert_array_equal(have, want, err_msg=name)
+
+
 def test_cache_with_volumes_raises(tmp_path):
-    b, _ = jpresets.cornell_box()
-    b.add_volume(np.ones((2, 2, 2), np.float32), (0, 0, 0), (1, 1, 1))
-    f = str(tmp_path / "vol.npz")
-    jcache.save_scene(f, b.build())
-    with pytest.raises(NotImplementedError, match="volumes"):
+    """Dense volumes round-trip through the cache in JAX's format and each
+    package reads the other's file; a scene with sparse volumes raises on
+    save, and JAX's file of one (which JAX reads back wrong) on load
+    (ROADMAP C-17)."""
+    psc, jsc = _volume_cornell(ppresets), _volume_cornell(jpresets)
+    f = str(tmp_path / "port.npz")
+    pcache.save_scene(f, psc)
+    for got in (jcache.load_scene(f), pcache.load_scene(f)):
+        assert_scene_equal(psc, got.replace(volumes=None), exact=True)
+        _assert_volumes_equal(psc.volumes, got.volumes)
+    f = str(tmp_path / "jax.npz")
+    jcache.save_scene(f, jsc)
+    got = pcache.load_scene(f)
+    assert_scene_equal(got, jsc.replace(volumes=None), exact=True)
+    _assert_volumes_equal(got.volumes, jsc.volumes)
+    f = str(tmp_path / "sparse.npz")
+    with pytest.raises(NotImplementedError, match="C-17"):
+        pcache.save_scene(f, _volume_cornell(ppresets, sparse=True))
+    assert not os.path.exists(f)
+    jcache.save_scene(f, _volume_cornell(jpresets, sparse=True))
+    with pytest.raises(NotImplementedError, match="C-17"):
         pcache.load_scene(f)

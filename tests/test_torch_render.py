@@ -168,6 +168,8 @@ def test_port_never_imports_jax():
             "import lumenrenderer_tpu_torch.scene.gltf; "
             "import lumenrenderer_tpu_torch.restir.di; "
             "import lumenrenderer_tpu_torch.parallel.train; "
+            "import lumenrenderer_tpu_torch.volume.march; "
+            "import lumenrenderer_tpu_torch.volume.nvdb; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'chex', 'lumenrenderer_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

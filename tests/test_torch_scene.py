@@ -77,17 +77,36 @@ def test_scene_moves_to_device_and_back():
     assert int(moved.lights.count) == 2
 
 
-def test_textures_and_volumes_refused():
-    """Volumes are refused; textures are accepted (they were refused before
-    the port had them): add_texture returns ids, and a textured material
-    builds an atlas with the white slot 0 and one slot per image."""
+@pytest.mark.parametrize("sparse", [False, True])
+def test_textures_and_volumes_refused(sparse):
+    """Textures and volumes are accepted (both were refused before the port
+    had them): add_texture returns ids, and a textured material builds an
+    atlas with the white slot 0 and one slot per image; add_volume builds
+    the JAX package's VolumeSet, or its SparseVolumeSet when the first
+    volume asks for one, leaf for leaf."""
     b = SceneBuilder()
     assert b.add_texture(np.ones((2, 2, 4), np.float32)) == 0
     assert b.add_texture(np.zeros((3, 5, 3), np.uint8)) == 1
-    with pytest.raises(NotImplementedError):
-        b.add_volume(np.ones((2, 2, 2)), (0, 0, 0), (1, 1, 1))
     b.add_material(MaterialSpec(base_color_tex=0, normal_tex=1))
+    g = np.random.default_rng(4)
+    grids = [g.uniform(0, 2, (20, 11, 9)) * (g.uniform(size=(20, 11, 9))
+                                           < 0.1) for _ in range(2)]
+    jb, _ = jpresets.cornell_box()
+    for i, d in enumerate(grids):
+        args = (d, (i, 0, 0), (i + 1, 1, 2), 1.5 + i, 0.3 * i,
+                sparse if i == 0 else not sparse)
+        assert b.add_volume(*args) == i
+        jb.add_volume(*args)
     sc = b.build()
     assert sc.textures.count == 3
     assert n(sc.textures.width).tolist() == [1, 2, 5]
     assert int(sc.materials.base_color_tex[0]) == 0
+    ref = jb.build().volumes
+    assert type(sc.volumes).__name__ == type(ref).__name__
+    for name, want in to_numpy_tree(ref).items():
+        if name == "res":
+            assert sc.volumes.res == tuple(ref.res) == (20, 11, 9)
+            continue
+        have = n(getattr(sc.volumes, name))
+        assert have.dtype == want.dtype, name
+        np.testing.assert_array_equal(have, want, err_msg=name)
