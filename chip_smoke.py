@@ -139,7 +139,35 @@ non-zero), each with its seconds:
      backward), d mean / d bricks of the sparse cloud, remat off within
      1e-5, a 320x180 gradient through K1 against its twin (1e-5), and on a
      BSDF-sampled frame without Russian roulette a central difference of
-     the density's scale at 1 +- 0.01 (rtol 1e-2).
+     the density's scale at 1 +- 0.01 (rtol 1e-2);
+ 15. the application on the interior at 2560x1440, depth 5, Disney + MIS:
+     15a: Renderer(accel="stream") (24 pairs per ray), each query of one
+     frame's live pairs, overflow, tiles and product blocks, 1 warm-up and
+     3 timed frames (ms/frame, peak), held against the tiled frame of the
+     same seed by phase 9's bar, one profiled frame, and a 320x180 depth-3
+     stream frame whose closest queries are each held against brute force
+     (triangles equal but for ties; primary t within 2e-4 relative + 1e-5,
+     tests/test_stream.py's bar); 15b: `denoise_frame` and `upscale` to
+     3840x2160 (Lanczos3, sharpen 0.3) of a 1-spp tiled frame (CUDA
+     events, mean of 3; launches and device time from one profiled call;
+     peak), the denoised frame nearer a 16-frame reference than the raw
+     one, the upscaled image finite and >= 0, its weight matrices built on
+     the card within 1e-5 of the CPU's (their distance from a float64
+     build is printed); 15c: `render_sequence` over a 3-camera pan with
+     temporal denoising (ms per camera), and on a static camera the
+     temporal output's flicker below the raw frames'; 15d: a checkpoint
+     after 2 frames loaded into init_state(999), the next frame equal to
+     the uninterrupted one within 1e-6 (file bytes, save and load ms);
+     15e: `profile_stages` of the interior frame, then the CLI in
+     subprocesses on the card: a JSON config naming the tiled accel,
+     `--preset interior --size 2560x1440 --out-size 3840x2160 --spp 4
+     --depth 5 --denoise --aovs --stats-every 2` (its main called by
+     `python -c`, which prints K1's launches after it: 48 closest and 44
+     any), writing a 3840x2160 PNG and three AOV PNGs (wall seconds, its
+     mean stage times), and `python -m lumenrenderer_tpu_torch.app.cli
+     --preset cornell --spp 4` with the defaults (stream, 1280x720). The
+     `kernels` line's K1 rows carry that CLI run's launches as
+     `launches_app`.
 Then a JSON line of per-kernel results, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}. Needs no network; exits
 non-zero without a CUDA device or without the package next to it.
@@ -2743,6 +2771,380 @@ def phase_volumes(dev, w=W, h=H, frames=SLICE_FRAMES):
     _volume_gradients(dev, plain, dense, sparse, camf, cfg, frames)
     return launches
 
+# -- phase 15: the application ------------------------------------------------
+
+APP_FRAMES = 3               # 15a: timed stream frames
+APP_REF_SPP = 16             # 15b: frames of the denoiser's reference
+OUT_W, OUT_H = 3840, 2160    # 15b, 15e: the upscaled output
+SHARPEN = 0.3
+WEIGHT_TOL = 1e-5            # 15b: weight matrices against the CPU's
+RESUME_TOL = 1e-6            # 15d: resumed frame against uninterrupted
+CLI_SPP, CLI_STATS_EVERY = 4, 2
+PAN_STEP = 0.05              # 15c: metres the camera moves a frame
+STREAM_T_RTOL, STREAM_T_ATOL = 2e-4, 1e-5    # 15a: stream t against brute
+
+
+def _interior_renderer(dev, accel, w=W, h=H, depth=5, **kw):
+    from lumenrenderer_tpu_torch.integrator.wavefront import RenderConfig
+    from lumenrenderer_tpu_torch.render.renderer import Renderer
+    from lumenrenderer_tpu_torch.scene import presets
+
+    builder, camf = presets.interior_scene(n_boxes=600, n_lights=64)
+    cfg = RenderConfig(width=w, height=h, max_depth=depth, bsdf="disney",
+                       light_strategy="mis")
+    return (Renderer(builder.build(), cfg, accel=accel, device=dev, **kw),
+            camf(w / h))
+
+
+def _frames_from(r, cam, seed, n):
+    """n frames from init_state(seed): (state, the last frame's AOVs)."""
+    st, aux = r.init_state(seed), None
+    for _ in range(n):
+        st, aux = r.render_frame(st, cam)
+    return st, aux
+
+
+def _stream_passes(r, cam):
+    """One stream frame with every query's pair stream measured: [(mode,
+    live rays, pairs, overflow, tiles, product blocks)]."""
+    from lumenrenderer_tpu_torch.accel import stream
+
+    rows = []
+    isect0, occl0 = r._isect, r._occl
+
+    def watch(fn, mode):
+        def query(o, d, tn, tx):
+            q = stream.pair_stream(r.clusters, o, d, tn, tx,
+                                   r.max_pairs_per_ray)
+            tiles = q["tile_cluster"].shape[0]
+            rows.append((mode, int((q["t_max"] >= q["t_min"]).sum()),
+                         q["pairs"], bool(q["overflow"]), tiles,
+                         -(-tiles // stream.PAIR_BLOCK_TILES)))
+            return fn(o, d, tn, tx)
+        return query
+
+    r._isect, r._occl = watch(isect0, "closest"), watch(occl0, "any")
+    try:
+        r.render_frame(r.init_state(0), cam)
+    finally:
+        r._isect, r._occl = isect0, occl0
+    return rows
+
+
+def _stream_vs_brute(dev):
+    """15a: a SMALL_W x SMALL_H depth-3 stream frame whose closest queries
+    are each held against brute force: the triangle equal except at ties
+    (t within 1e-5 relative), and on the primary query t within
+    STREAM_T_RTOL relative plus STREAM_T_ATOL (tests/test_stream.py's
+    bar: the bilinear form's t is not Möller–Trumbore's; the share within
+    1e-5 relative is printed)."""
+    import torch
+
+    from lumenrenderer_tpu_torch.accel import brute
+
+    r, cam = _interior_renderer(dev, "stream", SMALL_W, SMALL_H, depth=3)
+    isect0 = r._isect
+    worst = []
+
+    def held(o, d, tn, tx):
+        res = isect0(o, d, tn, tx)
+        ref = brute.intersect_closest(r.scene.tri_pos, o, d, tn, tx)
+        same = res["tri"] == ref["tri"]
+        both = torch.isfinite(ref["t"]) & torch.isfinite(res["t"])
+        rel = ((res["t"] - ref["t"]).abs()
+               / ref["t"].abs().clamp_min(1e-12))
+        tie = both & (rel <= 1e-5)
+        t_ok = torch.where(
+            both, (res["t"] - ref["t"]).abs()
+            <= STREAM_T_ATOL + STREAM_T_RTOL * ref["t"].abs(),
+            torch.isinf(res["t"]) == torch.isinf(ref["t"]))
+        worst.append((float(same.float().mean()),
+                      float((same | tie).float().mean()),
+                      float(t_ok.float().mean()),
+                      float((both & (rel <= 1e-5)).float().sum()
+                            / both.float().sum().clamp_min(1.0)),
+                      float(torch.where(both, rel, 0.0).max())))
+        return res
+
+    r._isect = held
+    r.render_frame(r.init_state(0), cam)
+    for i, (same, same_or_tie, t_ok, t_1e5, rel) in enumerate(worst):
+        say("15a stream", query=i, size=f"{SMALL_W}x{SMALL_H}",
+            against="brute", tri_equal=f"{same:.6f}",
+            tri_equal_or_tie=f"{same_or_tie:.6f}", t_within=f"{t_ok:.6f}",
+            t_within_1e5_rel=f"{t_1e5:.6f}", t_max_rel_err=f"{rel:.3e}")
+        if same_or_tie < 1.0 or (i == 0 and t_ok < 1.0):
+            raise AssertionError(f"15a: stream query {i} differs from "
+                                 f"brute: {same_or_tie}, {t_ok}")
+
+
+def _app_stream(dev, frames=APP_FRAMES):
+    """15a: the interior through Renderer(accel="stream"), held against
+    the tiled frame of the same seed."""
+    import torch
+
+    rt, cam = _interior_renderer(dev, "tiled")
+    st_t, aux_t = rt.render_frame(rt.init_state(0), cam)
+    for _ in range(frames):
+        st_t, _ = rt.render_frame(st_t, cam)
+    r, _ = _interior_renderer(dev, "stream")
+    rows = _stream_passes(r, cam)
+    for mode, rays, pairs, ovf, tiles, blocks in rows:
+        say("15a stream", mode=mode, live_rays=rays, live_pairs=pairs,
+            pairs_per_live_ray=f"{pairs / max(rays, 1):.3f}",
+            overflow=ovf, tiles=tiles, product_blocks=blocks)
+    if any(row[3] for row in rows):
+        raise AssertionError(f"15a: a stream query overflows at "
+                             f"{r.max_pairs_per_ray} pairs per ray")
+    torch.cuda.reset_peak_memory_stats(dev)
+    st, aux = r.render_frame(r.init_state(0), cam)
+    warm = r.frame_stats["Total Frame Time"]
+
+    def one():
+        nonlocal st
+        st, _ = r.render_frame(st, cam)
+
+    ms = timed_frames(one, frames)
+    peak = torch.cuda.max_memory_allocated(dev)
+    mean = float(st.accum.mean())
+    finite = bool(torch.isfinite(st.accum).all())
+    say("15a stream", size=f"{W}x{H}", max_pairs_per_ray=r.max_pairs_per_ray,
+        warmup_ms=f"{warm:.1f}", ms_per_frame=f"{ms:.1f}",
+        peak_mem_gib=f"{peak / 2**30:.2f}", mean=f"{mean:.6f}",
+        finite=finite, overflow=r.frame_stats["overflow"])
+    if not finite or mean <= 0 or r.frame_stats["overflow"]:
+        raise AssertionError(f"15a: bad stream frame: {finite} {mean}")
+    # the first frames' AOVs, and the means of frames + 1 frames
+    _hold_frames("15a stream", "tiled", aux, aux_t, mean,
+                 float(st_t.accum.mean()),
+                 _key_low_bits(rt.clusters.num_clusters, 128, rt.max_visits))
+    _profile_frame("15a profile", lambda: r.render_frame(st, cam), "gemm")
+    _stream_vs_brute(dev)
+    return rt, cam
+
+
+def _app_post(dev, rt, cam):
+    """15b: denoise and upscale of a 1-spp tiled frame and its AOVs."""
+    import torch
+
+    from lumenrenderer_tpu_torch.render import denoise, upscale
+
+    st, aux = _frames_from(rt, cam, 0, 1)
+    ref = _frames_from(rt, cam, 1, APP_REF_SPP)[0].accum
+    raw = st.accum
+
+    def den():
+        return denoise.denoise_frame(raw, aux, W, H)
+
+    def up():
+        return upscale.upscale(out.reshape(H, W, 3), OUT_H, OUT_W,
+                               "lanczos3", sharpen=SHARPEN)
+
+    out = den()
+    for name, fn in (("denoise_frame", den), ("upscale", up)):
+        ms = cuda_time_ms(fn, reps=3)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        fn()
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        _, kernels = _device_kernels(fn)
+        say("15b post", stage=name, ms=f"{ms:.2f}",
+            launches=sum(k[2] for k in kernels),
+            device_ms=f"{sum(k[0] for k in kernels):.2f}",
+            extra_peak_mem_gib=f"{peak / 2**30:.2f}")
+    err_raw = float((raw - ref).abs().mean())
+    err_den = float((out - ref).abs().mean())
+    say("15b post", reference_spp=APP_REF_SPP, raw_mae=f"{err_raw:.6f}",
+        denoised_mae=f"{err_den:.6f}", ratio=f"{err_den / err_raw:.4f}")
+    if not err_den < err_raw:
+        raise AssertionError(f"15b: denoising did not lower the error: "
+                             f"{err_den} vs {err_raw}")
+    img = up()
+    finite = bool(torch.isfinite(img).all())
+    low = float(img.min())
+    worst, worst64 = 0.0, 0.0
+    for n_in, n_out, kern in ((H, OUT_H, "lanczos3"), (W, OUT_W, "lanczos3"),
+                              (OUT_H, OUT_H // 2, "linear"),
+                              (OUT_W // 2, OUT_W, "linear")):
+        k = upscale._KERNELS[kern]
+        args = (n_in, n_out, n_out / n_in, 0.0, k, True)
+        a = upscale.compute_weight_mat(*args, device=dev).cpu()
+        worst = max(worst, float((a - upscale.compute_weight_mat(
+            *args)).abs().max()))
+        worst64 = max(worst64, float((a.double() - upscale.compute_weight_mat(
+            *args, dtype=torch.float64)).abs().max()))
+    say("15b post", upscaled=f"{OUT_W}x{OUT_H}", finite=finite,
+        min=f"{low:.6f}", weights_max_abs_err_vs_cpu=f"{worst:.3e}",
+        weights_max_abs_err_vs_float64=f"{worst64:.3e}")
+    if not finite or low < 0 or worst > WEIGHT_TOL:
+        raise AssertionError(f"15b: bad upscale: {finite} {low} {worst}")
+
+
+def _pan(cam, n):
+    """n cameras moving PAN_STEP in x a frame, each knowing the previous
+    pose (for the motion vectors)."""
+    from lumenrenderer_tpu_torch.core.camera import Camera
+
+    eye = cam.eye.cpu().numpy()
+    cams, prev = [], None
+    for i in range(n):
+        shift = (PAN_STEP * i, 0.0, 0.0)
+        c = Camera.look_at(eye=tuple(eye + shift),
+                           target=tuple(eye + cam.w.cpu().numpy() + shift),
+                           fov_y_deg=60.0, aspect=W / H)
+        cams.append(c.with_previous(prev or c, 60.0, W / H))
+        prev = c
+    return cams
+
+
+def _app_sequence(rt, cam):
+    """15c: render_sequence over a pan; flicker on a static camera."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    imgs = rt.render_sequence(_pan(cam, 3), spp=1, denoise="temporal")
+    ms = (time.perf_counter() - t0) / 3 * 1e3
+    finite = all(np.isfinite(i).all() for i in imgs)
+    raw = rt.render_sequence([cam] * 3, spp=1, denoise="off", seed=5)
+    tmp = rt.render_sequence([cam] * 3, spp=1, denoise="temporal", seed=5)
+    flick_r = float(np.abs(raw[2] - raw[1]).mean())
+    flick_t = float(np.abs(tmp[2] - tmp[1]).mean())
+    say("15c sequence", cameras=3, ms_per_camera=f"{ms:.1f}",
+        finite=finite, flicker_raw=f"{flick_r:.6f}",
+        flicker_temporal=f"{flick_t:.6f}",
+        ratio=f"{flick_t / flick_r:.4f}")
+    if not finite or not flick_t < flick_r:
+        raise AssertionError(f"15c: sequence {finite}, flicker {flick_t} "
+                             f"vs {flick_r}")
+
+
+def _app_checkpoint(dev, rt, cam, directory):
+    """15d: save after 2 frames, load into init_state(999), resume."""
+    import os
+
+    import torch
+
+    from lumenrenderer_tpu_torch.render import checkpoint
+
+    st, _ = _frames_from(rt, cam, 3, 2)
+    path = os.path.join(directory, "state.npz")
+    t0 = time.perf_counter()
+    checkpoint.save_state(path, st)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    resumed = checkpoint.load_state(path, rt.init_state(999))
+    torch.cuda.synchronize(dev)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    a, _ = rt.render_frame(st, cam)
+    b, _ = rt.render_frame(resumed, cam)
+    diff = float((a.accum - b.accum).abs().max())
+    say("15d checkpoint", bytes=os.path.getsize(path),
+        save_ms=f"{save_ms:.1f}", load_ms=f"{load_ms:.1f}",
+        frame_index=resumed.frame_index, max_abs_diff=f"{diff:.3e}")
+    if diff > RESUME_TOL or resumed.frame_index != 2:
+        raise AssertionError(f"15d: resumed frame differs by {diff}")
+
+
+def _png_size(path):
+    import struct
+
+    with open(path, "rb") as f:
+        head = f.read(24)
+    return struct.unpack(">II", head[16:24])
+
+
+def _run_cli(args, directory, launches=False):
+    """The CLI in a subprocess on the card: (seconds, stderr). With
+    launches, the subprocess calls the CLI's main and prints K1's launch
+    counts after it."""
+    import os
+
+    if launches:
+        cmd = [sys.executable, "-c",
+               "import json, sys; from lumenrenderer_tpu_torch.app import "
+               "cli; from lumenrenderer_tpu_torch.ops import visit_scan as "
+               "vs; rc = cli.main(sys.argv[1:]); "
+               "print('K1_LAUNCHES', json.dumps(vs.LAUNCHES)); sys.exit(rc)"]
+    else:
+        cmd = [sys.executable, "-m", "lumenrenderer_tpu_torch.app.cli"]
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd + args, cwd=directory, env=env,
+                          capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"15e: the CLI exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    return seconds, proc.stdout, proc.stderr
+
+
+def _app_cli(directory):
+    """15e: the CLI end to end on the interior (tiled, from a JSON config)
+    and with its defaults on the Cornell box. Returns K1's launches in the
+    interior run."""
+    import os
+
+    cfg_path = os.path.join(directory, "app.json")
+    with open(cfg_path, "w") as f:
+        json.dump({"accel": "tiled"}, f)
+    out = os.path.join(directory, "interior.png")
+    seconds, stdout, stderr = _run_cli(
+        [cfg_path, "--preset", "interior", "--size", f"{W}x{H}",
+         "--out-size", f"{OUT_W}x{OUT_H}", "--spp", str(CLI_SPP),
+         "--depth", "5", "--denoise", "--aovs", "--stats-every",
+         str(CLI_STATS_EVERY), "-o", out], directory, launches=True)
+    size = _png_size(out)
+    aovs = [os.path.exists(out.replace(".png", f".{n}.png"))
+            for n in ("albedo", "normal", "depth")]
+    stages = [ln for ln in stderr.splitlines() if "mean stage times" in ln]
+    launches = json.loads(stdout.split("K1_LAUNCHES", 1)[1].strip())
+    say("15e cli", run="interior", seconds=f"{seconds:.1f}",
+        png=f"{size[0]}x{size[1]}", aovs=all(aovs),
+        launches=json.dumps(launches))
+    say("15e cli", run="interior", stage_times=repr(stages[-1][:600]))
+    # 4 frames of 5 closest and 5 any; 2 probes of 2 frames, 2 primary and
+    # 2 bounce closest queries and 2 occlusion queries
+    probes = -(-CLI_SPP // CLI_STATS_EVERY)
+    expect = {"closest": 5 * CLI_SPP + probes * (4 + 10),
+              "any": 5 * CLI_SPP + probes * (2 + 10)}
+    if size != (OUT_W, OUT_H) or not all(aovs) or launches != expect:
+        raise AssertionError(f"15e: interior CLI wrote {size}, AOVs {aovs}, "
+                             f"K1 {launches} (expected {expect})")
+    seconds, _, stderr = _run_cli(
+        ["--preset", "cornell", "--spp", "4", "-o",
+         os.path.join(directory, "cornell.png")], directory)
+    size = _png_size(os.path.join(directory, "cornell.png"))
+    say("15e cli", run="cornell defaults", seconds=f"{seconds:.1f}",
+        png=f"{size[0]}x{size[1]}",
+        scene=repr([ln for ln in stderr.splitlines()
+                    if ln.startswith("scene:")][0]))
+    if size != (1280, 720):
+        raise AssertionError(f"15e: the default CLI wrote {size}")
+    return launches
+
+
+def phase_app(dev):
+    """Phase 15: the application (stream, denoise, upscale, sequence,
+    checkpoint, the CLI). Returns K1's launches in the CLI's interior
+    run."""
+    import tempfile
+
+    import torch
+
+    torch.cuda.empty_cache()
+    rt, cam = _app_stream(dev)
+    _app_post(dev, rt, cam)
+    _app_sequence(rt, cam)
+    with tempfile.TemporaryDirectory() as directory:
+        _app_checkpoint(dev, rt, cam, directory)
+        stages = rt.profile_stages(cam, reps=3)
+        say("15e profile_stages", **{k.replace(" ", "_"): f"{v:.2f}"
+                                     for k, v in stages.items()})
+        return _app_cli(directory)
+
+
 def main() -> int:
     if not (REPO / "lumenrenderer_tpu_torch" / "ops" / "csrc"
             / "visit_scan.cu").is_file():
@@ -2784,6 +3186,7 @@ def main() -> int:
     run("12 gradients", phase_gradients, dev)
     textured = run("13 textured", phase_textured, dev)
     volume = run("14 volumes", phase_volumes, dev)
+    app = run("15 application", phase_app, dev)
 
     kernels = []
     for name in KERNELS[:3]:
@@ -2802,7 +3205,8 @@ def main() -> int:
                 **({"visits_per_tile": c["visits_per_tile"]}
                    if "visits_per_tile" in c else {}),
                 **({"launches_textured": textured[mode],
-                    "launches_volume": volume[mode]}
+                    "launches_volume": volume[mode],
+                    "launches_app": app[mode]}
                    if name == "visit_scan" else {})})
     for mode in ("closest", "any"):
         c = mega["k1"][mode]

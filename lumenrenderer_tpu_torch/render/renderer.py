@@ -1,6 +1,8 @@
 """Progressive renderer: port of `lumenrenderer_tpu/render/renderer.py` for
-`accel="tiled"` and `accel="two_level"`, static or dynamic, with ReSTIR DI
-when the config asks for it (`use_restir`).
+`accel="tiled"`, `"two_level"`, `"stream"` and `"brute"`, static or dynamic
+(tiled and two-level), with ReSTIR DI when the config asks for it
+(`use_restir`), per-stage timing (`profile_stages`, `stats_every`) and
+animated sequences (`render_sequence`).
 
 The scene and its accel live on `device`, a CUDA device unless the caller
 passes device="cpu". "tiled" clusters the flattened world-space triangles
@@ -9,7 +11,9 @@ each unique mesh once in object space and culls (instance, cluster) units
 (kernel K2). Culling tests each tile's frustum against every cluster or
 unit up to 2048 of them and walks their tree past that (kernel W); the
 `culling` argument can force either. On the CPU each kernel runs as its
-plain PyTorch twin. With
+plain PyTorch twin. "stream" is the pair stream of `accel/stream.py` (the
+CLI's default) and "brute" tests every triangle (the oracle); neither has a
+kernel. With
 `dynamic=` (a `scene.dynamic.DynamicScene`) a transform edit rebakes the
 scene and refits the accel before the next frame.
 """
@@ -18,15 +22,19 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
-from typing import Dict
+from typing import Callable, Dict
 
 import torch
 
-from ..accel import stream, tiled, two_level
+from ..accel import brute, stream, tiled, two_level
+from ..core import camera as camera_mod
 from ..core import sampling
 from ..core.camera import Camera
+from ..integrator import nee as nee_mod
 from ..integrator import wavefront
+from ..integrator.surface import extract_surface_data
 from ..scene.scene import SceneData
+from ..utils import log as log_mod
 from . import state as state_mod
 from . import tonemap
 
@@ -40,7 +48,8 @@ _log = logging.getLogger(__name__)
 
 
 class Renderer:
-    """Progressive wavefront renderer over accel="tiled" or "two_level"."""
+    """Progressive wavefront renderer over accel="tiled", "two_level",
+    "stream" or "brute"."""
 
     DRIFT_REBUILD_RATIO = 2.0
 
@@ -49,7 +58,8 @@ class Renderer:
                  max_visits: int | str = "auto", culling: str = "auto",
                  candidate_dtype: str = "high", device=None,
                  reset_on_camera_move: bool = True, mesh=None, dynamic=None,
-                 builder=None, restir_config=None, restir_fn=None):
+                 builder=None, restir_config=None, restir_fn=None,
+                 max_pairs_per_ray: int = 24, stats_every: int = 0):
         """accel="two_level" needs `builder`, the SceneBuilder of `scene`:
         its instances give the unique meshes (by identity) and transforms.
         max_visits="auto" caps the visit list at min(units, 128) with the
@@ -63,11 +73,20 @@ class Renderer:
         runs the kernels' plain twins on the CPU). dynamic: a DynamicScene
         whose build() is `scene`. With config.use_restir, depth 0's direct
         light is ReSTIR DI: restir_fn, or a `restir.di.RestirDI` of
-        restir_config (default `RestirConfig()`)."""
-        if accel not in ("tiled", "two_level"):
+        restir_config (default `RestirConfig()`). max_pairs_per_ray: the
+        pair cap of accel="stream" (more pairs set `overflow`).
+        stats_every: N > 0 refreshes the per-stage times
+        (`profile_stages(reps=1)`) every N frames, merges them into every
+        frame's `frame_stats` and logs each frame (`utils.log`)."""
+        if accel in ("sah", "bvh", "lbvh"):
             raise NotImplementedError(
                 f"accel={accel!r} is not ported; the PyTorch port has "
-                "accel='tiled' and 'two_level'")
+                "accel='tiled', 'two_level', 'stream' and 'brute'")
+        if accel not in ("tiled", "two_level", "stream", "brute"):
+            raise ValueError(f"unknown accel {accel!r}")
+        if dynamic is not None and accel not in ("tiled", "two_level"):
+            raise ValueError("dynamic scenes need accel='tiled' or "
+                             "'two_level'")
         if accel == "two_level" and builder is None:
             raise ValueError("accel='two_level' needs builder=<SceneBuilder> "
                              "for the instance and mesh tables")
@@ -108,13 +127,16 @@ class Renderer:
         self.scene = scene.to(self.device)
         self.clusters = None
         self.instanced = None
+        self.max_pairs_per_ray = int(max_pairs_per_ray)
         kernel = self.device.type == "cuda"
-        if accel == "tiled":
+        units, twin_cap = 0, 0          # stream and brute: no visit lists
+        if accel in ("tiled", "stream"):
             self.clusters = stream.build_clusters(
                 scene.tri_pos, cluster_size=cluster_size).to(self.device)
+        if accel == "tiled":
             units = self.clusters.num_clusters
             twin_cap = TWIN_VISIT_CAP
-        else:
+        elif accel == "two_level":
             # geometry clustered once per unique mesh, in object space; the
             # flattened scene still gives the shading attributes, indexed by
             # the decoded virtual triangle id
@@ -148,14 +170,31 @@ class Renderer:
         self._reset_on_camera_move = bool(reset_on_camera_move)
         self.frame_stats: Dict[str, float] = {}
         self._frames_done = 0
+        self._stats_every = int(stats_every)
+        self._stage_stats: Dict[str, float] = {}
 
     def _bind_accel(self):
         if self.accel_kind == "tiled":
             self._isect, self._occl = tiled.tiled_intersectors(
                 self.clusters, self.max_visits, culling=self.culling)
-        else:
+        elif self.accel_kind == "two_level":
             self._isect, self._occl = two_level.instanced_intersectors(
                 self.instanced, self.max_visits, culling=self.culling)
+        elif self.accel_kind == "stream":
+            self._isect, self._occl = stream.stream_intersectors(
+                self.clusters, self.max_pairs_per_ray)
+        else:
+            tri_pos = self.scene.tri_pos
+            no_overflow = torch.tensor(False, device=self.device)
+
+            def isect(o, d, tn, tx):
+                return dict(brute.intersect_closest(tri_pos, o, d, tn, tx),
+                            overflow=no_overflow)
+
+            def occl(o, d, tn, tx):
+                return brute.intersect_any(tri_pos, o, d, tn, tx)
+
+            self._isect, self._occl = isect, occl
 
     # -- dynamic scenes -------------------------------------------------------
 
@@ -210,20 +249,9 @@ class Renderer:
         return state_mod.init_state(n, seed, device=self.device,
                                     restir=restir0)
 
-    def render_frame(self, st: state_mod.FrameState, camera: Camera):
-        """One progressive frame: (new_state, aux AOV dict). Accumulation
-        restarts when the camera's pose differs in value from the one the
-        state accumulated."""
-        t0 = time.perf_counter()
-        camera = camera.to(self.device)
-        if self._reset_on_camera_move:
-            sig = camera.signature()
-            if st.camera_sig is not None and sig != st.camera_sig:
-                st = state_mod.reset_accumulation(st)
-            st = dataclasses.replace(st, camera_sig=sig)
-        rebake_ms = None
-        if self._dynamic is not None and self._dynamic.dirty:
-            rebake_ms = self._rebake()
+    def _step(self, st: state_mod.FrameState, camera: Camera):
+        """The frame itself on a device camera: (new_state, aux), waited
+        for."""
         with torch.no_grad():
             out = wavefront.render_wavefront(
                 self.scene, self._isect, self._occl, camera,
@@ -240,22 +268,44 @@ class Renderer:
                if k in out}
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        overflow = bool(out["overflow"])
         if self.config.debug_checks:
             bad = wavefront.decode_debug_stage(int(out["debug_first_bad"]))
             if bad is not None:
                 raise RuntimeError(f"debug_checks: non-finite value first "
                                    f"produced by stage {bad!r}")
+        return new_st, aux
+
+    def render_frame(self, st: state_mod.FrameState, camera: Camera):
+        """One progressive frame: (new_state, aux AOV dict). Accumulation
+        restarts when the camera's pose differs in value from the one the
+        state accumulated."""
+        t0 = time.perf_counter()
+        camera = camera.to(self.device)
+        if self._reset_on_camera_move:
+            sig = camera.signature()
+            if st.camera_sig is not None and sig != st.camera_sig:
+                st = state_mod.reset_accumulation(st)
+            st = dataclasses.replace(st, camera_sig=sig)
+        rebake_ms = None
+        if self._dynamic is not None and self._dynamic.dirty:
+            rebake_ms = self._rebake()
+        new_st, aux = self._step(st, camera)
         self._frames_done += 1
         self.frame_stats = {
             "Total Frame Time": (time.perf_counter() - t0) * 1e3,
             "Frame": self._frames_done,
-            "overflow": overflow,
+            "overflow": bool(aux["overflow"]),
         }
         if rebake_ms is not None:
             self.frame_stats["Rebake Time"] = rebake_ms
         if self._last_drift is not None:
             self.frame_stats["cluster_drift"] = self._last_drift
+        if self._stats_every > 0:
+            # the per-stage probe refreshes every N frames, merged always
+            if (self._frames_done - 1) % self._stats_every == 0:
+                self._stage_stats = self.profile_stages(camera, reps=1)
+            self.frame_stats.update(self._stage_stats)
+            log_mod.frame_record(self.frame_stats)
         return new_st, aux
 
     def render(self, camera: Camera, spp: int = 16, seed: int = 0):
@@ -265,6 +315,34 @@ class Renderer:
             st, _ = self.render_frame(st, camera)
         return st.accum.reshape(self.config.height, self.config.width,
                                 3).cpu().numpy()
+
+    def render_sequence(self, cameras, spp: int = 1,
+                        denoise: str = "temporal", seed: int = 0):
+        """One image per camera of an animated path: (H,W,3) float arrays.
+
+        Frame f renders `spp` frames from init_state(seed + f). denoise:
+        "temporal" (reprojected history through the motion AOV, then
+        À-Trous), "spatial" (À-Trous) or "off". Cameras should carry the
+        previous pose (`Camera.with_previous`) so the motion reprojects."""
+        from . import denoise as dn
+
+        h, w = self.config.height, self.config.width
+        tstate = dn.init_temporal_state(h, w, device=self.device)
+        imgs = []
+        for f, cam in enumerate(cameras):
+            st = self.init_state(seed + f)
+            aux = None
+            for _ in range(spp):
+                st, aux = self.render_frame(st, cam)
+            if denoise == "temporal":
+                tstate, img = dn.temporal_denoise_frame(tstate, st.accum,
+                                                        aux, w, h)
+            elif denoise == "spatial":
+                img = dn.denoise_frame(st.accum, aux, w, h)
+            else:
+                img = st.accum
+            imgs.append(img.reshape(h, w, 3).cpu().numpy())
+        return imgs
 
     def render_png(self, camera: Camera, path: str, spp: int = 16,
                    exposure: float = 1.0):
@@ -276,3 +354,70 @@ class Renderer:
 
     def get_last_frame_stats(self) -> Dict[str, float]:
         return dict(self.frame_stats)
+
+    def profile_stages(self, camera: Camera, reps: int = 3,
+                       seed: int = 0) -> Dict[str, float]:
+        """Per-stage frame-time breakdown (ms), merged into `frame_stats`.
+
+        Each stage runs on its own at the frame's shapes, once to warm up
+        and then `reps` times between two device synchronisations (on the
+        CPU, the host clock alone): primary rays, the closest-hit query on
+        the primary rays and on random bounce rays from their hits, the
+        occlusion query on those, the surface extraction, a BSDF evaluation
+        and a light sample; "Total Frame Time" is whole frames from a fresh
+        state. The intersectors are the ones the frame uses."""
+        cfg = self.config
+        n = cfg.num_pixels
+        dev = self.device
+        camera = camera.to(dev)
+        sc = self.scene
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        uni = sampling.generator_uniforms(gen)
+        stats: Dict[str, float] = {}
+
+        def sync():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+        def timeit(name: str, fn: Callable, *args):
+            with torch.no_grad():
+                out = fn(*args)
+                sync()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    out = fn(*args)
+                sync()
+            stats[name] = (time.perf_counter() - t0) / reps * 1e3
+            return out
+
+        ray_o, ray_d = timeit(
+            "GeneratePrimaryRays", lambda: camera_mod.generate_primary_rays(
+                camera, cfg.width, cfg.height, 0, uni, cfg.jitter))
+        tmin = 1e-3
+        tmax = torch.full((n,), 1e8, dtype=torch.float32, device=dev)
+        hits = timeit("Intersect (primary, coherent)", self._isect, ray_o,
+                      ray_d, tmin, tmax)
+        sd = timeit("ExtractSurfaceData", lambda: extract_surface_data(
+            sc, ray_o, ray_d, hits["tri"], with_tangent=cfg.extract_tangent))
+        bd = uni(n, 3) * 2 - 1
+        bd = bd / bd.norm(dim=-1, keepdim=True)
+        bo = ray_o + torch.where(torch.isfinite(sd.t), sd.t,
+                                 1.0)[:, None] * ray_d
+        timeit("Intersect (bounce, incoherent)", self._isect, bo, bd, tmin,
+               tmax)
+        timeit("Occlusion (shadow)", self._occl, bo, bd, tmin, tmax)
+        timeit("BSDF evaluate", lambda: wavefront._bsdf_eval(cfg, sd, -ray_d,
+                                                             bd))
+        ltab = nee_mod.build_light_table(sc, cfg.light_selection)
+        u3 = uni(n, 3)
+        timeit("ShadeDirect sample_light",
+               lambda: nee_mod.sample_light(ltab, u3, sd.position))
+
+        st = self._step(self.init_state(seed), camera)[0]     # warm
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            st = self._step(st, camera)[0]
+        stats["Total Frame Time"] = (time.perf_counter() - t0) / reps * 1e3
+        self.frame_stats.update(stats)
+        return stats

@@ -23,6 +23,14 @@ def tonemap_gamma(rgb: torch.Tensor, gamma: float = 2.2,
     return (x ** (1.0 / gamma)).clamp(0.0, 1.0)
 
 
+def tonemap_aces(rgb: torch.Tensor, exposure: float = 1.0) -> torch.Tensor:
+    """Narkowicz's fit of the ACES filmic curve, then gamma 2.2."""
+    x = (rgb * exposure).clamp_min(0.0)
+    a, b, c, d, e = 2.51, 0.03, 2.43, 0.59, 0.14
+    return ((x * (a * x + b)) / (x * (c * x + d) + e)).clamp(0.0, 1.0) ** (
+        1 / 2.2)
+
+
 def to_uint8(rgb01: torch.Tensor) -> torch.Tensor:
     return (rgb01.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
 

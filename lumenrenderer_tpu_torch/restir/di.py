@@ -80,7 +80,8 @@ def _map(fn, res: Reservoir) -> Reservoir:
                         for f in dataclasses.fields(Reservoir)})
 
 
-def empty_reservoir(n: int, device=None) -> Reservoir:
+def empty_reservoir(n: int, *,
+                    device: torch.device | str) -> Reservoir:
     f32 = dict(dtype=torch.float32, device=device)
     return Reservoir(
         light_idx=torch.zeros((n,), dtype=torch.int32, device=device),
@@ -89,10 +90,10 @@ def empty_reservoir(n: int, device=None) -> Reservoir:
         p_hat=torch.zeros((n,), **f32))
 
 
-def init_state(n: int, device=None) -> RestirState:
+def init_state(n: int, *, device: torch.device | str) -> RestirState:
     f32 = dict(dtype=torch.float32, device=device)
     return RestirState(
-        reservoir=empty_reservoir(n, device),
+        reservoir=empty_reservoir(n, device=device),
         prev_depth=torch.zeros((n,), **f32),
         prev_normal=torch.zeros((n, 3), **f32),
         prev_position=torch.zeros((n, 3), **f32),
@@ -507,8 +508,9 @@ class RestirDI:
         self.width = width
         self.height = height
 
-    def init_state(self, n: int, device=None) -> RestirState:
-        return init_state(n, device)
+    def init_state(self, n: int, *,
+                   device: torch.device | str) -> RestirState:
+        return init_state(n, device=device)
 
     def __call__(self, scene, sd, wo, hit_mask, motion, state: RestirState,
                  draws, occlude_fn=None):

@@ -48,11 +48,13 @@ def _aabb_segment(lo, hi, o, d, t_min, t_max):
 
 def march_single_volume(vols, v: int, light_table, o, d, t_min, t_max,
                         uniforms: sampling.Uniforms, occlude_fn: Callable,
-                        steps: int = 5, detach_sampling: bool = True,
+                        steps: int = 5, light_samples: bool = True,
+                        detach_sampling: bool = True,
                         alive: Optional[torch.Tensor] = None):
     """(in-scatter (R,3), transmittance (R,)) of volume v along o + t d,
     t in [t_min, t_max]. alive (R,) bool: rays of dead paths, whose result
-    the caller drops, cast no light rays."""
+    the caller drops, cast no light rays. light_samples=False draws no light
+    samples and casts no light rays: the in-scatter is zero."""
     sg = (lambda x: x.detach()) if detach_sampling else (lambda x: x)
     r = o.shape[0]
     t0, t1, hit = _aabb_segment(vols.aabb_lo[v], vols.aabb_hi[v], o, d,
@@ -74,16 +76,17 @@ def march_single_volume(vols, v: int, light_table, o, d, t_min, t_max,
         step_tau = sig * dt
         # transmittance to the middle of this step
         t_here = trans * torch.exp(-0.5 * step_tau)
-        ls = nee_mod.sample_light(light_table, uniforms(r, 3), pos)
-        pdf_sa = nee_mod.pdf_solid_angle(ls)
-        cast = marching & ls.valid & (pdf_sa > 1e-12)
-        occluded = occlude_fn(pos, ls.wi, LIGHT_RAY_EPS, torch.where(
-            cast, ls.dist - 2 * LIGHT_RAY_EPS, -1.0))
-        ok = hit & ls.valid & ~occluded & (pdf_sa > 1e-12) & (seg > 0)
-        scale = torch.where(ok, 1.0 / sg(pdf_sa).clamp_min(1e-12), 0.0)
-        # sigma_s * phase * T_to_here * L * dt
-        scatter = scatter + (albedo * sig * INV_4PI * t_here * sg(dt)
-                             * scale)[:, None] * ls.radiance
+        if light_samples:
+            ls = nee_mod.sample_light(light_table, uniforms(r, 3), pos)
+            pdf_sa = nee_mod.pdf_solid_angle(ls)
+            cast = marching & ls.valid & (pdf_sa > 1e-12)
+            occluded = occlude_fn(pos, ls.wi, LIGHT_RAY_EPS, torch.where(
+                cast, ls.dist - 2 * LIGHT_RAY_EPS, -1.0))
+            ok = hit & ls.valid & ~occluded & (pdf_sa > 1e-12) & (seg > 0)
+            scale = torch.where(ok, 1.0 / sg(pdf_sa).clamp_min(1e-12), 0.0)
+            # sigma_s * phase * T_to_here * L * dt
+            scatter = scatter + (albedo * sig * INV_4PI * t_here * sg(dt)
+                                 * scale)[:, None] * ls.radiance
         trans = trans * torch.exp(-step_tau)
     return scatter, torch.where(hit, trans, 1.0)
 

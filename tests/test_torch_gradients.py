@@ -320,7 +320,8 @@ def test_restir_gradient_matches_jax():
                       pdi.RestirConfig(), W, H)
     src = ListUniforms(jax_frame_uniforms(key, jcfg, W * H, restir_cfg=jr))
     out = pwf.render_wavefront(sc2, pi, po, pcam, src, 0, pcfg,
-                               restir_state=pdi.init_state(W * H),
+                               restir_state=pdi.init_state(
+                                   W * H, device="cpu"),
                                restir_fn=fn)
     v = pwf.merge_channels(out).mean()
     v.backward()

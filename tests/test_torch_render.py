@@ -145,7 +145,7 @@ def test_debug_checks_and_png(tmp_path):
 def test_renderer_refusals():
     sc = presets.furnace_scene()[0].build()
     cfg = RenderConfig(width=8, height=8)
-    for kw in ({"accel": "sah"}, {"accel": "brute"}, {"mesh": object()},
+    for kw in ({"accel": "sah"}, {"accel": "lbvh"}, {"mesh": object()},
                {"candidate_dtype": "bfloat16"}, {"culling": "dense"}):
         with pytest.raises(NotImplementedError):
             Renderer(sc, cfg, device="cpu", **kw)
@@ -170,6 +170,15 @@ def test_port_never_imports_jax():
             "import lumenrenderer_tpu_torch.parallel.train; "
             "import lumenrenderer_tpu_torch.volume.march; "
             "import lumenrenderer_tpu_torch.volume.nvdb; "
+            "import lumenrenderer_tpu_torch.accel.brute; "
+            "import lumenrenderer_tpu_torch.accel.stream; "
+            "import lumenrenderer_tpu_torch.render.denoise; "
+            "import lumenrenderer_tpu_torch.render.upscale; "
+            "import lumenrenderer_tpu_torch.render.checkpoint; "
+            "import lumenrenderer_tpu_torch.utils.config; "
+            "import lumenrenderer_tpu_torch.utils.log; "
+            "import lumenrenderer_tpu_torch.utils.profiling; "
+            "import lumenrenderer_tpu_torch.app.cli; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'chex', 'lumenrenderer_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -393,7 +393,8 @@ def test_restir_frame_matches_jax():
     got = pwf.render_wavefront(
         psc, pi, po, port_camera(cam),
         ListUniforms(jax_frame_uniforms(key, jcfg, w * h, restir_cfg=jrcfg)),
-        0, pwf.RenderConfig(**kw), restir_state=pdi.init_state(w * h),
+        0, pwf.RenderConfig(**kw),
+        restir_state=pdi.init_state(w * h, device="cpu"),
         restir_fn=pdi.RestirDI(po, _port_eval(), prcfg, w, h))
     img_j = np.asarray(jwf.merge_channels(ref))
     img_p = n(pwf.merge_channels(got))
@@ -412,7 +413,7 @@ def test_restir_state_carries_across():
         np.testing.assert_array_equal(
             n(getattr(st.reservoir, f.name)),
             np.asarray(getattr(jstate.reservoir, f.name)))
-    empty = pdi.init_state(6)
+    empty = pdi.init_state(6, device="cpu")
     ref = jdi.init_state(6)
     for f in dataclasses.fields(pdi.RestirState):
         if f.name != "reservoir":

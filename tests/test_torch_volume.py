@@ -273,6 +273,33 @@ def test_march_matches_jax(sparse):
 
 
 @pytest.mark.parametrize("sparse", [False, True])
+def test_march_without_light_samples_matches_jax(sparse):
+    """march_single_volume(light_samples=False): transmittance as JAX's,
+    zero in-scattering, and no light draw (only u0) and no light ray."""
+    jvol, pvol = _volume_pair(sparse)
+    jlt, plt = _light_tables()
+    r = 400
+    o, d, tmax = _box_rays(r, 8)
+    key = jax.random.fold_in(jax.random.PRNGKey(4), 1)
+    jocc, pocc = PlaneOccluder(), PlaneOccluder()
+    js, jt = jmarch.march_single_volume(
+        jvol, 1, jlt, jnp.asarray(o), jnp.asarray(d), jnp.float32(1e-3),
+        jnp.asarray(tmax), key, jocc, steps=4, light_samples=False)
+    src = ListUniforms([np.asarray(jax.random.uniform(
+        jax.random.fold_in(key, 7), (r,)))])
+    ps, pt = pmarch.march_single_volume(
+        pvol, 1, plt, t(o), t(d), 1e-3, t(tmax), src, pocc, steps=4,
+        light_samples=False)
+    assert src.arrays == []
+    assert jocc.rays == pocc.rays == 0
+    jt = np.asarray(jt)
+    assert 0.05 < jt.min() < jt.max() == 1.0
+    np.testing.assert_array_equal(n(ps), np.asarray(js))
+    assert not n(ps).any()
+    np.testing.assert_allclose(n(pt), jt, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("sparse", [False, True])
 @pytest.mark.parametrize("estimator", ["riemann", "ratio"])
 def test_transmittance_matches_jax(estimator, sparse):
     jvol, pvol = _volume_pair(sparse)
@@ -383,7 +410,8 @@ def test_restir_frame_with_fog_matches_jax():
                                           n_volumes=1))
     got = pwf.render_wavefront(
         port_scene(sc), pi, po, port_camera(cam), src, 0,
-        pwf.RenderConfig(**kw), restir_state=pdi.init_state(w * h),
+        pwf.RenderConfig(**kw),
+        restir_state=pdi.init_state(w * h, device="cpu"),
         restir_fn=pdi.RestirDI(po, lambda sd, wo, wi: pwf._bsdf_eval(
             peval, sd, wo, wi), pdi.RestirConfig(), w, h))
     assert src.arrays == []
@@ -393,7 +421,8 @@ def test_restir_frame_with_fog_matches_jax():
     no_fog = pwf.render_wavefront(
         port_scene(sc).replace(volumes=None), pi, po, port_camera(cam),
         ListUniforms(jax_frame_uniforms(key, jcfg, w * h, restir_cfg=rcfg)),
-        0, pwf.RenderConfig(**kw), restir_state=pdi.init_state(w * h),
+        0, pwf.RenderConfig(**kw),
+        restir_state=pdi.init_state(w * h, device="cpu"),
         restir_fn=pdi.RestirDI(po, lambda sd, wo, wi: pwf._bsdf_eval(
             peval, sd, wo, wi), pdi.RestirConfig(), w, h))
     assert float(got["direct"].mean()) < float(no_fog["direct"].mean())
