@@ -6,7 +6,7 @@
 Phases, one line each or more (any failure raises, so the exit code is
 non-zero), each with its seconds:
   1. environment: torch, CUDA, nvcc, the card's name and power limit;
-  2. build kernels K1, K2, K3 and W (ops/csrc/*.cu) with nvcc from this
+  2. build kernels K1, K2, K3, W and T (ops/csrc/*.cu) with nvcc from this
      checkout, one nvcc each, all at once; ptxas registers and spills;
   3. K1 against its plain PyTorch twin on the card: 1,024 tiles each of the
      interior scene's 2560x1440 primary pass and sorted bounce and shadow
@@ -167,7 +167,30 @@ non-zero), each with its seconds:
      mean stage times), and `python -m lumenrenderer_tpu_torch.app.cli
      --preset cornell --spp 4` with the defaults (stream, 1280x720). The
      `kernels` line's K1 rows carry that CLI run's launches as
-     `launches_app`.
+     `launches_app`;
+ 16. the BVH accels and the mesh on the interior at 2560x1440: the SAH
+     BVH built by the native and the numpy builders (host seconds) and the
+     LBVH on the card (ms); 16a: kernel T against its twin on 65,536
+     evenly spaced rays of the primary pass and the sorted bounce and
+     shadow passes, through the SAH BVH and the LBVH, closest and any
+     mode (triangles or hit bits identical on MATCH_FRACTION, t, u and v
+     bit for bit where the triangle agrees, the walk counters identical),
+     then T on every ray of each pass (its time, counter-derived
+     operations, bound and share); 16b: Renderer(accel="sah") and
+     Renderer(accel="lbvh"), depth 5, Disney + MIS, 1 warm-up and 3 timed
+     frames (ms/frame, peak memory, T 5 closest and 5 any launches a
+     frame), held against the tiled frames of the same seed by phase 9's
+     bar, one profiled frame each; 16c: a one-rank NCCL mesh: the tiled
+     frame through Renderer(mesh=), its accumulator equal to the plain
+     one's element for element (K1 10 launches
+     a frame), the ReSTIR frame with its halo, one sharded training step
+     at 2560x1440 (remat) and its gradient all-reduce; then two ranks on
+     the one card in subprocesses (`--rank-worker`; gloo, collectives
+     staged through the host, as NCCL refuses two ranks on one device),
+     720 rows each: the gathered 4-frame image's mean within MEAN_RTOL of
+     the plain frames', its seam rows lit, two ReSTIR frames with the
+     halo, a 320x180 training step whose parameters are equal on both
+     ranks. The `kernels` line has T's rows for the SAH BVH and the LBVH.
 Then a JSON line of per-kernel results, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}. Needs no network; exits
 non-zero without a CUDA device or without the package next to it.
@@ -184,8 +207,11 @@ Kernel W: BOX_TEST_OPS operations per box test, one for each tile's root
 and two per internal node of the one-node-a-step walk stopped at mv + 1
 leaves (the twin's pop counter less the leaves it counted: the kernel pops
 other nodes); its bytes are the tiles' bounds, the tree, and the lists and
-counts out. No single PyTorch call computes any of the four functions, so
-library_ms is null.
+counts out. Kernel T: its own BOX_TEST_OPS (26) per box test (each ray's
+root and two per internal node popped) and SLOT_TEST_OPS (54) per leaf slot
+tested, from its counters; its bytes are the rays in, the results out and the BVH once. No
+single PyTorch call computes any of the five functions, so library_ms is
+null.
 """
 from __future__ import annotations
 
@@ -211,7 +237,8 @@ RESTIR_LIGHTS = 256          # the JAX bench's restir scene
 RESTIR_RATIO = (0.6, 1.05)   # ReSTIR / NEE image mean (biased reuse)
 N_INSTANCES = 120
 PAIRS_PER_RAY = 8
-KERNELS = ("visit_scan", "visit_scan_instanced", "pair_scan", "tree_walk")
+KERNELS = ("visit_scan", "visit_scan_instanced", "pair_scan", "tree_walk",
+           "bvh_traverse")
 MEGA_TRIS, MEGA_LIGHTS = 1_000_000, 256      # the JAX bench's mega scene
 UNITS_INSTANCES = 2100       # phase 11b: 2,101 units
 GRAD_RTOL = 2e-3             # phase 12: linearity, central difference
@@ -227,6 +254,9 @@ REPLACES = {
     "pair_scan": "lumenrenderer_tpu/ops/pallas/pair_intersect.py:129",
     "tree_walk": "lumenrenderer_tpu/accel/tiled.py:113 (XLA while_loop, no "
                  "Pallas kernel)",
+    "bvh_traverse": "lumenrenderer_tpu/accel/traverse.py:60 "
+                    "_traverse_scalar (XLA while_loop under vmap, no Pallas "
+                    "kernel)",
 }
 
 
@@ -3145,7 +3175,476 @@ def phase_app(dev):
         return _app_cli(directory)
 
 
-def main() -> int:
+
+# -- phase 16: the BVH accels (kernel T) and the mesh -------------------------
+
+BVH_SUBSET = 65_536          # 16a: evenly spaced rays of each pass
+MESH_FRAMES = SLICE_FRAMES + 1   # 16c: the 2-rank image's frames
+RANK_TIMEOUT = 420           # 16c: seconds a rank subprocess may take
+RANK_TRAIN_W, RANK_TRAIN_H = 320, 180    # 16c: the 2-rank training step
+
+
+def _bvh_passes(dev, sc, cam):
+    """The interior's 2560x1440 primary, sorted bounce and sorted shadow
+    passes as T takes them: {name: (o, d, t_min, t_max)}."""
+    import torch
+
+    from lumenrenderer_tpu_torch.accel import stream
+
+    cs = stream.build_clusters(sc.tri_pos, cluster_size=128).to(dev)
+
+    def capture(o, d, tn, tx):
+        r = o.shape[0]
+
+        def per_ray(x):
+            return torch.as_tensor(x, dtype=torch.float32, device=dev
+                                   ).expand(r).contiguous()
+
+        return {"rays": (o.contiguous(), d.contiguous(), per_ray(tn),
+                         per_ray(tx)),
+                "overflow": torch.tensor(False, device=dev)}
+
+    passes = _secondary_passes(sc, cs, cam, dev, W, H, capture, primary=True)
+    return {name: q["rays"] for name, q in passes.items()}
+
+
+def _walk_work(bvh, rays, counts, closest):
+    """(operations, bytes) of T's walk of `rays` from its counters: a box
+    test for each root and two for each internal node popped, a
+    Möller–Trumbore test for each slot of each leaf popped; the rays in,
+    the results out and the BVH once."""
+    from lumenrenderer_tpu_torch.ops import bvh_traverse as bt
+
+    r = rays[0].shape[0]
+    c = counts.double().sum(0)
+    ops = (bt.BOX_TEST_OPS * (r + 2 * float(c[0]))
+           + bt.SLOT_TEST_OPS * bvh.leaf_size * float(c[1]))
+    bvh_bytes = _nbytes(bvh.node_lo, bvh.node_hi, bvh.child0, bvh.child1,
+                        bvh.tri_p0, bvh.tri_e1, bvh.tri_e2, bvh.tri_id)
+    return ops, _nbytes(*rays) + r * (16 if closest else 1) + bvh_bytes
+
+
+def _hold_walk_pass(label, name, bvh, rays, closest):
+    """T against its twin on BVH_SUBSET evenly spaced rays of one pass
+    (triangles or hit bits identical on MATCH_FRACTION, t, u and v bit for
+    bit where the triangle agrees, the counters identical), then T on
+    every ray of it: its time, operations, bound and share."""
+    import torch
+
+    from lumenrenderer_tpu_torch.ops import bvh_traverse as bt
+
+    dev = rays[0].device
+    n = rays[0].shape[0]
+    idx = torch.linspace(0, n - 1, min(BVH_SUBSET, n), device=dev).long()
+    sub = tuple(x[idx].contiguous() for x in rays)
+    mode = "closest" if closest else "any"
+    ck = torch.zeros((sub[0].shape[0], 2), dtype=torch.int32, device=dev)
+    ct = torch.zeros_like(ck)
+    kern = bt.bvh_traverse(bvh, *sub, any_hit=not closest, counts=ck)
+    twin = bt.bvh_traverse_ref(bvh, *sub, any_hit=not closest, counts=ct)
+    torch.cuda.synchronize()
+    bt.raise_on_error(dev)
+    if closest:
+        same = kern[1] == twin[1]
+        bits_equal = all(torch.equal(a.view(torch.int32)[same],
+                                     b.view(torch.int32)[same])
+                         for a, b in zip((kern[0], kern[2], kern[3]),
+                                         (twin[0], twin[2], twin[3])))
+        both = same & (kern[1] >= 0)
+        err = float((kern[0] - twin[0]).abs()[both].max()) if bool(
+            both.any()) else 0.0
+    else:
+        same = kern == twin
+        bits_equal, err = True, float((~same).any())
+    match = float(same.float().mean())
+    counters = float((ck == ct).all(1).float().mean())
+    ms = cuda_time_ms(lambda: bt.bvh_traverse(bvh, *sub,
+                                              any_hit=not closest))
+    plain_ms = cuda_time_ms(lambda: bt.bvh_traverse_ref(
+        bvh, *sub, any_hit=not closest), reps=1)
+    ops, nb = _walk_work(bvh, sub, ck, closest)
+    b_ms, b_by = bound_ms(ops, nb)
+    say("16a walk", bvh=label, rays=name, mode=mode, scope="subset",
+        rays_n=sub[0].shape[0], match=f"{match:.6f}",
+        tuv_bits_equal=bits_equal, counters_equal=f"{counters:.6f}",
+        max_abs_err=err, kernel_ms=f"{ms:.4f}", twin_ms=f"{plain_ms:.2f}",
+        ops=f"{ops:.4g}", bound_ms=f"{b_ms:.5f}", bound_by=b_by,
+        share=f"{b_ms / ms:.4f}")
+    if match < MATCH_FRACTION or not bits_equal or counters < MATCH_FRACTION:
+        raise AssertionError(f"16a: T differs from its twin on the {label} "
+                             f"{name} pass ({mode}): match {match}, t/u/v "
+                             f"bits {bits_equal}, counters {counters}")
+    counts = torch.zeros((n, 2), dtype=torch.int32, device=dev)
+    bt.bvh_traverse(bvh, *rays, any_hit=not closest, counts=counts)
+    full_ms = cuda_time_ms(lambda: bt.bvh_traverse(bvh, *rays,
+                                                   any_hit=not closest))
+    f_ops, f_nb = _walk_work(bvh, rays, counts, closest)
+    fb_ms, fb_by = bound_ms(f_ops, f_nb)
+    live = int((rays[3] >= rays[2]).sum())
+    say("16a walk", bvh=label, rays=name, mode=mode, scope="full",
+        rays_n=n, live_rays=live, full_pass_kernel_ms=f"{full_ms:.4f}",
+        inner_per_ray=f"{float(counts[:, 0].double().mean()):.2f}",
+        leaves_per_ray=f"{float(counts[:, 1].double().mean()):.2f}",
+        ops=f"{f_ops:.4g}", bytes=f_nb, bound_ms=f"{fb_ms:.5f}",
+        bound_by=fb_by, share=f"{fb_ms / full_ms:.4f}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "ops": ops, "bytes": nb, "full_pass_ms": full_ms,
+            "full_pass_bound_ms": fb_ms}
+
+
+def _hold_walks(label, bvh, passes):
+    """_hold_walk_pass over the passes in both modes: per mode the worst
+    error and the passes' mean times and bounds, with bound_by."""
+    out = {}
+    for mode, closest in (("closest", True), ("any", False)):
+        rows = [_hold_walk_pass(label, name, bvh, rays, closest)
+                for name, rays in passes.items()]
+        mean = {k: sum(r[k] for r in rows) / len(rows)
+                for k in ("ms", "plain_ms", "bound_ms", "full_pass_ms",
+                          "full_pass_bound_ms")}
+        out[mode] = {"max_abs_err": max(r["max_abs_err"] for r in rows),
+                     **mean, "bound_by": bound_ms(
+                         sum(r["ops"] for r in rows),
+                         sum(r["bytes"] for r in rows))[1]}
+    return out
+
+
+def _bvh_builds(dev, sc):
+    """Host build seconds of the native and numpy SAH builders, the LBVH's
+    device build ms; (sah BVH, lbvh BVH) on the card."""
+    import torch
+
+    from lumenrenderer_tpu_torch.accel import lbvh, sah
+    from lumenrenderer_tpu_torch.native import bvh_native
+
+    tri_np = sc.tri_pos.cpu().numpy()
+    bvh_native.build_library()
+    t0 = time.perf_counter()
+    native = sah.bvh_from_arrays(tri_np, bvh_native.build_sah(tri_np, 4))
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = sah.bvh_from_arrays(tri_np, sah.build_sah_arrays(tri_np, 4))
+    numpy_s = time.perf_counter() - t0
+    lb = lbvh.build_lbvh(sc.tri_pos)
+    lbvh_ms = cuda_time_ms(lambda: lbvh.build_lbvh(sc.tri_pos), reps=3)
+    for label, b in (("sah native", native), ("sah numpy", plain),
+                     ("lbvh", lb)):
+        say("16 build", bvh=label, nodes=b.num_nodes, leaves=b.num_leaves,
+            max_depth=b.max_depth, leaf_size=b.leaf_size)
+    say("16 build", sah_native_host_s=f"{native_s:.3f}",
+        sah_numpy_host_s=f"{numpy_s:.3f}", lbvh_device_ms=f"{lbvh_ms:.3f}")
+    torch.cuda.synchronize()
+    return native.to(dev), lb
+
+
+def _bvh_frames(dev, accel, ref, frames=SLICE_FRAMES):
+    """16b: Renderer(accel) on the interior at 2560x1440, 1 warm-up and
+    `frames` timed frames, T launched 5 closest and 5 any a frame, held
+    against the tiled frames `ref` of the same seed, one profiled frame.
+    Returns T's launches."""
+    import torch
+
+    from lumenrenderer_tpu_torch.ops import bvh_traverse as bt
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r, cam = _interior_renderer(dev, accel)
+    build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    bt.reset_launches()
+    st, aux = r.render_frame(r.init_state(0), cam)
+    warm = r.frame_stats["Total Frame Time"]
+
+    def one():
+        nonlocal st
+        st, _ = r.render_frame(st, cam)
+
+    ms = timed_frames(one, frames)
+    launches = dict(bt.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    mean = float(st.accum.mean())
+    finite = bool(torch.isfinite(st.accum).all())
+    per_frame = {k: v / (frames + 1) for k, v in launches.items()}
+    say("16b bvh frame", accel=accel, size=f"{W}x{H}",
+        renderer_build_s=f"{build_s:.2f}", nodes=r.bvh.num_nodes,
+        max_depth=r.bvh.max_depth, warmup_ms=f"{warm:.1f}",
+        ms_per_frame=f"{ms:.1f}", peak_mem_gib=f"{peak / 2**30:.2f}",
+        mean=f"{mean:.6f}", finite=finite,
+        overflow=r.frame_stats["overflow"], launches=json.dumps(launches))
+    if not finite or mean <= 0 or per_frame != {"closest": 5, "any": 5}:
+        raise AssertionError(f"16b: bad {accel} frame: finite {finite}, "
+                             f"mean {mean}, T launches {per_frame}")
+    rt, aux_t, mean_t = ref
+    _hold_frames("16b bvh frame", f"tiled ({accel})", aux, aux_t, mean,
+                 mean_t, _key_low_bits(rt.clusters.num_clusters, 128,
+                                       rt.max_visits))
+    _profile_frame(f"16b profile {accel}", lambda: r.render_frame(st, cam),
+                   "bvh_traverse_kernel")
+    return launches
+
+
+def _train_setup(r, cam, dev):
+    """(target image at twice the emission, a draws() factory) of the
+    Renderer's frame, for a training step on the emissive."""
+    import torch
+
+    from lumenrenderer_tpu_torch.core import sampling
+    from lumenrenderer_tpu_torch.integrator import wavefront as wf
+    from lumenrenderer_tpu_torch.parallel import train
+
+    def draws():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        return sampling.generator_uniforms(gen)
+
+    cam = cam.to(dev)
+    params0, _ = train.split_params(r.scene)
+    bright = train.merge_params(
+        r.scene, {**params0, "emissive": params0["emissive"] * 2.0})
+    with torch.no_grad():
+        target = wf.merge_channels(wf.render_wavefront(
+            bright, r._isect, r._occl, cam, draws(), 0, r.config))
+    return target, draws
+
+
+def _mesh_one_rank(dev):
+    """16c: a one-rank NCCL mesh: the tiled frame through mesh= against the
+    plain one (K1 10 launches a frame on the rank), the ReSTIR frame with
+    its halo, and one sharded training step with its all-reduce time."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from lumenrenderer_tpu_torch.ops import visit_scan as vs
+    from lumenrenderer_tpu_torch.parallel import shard, train
+    from lumenrenderer_tpu_torch.render.renderer import Renderer
+
+    mesh = shard.make_mesh("cuda")
+    say("16c mesh", ranks=mesh.size(), backend=dist.get_backend())
+    rows, accums = {}, {}
+    for label, kw in (("plain", {}), ("mesh", {"mesh": mesh})):
+        r, cam = _interior_renderer(dev, "tiled", **kw)
+        st = r.render_frame(r.init_state(0), cam)[0]
+        vs.reset_launches()
+
+        def one():
+            nonlocal st
+            st, _ = r.render_frame(st, cam)
+
+        ms = timed_frames(one, SLICE_FRAMES)
+        rows[label] = (ms, float(st.accum.mean()))
+        accums[label] = st.accum
+        per_frame = {k: v / SLICE_FRAMES for k, v in vs.LAUNCHES.items()}
+        say("16c mesh", frame=label, size=f"{W}x{H}",
+            ms_per_frame=f"{ms:.1f}", mean=f"{rows[label][1]:.6f}",
+            k1_launches_per_frame=json.dumps(per_frame))
+        if per_frame != {"closest": 5, "any": 5}:
+            raise AssertionError(f"16c: K1 launches {per_frame} a frame")
+    equal = torch.equal(accums["mesh"], accums["plain"])
+    say("16c mesh", accumulators_equal=equal)
+    if not equal:
+        raise AssertionError(f"16c: a one-rank mesh frame differs from the "
+                             f"plain one: {rows}")
+    del accums
+    cfg = dataclasses.replace(r.config, light_strategy="nee",
+                              use_restir=True)
+    rr = Renderer(r.scene, cfg, accel="tiled", device=dev, mesh=mesh)
+    st = rr.render_frame(rr.init_state(0), cam)[0]
+
+    def one_restir():
+        nonlocal st
+        st, _ = rr.render_frame(st, cam)
+
+    ms = timed_frames(one_restir, SLICE_FRAMES)
+    mean = float(st.accum.mean())
+    say("16c mesh restir", size=f"{W}x{H}", halo_rows=min(
+        rr._restir_fn.cfg.spatial_radius, H), ms_per_frame=f"{ms:.1f}",
+        mean=f"{mean:.6f}", valid=bool(st.restir.valid))
+    if not bool(torch.isfinite(st.accum).all()) or mean <= 0:
+        raise AssertionError(f"16c: bad ReSTIR mesh frame, mean {mean}")
+    del rr, st
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(r.config, remat=True)
+    r = Renderer(r.scene, cfg, accel="tiled", device=dev, mesh=mesh)
+    cam = cam.to(dev)
+    target, draws = _train_setup(r, cam, dev)
+    init, step = train.make_sharded_train_step(
+        r.scene, r._isect, r._occl, cam, cfg,
+        lambda ps: torch.optim.Adam([ps["emissive"]], lr=TRAIN_LR), mesh)
+    state = init()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, loss = step(state, draws(), 0, target)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    reduce_ms = cuda_time_ms(lambda: train.all_reduce_grads(state.params,
+                                                            mesh))
+    say("16c mesh train", size=f"{W}x{H}", remat=True,
+        step_ms=f"{step_ms:.1f}", all_reduce_ms=f"{reduce_ms:.4f}",
+        loss=f"{float(loss):.6g}")
+    if not math.isfinite(float(loss)):
+        raise AssertionError("16c: the sharded step's loss is not finite")
+    dist.destroy_process_group()
+    return rows["plain"][1]
+
+
+def rank_worker(rank: int, world: int, port: int, out: str) -> int:
+    """One rank of 16c's two on one card (`chip_smoke.py --rank-worker`):
+    a gloo group (NCCL refuses two ranks on one device), collectives staged
+    through the host. Writes its results as JSON to `out`."""
+    import dataclasses
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from lumenrenderer_tpu_torch.parallel import shard, train
+    from lumenrenderer_tpu_torch.render.renderer import Renderer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    mesh = shard.make_mesh("cuda")
+    res = {"rank": rank, "backend": dist.get_backend()}
+    r, cam = _interior_renderer(dev, "tiled", mesh=mesh)
+    t0 = time.perf_counter()
+    img = torch.from_numpy(r.render(cam, spp=MESH_FRAMES))
+    res["render_s"] = time.perf_counter() - t0
+    seam = img[H // world - 1:H // world + 1]
+    res.update(mean=float(img.mean()), finite=bool(torch.isfinite(img).all()),
+               seam_row_means=[float(x) for x in seam.mean((1, 2))])
+    cfg = dataclasses.replace(r.config, light_strategy="nee",
+                              use_restir=True)
+    rr = Renderer(r.scene, cfg, accel="tiled", device=dev, mesh=mesh)
+    st = rr.init_state(0)
+    for _ in range(2):
+        st, _ = rr.render_frame(st, cam)
+    full = rr.full_frame(st.accum)
+    res.update(restir_mean=float(full.mean()),
+               restir_finite=bool(torch.isfinite(full).all()))
+    del r, rr, st
+    torch.cuda.empty_cache()
+    rs, cam_s = _interior_renderer(dev, "tiled", w=RANK_TRAIN_W,
+                                   h=RANK_TRAIN_H, mesh=mesh)
+    cam_s = cam_s.to(dev)
+    target, draws = _train_setup(rs, cam_s, dev)
+    init, step = train.make_sharded_train_step(
+        rs.scene, rs._isect, rs._occl, cam_s, rs.config,
+        lambda ps: torch.optim.Adam([ps["emissive"]], lr=TRAIN_LR), mesh)
+    state = init()
+    state, loss = step(state, draws(), 0, target)
+    res.update(loss=float(loss), emissive_sha256=hashlib.sha256(
+        state.params["emissive"].detach().cpu().numpy().tobytes()
+    ).hexdigest())
+    with open(out, "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _mesh_two_ranks(plain_mean_4):
+    """16c: two ranks in subprocesses on the one card, 720 rows each."""
+    import os
+    import tempfile
+
+    from lumenrenderer_tpu_torch.parallel import shard
+
+    port = shard.free_port()
+    with tempfile.TemporaryDirectory() as directory:
+        outs = [os.path.join(directory, f"rank{i}.json") for i in range(2)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--rank-worker",
+             str(i), "2", str(port), outs[i]], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for i in range(2)]
+        t0 = time.perf_counter()
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=max(
+                    1.0, RANK_TIMEOUT - (time.perf_counter() - t0)))[0])
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+                p.communicate()
+            raise AssertionError(f"16c: a rank ran past {RANK_TIMEOUT} s")
+        for p, log in zip(procs, logs):
+            if p.returncode != 0:
+                raise AssertionError(f"16c: a rank failed:\n{log[-3000:]}")
+        res = []
+        for path in outs:
+            with open(path) as f:
+                res.append(json.load(f))
+    seconds = time.perf_counter() - t0
+    mean = res[0]["mean"]
+    rel = abs(mean - plain_mean_4) / plain_mean_4
+    seam = res[0]["seam_row_means"]
+    say("16c two ranks", ranks=2, backend=res[0]["backend"],
+        staging="host (gloo)", rows_per_rank=H // 2,
+        wall_s=f"{seconds:.1f}", render_s=f"{res[0]['render_s']:.2f}",
+        mean=f"{mean:.6f}", plain_mean=f"{plain_mean_4:.6f}",
+        mean_rel_diff=f"{rel:.2e}", seam_row_means=json.dumps(seam),
+        restir_mean=f"{res[0]['restir_mean']:.6f}",
+        train_loss=f"{res[0]['loss']:.6g}",
+        params_equal=res[0]["emissive_sha256"] == res[1]["emissive_sha256"])
+    if (not res[0]["finite"] or rel > MEAN_RTOL or min(seam) <= 0
+            or not res[0]["restir_finite"] or res[0]["restir_mean"] <= 0
+            or res[0]["emissive_sha256"] != res[1]["emissive_sha256"]
+            or res[0]["loss"] != res[1]["loss"]):
+        raise AssertionError(f"16c: the two-rank run failed its bars: {res}")
+
+
+def phase_bvh(dev):
+    """Phase 16: kernel T against its twin (16a), the BVH frames (16b),
+    the mesh on the card (16c). Returns T's rows' inputs."""
+    import torch
+
+    torch.cuda.empty_cache()
+    sc, camf = _scene(dev)
+    cam = camf(W / H).to(dev)
+    sah_bvh, lbvh_bvh = _bvh_builds(dev, sc)
+    passes = _bvh_passes(dev, sc, cam)
+    checks = {"sah": _hold_walks("sah", sah_bvh, passes),
+              "lbvh": _hold_walks("lbvh", lbvh_bvh, passes)}
+    del passes
+    torch.cuda.empty_cache()
+    rt, cam = _interior_renderer(dev, "tiled")
+    st_t, aux_t = _frames_from(rt, cam, 0, 1)
+    for _ in range(SLICE_FRAMES):
+        st_t, _ = rt.render_frame(st_t, cam)
+    ref = (rt, aux_t, float(st_t.accum.mean()))
+    launches = {accel: _bvh_frames(dev, accel, ref)
+                for accel in ("sah", "lbvh")}
+    del rt, st_t
+    plain_mean_4 = _mesh_one_rank(dev)
+    _mesh_two_ranks(plain_mean_4)
+    return checks, launches
+
+
+def _bvh_rows(bvh_checks, bvh_launches):
+    """The `kernels` line's rows of kernel T: the SAH BVH's and the LBVH's,
+    closest and any."""
+    rows = []
+    for accel in ("sah", "lbvh"):
+        for mode in ("closest", "any"):
+            c = bvh_checks[accel][mode]
+            rows.append({
+                "name": f"bvh_traverse[{mode}, {accel}]", "route": "cuda",
+                "source": "lumenrenderer_tpu_torch/ops/csrc/bvh_traverse.cu",
+                "replaces": REPLACES["bvh_traverse"],
+                "launches": bvh_launches[accel][mode],
+                **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "full_pass_ms",
+                                     "full_pass_bound_ms")},
+                "library_ms": None})
+    return rows
+
+
+def main(argv=None) -> int:
+    """No arguments: every phase. `--rank-worker RANK WORLD PORT OUT`: one
+    rank of phase 16c's two."""
+    argv = sys.argv[1:] if argv is None else argv
     if not (REPO / "lumenrenderer_tpu_torch" / "ops" / "csrc"
             / "visit_scan.cu").is_file():
         print("chip_smoke: lumenrenderer_tpu_torch is not next to this "
@@ -3157,6 +3656,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if argv[:1] == ["--rank-worker"]:
+        rank, world, port = (int(x) for x in argv[1:4])
+        return rank_worker(rank, world, port, argv[4])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -3187,6 +3689,7 @@ def main() -> int:
     textured = run("13 textured", phase_textured, dev)
     volume = run("14 volumes", phase_volumes, dev)
     app = run("15 application", phase_app, dev)
+    bvh_checks, bvh_launches = run("16 bvh and mesh", phase_bvh, dev)
 
     kernels = []
     for name in KERNELS[:3]:
@@ -3228,6 +3731,7 @@ def main() -> int:
         "plain_ms": w_["plain_ms"],
         "bound_ms": w_["bound_ms"], "bound_by": w_["bound_by"],
         "library_ms": None})
+    kernels += _bvh_rows(bvh_checks, bvh_launches)
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,23 @@
-"""Host-side binned-SAH builder (numpy).
+"""Host-side binned-SAH builder (numpy) and the triangle BVH built with it.
 
-Port of `build_sah_arrays` and `build_sah_boxes` from
+Port of `build_sah_arrays`, `build_sah_boxes` and `build_sah` from
 `lumenrenderer_tpu/accel/sah.py`, line for line: the same splits give the same
 leaf order. Binned SAH (16 bins, largest centroid axis, object-median
-fallback) with an iterative DFS. The port does not load the optional native
-builder, so its cluster order is always this one.
+fallback) with an iterative DFS. The clusters of `accel/stream.py` always
+use this numpy builder; `build_sah` (the BVH accels) tries the native
+builder first, as the JAX package does, whose partition may differ
+(ROADMAP C-8).
 """
 from __future__ import annotations
 
+import logging
+
 import numpy as np
+import torch
+
+from .format import BVH
+
+_log = logging.getLogger(__name__)
 
 _NBINS = 16
 
@@ -125,3 +134,40 @@ def build_sah_boxes(lo_t: np.ndarray, hi_t: np.ndarray, leaf_size: int = 4):
         order,
         int(max_depth[0]),
     )
+
+
+def bvh_from_arrays(tri_pos, arrays, leaf_size: int = 4) -> BVH:
+    """The BVH of triangles tri_pos (T,3,3) (numpy or tensor) from a
+    builder's (node_lo, node_hi, child0, child1, order, max_depth), on the
+    CPU: padding slots get p0 = inf, e1 = e2 = 0."""
+    tri_pos = np.asarray(torch.as_tensor(tri_pos).cpu(), np.float32)
+    nlo, nhi, c0, c1, order, md = arrays
+    valid = order >= 0
+    p = tri_pos[np.maximum(order, 0)]
+    p0 = np.where(valid[:, None], p[:, 0], np.inf).astype(np.float32)
+    e1 = np.where(valid[:, None], p[:, 1] - p[:, 0], 0.0).astype(np.float32)
+    e2 = np.where(valid[:, None], p[:, 2] - p[:, 0], 0.0).astype(np.float32)
+    return BVH(node_lo=torch.from_numpy(np.asarray(nlo, np.float32)),
+               node_hi=torch.from_numpy(np.asarray(nhi, np.float32)),
+               child0=torch.from_numpy(np.asarray(c0, np.int32)),
+               child1=torch.from_numpy(np.asarray(c1, np.int32)),
+               tri_p0=torch.from_numpy(p0), tri_e1=torch.from_numpy(e1),
+               tri_e2=torch.from_numpy(e2),
+               tri_id=torch.from_numpy(order.astype(np.int32)),
+               leaf_size=leaf_size, max_depth=int(md))
+
+
+def build_sah(tri_pos, leaf_size: int = 4) -> BVH:
+    """Binned-SAH BVH of (T,3,3) triangles, built on the host (returned on
+    the CPU): the native builder when it builds and runs, else, with one
+    warning naming the reason, the numpy builder."""
+    tri_np = np.asarray(torch.as_tensor(tri_pos).cpu(), np.float32)
+    try:
+        from ..native import bvh_native
+
+        arrays = bvh_native.build_sah(tri_np, leaf_size)
+    except Exception as e:      # host build only: numpy is the reference
+        _log.warning("native SAH builder unavailable (%s: %s); using the "
+                     "numpy builder", type(e).__name__, e)
+        arrays = build_sah_arrays(tri_np, leaf_size)
+    return bvh_from_arrays(tri_np, arrays, leaf_size)

@@ -11,7 +11,13 @@ Usage:
 
 `--cpu` renders on the CPU (the kernels' plain twins); without it and
 without a CUDA device the Renderer raises and the command exits non-zero.
-`--mesh` and `--distributed` are not ported yet.
+
+`--distributed` joins the process group that torchrun describes
+(MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK; NCCL, or gloo with `--cpu`),
+and `--mesh` shards the frame's rows over its ranks (a one-rank group
+without `--distributed`); rank 0 writes the PNGs and the log lines:
+  torchrun --nproc_per_node 2 -m lumenrenderer_tpu_torch.app.cli \
+      --mesh --distributed --cpu --preset cornell --size 32x32 -o out.png
 """
 from __future__ import annotations
 
@@ -79,16 +85,43 @@ def main(argv=None) -> int:
     p.add_argument("--stats-every", type=int, default=0,
                    help="refresh per-stage FrameStats every N frames")
     p.add_argument("--mesh", action="store_true",
-                   help="shard the frame over all visible devices "
-                        "(not ported)")
+                   help="shard the frame's rows over the process group's "
+                        "ranks")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process rendering (not ported)")
+                   help="multi-process: join the torchrun process group "
+                        "first")
     args = p.parse_args(argv)
 
-    if args.mesh or args.distributed:
-        raise NotImplementedError(
-            "--mesh and --distributed (multi-device rendering) are not "
-            "ported to PyTorch yet")
+    import torch
+    import torch.distributed as dist
+
+    if not args.cpu and not torch.cuda.is_available():
+        raise RuntimeError(
+            "the CLI renders on a CUDA device and none was found; pass "
+            "--cpu (device='cpu') to render on the CPU")
+    if args.distributed:
+        from ..parallel import distributed
+
+        distributed.initialize(backend="gloo" if args.cpu else None)
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    try:
+        return _render(args, rank)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _render(args, rank: int) -> int:
+    import torch
+
+    def log(text: str) -> None:
+        if rank == 0:
+            print(text, file=sys.stderr)
+
+    if args.distributed:
+        from ..parallel import distributed
+
+        log(f"distributed: {distributed.process_info()}")
 
     from ..utils.config import AppConfig
 
@@ -112,8 +145,6 @@ def main(argv=None) -> int:
     if args.output:
         cfg.output_path = args.output
 
-    import torch
-
     from ..integrator.wavefront import RenderConfig
     from ..render import tonemap
     from ..render.renderer import Renderer
@@ -126,13 +157,19 @@ def main(argv=None) -> int:
         light_strategy=cfg.light_strategy, use_restir=cfg.use_restir,
         debug_checks=args.debug_checks, mipmaps=not args.no_mipmaps,
         volume_transmittance=args.transmittance or "riemann")
-    renderer = Renderer(scene, rc, accel=cfg.accel,
+    mesh = None
+    if args.mesh:
+        from ..parallel import shard
+
+        mesh = shard.make_mesh("cpu" if args.cpu else "cuda")
+        log(f"mesh: {mesh}")
+    renderer = Renderer(scene, rc, accel=cfg.accel, mesh=mesh,
                         stats_every=args.stats_every,
                         device="cpu" if args.cpu else None)
-    print(f"scene: {scene.num_triangles} tris, {int(scene.lights.count)} "
-          f"lights; {w}x{h} depth={cfg.max_depth} spp={cfg.spp} "
-          f"restir={cfg.use_restir} accel={cfg.accel} "
-          f"device={renderer.device}", file=sys.stderr)
+    log(f"scene: {scene.num_triangles} tris, {int(scene.lights.count)} "
+        f"lights; {w}x{h} depth={cfg.max_depth} spp={cfg.spp} "
+        f"restir={cfg.use_restir} accel={cfg.accel} "
+        f"device={renderer.device}")
     st = renderer.init_state(cfg.seed)
     prof = Profiler()
     aux = {}
@@ -144,10 +181,15 @@ def main(argv=None) -> int:
                        if isinstance(v, float)}
         prof.add(fs)
         if (i + 1) % 8 == 0 or i == 0:
-            print(f"frame {i + 1}/{cfg.spp}  "
-                  f"{stats['Total Frame Time']:.1f} ms", file=sys.stderr)
+            log(f"frame {i + 1}/{cfg.spp}  "
+                f"{stats['Total Frame Time']:.1f} ms")
 
-    img = st.accum
+    # under a mesh, every rank's rows
+    img = renderer.full_frame(st.accum)
+    aux = {k: (renderer.full_frame(v) if v.ndim else v)
+           for k, v in aux.items()}
+    if rank != 0:
+        return 0
     if cfg.denoise:
         from ..render.denoise import denoise_frame
 

@@ -1,7 +1,9 @@
 """Pinhole camera, primary rays and motion vectors.
 
 Port of `lumenrenderer_tpu/core/camera.py` (`block_swizzle_map` is not ported:
-swizzled ray order is refused by the integrator).
+swizzled ray order is refused by the integrator). `pixel_ids` traces a
+slice of the frame (a rank's rows under a device mesh): n follows it, and
+width and height stay the full frame's.
 """
 from __future__ import annotations
 
@@ -77,17 +79,25 @@ class Camera(TensorStruct):
                         for x in (self.eye, self.u, self.v, self.w))
 
 
+def _ids(n: int, pixel_ids, device) -> torch.Tensor:
+    if pixel_ids is None:
+        return torch.arange(n, dtype=torch.int64, device=device)
+    return pixel_ids.to(torch.int64)
+
+
 def generate_primary_rays(camera: Camera, width: int, height: int,
                           frame_index: int, uniforms: sampling.Uniforms | None
-                          = None, jitter: str = "halton"
+                          = None, jitter: str = "halton",
+                          pixel_ids: torch.Tensor | None = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One jittered primary ray per pixel, row-major: (origins, dirs) (N,3).
+    """One jittered primary ray per pixel, row-major: (origins, dirs) (N,3),
+    or one per entry of `pixel_ids` (N',), global pixel indices.
 
     jitter: "halton" (Halton(2,3) by frame), "random" (draws (N,2) from
     `uniforms`) or anything else for the pixel center."""
     dev = camera.eye.device
-    n = width * height
-    ids = torch.arange(n, dtype=torch.int64, device=dev)
+    n = width * height if pixel_ids is None else pixel_ids.shape[0]
+    ids = _ids(n, pixel_ids, dev)
     px = ids % width
     py = ids // width
     if jitter == "halton":
@@ -106,8 +116,10 @@ def generate_primary_rays(camera: Camera, width: int, height: int,
 
 
 def motion_vectors(world_pos: torch.Tensor, valid: torch.Tensor,
-                   camera: Camera, width: int, height: int) -> torch.Tensor:
-    """Screen-space motion (prev - current pixel), (N,2); 0 where invalid."""
+                   camera: Camera, width: int, height: int,
+                   pixel_ids: torch.Tensor | None = None) -> torch.Tensor:
+    """Screen-space motion (prev - current pixel), (N,2); 0 where invalid.
+    Row i is pixel i, or pixel_ids[i]."""
     n = world_pos.shape[0]
     hp = torch.cat([world_pos, torch.ones_like(world_pos[:, :1])], dim=-1)
     clip = hp @ camera.prev_view_proj.T
@@ -115,7 +127,7 @@ def motion_vectors(world_pos: torch.Tensor, valid: torch.Tensor,
     ndc = clip[:, :2] / torch.where(w.abs() > 1e-8, w, torch.ones_like(w))
     prev_px = (ndc[:, 0] * 0.5 + 0.5) * width
     prev_py = (0.5 - ndc[:, 1] * 0.5) * height
-    ids = torch.arange(n, dtype=torch.int64, device=world_pos.device)
+    ids = _ids(n, pixel_ids, world_pos.device)
     cur_px = (ids % width).to(F32) + 0.5
     cur_py = (ids // width).to(F32) + 0.5
     mv = torch.stack([prev_px - cur_px, prev_py - cur_py], dim=-1)

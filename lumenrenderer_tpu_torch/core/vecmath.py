@@ -82,5 +82,13 @@ def to_world_frame(local, t, b, n) -> torch.Tensor:
     return local[..., 0:1] * t + local[..., 1:2] * b + local[..., 2:3] * n
 
 
+def safe_rcp(x: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
+    """1/x with a sign-preserving clamp away from zero (a ray's inverse
+    direction): +-1/eps where |x| <= eps (+ for x >= 0)."""
+    big = x.abs() > eps
+    return torch.where(big, 1.0 / torch.where(big, x, 1.0),
+                       torch.where(x >= 0.0, 1.0 / eps, -1.0 / eps))
+
+
 def lerp(a, b, t):
     return a + (b - a) * t

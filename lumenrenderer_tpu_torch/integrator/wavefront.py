@@ -223,11 +223,15 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
 
     Differentiable when run with gradients enabled: e.g. the mean of
     `merge_channels(out)` backpropagates into `scene.materials` and
-    `scene.env_radiance` tensors that require grad."""
-    if pixel_ids is not None:
-        raise NotImplementedError("pixel_ids (frame slices) are not ported")
+    `scene.env_radiance` tensors that require grad.
+
+    pixel_ids: optional (N',) global pixel indices: trace that slice of the
+    frame (under a device mesh, the rank's rows); every per-pixel output
+    and draw has N' rows in pixel_ids order, and cfg.width and cfg.height
+    stay the full frame's for the camera. (swizzle, which it excludes, is
+    not ported.)"""
     dev = camera.eye.device
-    n = cfg.num_pixels
+    n = cfg.num_pixels if pixel_ids is None else pixel_ids.shape[0]
     f32 = torch.float32
     sg = _detach if cfg.detach_sampling else (lambda x: x)
 
@@ -235,7 +239,8 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     ray_o, ray_d = camera_mod.generate_primary_rays(
-        camera, cfg.width, cfg.height, frame_index, uniforms, cfg.jitter)
+        camera, cfg.width, cfg.height, frame_index, uniforms, cfg.jitter,
+        pixel_ids=pixel_ids)
     # ray-footprint mip selection: the per-pixel angular spread (the
     # camera's half-screen vector v spans height / 2 pixels) and the path
     # length so far (bounce rays keep widening)
@@ -341,7 +346,8 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
             aovs["normal"] = _sel(hit_mask, sd.normal, 0.0)
             aovs["albedo"] = _sel(hit_mask, sd.base_color, 0.0)
             aovs["motion"] = camera_mod.motion_vectors(
-                sd.position, hit_mask, camera, cfg.width, cfg.height)
+                sd.position, hit_mask, camera, cfg.width, cfg.height,
+                pixel_ids=pixel_ids)
 
         # emissive surface hit
         em = throughput * sd.emissive

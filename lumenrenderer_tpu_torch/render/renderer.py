@@ -1,8 +1,9 @@
 """Progressive renderer: port of `lumenrenderer_tpu/render/renderer.py` for
-`accel="tiled"`, `"two_level"`, `"stream"` and `"brute"`, static or dynamic
-(tiled and two-level), with ReSTIR DI when the config asks for it
-(`use_restir`), per-stage timing (`profile_stages`, `stats_every`) and
-animated sequences (`render_sequence`).
+`accel="tiled"`, `"two_level"`, `"stream"`, `"sah"`/`"bvh"`, `"lbvh"` and
+`"brute"`, static or dynamic (tiled and two-level), with ReSTIR DI when the
+config asks for it (`use_restir`), per-stage timing (`profile_stages`,
+`stats_every`), animated sequences (`render_sequence`) and row-sharded
+rendering over a `torch.distributed` device mesh (`mesh=`).
 
 The scene and its accel live on `device`, a CUDA device unless the caller
 passes device="cpu". "tiled" clusters the flattened world-space triangles
@@ -13,9 +14,20 @@ unit up to 2048 of them and walks their tree past that (kernel W); the
 `culling` argument can force either. On the CPU each kernel runs as its
 plain PyTorch twin. "stream" is the pair stream of `accel/stream.py` (the
 CLI's default) and "brute" tests every triangle (the oracle); neither has a
-kernel. With
+kernel. "sah" and "bvh" build a binned-SAH BVH on the host, "lbvh" a
+Morton LBVH on the device; both are walked per ray by kernel T. With
 `dynamic=` (a `scene.dynamic.DynamicScene`) a transform edit rebakes the
 scene and refits the accel before the next frame.
+
+Under `mesh=` (a 1-D `torch.distributed` DeviceMesh, `parallel/shard.py`)
+every rank renders its band of height / world rows through `pixel_ids`
+and keeps a FrameState of those rows only; the scene is rank 0's
+(broadcast) and each rank builds the same accel from it. Rank r draws
+from a generator seeded with `rank_seed(seed, r)` (rank 0 the seed
+itself), as JAX folds the shard index into its key. The frame's overflow
+is all-reduced with MAX, `render` gathers the image on every rank and
+`render_png` writes it on rank 0. ReSTIR's spatial reuse exchanges a band
+of rows with the neighbour ranks (`restir.di` `halo`).
 """
 from __future__ import annotations
 
@@ -24,9 +36,10 @@ import logging
 import time
 from typing import Callable, Dict
 
+import numpy as np
 import torch
 
-from ..accel import brute, stream, tiled, two_level
+from ..accel import brute, lbvh, sah, stream, tiled, traverse, two_level
 from ..core import camera as camera_mod
 from ..core import sampling
 from ..core.camera import Camera
@@ -47,9 +60,19 @@ TWIN_UNIT_CAP = 64          # two-level: units are smaller than clusters
 _log = logging.getLogger(__name__)
 
 
+def rank_seed(seed: int, rank: int) -> int:
+    """The generator seed of `rank` under a mesh: the seed itself on rank
+    0, else 64 bits that numpy's SeedSequence draws from (seed, rank)."""
+    if rank == 0:
+        return int(seed)
+    return int(np.random.SeedSequence([int(seed), int(rank)])
+               .generate_state(1, np.uint64)[0])
+
+
 class Renderer:
     """Progressive wavefront renderer over accel="tiled", "two_level",
-    "stream" or "brute"."""
+    "stream", "sah"/"bvh", "lbvh" or "brute", on one device or over a
+    mesh's ranks."""
 
     DRIFT_REBUILD_RATIO = 2.0
 
@@ -59,7 +82,8 @@ class Renderer:
                  candidate_dtype: str = "high", device=None,
                  reset_on_camera_move: bool = True, mesh=None, dynamic=None,
                  builder=None, restir_config=None, restir_fn=None,
-                 max_pairs_per_ray: int = 24, stats_every: int = 0):
+                 max_pairs_per_ray: int = 24, stats_every: int = 0,
+                 leaf_size: int = 4):
         """accel="two_level" needs `builder`, the SceneBuilder of `scene`:
         its instances give the unique meshes (by identity) and transforms.
         max_visits="auto" caps the visit list at min(units, 128) with the
@@ -77,12 +101,13 @@ class Renderer:
         pair cap of accel="stream" (more pairs set `overflow`).
         stats_every: N > 0 refreshes the per-stage times
         (`profile_stages(reps=1)`) every N frames, merges them into every
-        frame's `frame_stats` and logs each frame (`utils.log`)."""
-        if accel in ("sah", "bvh", "lbvh"):
-            raise NotImplementedError(
-                f"accel={accel!r} is not ported; the PyTorch port has "
-                "accel='tiled', 'two_level', 'stream' and 'brute'")
-        if accel not in ("tiled", "two_level", "stream", "brute"):
+        frame's `frame_stats` and logs each frame (`utils.log`).
+        leaf_size: triangles per BVH leaf ("sah", "bvh", "lbvh").
+        mesh: a 1-D DeviceMesh (`parallel.shard.make_mesh`) whose size
+        divides the height: this process renders its rows (module
+        docstring); with `dynamic`, only accel="tiled"."""
+        if accel not in ("tiled", "two_level", "stream", "sah", "bvh",
+                         "lbvh", "brute"):
             raise ValueError(f"unknown accel {accel!r}")
         if dynamic is not None and accel not in ("tiled", "two_level"):
             raise ValueError("dynamic scenes need accel='tiled' or "
@@ -90,8 +115,8 @@ class Renderer:
         if accel == "two_level" and builder is None:
             raise ValueError("accel='two_level' needs builder=<SceneBuilder> "
                              "for the instance and mesh tables")
-        if mesh is not None:
-            raise NotImplementedError("mesh (multi-device) is not ported")
+        if mesh is not None and dynamic is not None and accel != "tiled":
+            raise ValueError("dynamic+mesh needs accel='tiled'")
         if culling not in ("auto", "frustum", "tree"):
             raise NotImplementedError(
                 f"culling={culling!r} is not ported; 'auto', 'frustum' and "
@@ -125,8 +150,19 @@ class Renderer:
         self.accel_kind = accel
         self.culling = culling
         self.scene = scene.to(self.device)
+        self._mesh = mesh
+        self._pixel_ids = None
+        self._rank, world = 0, 1
+        if mesh is not None:
+            from ..parallel import shard
+
+            self._rank, world = shard.rank_and_size(mesh)
+            self._pixel_ids = shard.pixel_ids(config.width, config.height,
+                                              mesh, self.device)
+            self.scene = scene = shard.replicate(self.scene, mesh)
         self.clusters = None
         self.instanced = None
+        self.bvh = None
         self.max_pairs_per_ray = int(max_pairs_per_ray)
         kernel = self.device.type == "cuda"
         units, twin_cap = 0, 0          # stream and brute: no visit lists
@@ -136,6 +172,14 @@ class Renderer:
         if accel == "tiled":
             units = self.clusters.num_clusters
             twin_cap = TWIN_VISIT_CAP
+        elif accel in ("sah", "bvh"):
+            # static scene: host binned-SAH build, the best tree quality
+            self.bvh = sah.build_sah(scene.tri_pos,
+                                     leaf_size=leaf_size).to(self.device)
+        elif accel == "lbvh":
+            # device Morton LBVH: a quicker build of a looser tree
+            self.bvh = lbvh.build_lbvh(self.scene.tri_pos,
+                                       leaf_size=leaf_size)
         elif accel == "two_level":
             # geometry clustered once per unique mesh, in object space; the
             # flattened scene still gives the shading attributes, indexed by
@@ -156,10 +200,13 @@ class Renderer:
 
             # the frame passes its own (sorted, current) occluder at call
             # time; the bound one is the default for direct callers
+            # under a mesh the reservoir grid is the rank's rows, and
+            # spatial reuse exchanges a band with the neighbour ranks
             restir_fn = RestirDI(
                 self._occl,
                 lambda sd, wo, wi: wavefront._bsdf_eval(config, sd, wo, wi),
-                restir_config or RestirConfig(), config.width, config.height)
+                restir_config or RestirConfig(), config.width,
+                config.height // world, halo=mesh)
         self._restir_fn = restir_fn
         self._dynamic = dynamic
         # drift baseline for dynamic cluster refits
@@ -183,6 +230,8 @@ class Renderer:
         elif self.accel_kind == "stream":
             self._isect, self._occl = stream.stream_intersectors(
                 self.clusters, self.max_pairs_per_ray)
+        elif self.bvh is not None:
+            self._isect, self._occl = traverse.bvh_intersectors(self.bvh)
         else:
             tri_pos = self.scene.tri_pos
             no_overflow = torch.tensor(False, device=self.device)
@@ -241,13 +290,25 @@ class Renderer:
     # -- public API -----------------------------------------------------------
 
     def init_state(self, seed: int = 0) -> state_mod.FrameState:
-        n = self.config.num_pixels
+        """A fresh state of this rank's pixels (all of them without a
+        mesh), its generator seeded with `rank_seed(seed, rank)`."""
+        n = (self.config.num_pixels if self._pixel_ids is None
+             else self._pixel_ids.shape[0])
         restir0 = None
         if self._restir_fn is not None and hasattr(self._restir_fn,
                                                    "init_state"):
             restir0 = self._restir_fn.init_state(n, device=self.device)
-        return state_mod.init_state(n, seed, device=self.device,
-                                    restir=restir0)
+        return state_mod.init_state(n, rank_seed(seed, self._rank),
+                                    device=self.device, restir=restir0)
+
+    def full_frame(self, x: torch.Tensor) -> torch.Tensor:
+        """A per-pixel tensor of this rank's rows as the whole frame (every
+        rank's rows gathered); x itself without a mesh."""
+        if self._mesh is None:
+            return x
+        from ..parallel import shard
+
+        return shard.gather_pixels(x, self._mesh)
 
     def _step(self, st: state_mod.FrameState, camera: Camera):
         """The frame itself on a device camera: (new_state, aux), waited
@@ -257,7 +318,7 @@ class Renderer:
                 self.scene, self._isect, self._occl, camera,
                 sampling.generator_uniforms(st.generator), st.frame_index,
                 self.config, restir_state=st.restir,
-                restir_fn=self._restir_fn)
+                restir_fn=self._restir_fn, pixel_ids=self._pixel_ids)
             accum = tonemap.blend_accumulate(
                 st.accum, wavefront.merge_channels(out), st.blend_count)
         new_st = dataclasses.replace(
@@ -266,10 +327,24 @@ class Renderer:
         aux = {k: out[k] for k in ("depth", "normal", "albedo", "motion",
                                    "overflow", "debug_first_bad")
                if k in out}
+        if self._mesh is not None:
+            # the frame's scalars are the mesh's: any rank's overflow or
+            # first bad stage
+            from ..parallel import shard
+
+            for k in ("overflow", "debug_first_bad"):
+                if k in aux:
+                    aux[k] = shard.all_reduce(
+                        aux[k].to(torch.int32), self._mesh,
+                        torch.distributed.ReduceOp.MAX).to(aux[k].dtype)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+            if self.bvh is not None:
+                from ..ops import bvh_traverse
+
+                bvh_traverse.raise_on_error(self.device)
         if self.config.debug_checks:
-            bad = wavefront.decode_debug_stage(int(out["debug_first_bad"]))
+            bad = wavefront.decode_debug_stage(int(aux["debug_first_bad"]))
             if bad is not None:
                 raise RuntimeError(f"debug_checks: non-finite value first "
                                    f"produced by stage {bad!r}")
@@ -309,12 +384,13 @@ class Renderer:
         return new_st, aux
 
     def render(self, camera: Camera, spp: int = 16, seed: int = 0):
-        """Render `spp` progressive frames; (H,W,3) float radiance."""
+        """Render `spp` progressive frames; (H,W,3) float radiance (under a
+        mesh, the gathered frame, on every rank)."""
         st = self.init_state(seed)
         for _ in range(spp):
             st, _ = self.render_frame(st, camera)
-        return st.accum.reshape(self.config.height, self.config.width,
-                                3).cpu().numpy()
+        return self.full_frame(st.accum).reshape(
+            self.config.height, self.config.width, 3).cpu().numpy()
 
     def render_sequence(self, cameras, spp: int = 1,
                         denoise: str = "temporal", seed: int = 0):
@@ -334,22 +410,27 @@ class Renderer:
             aux = None
             for _ in range(spp):
                 st, aux = self.render_frame(st, cam)
+            accum = self.full_frame(st.accum)
+            aux = {k: (self.full_frame(v) if v.ndim else v)
+                   for k, v in aux.items()}
             if denoise == "temporal":
-                tstate, img = dn.temporal_denoise_frame(tstate, st.accum,
-                                                        aux, w, h)
+                tstate, img = dn.temporal_denoise_frame(tstate, accum, aux,
+                                                        w, h)
             elif denoise == "spatial":
-                img = dn.denoise_frame(st.accum, aux, w, h)
+                img = dn.denoise_frame(accum, aux, w, h)
             else:
-                img = st.accum
+                img = accum
             imgs.append(img.reshape(h, w, 3).cpu().numpy())
         return imgs
 
     def render_png(self, camera: Camera, path: str, spp: int = 16,
                    exposure: float = 1.0):
+        """Render and write the PNG (under a mesh, rank 0 writes)."""
         img = self.render(camera, spp)
-        u8 = tonemap.to_uint8(tonemap.tonemap_gamma(torch.from_numpy(img),
-                                                    exposure=exposure))
-        tonemap.save_png(path, u8.numpy())
+        if self._rank == 0:
+            u8 = tonemap.to_uint8(tonemap.tonemap_gamma(
+                torch.from_numpy(img), exposure=exposure))
+            tonemap.save_png(path, u8.numpy())
         return img
 
     def get_last_frame_stats(self) -> Dict[str, float]:

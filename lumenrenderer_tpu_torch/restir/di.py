@@ -388,13 +388,44 @@ def spatial_pass(scene, sd, res, hit_mask, cfg, width, height, draws,
     """spatial_iterations rounds of spatial_samples random neighbours within
     spatial_radius, combined behind the depth and normal gates; each round
     reads the previous round's reservoirs. Unbiased mode re-evaluates the
-    winner at every contributing neighbour's surface."""
-    if halo is not None:
-        raise NotImplementedError(
-            "the spatial halo (row-sharded multi-device reuse) is not ported")
+    winner at every contributing neighbour's surface.
+
+    halo: a 1-D DeviceMesh (`parallel.shard`) whose ranks hold consecutive
+    bands of `height` rows of one frame, this rank's given here. The
+    gbuffer, and before every round the current reservoirs, are extended
+    by band = min(spatial_radius, height) rows from each neighbour rank
+    (`shard.exchange_rows`; zero rows with hit_mask False at the frame's
+    edges, which the gates discard, as at the image border), and the
+    round's draws are over that extended grid, width x (height + 2 band),
+    as JAX's `ppermute` halo draws them. A neighbourhood reaches one rank
+    only (ROADMAP C-19)."""
+    if halo is not None and not hasattr(halo, "get_group"):
+        raise TypeError("halo must be a torch DeviceMesh (parallel.shard."
+                        f"make_mesh), not {type(halo).__name__}")
     s = cfg.spatial_samples
-    pos, nrm, alb, hit = sd.position, sd.normal, sd.base_color, hit_mask
-    n = width * height
+    if halo is not None:
+        from ..parallel import shard
+
+        band = min(cfg.spatial_radius, height)
+        h_ext = height + 2 * band
+
+        def ext(x):
+            img = x.reshape((height, width) + x.shape[1:])
+            top, bottom = shard.exchange_rows(img, band, halo)
+            return torch.cat([top, img, bottom]).reshape(
+                (-1,) + x.shape[1:])
+
+        def interior(x):
+            return x.reshape((h_ext, width) + x.shape[1:])[
+                band:band + height].reshape((-1,) + x.shape[1:])
+
+        pos, nrm, alb, hit = (ext(sd.position), ext(sd.normal),
+                              ext(sd.base_color), ext(hit_mask))
+    else:
+        h_ext = height
+        ext = interior = lambda x: x  # noqa: E731
+        pos, nrm, alb, hit = sd.position, sd.normal, sd.base_color, hit_mask
+    n = width * h_ext
     ids = torch.arange(n, dtype=torch.int32, device=pos.device)
     px, py = ids % width, ids // width
     depth_here = vm.length(pos)
@@ -407,7 +438,8 @@ def spatial_pass(scene, sd, res, hit_mask, cfg, width, height, draws,
     static_pack = torch.cat(static_cols, dim=1)
 
     for _ in range(cfg.spatial_iterations):
-        src = res
+        # the neighbours' band is refreshed from their current reservoirs
+        src = _map(ext, res)
         # light_idx rides bit-cast as float32 (small indices are denormals):
         # only copied and gathered, never computed on
         packed = torch.cat([
@@ -419,7 +451,7 @@ def spatial_pass(scene, sd, res, hit_mask, cfg, width, height, draws,
         nx = (px[:, None] + (torch.cos(ang) * rad).to(torch.int32)).clamp(
             0, width - 1)
         ny = (py[:, None] + (torch.sin(ang) * rad).to(torch.int32)).clamp(
-            0, height - 1)
+            0, h_ext - 1)
         nbp = packed[(ny * width + nx).long()]                 # (N,S,K)
         nb_light = nbp[..., 0].view(torch.int32)
         nb_bary = nbp[..., 1:3]
@@ -464,8 +496,9 @@ def spatial_pass(scene, sd, res, hit_mask, cfg, width, height, draws,
             best_phat > 0,
             w_sum / (denom_m.clamp_min(1e-6) * best_phat.clamp_min(1e-20)),
             0.0)
-        res = Reservoir(light_idx=best_light, bary=best_bary, w_sum=w_sum,
-                        m=m_tot, w_out=w_out, p_hat=best_phat)
+        res = _map(interior, Reservoir(
+            light_idx=best_light, bary=best_bary, w_sum=w_sum, m=m_tot,
+            w_out=w_out, p_hat=best_phat))
     return res
 
 
@@ -499,14 +532,15 @@ class RestirDI:
 
     def __init__(self, occlude_fn, eval_f, cfg: RestirConfig, width: int,
                  height: int, halo=None):
-        if halo is not None:
-            raise NotImplementedError(
-                "halo (row-sharded multi-device ReSTIR) is not ported")
+        """halo: under a row-sharded mesh, the DeviceMesh (height is then
+        this rank's rows); spatial reuse exchanges its seam bands
+        (`spatial_pass`)."""
         self.occlude_fn = occlude_fn
         self.eval_f = eval_f
         self.cfg = cfg
         self.width = width
         self.height = height
+        self.halo = halo
 
     def init_state(self, n: int, *,
                    device: torch.device | str) -> RestirState:
@@ -533,7 +567,8 @@ class RestirDI:
                                 self.width, self.height, draws,
                                 rad_all=rad_all)
         res = spatial_pass(scene, sd, res, hit_mask, cfg, self.width,
-                           self.height, draws, rad_all=rad_all)
+                           self.height, draws, rad_all=rad_all,
+                           halo=self.halo)
         res_final = visibility_pass(scene, sd, res, occl, hit_mask,
                                     rad_all=rad_all)
         color = shade(scene, sd, wo, res_final, self.eval_f, hit_mask,

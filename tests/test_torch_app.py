@@ -122,9 +122,9 @@ def test_torch_cli_without_cuda_fails(tmp_path):
     assert r.returncode != 0
     assert "RuntimeError" in r.stderr and "device='cpu'" in r.stderr
     assert not os.path.exists(tmp_path / "x.png")
-    for flag in ("--mesh", "--distributed"):
-        with pytest.raises(NotImplementedError):
-            cli.main(["--cpu", flag])
+    for flag in ("--mesh", "--distributed"):   # multi-device: the card too
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main([flag, "--preset", "cornell", "--spp", "1"])
 
 
 def test_torch_tonemap_aces_matches_jax():

@@ -1,5 +1,6 @@
 """Kernels K1 (ops/csrc/visit_scan.cu), K2 (visit_scan_instanced.cu), K3
-(pair_scan.cu) and W (tree_walk.cu) on the card against their plain twins.
+(pair_scan.cu), W (tree_walk.cu) and T (bvh_traverse.cu) on the card
+against their plain twins.
 
 Marked `cuda`: these need an NVIDIA GPU with nvcc (Hopper, sm_90a) and skip
 where torch.cuda.is_available() is False. Run them on the card with
@@ -8,14 +9,18 @@ Tolerance: keys identical on at least 99.99% of rays, every differing key a
 tie within the key's t resolution; occlusion bits identical; K1's and K2's
 visit counters identical to `executed_visits_ref` and
 `executed_visits_instanced_ref`; K3's dead tiles the miss key (0); W's
-lists, entry t (bit for bit) and counts identical to its twin's.
+lists, entry t (bit for bit) and counts identical to its twin's; T's
+triangles, hit bits, counters and t, u, v (bit for bit) identical to its
+twin's.
 """
 import numpy as np
 import pytest
 import torch
 
-from lumenrenderer_tpu_torch.accel import pairs, stream, tiled, two_level
+from lumenrenderer_tpu_torch.accel import (lbvh, pairs, sah, stream, tiled,
+                                           two_level)
 from lumenrenderer_tpu_torch.integrator.wavefront import RenderConfig
+from lumenrenderer_tpu_torch.ops import bvh_traverse as bt
 from lumenrenderer_tpu_torch.ops import pair_scan as ps
 from lumenrenderer_tpu_torch.ops import tree_walk as tw
 from lumenrenderer_tpu_torch.ops import visit_scan as vs
@@ -379,3 +384,78 @@ def test_mega_frame_launches_the_walk_per_query(dev):
     assert np.isfinite(img).all() and img.mean() > 0.0
     assert vs.LAUNCHES["closest"] == 6 and vs.LAUNCHES["any"] == 6
     assert tw.LAUNCHES["walk"] == 12
+
+
+def _walk_rays(dev, n_tris=3000, r=20000, seed=0):
+    g = np.random.default_rng(seed)
+    c = g.uniform(-3, 3, (n_tris, 1, 3))
+    tris = (c + g.normal(size=(n_tris, 3, 3)) * 0.2).astype(np.float32)
+    o = torch.from_numpy(g.uniform(-4, 4, (r, 3)).astype(np.float32))
+    d = torch.nn.functional.normalize(torch.from_numpy(
+        g.normal(size=(r, 3)).astype(np.float32)), dim=-1)
+    tn = torch.full((r,), 1e-4)
+    tx = torch.where(torch.arange(r) % 7 == 0, -1.0, 5.0)   # dead lanes
+    return tris, tuple(x.to(dev) for x in (o, d, tn, tx))
+
+
+@pytest.mark.parametrize("builder", ["sah", "lbvh"])
+@pytest.mark.parametrize("leaf_size", [1, 4, 8])
+def test_bvh_walk_matches_twin(dev, builder, leaf_size):
+    tris, rays = _walk_rays(dev, seed=leaf_size)
+    b = (sah.build_sah(tris, leaf_size).to(dev) if builder == "sah"
+         else lbvh.build_lbvh(torch.from_numpy(tris).to(dev), leaf_size))
+    for any_hit in (False, True):
+        ck = torch.zeros((rays[0].shape[0], 2), dtype=torch.int32,
+                         device=dev)
+        ct = torch.zeros_like(ck)
+        bt.reset_launches()
+        kern = bt.bvh_traverse(b, *rays, any_hit=any_hit, counts=ck)
+        twin = bt.bvh_traverse_ref(b, *rays, any_hit=any_hit, counts=ct)
+        torch.cuda.synchronize()
+        assert bt.LAUNCHES == {"closest": int(not any_hit),
+                               "any": int(any_hit)}
+        assert torch.equal(ck, ct)
+        if any_hit:
+            assert torch.equal(kern, twin)
+            continue
+        assert torch.equal(kern[1], twin[1])
+        for a, c in zip(kern[::2] + (kern[3],), twin[::2] + (twin[3],)):
+            assert torch.equal(a.view(torch.int32), c.view(torch.int32))
+    bt.raise_on_error(dev)
+
+
+def test_bvh_walk_refuses_deep_trees_and_flags_wrong_depths(dev):
+    tris, rays = _walk_rays(dev, n_tris=500, r=4096)
+    b = sah.build_sah(tris, 1).to(dev)
+    with pytest.raises(ValueError):
+        bt.bvh_traverse(b.replace(max_depth=bt.STACK_CAP - 1), *rays,
+                        any_hit=False)
+    bt.bvh_traverse(b.replace(max_depth=2), *rays, any_hit=False)
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="outgrew"):
+        bt.raise_on_error(dev)
+    bt.raise_on_error(dev)          # the word was cleared
+
+
+def test_bvh_frame_on_the_default_device_flags_wrong_depths(dev):
+    # device "cuda" has no index, the kernel's tensors lie on cuda:0: the
+    # frame's own check must still read the error word they set
+    b, camf = presets.cornell_box(bsdf_extras=True)
+    r = Renderer(b.build(), RenderConfig(width=64, height=64, max_depth=3),
+                 accel="sah", device="cuda")
+    r.bvh = r.bvh.replace(max_depth=0)
+    r._bind_accel()
+    with pytest.raises(RuntimeError, match="outgrew"):
+        r.render_frame(r.init_state(0), camf(1.0))
+    bt.raise_on_error(dev)          # the word was cleared
+
+
+@pytest.mark.parametrize("accel", ["sah", "lbvh"])
+def test_bvh_frame_launches_both_modes(dev, accel):
+    b, camf = presets.cornell_box(bsdf_extras=True)
+    r = Renderer(b.build(), RenderConfig(width=64, height=64, max_depth=3),
+                 accel=accel, device=dev)
+    bt.reset_launches()
+    img = r.render(camf(1.0), spp=2)
+    assert np.isfinite(img).all() and img.mean() > 0.0
+    assert bt.LAUNCHES == {"closest": 6, "any": 6}

@@ -145,10 +145,11 @@ def test_debug_checks_and_png(tmp_path):
 def test_renderer_refusals():
     sc = presets.furnace_scene()[0].build()
     cfg = RenderConfig(width=8, height=8)
-    for kw in ({"accel": "sah"}, {"accel": "lbvh"}, {"mesh": object()},
-               {"candidate_dtype": "bfloat16"}, {"culling": "dense"}):
+    for kw in ({"candidate_dtype": "bfloat16"}, {"culling": "dense"}):
         with pytest.raises(NotImplementedError):
             Renderer(sc, cfg, device="cpu", **kw)
+    with pytest.raises(ValueError):     # no such accel
+        Renderer(sc, cfg, device="cpu", accel="octree")
     with pytest.raises(ValueError):     # two_level needs the SceneBuilder
         Renderer(sc, cfg, device="cpu", accel="two_level")
 
@@ -179,6 +180,18 @@ def test_port_never_imports_jax():
             "import lumenrenderer_tpu_torch.utils.log; "
             "import lumenrenderer_tpu_torch.utils.profiling; "
             "import lumenrenderer_tpu_torch.app.cli; "
+            "import lumenrenderer_tpu_torch.accel.format; "
+            "import lumenrenderer_tpu_torch.accel.lbvh; "
+            "import lumenrenderer_tpu_torch.accel.traverse; "
+            "import lumenrenderer_tpu_torch.ops.bvh_traverse; "
+            "import lumenrenderer_tpu_torch.native.bvh_native; "
+            "import lumenrenderer_tpu_torch.parallel.shard; "
+            "import lumenrenderer_tpu_torch.parallel.distributed; "
+            "from lumenrenderer_tpu_torch.accel import sah; "
+            "from lumenrenderer_tpu_torch.native import bvh_native; "
+            "sah.build_sah([[[0, 0, 0], [1, 0, 0], [0, 1, 0]]]); "
+            "assert bvh_native._LIB._name.startswith("
+            "str(bvh_native.BUILD_DIR)), bvh_native._LIB; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'chex', 'lumenrenderer_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -315,7 +315,7 @@ def test_spatial_pass_matches_jax(biased):
     # neighbours were taken
     assert (np.asarray(ref.m) > np.asarray(res.m)).mean() > 0.3
     _held_reservoir(got, ref, 0.99)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):      # the halo is a DeviceMesh here
         pdi.spatial_pass(psc, psd, pres, t(hit), pcfg, w, h,
                          ListUniforms(draws), halo=("x", 2))
 
