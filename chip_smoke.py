@@ -170,7 +170,9 @@ non-zero), each with its seconds:
      `launches_app`;
  16. the BVH accels and the mesh on the interior at 2560x1440: the SAH
      BVH built by the native and the numpy builders (host seconds) and the
-     LBVH on the card (ms); 16a: kernel T against its twin on 65,536
+     LBVH on the card (ms), and kernel T's node and slot records made in
+     those builds (ms: the SAH BVH's on the host, both on the card); 16a:
+     kernel T against its twin on 65,536
      evenly spaced rays of the primary pass and the sorted bounce and
      shadow passes, through the SAH BVH and the LBVH, closest and any
      mode (triangles or hit bits identical on MATCH_FRACTION, t, u and v
@@ -3314,6 +3316,7 @@ def _bvh_builds(dev, sc):
     device build ms; (sah BVH, lbvh BVH) on the card."""
     import torch
 
+    from lumenrenderer_tpu_torch.accel import format as bvh_format
     from lumenrenderer_tpu_torch.accel import lbvh, sah
     from lumenrenderer_tpu_torch.native import bvh_native
 
@@ -3331,10 +3334,21 @@ def _bvh_builds(dev, sc):
                      ("lbvh", lb)):
         say("16 build", bvh=label, nodes=b.num_nodes, leaves=b.num_leaves,
             max_depth=b.max_depth, leaf_size=b.leaf_size)
+    # kernel T's records, part of each build above (host for the SAH BVH)
+    t0 = time.perf_counter()
+    bvh_format.kernel_records(native)
+    records_host_ms = (time.perf_counter() - t0) * 1e3
+    sah_dev = native.to(dev)
+    records_ms = {b: cuda_time_ms(lambda: bvh_format.kernel_records(x),
+                                  reps=3)
+                  for b, x in (("sah", sah_dev), ("lbvh", lb))}
     say("16 build", sah_native_host_s=f"{native_s:.3f}",
-        sah_numpy_host_s=f"{numpy_s:.3f}", lbvh_device_ms=f"{lbvh_ms:.3f}")
+        sah_numpy_host_s=f"{numpy_s:.3f}", lbvh_device_ms=f"{lbvh_ms:.3f}",
+        sah_records_host_ms=f"{records_host_ms:.3f}",
+        sah_records_device_ms=f"{records_ms['sah']:.3f}",
+        lbvh_records_device_ms=f"{records_ms['lbvh']:.3f}")
     torch.cuda.synchronize()
-    return native.to(dev), lb
+    return sah_dev, lb
 
 
 def _bvh_frames(dev, accel, ref, frames=SLICE_FRAMES):

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from . import morton
-from .format import BVH
+from .format import BVH, make_bvh
 
 #: padded/invalid triangle slot marker
 INVALID = -1
@@ -64,9 +64,7 @@ def build_lbvh(tri_pos: torch.Tensor, leaf_size: int = 4) -> BVH:
     is_leaf = ids >= (m - 1)
     child0 = torch.where(is_leaf, -(ids - (m - 1)) - 1, 2 * ids + 1)
     child1 = torch.where(is_leaf, 0, 2 * ids + 2).to(torch.int32)
-    return BVH(node_lo=torch.cat(levels_lo[::-1]),
-               node_hi=torch.cat(levels_hi[::-1]),
-               child0=child0.to(torch.int32), child1=child1,
-               tri_p0=p0, tri_e1=e1, tri_e2=e2, tri_id=tri_id,
-               leaf_size=leaf_size,
-               max_depth=max(int(m - 1).bit_length(), 1) + 1)
+    return make_bvh(torch.cat(levels_lo[::-1]), torch.cat(levels_hi[::-1]),
+                    child0.to(torch.int32), child1, p0, e1, e2, tri_id,
+                    leaf_size=leaf_size,
+                    max_depth=max(int(m - 1).bit_length(), 1) + 1)

@@ -15,7 +15,7 @@ import logging
 import numpy as np
 import torch
 
-from .format import BVH
+from .format import BVH, make_bvh
 
 _log = logging.getLogger(__name__)
 
@@ -139,7 +139,8 @@ def build_sah_boxes(lo_t: np.ndarray, hi_t: np.ndarray, leaf_size: int = 4):
 def bvh_from_arrays(tri_pos, arrays, leaf_size: int = 4) -> BVH:
     """The BVH of triangles tri_pos (T,3,3) (numpy or tensor) from a
     builder's (node_lo, node_hi, child0, child1, order, max_depth), on the
-    CPU: padding slots get p0 = inf, e1 = e2 = 0."""
+    CPU, with kernel T's records: padding slots get p0 = inf, e1 = e2 =
+    0."""
     tri_pos = np.asarray(torch.as_tensor(tri_pos).cpu(), np.float32)
     nlo, nhi, c0, c1, order, md = arrays
     valid = order >= 0
@@ -147,14 +148,14 @@ def bvh_from_arrays(tri_pos, arrays, leaf_size: int = 4) -> BVH:
     p0 = np.where(valid[:, None], p[:, 0], np.inf).astype(np.float32)
     e1 = np.where(valid[:, None], p[:, 1] - p[:, 0], 0.0).astype(np.float32)
     e2 = np.where(valid[:, None], p[:, 2] - p[:, 0], 0.0).astype(np.float32)
-    return BVH(node_lo=torch.from_numpy(np.asarray(nlo, np.float32)),
-               node_hi=torch.from_numpy(np.asarray(nhi, np.float32)),
-               child0=torch.from_numpy(np.asarray(c0, np.int32)),
-               child1=torch.from_numpy(np.asarray(c1, np.int32)),
-               tri_p0=torch.from_numpy(p0), tri_e1=torch.from_numpy(e1),
-               tri_e2=torch.from_numpy(e2),
-               tri_id=torch.from_numpy(order.astype(np.int32)),
-               leaf_size=leaf_size, max_depth=int(md))
+    return make_bvh(torch.from_numpy(np.asarray(nlo, np.float32)),
+                    torch.from_numpy(np.asarray(nhi, np.float32)),
+                    torch.from_numpy(np.asarray(c0, np.int32)),
+                    torch.from_numpy(np.asarray(c1, np.int32)),
+                    torch.from_numpy(p0), torch.from_numpy(e1),
+                    torch.from_numpy(e2),
+                    torch.from_numpy(order.astype(np.int32)),
+                    leaf_size=leaf_size, max_depth=int(md))
 
 
 def build_sah(tri_pos, leaf_size: int = 4) -> BVH:

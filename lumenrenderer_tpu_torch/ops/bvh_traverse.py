@@ -33,12 +33,18 @@ Rounding. XLA's CPU build of the reference contracts Möller–Trumbore's
 products into fused multiply-adds: a cross product component is
 fma(a1, b2, -(a2 b1)) and a dot product fma(x2, y2, fma(x1, y1, x0 y0)).
 Near a grazing triangle the cancellation makes that visible (u off by
-2.7e-6 on tests/test_bvh.py's rays without it). The twin and the kernel
-write each fma as the float32 rounding of the float64 a b + c (a b is
-exact in float64; the double rounding differs from a fused one about once
-in 2^29), which equalled the reference bit for bit on every hit of the CPU
-tests; every other operation is rounded on its own, in the same order in
-the twin and the kernel, so the two agree bit for bit.
+2.7e-6 on tests/test_bvh.py's rays without it). The kernel writes each as
+the float32 fused multiply-add (`__fmaf_rn`) and the twin's `_fma` forms
+the same correctly rounded a b + c from float64 (exact product, TwoSum,
+round to odd, then to float32); every other operation is rounded on its
+own, in the same order in the twin and the kernel, so the two agree bit
+for bit, and the twin equals the reference bit for bit on the hits of the
+CPU tests.
+
+The kernel reads the BVH as the records its builds make (`format.BVH`'s
+`nodes`, a 64-byte child-pair record per node, and `slots`, a 48-byte
+record per leaf slot) and takes the root's box from `node_lo[0]` and
+`node_hi[0]`; the twin walks the BVH's own arrays.
 
 An optional int32 (R,2) `counts` receives, per ray, the internal nodes and
 the leaves it popped: the walk's box tests are 1 + 2 * internal, its
@@ -68,8 +74,7 @@ DET_EPS = 1e-9
 STACK_CAP = 64               # the kernel's stack entries (csrc)
 COMPACT_EVERY = 16           # twin steps between narrowing its rays (CUDA)
 # Operations the kernel does, for the bound (csrc `box` and `slot_test`,
-# each fused product counted as a multiply and an add, each float64 one as
-# one operation at the float32 rate, which can only lower the bound):
+# each fused product counted as a multiply and an add):
 # a box test is 6 subtractions, 6 multiplies, 6 min/max of the slab pairs,
 # 4 to reduce them, 1 for the entry t and 3 compares;
 BOX_TEST_OPS = 26
@@ -89,8 +94,21 @@ def reset_launches() -> None:
 
 
 def _fma(a, b, c):
-    """a b + c rounded once to float64, then to float32."""
-    return (a.double() * b.double() + c.double()).float()
+    """The float32 fused multiply-add a b + c, rounded once (to nearest,
+    ties to even), as the kernel's __fmaf_rn: a b is exact in float64; the
+    float64 sum s and its exact error e (TwoSum) give s rounded to odd (one
+    ulp toward e when e is not 0 and s's last bit is even), whose rounding
+    to float32 is the rounding of the exact a b + c. A sum that is not
+    finite is left as it is."""
+    p, c = a.double() * b.double(), c.double()
+    s = p + c
+    z = s - p
+    e = (p - (s - z)) + (c - z)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(e > 0, torch.inf, -torch.inf).to(s.dtype)
+    odd = torch.where((e != 0) & even & s.isfinite(),
+                      torch.nextafter(s, toward), s)
+    return odd.float()
 
 
 def _dot(a, b):
@@ -257,6 +275,8 @@ def bvh_traverse(bvh, o, d, t_min, t_max, *, any_hit: bool, counts=None):
         "child0": (bvh.child0, i32, (nn,)), "child1": (bvh.child1, i32, (nn,)),
         "tri_p0": (bvh.tri_p0, f32, (s, 3)), "tri_e1": (bvh.tri_e1, f32, (s, 3)),
         "tri_e2": (bvh.tri_e2, f32, (s, 3)), "tri_id": (bvh.tri_id, i32, (s,)),
+        "nodes": (bvh.nodes, f32, (nn, 16)),
+        "slots": (bvh.slots, f32, (s, 12)),
     }
     if counts is not None:
         expect["counts"] = (counts, i32, (r, 2))
@@ -271,7 +291,7 @@ def bvh_traverse(bvh, o, d, t_min, t_max, *, any_hit: bool, counts=None):
                          f"{bvh.max_depth + 2} entries; the kernel holds "
                          f"{STACK_CAP}")
     fn = build.load_function("bvh_traverse", "bvh_traverse_launch",
-                             [ctypes.c_void_p] * 19 + [ctypes.c_int] * 4
+                             [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4
                              + [ctypes.c_void_p])
     dev = o.device
     t = torch.empty(r, dtype=f32, device=dev)
@@ -281,8 +301,8 @@ def bvh_traverse(bvh, o, d, t_min, t_max, *, any_hit: bool, counts=None):
     hit = torch.empty(r, dtype=torch.bool, device=dev)
     if r:
         ptrs = [x.data_ptr() for x in (
-            bvh.node_lo, bvh.node_hi, bvh.child0, bvh.child1, bvh.tri_p0,
-            bvh.tri_e1, bvh.tri_e2, bvh.tri_id, o, d, t_min, t_max)]
+            bvh.nodes, bvh.slots, bvh.node_lo, bvh.node_hi, bvh.child0, o,
+            d, t_min, t_max)]
         if any_hit:
             outs = [None, None, None, None, hit.data_ptr()]
         else:

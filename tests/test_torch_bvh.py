@@ -10,6 +10,7 @@ build may fuse its products; the twin rounds each one). Kernel T itself
 runs on the card only (tests/test_torch_kernels.py, chip_smoke.py).
 """
 import logging
+from fractions import Fraction
 
 import jax.numpy as jnp
 import numpy as np
@@ -94,6 +95,118 @@ def test_builds_equal_jax(count, leaf_size, monkeypatch):
         _same_bvh(*_pair(builder, tris, leaf_size, monkeypatch))
 
 
+def _bits(x):
+    return np.ascontiguousarray(n(x)).view(np.int32)
+
+
+def _hold_records(b):
+    """Kernel T's records decode to the BVH's own fields, bit for bit."""
+    nodes, slots = _bits(b.nodes), _bits(b.slots)
+    lo, hi = _bits(b.node_lo), _bits(b.node_hi)
+    c0, c1 = n(b.child0), n(b.child1)
+    assert nodes.shape == (b.num_nodes, 16)
+    inner = c0 >= 0
+    for k, c in enumerate((c0[inner], c1[inner])):
+        np.testing.assert_array_equal(nodes[inner, 6 * k:6 * k + 3], lo[c])
+        np.testing.assert_array_equal(nodes[inner, 6 * k + 3:6 * k + 6],
+                                      hi[c])
+        # a child's id: its node if internal, else -(leaf + 1)
+        np.testing.assert_array_equal(nodes[inner, 12 + k],
+                                      np.where(c0[c] >= 0, c, c0[c]))
+    assert (nodes[:, 14:] == 0).all()
+    p0, e1, e2 = _bits(b.tri_p0), _bits(b.tri_e1), _bits(b.tri_e2)
+    assert slots.shape == (p0.shape[0], 12)
+    for k, f in enumerate((p0, e1, e2)):
+        np.testing.assert_array_equal(slots[:, 4 * k:4 * k + 3], f)
+    np.testing.assert_array_equal(slots[:, 3], n(b.tri_id))
+    assert (slots[:, 7] == 0).all() and (slots[:, 11] == 0).all()
+
+
+@pytest.mark.parametrize("builder", ["sah", "lbvh"])
+@pytest.mark.parametrize("leaf_size", [1, 4, 8])
+@pytest.mark.parametrize("count", [1, 5, 123])
+def test_kernel_records_decode_to_the_bvh(builder, leaf_size, count):
+    tris = random_tris(rng(count * leaf_size), count)
+    b = (sah.build_sah(tris, leaf_size) if builder == "sah"
+         else lbvh.build_lbvh(t(tris), leaf_size))
+    assert (b.num_nodes == 1) == (count <= leaf_size)   # a root leaf
+    pad = n(b.tri_id) < 0
+    if count % leaf_size:
+        assert pad.any()
+    assert np.isinf(n(b.slots)[pad, :3]).all()      # padding: p0 = inf
+    assert (_bits(b.slots)[pad, 3] == -1).all()
+    for bb in (b, b.to("cpu"), b.replace(max_depth=b.max_depth + 1)):
+        _hold_records(bb)
+    meta = b.to("meta")
+    assert meta.nodes.shape == b.nodes.shape and meta.slots.is_meta
+
+
+def _fma_exact(a, b, c):
+    """a b + c rounded to the nearest float32, ties to even, computed
+    exactly: the nearest of the float32 candidate and its neighbours. A
+    non-finite operand or an exact zero (its sign) is float64's, whose
+    product is exact."""
+    x = (Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+         if np.isfinite([a, b, c]).all() else 0)
+    if x == 0:
+        with np.errstate(invalid="ignore"):
+            return np.float32(np.float64(a) * np.float64(b) + np.float64(c))
+    top = np.finfo(np.float32).max
+    if abs(x) >= Fraction(float(top)) + Fraction(2) ** 103:   # overflow
+        return np.float32(np.inf if x > 0 else -np.inf)
+    cand = np.float32(float(x))
+    near = [y for y in (np.nextafter(cand, np.float32(-np.inf)), cand,
+                        np.nextafter(cand, np.float32(np.inf)))
+            if np.isfinite(y)]
+    return min(near, key=lambda y: (abs(Fraction(float(y)) - x),
+                                    int(np.float32(y).view(np.int32)) & 1))
+
+
+def _fma_inputs(kind, g, m=400):
+    f32 = np.float32
+    if kind == "random":
+        return [g.normal(size=m).astype(f32) * f32(10.0) ** g.integers(
+            -8, 8, m).astype(f32) for _ in range(3)]
+    if kind == "subnormal":         # results below 2^-126
+        a = (g.uniform(1, 2, m) * 2.0 ** -75).astype(f32)
+        b = (g.uniform(-2, 2, m) * 2.0 ** -70).astype(f32)
+        c = g.integers(1, 1 << 23, m).astype(np.int32).view(f32)
+        return a, b, c * np.where(g.random(m) < 0.5, f32(-1), f32(1))
+    if kind == "nonfinite":
+        vals = np.array([np.inf, -np.inf, np.nan, 0.0, -0.0, 1.0, -2.0,
+                         3.4e38, 1e-45], f32)
+        a, b, c = np.meshgrid(vals, vals, vals, indexing="ij")
+        return a.ravel(), b.ravel(), c.ravel()
+    # c with a random mantissa, a b half an ulp of c (exactly: "halfway",
+    # or less 2^-46 of it: "near_halfway", where rounding a b + c to
+    # float64 first lands on the tie and then rounds the wrong way)
+    c = (g.uniform(1, 2, m) * 2.0 ** g.integers(-20, 20, m)).astype(f32)
+    c = c * np.where(g.random(m) < 0.5, f32(-1), f32(1))
+    h = (np.spacing(np.abs(c)) / 2).astype(f32)
+    sign = np.where(g.random(m) < 0.5, f32(-1), f32(1))
+    if kind == "halfway":
+        return np.ones(m, f32), sign * h, c
+    return (np.full(m, 1 + 2.0 ** -23, f32),
+            (sign * h * f32(1 - 2.0 ** -23)).astype(f32), c)
+
+
+@pytest.mark.parametrize("kind", ["random", "halfway", "near_halfway",
+                                  "subnormal", "nonfinite"])
+def test_twin_fma_is_the_rounded_exact_product(kind):
+    """The twin's _fma is the float32 fused multiply-add of the kernel's
+    __fmaf_rn: the exact a b + c rounded once, to nearest even."""
+    a, b, c = _fma_inputs(kind, rng(len(kind)))
+    got = n(bt._fma(t(a), t(b), t(c)))
+    want = np.array([_fma_exact(*x) for x in zip(a, b, c)], np.float32)
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got[~nan].view(np.int32),
+                                  want[~nan].view(np.int32))
+    if kind == "near_halfway":      # float64 rounding first would differ
+        old = (a.astype(np.float64) * b + c).astype(np.float32)
+        assert (old.view(np.int32) != want.view(np.int32)).any()
+
+
 def test_lbvh_shapes_and_bounds():
     tris = random_tris(rng(1), 37)
     b = lbvh.build_lbvh(t(tris), leaf_size=4)
@@ -156,9 +269,14 @@ def _hold_walks(jb, pb, o, d, t_min, t_max):
     ref = jtraverse.intersect_closest(jb, jo, jd, t_min, t_max)
     got = traverse.intersect_closest_ref(pb, t(o), t(d), t_min, t_max)
     np.testing.assert_array_equal(n(got["tri"]), np.asarray(ref["tri"]))
+    hits = np.asarray(ref["tri"]) >= 0
     for k in ("t", "u", "v"):
         np.testing.assert_allclose(n(got[k]), np.asarray(ref[k]), rtol=0,
                                    atol=ATOL, err_msg=k)
+        # the twin's fused products are XLA's: on the hits, bit for bit
+        np.testing.assert_array_equal(n(got[k])[hits].view(np.int32),
+                                      np.asarray(ref[k])[hits].view(np.int32),
+                                      err_msg=k)
     hit_ref = np.asarray(jtraverse.intersect_any(jb, jo, jd, t_min, t_max))
     np.testing.assert_array_equal(
         n(traverse.intersect_any_ref(pb, t(o), t(d), t_min, t_max)), hit_ref)

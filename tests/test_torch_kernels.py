@@ -398,12 +398,16 @@ def _walk_rays(dev, n_tris=3000, r=20000, seed=0):
     return tris, tuple(x.to(dev) for x in (o, d, tn, tx))
 
 
-@pytest.mark.parametrize("builder", ["sah", "lbvh"])
-@pytest.mark.parametrize("leaf_size", [1, 4, 8])
-def test_bvh_walk_matches_twin(dev, builder, leaf_size):
-    tris, rays = _walk_rays(dev, seed=leaf_size)
+@pytest.mark.parametrize("builder,leaf_size,n_tris,r", [
+    *[(b, k, 3000, 20000) for b in ("sah", "lbvh") for k in (1, 4, 8)],
+    ("sah", 4, 3, 4099), ("lbvh", 4, 3, 4099),      # the root is a leaf
+    ("sah", 2, 3000, 20001), ("lbvh", 8, 3000, 4131),   # not 32 | rays
+    ("lbvh", 4, 3000, 1 << 20)])    # a full-size pass: 8,192 blocks
+def test_bvh_walk_matches_twin(dev, builder, leaf_size, n_tris, r):
+    tris, rays = _walk_rays(dev, n_tris=n_tris, r=r, seed=leaf_size)
     b = (sah.build_sah(tris, leaf_size).to(dev) if builder == "sah"
          else lbvh.build_lbvh(torch.from_numpy(tris).to(dev), leaf_size))
+    assert (b.num_nodes == 1) == (n_tris <= leaf_size)
     for any_hit in (False, True):
         ck = torch.zeros((rays[0].shape[0], 2), dtype=torch.int32,
                          device=dev)
