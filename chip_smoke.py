@@ -192,13 +192,40 @@ non-zero), each with its seconds:
      720 rows each: the gathered 4-frame image's mean within MEAN_RTOL of
      the plain frames', its seam rows lit, two ReSTIR frames with the
      halo, a 320x180 training step whose parameters are equal on both
-     ranks. The `kernels` line has T's rows for the SAH BVH and the LBVH.
+     ranks. The `kernels` line has T's rows for the SAH BVH and the LBVH;
+ 17. the options on the interior at 2560x1440, depth 5, Disney + MIS:
+     17a: K1 in its bf16 mode (precision="default") against its twin on
+     1,024 tiles of each of the primary, sorted bounce and shadow passes,
+     closest and any, keys, bits and visit counters torch.equal; every
+     tile of each pass in bf16 and in fp32 (times in this call, flop,
+     bound, share) and the share of live rays whose winner or bit differs
+     from fp32 (printed, not barred: bf16 geometry is lossy by design);
+     17b: the same for K2 on phase 6's passes and K3 on phase 8's pair
+     tiles, then a two-level bf16 frame (K2's bf16 launches) and a bf16
+     pair frame (K3's); 17c: Renderer(candidate_dtype="bfloat16"), 1
+     warm-up and 3 timed frames beside the default frame's (ms/frame, K1
+     bf16 launches, 5 closest and 5 any a frame, the mean beside fp32's);
+     17d: culling="dense" at max_visits = C = 84 (ms/frame, peak memory,
+     admitted clusters and visits run per primary tile against the
+     frustum's), held against the frustum frame by phase 7's rule and
+     MEAN_RTOL; 17e: swizzle=True (ms/frame, K1's visits per primary tile
+     with and without the swizzle, the mean within MEAN_RTOL, primary
+     AOVs by phase 7's rule on frames of pixel centres); 17f: decode=True
+     on the sorted bounce pass (its extra ms; t within the key's
+     resolution, and on 65,536 rays u, v within DECODE_UV_TOL of brute,
+     plus DECODE_UV_ROUNDINGS float32 roundings of the two formulas'
+     condition, on every ray whose triangle agrees); 17g: a bounce and
+     a shadow pass through `blocked_sorted_intersectors` beside
+     `sorted_intersectors` (pass ms, K1's visits per tile). The `kernels`
+     line gains the bf16 rows of K1, K2 and K3 (their bytes count the
+     table at 2 bytes a value, their flop go at the bf16 tensor-core rate).
 Then a JSON line of per-kernel results, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}. Needs no network; exits
 non-zero without a CUDA device or without the package next to it.
 
 Bounds: a kernel's least time is the larger of its flop over the H100's
-67 TFLOP/s of fp32 (no tensor cores) and its bytes (each input read once,
+67 TFLOP/s of fp32 (no tensor cores; the bf16 rows: 989 TFLOP/s, the
+bf16 tensor-core rate, the peak for bf16 operands) and its bytes (each input read once,
 each output written once) over 3.35 TB/s. The flop are those these inputs
 need: 80 per (live ray, live triangle) pair of every visit a tile runs (K1
 and K2: the kernel's counter) or of every live pair tile (K3), and K2's 42
@@ -247,6 +274,7 @@ GRAD_RTOL = 2e-3             # phase 12: linearity, central difference
 REMAT_RTOL = 1e-5            # phase 12: remat off, K1 against its twin
 TRAIN_STEPS, TRAIN_LR = 3, 0.05
 PEAK_FLOPS = 67e12           # H100 SXM, fp32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12     # H100 SXM, bf16 on the tensor cores, dense
 PEAK_BYTES = 3.35e12         # H100 SXM, HBM3
 FLOP_PER_PAIR = 80           # 40 FMAs per ray-triangle test
 AFFINE_FLOP = 42             # K2: a ray's object-space features per visit
@@ -336,9 +364,11 @@ def _scene(dev):
     return builder.build().to(dev), camf
 
 
-def _secondary_passes(sc, cs, cam, dev, w, h, capture, primary=False):
+def _secondary_passes(sc, cs, cam, dev, w, h, capture, primary=False,
+                      sort=None):
     """capture(o, d, tn, tx) of one bounce pass and one shadow pass, each
-    sorted as the frame sorts them (octant|morton, capsule), and with
+    sorted as the frame sorts them (octant|morton, capsule; or by `sort`,
+    a wrapper with `sorting.sorted_intersectors`' signature), and with
     `primary` of the (unsorted) primary pass first; primary hits come from
     the tiled intersector over the flattened clusters `cs`."""
     import torch
@@ -358,7 +388,8 @@ def _secondary_passes(sc, cs, cam, dev, w, h, capture, primary=False):
     o, d = generate_primary_rays(cam, w, h, 0, uni, "random")
     passes = {"primary": capture(o, d, 1e-3, 1e9)} if primary else {}
     hits = tiled.intersect_closest(cs, o, d, 1e-3, 1e9,
-                                   min(cs.num_clusters, KERNEL_VISIT_CAP))
+                                   min(cs.num_clusters, KERNEL_VISIT_CAP),
+                                   decode=False)
     sd = extract_surface_data(sc, o, d, hits["tri"], with_tangent=False)
     eps = 1e-3
     wi = disney.sample(sd, -d, uni(w * h, 4))[0]
@@ -381,7 +412,7 @@ def _secondary_passes(sc, cs, cam, dev, w, h, capture, primary=False):
         return fn
 
     pts = sc.tri_pos.reshape(-1, 3)
-    s_isect, s_occl = sorting.sorted_intersectors(
+    s_isect, s_occl = (sort or sorting.sorted_intersectors)(
         query("bounce"), query("shadow"), pts.amin(0), pts.amax(0))
     s_isect(bo, wi, eps, torch.where(sd.valid, 1e9, -1.0))
     s_occl(so, ls.wi, eps, torch.where(sd.valid & ls.valid,
@@ -419,9 +450,10 @@ def _compare(kern, twin, closest, low_bits):
     return int(diff.sum()), int((diff & ~tie).sum()), err
 
 
-def bound_ms(flop, nbytes):
-    """(least ms, what sets it) for `flop` fp32 operations and `nbytes`."""
-    ops_ms = flop / PEAK_FLOPS * 1e3
+def bound_ms(flop, nbytes, peak=PEAK_FLOPS):
+    """(least ms, what sets it) for `flop` operations at `peak` flop/s (fp32
+    by default) and `nbytes`."""
+    ops_ms = flop / peak * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
                                                               "bytes")
@@ -585,7 +617,8 @@ def phase_small_slice(dev, w=SMALL_W, h=SMALL_H):
     for scan in (vs.visit_scan, vs.visit_scan_ref):
         gen = torch.Generator(device=dev)
         gen.manual_seed(7)
-        isect, occl = tiled.tiled_intersectors(cs, mv, scan=scan)
+        isect, occl = tiled.tiled_intersectors(cs, mv, scan=scan,
+                                               decode=False)
         with torch.no_grad():
             out = wf.render_wavefront(sc, isect, occl, cam,
                                       sampling.generator_uniforms(gen), 0,
@@ -634,7 +667,8 @@ def phase_small_restir(dev, w=SMALL_W, h=SMALL_H):
     for scan in (vs.visit_scan, vs.visit_scan_ref):
         gen = torch.Generator(device=dev)
         gen.manual_seed(7)
-        isect, occl = tiled.tiled_intersectors(cs, mv, scan=scan)
+        isect, occl = tiled.tiled_intersectors(cs, mv, scan=scan,
+                                               decode=False)
         restir = di.RestirDI(
             occl, lambda sd, wo, wi: wf._bsdf_eval(cfg, sd, wo, wi),
             di.RestirConfig(), w, h)
@@ -1129,7 +1163,7 @@ def phase_pair_slice(dev, w=W, h=H, frames=SLICE_FRAMES):
                              f"{launches}")
     _profile_frame("9 profile", lambda: frames_of(isect, occl, 1, flags),
                    "pair_scan_kernel")
-    t_isect, t_occl = tiled.tiled_intersectors(cs, mv)
+    t_isect, t_occl = tiled.tiled_intersectors(cs, mv, decode=False)
     torch.cuda.reset_peak_memory_stats(dev)
     out_t, mean_t, ms_t, ovf_t = frames_of(t_isect, t_occl, frames + 1)
     say("9 pair slice", reference="tiled", ms_per_frame=f"{ms_t:.1f}",
@@ -1547,7 +1581,7 @@ def phase_mega(dev, w=W, h=H, frames=SLICE_FRAMES):
     # dozens of launches per node its longest stopped walk pops
     _hold_small_frame("11 mega small", r.scene, camf, dev,
                       lambda scan, walk: tiled.tiled_intersectors(
-                          cs, mv, scan=scan, walk=walk),
+                          cs, mv, scan=scan, walk=walk, decode=False),
                       (vs.visit_scan, vs.visit_scan_ref))
 
     # the main path: the full frame through the Renderer
@@ -1589,7 +1623,8 @@ def phase_mega(dev, w=W, h=H, frames=SLICE_FRAMES):
 
     # the frame with the ClusterSet's cached kernel layout and without it
     def frame_with(scan):
-        isect, occl = tiled.tiled_intersectors(cs, mv, scan=scan)
+        isect, occl = tiled.tiled_intersectors(cs, mv, scan=scan,
+                                               decode=False)
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
         torch.cuda.synchronize(dev)
@@ -1855,7 +1890,8 @@ def phase_gradients(dev, w=W, h=H, frames=SLICE_FRAMES):
     small = dataclasses.replace(cfg, width=SMALL_W, height=SMALL_H)
     scam = camf(SMALL_W / SMALL_H).to(dev)
     grads = [_grad(_emission_frame(scene, *tiled.tiled_intersectors(
-        r.clusters, r.max_visits, scan=scan), scam, small), em0)[1]
+        r.clusters, r.max_visits, scan=scan, decode=False), scam, small),
+        em0)[1]
         for scan in (vs.visit_scan, vs.visit_scan_ref)]
     twin_err = _rel_err(*grads)
     say("12 gradients small", size=f"{SMALL_W}x{SMALL_H}",
@@ -2176,7 +2212,7 @@ def phase_textured(dev, w=W, h=H, frames=SLICE_FRAMES):
     _hold_small_frame(
         "13a textured small", sc, camf, dev,
         lambda scan, walk: tiled.tiled_intersectors(cs, mv, scan=scan,
-                                                    walk=walk),
+                                                    walk=walk, decode=False),
         (vs.visit_scan, vs.visit_scan_ref), extract_tangent=True)
     del cs
 
@@ -2507,7 +2543,7 @@ def _volumes_small(dev, plain, camf):
         _hold_small_frame(
             f"14a small {label}", plain.replace(volumes=vols).to(dev), camf,
             dev, lambda scan, walk: tiled.tiled_intersectors(
-                cs, mv, scan=scan, walk=walk),
+                cs, mv, scan=scan, walk=walk, decode=False),
             (vs.visit_scan, vs.visit_scan_ref))
     return dense, sparse
 
@@ -2746,7 +2782,8 @@ def _volume_gradients(dev, plain, dense, sparse, camf, cfg, frames):
     small = dataclasses.replace(gcfg, width=SMALL_W, height=SMALL_H)
     scam = camf(SMALL_W / SMALL_H).to(dev)
     grads = [_grad_call(_volume_frame(r.scene, *tiled.tiled_intersectors(
-        r.clusters, r.max_visits, scan=scan), scam, small, "density"),
+        r.clusters, r.max_visits, scan=scan, decode=False), scam, small,
+        "density"),
         d0, dev)[1] for scan in (vs.visit_scan, vs.visit_scan_ref)]
     twin_err = float((grads[0] - grads[1]).abs().max()
                      / grads[1].abs().max())
@@ -3655,6 +3692,630 @@ def _bvh_rows(bvh_checks, bvh_launches):
     return rows
 
 
+# -- phase 17: the options (bf16 candidates, dense culling, swizzle, decode,
+# the blocked sort) -------------------------------------------------------------
+
+DECODE_RAYS = 65_536         # 17f: evenly spaced rays of the bounce pass
+DECODE_UV_TOL = 1e-5         # 17f: u, v against brute where tri agrees,
+DECODE_UV_ROUNDINGS = 16     # plus this many float32 roundings (2^-24) of
+                             # the two formulas' condition (_uv_condition):
+                             # both cancel, the decode's bilinear form in
+                             # world coordinates and Moller-Trumbore
+OPTION_PAIRS_PER_RAY = 16    # 17b: the bf16 pair frame's pair cap
+
+
+def _bf16_disagreement(out32, out16, closest, low_bits, live):
+    """Share of the live rays whose winner (miss, or visit and slot) or
+    occlusion bit differs between the fp32 and the bf16 mode."""
+    import torch
+
+    from lumenrenderer_tpu_torch.ops.visit_scan import KEY_MISS
+
+    if closest:
+        field = (1 << low_bits) - 1
+        out32 = torch.where(out32 < KEY_MISS, out32 & field, -1)
+        out16 = torch.where(out16 < KEY_MISS, out16 & field, -1)
+    return float((out32 != out16)[live].float().mean())
+
+
+def _hold_bf16(phase, label, passes, subset, kernel, twin, counter, work,
+               live_of, low_bits):
+    """Each pass's subset through `kernel` in its bf16 mode and through its
+    twin, in both modes: raise unless keys (bits) and, where the kernel
+    counts, visit counters (`counter(args, kw)`, which raises) are
+    torch.equal. Times the subset (kernel, twin) and the full pass in bf16
+    and in fp32 within this call, the bounds from `work(q, args, kw)` ->
+    (flop, bytes, fields) at the bf16 tensor-core rate, the peak for these
+    operands, and the share of the full pass's live rays
+    (`live_of(q)`) whose winner or bit differs from fp32 (not barred).
+    Returns per mode the kernels line's numbers, means over the passes."""
+    import torch
+
+    results = {}
+    for mode, closest in (("closest", True), ("any", False)):
+        rows = []
+        for name, q in passes.items():
+            args = subset(q)
+            kw = dict(q["kw"], closest=closest, precision="default")
+            kw32 = dict(kw, precision="highest")
+            kern = kernel(*args, **kw)
+            ref = twin(*args, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(kern, ref):
+                raise AssertionError(
+                    f"{label} bf16 {mode} vs twin on the {name} pass: "
+                    f"{int((kern != ref).sum())} of {kern.numel()} differ")
+            counted = counter(args, kw)
+            ms = cuda_time_ms(lambda: kernel(*args, **kw))
+            plain_ms = cuda_time_ms(lambda: twin(*args, **kw), reps=2)
+            full16 = cuda_time_ms(lambda: kernel(*q["args"], **kw))
+            full32 = cuda_time_ms(lambda: kernel(*q["args"], **kw32))
+            flop, nb, _ = work(q, args, kw)
+            f_flop, f_nb, extra = work(q, q["args"], kw)
+            b_ms, b_by = bound_ms(flop, nb, PEAK_BF16_FLOPS)
+            fb_ms, fb_by = bound_ms(f_flop, f_nb, PEAK_BF16_FLOPS)
+            share = _bf16_disagreement(
+                kernel(*q["args"], **kw32), kernel(*q["args"], **kw),
+                closest, low_bits(q), live_of(q))
+            say(phase, kernel=label, precision="bf16", mode=mode, rays=name,
+                subset_equal=True, **counted, kernel_ms=f"{ms:.4f}",
+                twin_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.4f}",
+                bound_by=b_by, share=f"{b_ms / ms:.3f}",
+                full_pass_ms=f"{full16:.4f}",
+                full_pass_fp32_ms=f"{full32:.4f}", **extra,
+                flop=f"{f_flop:.4g}", bytes=f_nb,
+                full_pass_bound_ms=f"{fb_ms:.4f}", full_bound_by=fb_by,
+                full_share=f"{fb_ms / full16:.3f}",
+                differs_from_fp32=f"{share:.5f}")
+            rows.append((ms, plain_ms, b_ms, full16, fb_ms, full32, share,
+                         flop, nb))
+        mean = [sum(r[i] for r in rows) / len(rows) for i in range(7)]
+        results[mode] = {
+            "max_abs_err": 0.0, "ms": mean[0], "plain_ms": mean[1],
+            "bound_ms": mean[2],
+            "bound_by": bound_ms(sum(r[7] for r in rows),
+                                 sum(r[8] for r in rows),
+                                 PEAK_BF16_FLOPS)[1],
+            "full_pass_ms": mean[3], "full_pass_bound_ms": mean[4],
+            "fp32_full_pass_ms": mean[5], "differs_from_fp32": mean[6]}
+    return results
+
+
+def _visits_equal(kernel, replay, args, kw):
+    """The kernel's visit counter against its twin's replay: raise unless
+    equal; returns the fields to print."""
+    import torch
+
+    visits = torch.empty(args[0].shape[0], dtype=torch.int32,
+                         device=args[0].device)
+    kernel(*args, **kw, visits=visits)
+    ref = replay(*args, **{k: v for k, v in kw.items() if k != "layout"})
+    if not torch.equal(visits, ref):
+        raise AssertionError(f"bf16 visit counter differs from its replay on "
+                             f"{int((visits != ref).sum())} tiles")
+    return {"counter_equal": True,
+            "subset_visits_per_tile": f"{float(visits.float().mean()):.3f}"}
+
+
+def _with_layouts(fn, fp32_layout, feats, k):
+    """fn with the table's kernel layout of each precision, made once."""
+    from lumenrenderer_tpu_torch.ops import visit_scan as vs
+
+    layouts = {"highest": fp32_layout,
+               "default": vs.slab_layout(feats, k, bf16=True)}
+    return lambda *a, **kw: fn(*a, **kw, layout=layouts[kw["precision"]])
+
+
+def _options_k1(dev, w=W, h=H, n_tiles=SUBSET_TILES):
+    """17a: K1's bf16 mode against its twin on the primary, sorted bounce
+    and shadow passes of the interior."""
+    import torch
+
+    from lumenrenderer_tpu_torch.accel import stream, tiled
+    from lumenrenderer_tpu_torch.ops import visit_scan as vs
+    from lumenrenderer_tpu_torch.render.renderer import KERNEL_VISIT_CAP
+
+    sc, camf = _scene(dev)
+    cs = stream.build_clusters(sc.tri_pos, cluster_size=128).to(dev)
+    mv = min(cs.num_clusters, KERNEL_VISIT_CAP)
+    passes = _secondary_passes(
+        sc, cs, camf(w / h).to(dev), dev, w, h,
+        lambda o, d, tn, tx: tiled.scan_inputs(cs, o, d, tn, tx, mv),
+        primary=True)
+    kernel = _with_layouts(vs.visit_scan, (cs.slabs, cs.nlive), cs.tri_feat,
+                           128)
+    live_tris = vs.slab_layout(cs.tri_feat, 128, bf16=True)[1].double()
+
+    def work(q, args, kw):
+        rf_t, feats, sel, nv, tnb = args
+        visits = torch.empty(rf_t.shape[0], dtype=torch.int32, device=dev)
+        kernel(*args, **kw, visits=visits)
+        live_rays = (rf_t[..., 11] >= rf_t[..., 10]).sum(1)
+        flop = visit_flop(live_rays, live_tris, sel, visits)
+        # the bf16 table at 2 bytes a value
+        nb = (_nbytes(rf_t, sel, nv, tnb) + feats.numel() * 2
+              + rf_t.shape[0] * 128 * 4)
+        return flop, nb, {
+            "visits_per_tile": f"{float(visits.float().mean()):.3f}"}
+
+    return _hold_bf16(
+        "17a bf16 K1", "visit_scan", passes,
+        lambda q: _tile_subset(q["args"], 1, n_tiles), kernel,
+        vs.visit_scan_ref,
+        lambda args, kw: _visits_equal(kernel, vs.executed_visits_ref, args,
+                                       kw),
+        work, lambda q: q["args"][0][..., 11] >= q["args"][0][..., 10],
+        lambda q: q["kw"]["low_bits"])
+
+
+def _options_k2(dev, w=W, h=H, n_tiles=SUBSET_TILES):
+    """17b: K2's bf16 mode against its twin on the instanced scene's
+    passes, then the two-level bf16 frame (K2's bf16 launches)."""
+    import torch
+
+    from lumenrenderer_tpu_torch.accel import stream, two_level
+    from lumenrenderer_tpu_torch.integrator.wavefront import RenderConfig
+    from lumenrenderer_tpu_torch.ops import visit_scan as vs
+    from lumenrenderer_tpu_torch.ops import visit_scan_instanced as vsi
+    from lumenrenderer_tpu_torch.render.renderer import (KERNEL_VISIT_CAP,
+                                                         Renderer)
+
+    builder, camf = _instanced()
+    sc = builder.build().to(dev)
+    cs = stream.build_clusters(sc.tri_pos, cluster_size=128).to(dev)
+    ics = two_level.build_instanced(
+        *two_level.instance_tables(builder.instances)).to(dev)
+    mv = min(ics.num_clusters, KERNEL_VISIT_CAP)
+    passes = _secondary_passes(
+        sc, cs, camf(w / h).to(dev), dev, w, h,
+        lambda o, d, tn, tx: two_level.scan_inputs(ics, o, d, tn, tx, mv),
+        primary=True)
+    kernel = _with_layouts(vsi.visit_scan_instanced, (ics.slabs, ics.nlive),
+                           ics.tri_feat, ics.tri_id.shape[1])
+    live_tris = vs.slab_layout(ics.tri_feat, ics.tri_id.shape[1],
+                               bf16=True)[1].double()
+
+    def work(q, args, kw):
+        rayblk, wnd, feats, sel_cl, _, nv, _ = args
+        tiles = rayblk.shape[0]
+        visits = torch.empty(tiles, dtype=torch.int32, device=dev)
+        kernel(*args, **kw, visits=visits)
+        live_rays = (wnd[..., 1] >= wnd[..., 0]).sum(1)
+        flop = (visit_flop(live_rays, live_tris, sel_cl, visits)
+                + AFFINE_FLOP * float((live_rays * visits).sum()))
+        nb = (_nbytes(rayblk[:, :6], wnd, nv) + feats.numel() * 2
+              + int(visits.sum()) * 56 + tiles * (128 + 1) * 4)
+        return flop, nb, {
+            "visits_per_tile": f"{float(visits.float().mean()):.3f}"}
+
+    checks = _hold_bf16(
+        "17b bf16 K2", "visit_scan_instanced", passes,
+        lambda q: _tile_subset(q["args"], 2, n_tiles), kernel,
+        vsi.visit_scan_instanced_ref,
+        lambda args, kw: _visits_equal(
+            kernel, vsi.executed_visits_instanced_ref, args, kw),
+        work, lambda q: q["args"][1][..., 1] >= q["args"][1][..., 0],
+        lambda q: q["kw"]["low_bits"])
+    del passes
+    cfg = RenderConfig(width=w, height=h, max_depth=5, bsdf="disney",
+                       light_strategy="mis")
+    cam = camf(w / h)
+    r = Renderer(builder.build(), cfg, accel="two_level", builder=builder,
+                 device=dev, candidate_dtype="bfloat16")
+    vsi.reset_launches()
+    ms, warm_ms, st, overflow = _frames(r, cam, SLICE_FRAMES)
+    launches = dict(vsi.LAUNCHES_BF16)
+    mean = float(st.accum.mean())
+    finite = bool(torch.isfinite(st.accum).all())
+    say("17b two-level bf16", size=f"{w}x{h}", units=ics.num_clusters,
+        warmup_ms=f"{warm_ms:.1f}", ms_per_frame=f"{ms:.1f}",
+        k2_bf16_launches=json.dumps(launches),
+        k2_fp32_launches=json.dumps(vsi.LAUNCHES), mean=f"{mean:.6f}",
+        finite=finite, overflow=overflow)
+    per = SLICE_FRAMES + 1
+    if (not finite or mean <= 0 or vsi.LAUNCHES != {"closest": 0, "any": 0}
+            or launches != {"closest": 5 * per, "any": 5 * per}):
+        raise AssertionError(f"17b: bad two-level bf16 frame: {launches}")
+    return checks, launches
+
+
+def _options_k3(dev, w=W, h=H, n_tiles=SUBSET_TILES):
+    """17b: K3's bf16 mode against its twin on the interior's pair tiles,
+    then one bf16 pair frame (K3's bf16 launches)."""
+    import torch
+
+    from lumenrenderer_tpu_torch.accel import pairs, stream
+    from lumenrenderer_tpu_torch.core import sampling
+    from lumenrenderer_tpu_torch.integrator import wavefront as wf
+    from lumenrenderer_tpu_torch.ops import pair_scan as ps
+    from lumenrenderer_tpu_torch.ops import visit_scan as vs
+    from lumenrenderer_tpu_torch.render.renderer import KERNEL_VISIT_CAP
+
+    sc, camf = _scene(dev)
+    cs = stream.build_clusters(sc.tri_pos, cluster_size=128).to(dev)
+    mv = min(cs.num_clusters, KERNEL_VISIT_CAP)
+    passes = _secondary_passes(
+        sc, cs, camf(w / h).to(dev), dev, w, h,
+        lambda o, d, tn, tx: pairs.scan_inputs(cs, o, d, tn, tx, mv,
+                                               PAIRS_PER_RAY),
+        primary=True)
+
+    def subset(q):
+        rf_pairs, feats, tile_cluster = q["args"]
+        rf = rf_pairs.reshape(-1, 128, 12)
+        live = (rf[..., 11] >= rf[..., 10]).any(1).nonzero()[:, 0]
+        idx = live[torch.linspace(0, live.numel() - 1, n_tiles,
+                                  device=dev).long()]
+        return (rf[idx].reshape(-1, 12).contiguous(), feats,
+                tile_cluster[idx].contiguous())
+
+    kernel = _with_layouts(ps.pair_scan, (cs.slabs, cs.nlive), cs.tri_feat,
+                           128)
+    live_tris = vs.slab_layout(cs.tri_feat, 128, bf16=True)[1].double()
+
+    def work(q, args, kw):
+        rf_pairs, feats, tile_cluster = args
+        rf = rf_pairs.reshape(-1, 128, 12)
+        live = (rf[..., 11] >= rf[..., 10]).sum(1)
+        n_live = int((live > 0).sum())
+        flop = FLOP_PER_PAIR * float(
+            (live.double() * live_tris[tile_cluster.long()]).sum())
+        nb = (n_live * (128 * 12 + 1) * 4
+              + (rf.shape[0] - n_live) * 128 * 2 * 4
+              + rf.shape[0] * 128 * 4 + feats.numel() * 2)
+        return flop, nb, {"live_pair_tiles": n_live}
+
+    checks = _hold_bf16(
+        "17b bf16 K3", "pair_scan", passes, subset, kernel, ps.pair_scan_ref,
+        lambda args, kw: {}, work,
+        lambda q: q["args"][0][:, 11] >= q["args"][0][:, 10],
+        lambda q: q["kw"]["k_bits"])
+    del passes
+    cfg = wf.RenderConfig(width=w, height=h, max_depth=5, bsdf="disney",
+                          light_strategy="mis")
+    isect, occl = pairs.pair_intersectors(
+        cs, max_visits=mv, max_pairs_per_ray=OPTION_PAIRS_PER_RAY,
+        decode=False, precision="default")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    ps.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = wf.render_wavefront(sc, isect, occl, camf(w / h).to(dev),
+                                  sampling.generator_uniforms(gen), 0, cfg)
+    img = wf.merge_channels(out)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(ps.LAUNCHES_BF16)
+    finite = bool(torch.isfinite(img).all())
+    say("17b pair bf16", size=f"{w}x{h}", max_pairs_per_ray=
+        OPTION_PAIRS_PER_RAY, frame_ms=f"{ms:.1f}",
+        k3_bf16_launches=json.dumps(launches),
+        k3_fp32_launches=json.dumps(ps.LAUNCHES),
+        mean=f"{float(img.mean()):.6f}", finite=finite,
+        overflow=bool(out["overflow"]))
+    if (not finite or launches != {"closest": 5, "any": 5}
+            or ps.LAUNCHES != {"closest": 0, "any": 0}):
+        raise AssertionError(f"17b: bad bf16 pair frame: {launches}")
+    return checks, launches
+
+
+def _option_frames(phase, r, cam, frames=SLICE_FRAMES):
+    """A warm-up frame and `frames` timed ones from init_state(0): (ms per
+    frame, warm-up ms, state, the last frame's AOVs, overflow, peak GiB)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    st, aux = r.render_frame(r.init_state(0), cam)
+    warm_ms = r.frame_stats["Total Frame Time"]
+    run = {"st": st, "aux": aux, "overflow": r.frame_stats["overflow"]}
+
+    def one():
+        run["st"], run["aux"] = r.render_frame(run["st"], cam)
+        run["overflow"] |= r.frame_stats["overflow"]
+
+    ms = timed_frames(one, frames)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    finite = bool(torch.isfinite(run["st"].accum).all())
+    if not finite or float(run["st"].accum.mean()) <= 0:
+        raise AssertionError(f"{phase}: bad frame")
+    return ms, warm_ms, run["st"], run["aux"], run["overflow"], peak
+
+
+def _primary_visits(r, cam, w, h, perm=None):
+    """K1's executed visits per tile on the frame's primary pass (rays in
+    `perm` order when given) and the mean admitted clusters per tile."""
+    import torch
+
+    from lumenrenderer_tpu_torch.accel import tiled
+    from lumenrenderer_tpu_torch.core import sampling
+    from lumenrenderer_tpu_torch.core.camera import generate_primary_rays
+    from lumenrenderer_tpu_torch.ops import visit_scan as vs
+
+    gen = torch.Generator(device=r.device)
+    gen.manual_seed(3)
+    ids = None if perm is None else torch.from_numpy(perm).to(r.device)
+    o, d = generate_primary_rays(cam.to(r.device), w, h, 0,
+                                 sampling.generator_uniforms(gen), "random",
+                                 pixel_ids=ids)
+    q = tiled.scan_inputs(r.clusters, o, d, 1e-3, 1e9, r.max_visits,
+                          r.culling)
+    visits = torch.empty(q["args"][0].shape[0], dtype=torch.int32,
+                         device=r.device)
+    vs.visit_scan(*q["args"], **q["kw"], closest=True, layout=q["layout"],
+                  visits=visits)
+    return float(visits.float().mean()), float(q["args"][3].float().mean())
+
+
+def _options_frames(dev, w=W, h=H):
+    """17c-e: the interior through Renderer(accel="tiled") with
+    candidate_dtype="bfloat16", culling="dense" and swizzle=True, each
+    beside the default frame of the same seed. Returns K1's bf16
+    launches of 17c's frames."""
+    import dataclasses
+
+    import torch
+
+    from lumenrenderer_tpu_torch.core.camera import block_swizzle_map
+    from lumenrenderer_tpu_torch.ops import visit_scan as vs
+
+    base, cam = _interior_renderer(dev, "tiled", w, h)
+    ms0, _, st0, aux0, _, peak0 = _option_frames("17 default", base, cam)
+    mean0 = float(st0.accum.mean())
+    low_bits = _key_low_bits(base.clusters.num_clusters, 128,
+                             base.max_visits)
+    say("17 default", size=f"{w}x{h}", ms_per_frame=f"{ms0:.1f}",
+        peak_mem_gib=f"{peak0:.2f}", mean=f"{mean0:.6f}")
+
+    # 17c: bf16 candidates (K1's bf16 mode on the main path)
+    r, cam = _interior_renderer(dev, "tiled", w, h,
+                                candidate_dtype="bfloat16")
+    vs.reset_launches()
+    ms, warm, st, aux, ovf, peak = _option_frames("17c bf16", r, cam)
+    launches = dict(vs.LAUNCHES_BF16)
+    per = {k: v / (SLICE_FRAMES + 1) for k, v in launches.items()}
+    strict, _ = _aov_agreement(aux, aux0, low_bits)
+    say("17c bf16", size=f"{w}x{h}", warmup_ms=f"{warm:.1f}",
+        ms_per_frame=f"{ms:.1f}", fp32_ms_per_frame=f"{ms0:.1f}",
+        peak_mem_gib=f"{peak:.2f}", k1_bf16_launches=json.dumps(launches),
+        k1_bf16_launches_per_frame=json.dumps(per),
+        k1_fp32_launches=json.dumps(vs.LAUNCHES),
+        mean=f"{float(st.accum.mean()):.6f}", fp32_mean=f"{mean0:.6f}",
+        aov_pixels_agree_with_fp32=f"{strict:.6f}", overflow=ovf)
+    if (per != {"closest": 5, "any": 5}
+            or vs.LAUNCHES != {"closest": 0, "any": 0}):
+        raise AssertionError(f"17c: K1 bf16 launches per frame {per}")
+    del r, st, aux
+    torch.cuda.empty_cache()
+
+    # 17d: dense culling, uncapped (max_visits = C)
+    r, cam = _interior_renderer(dev, "tiled", w, h, culling="dense")
+    ms, warm, st, aux, ovf, peak = _option_frames("17d dense", r, cam)
+    dense_v, dense_adm = _primary_visits(r, cam, w, h)
+    base_v, base_adm = _primary_visits(base, cam, w, h)
+    say("17d dense", size=f"{w}x{h}", clusters=r.clusters.num_clusters,
+        max_visits=r.max_visits, warmup_ms=f"{warm:.1f}",
+        ms_per_frame=f"{ms:.1f}", frustum_ms_per_frame=f"{ms0:.1f}",
+        peak_mem_gib=f"{peak:.2f}", frustum_peak_mem_gib=f"{peak0:.2f}",
+        admitted_per_tile=f"{dense_adm:.3f}",
+        frustum_admitted_per_tile=f"{base_adm:.3f}",
+        visits_run_per_tile=f"{dense_v:.3f}",
+        frustum_visits_run_per_tile=f"{base_v:.3f}", overflow=ovf)
+    if ovf:
+        raise AssertionError("17d: dense lists overflowed at max_visits = C")
+    _hold_frames("17d dense", "the frustum frame", aux, aux0,
+                 float(st.accum.mean()), mean0, low_bits)
+    del r, st, aux
+    torch.cuda.empty_cache()
+
+    # 17e: swizzle; a slot draws what the row-major pixel of its index
+    # draws, so the primary AOVs are held on a frame of pixel centres
+    r, cam = _interior_renderer(dev, "tiled", w, h)
+    r.config = dataclasses.replace(r.config, swizzle=True)
+    ms, warm, st, aux, ovf, peak = _option_frames("17e swizzle", r, cam)
+    perm, _ = block_swizzle_map(w, h)
+    swz_v, swz_adm = _primary_visits(r, cam, w, h, perm)
+    say("17e swizzle", size=f"{w}x{h}", warmup_ms=f"{warm:.1f}",
+        ms_per_frame=f"{ms:.1f}", row_major_ms_per_frame=f"{ms0:.1f}",
+        primary_visits_run_per_tile=f"{swz_v:.3f}",
+        row_major_primary_visits_run_per_tile=f"{base_v:.3f}",
+        primary_admitted_per_tile=f"{swz_adm:.3f}",
+        row_major_primary_admitted_per_tile=f"{base_adm:.3f}",
+        overflow=ovf)
+    mean = float(st.accum.mean())
+    rel = abs(mean - mean0) / mean0
+    say("17e swizzle", mean=f"{mean:.6f}", row_major_mean=f"{mean0:.6f}",
+        mean_rel_diff=f"{rel:.2e}")
+    if rel > MEAN_RTOL:
+        raise AssertionError(f"17e: swizzled mean {mean} vs {mean0}")
+    centred = []
+    for swizzle in (True, False):
+        r.config = dataclasses.replace(r.config, swizzle=swizzle,
+                                       jitter="center")
+        st_c, aux_c = r.render_frame(r.init_state(0), cam)
+        centred.append((aux_c, float(st_c.accum.mean())))
+    _hold_frames("17e swizzle", "the row-major frame (pixel centres)",
+                 centred[0][0], centred[1][0], centred[0][1], centred[1][1],
+                 low_bits, hold_mean=False)
+    return launches
+
+
+def _raw_passes(dev, sc, cs, cam, w, h):
+    """The interior's bounce and shadow passes, unsorted: {name: (o, d, tn,
+    tx)}."""
+    import torch
+
+    def keep(o, d, tn, tx):
+        r = o.shape[0]
+        return {"rays": (o, d, torch.as_tensor(tn, device=dev).expand(r),
+                         torch.as_tensor(tx, device=dev).expand(r)),
+                "overflow": torch.tensor(False, device=dev)}
+
+    passes = _secondary_passes(sc, cs, cam, dev, w, h, keep,
+                               sort=lambda i, o, lo, hi: (i, o))
+    return {k: v["rays"] for k, v in passes.items()}
+
+
+def _uv_condition(sc, cs, o, d, tri, uv):
+    """(r, 2) condition of u and v on rays o, d whose triangle is `tri`,
+    `uv` their (r, 2) values: for the decode's bilinear form and for
+    Moller-Trumbore each, the sum of its terms' magnitudes over |det|
+    (the numerator's, and |value| times det's), summed over the two. An
+    error of n roundings of each term is at most n 2^-24 times this."""
+    import torch
+
+    from lumenrenderer_tpu_torch.accel import stream
+
+    c, k = cs.num_clusters, cs.tris_per_cluster
+    ids = cs.tri_id.reshape(-1).long()
+    at = torch.full((sc.tri_pos.shape[0],), -1, dtype=torch.long,
+                    device=ids.device)
+    at[ids[ids >= 0]] = torch.arange(ids.numel(), device=ids.device)[ids >= 0]
+    pos = at[tri.long()]
+    cols = cs.tri_feat.reshape(c, 10, 4, k)[pos // k, :, :, pos % k]
+    terms = stream.ray_features(o, d).double()[:, :, None] * cols.double()
+    mag, det = terms.abs().sum(1), terms.sum(1)[:, 0].abs()
+    uv = uv.double().abs()
+    cond = (mag[:, 1:3] + uv * mag[:, :1]) / det[:, None]
+    v0, v1, v2 = (sc.tri_pos[tri.long(), i].double() for i in range(3))
+    o, d = o.double(), d.double()
+    e1, e2, sv = v1 - v0, v2 - v0, o - v0
+
+    def cross_abs(a, b):                 # |a_y b_z| + |a_z b_y|, ...
+        a, b = a.abs(), b.abs()
+        return torch.stack([a[:, 1] * b[:, 2] + a[:, 2] * b[:, 1],
+                            a[:, 2] * b[:, 0] + a[:, 0] * b[:, 2],
+                            a[:, 0] * b[:, 1] + a[:, 1] * b[:, 0]], -1)
+
+    def dot_abs(a, b, b_abs):            # |a| . (|b| + b's own terms)
+        return (a.abs() * (b.abs() + b_abs)).sum(-1)
+
+    p, q = torch.cross(d, e2, dim=-1), torch.cross(sv, e1, dim=-1)
+    det_mt = (e1 * p).sum(-1).abs()
+    det_abs = dot_abs(e1, p, cross_abs(d, e2))
+    num = torch.stack([dot_abs(sv, p, cross_abs(d, e2)),
+                       dot_abs(d, q, cross_abs(sv, e1))], -1)
+    return cond + (num + uv * det_abs[:, None]) / det_mt[:, None]
+
+
+def _options_decode(dev, raw, cs, sc):
+    """17f: decode=True on the sorted bounce pass: its extra ms, and t, u,
+    v against brute on DECODE_RAYS rays."""
+    import torch
+
+    from lumenrenderer_tpu_torch.accel import brute, sorting, tiled
+    from lumenrenderer_tpu_torch.render.renderer import KERNEL_VISIT_CAP
+
+    mv = min(cs.num_clusters, KERNEL_VISIT_CAP)
+    pts = sc.tri_pos.reshape(-1, 3)
+    calls = {}
+    for decode in (False, True):
+        isect, _ = tiled.tiled_intersectors(cs, mv, decode=decode)
+        calls[decode] = sorting.sorted_intersectors(
+            isect, None, pts.amin(0), pts.amax(0))[0]
+    o, d, tn, tx = raw["bounce"]
+    ms = {k: cuda_time_ms(lambda: fn(o, d, tn, tx), reps=3)
+          for k, fn in calls.items()}
+    key = calls[False](o, d, tn, tx)
+    dec = calls[True](o, d, tn, tx)
+    idx = torch.linspace(0, o.shape[0] - 1, DECODE_RAYS, device=dev).long()
+    ref = brute.intersect_closest(sc.tri_pos, o[idx], d[idx], tn[idx],
+                                  tx[idx])
+    low_bits = _key_low_bits(cs.num_clusters, 128, mv)
+    hit = dec["tri"][idx] >= 0
+    same = hit & (dec["tri"][idx] == ref["tri"])
+    t_key, t_dec = key["t"][idx], dec["t"][idx]
+    t_ok = ((t_dec - t_key).abs() <= t_dec * 2.0 ** -(23 - low_bits))[hit]
+    got_uv = torch.stack([dec["u"][idx], dec["v"][idx]], -1)[same]
+    uv = (got_uv - torch.stack([ref["u"], ref["v"]], -1)[same]).abs()
+    tol = DECODE_UV_TOL + DECODE_UV_ROUNDINGS * 2.0 ** -24 * _uv_condition(
+        sc, cs, o[idx][same], d[idx][same], ref["tri"][same], got_uv)
+    tri_agree = float((dec["tri"][idx] == ref["tri"]).float().mean())
+    uv_ok = bool((uv <= tol).all())
+    say("17f decode", rays=o.shape[0], decode_ms=f"{ms[True]:.3f}",
+        key_only_ms=f"{ms[False]:.3f}",
+        extra_ms=f"{ms[True] - ms[False]:.3f}", subset=DECODE_RAYS,
+        hits=int(hit.sum()), tri_agree_with_brute=f"{tri_agree:.6f}",
+        t_within_key=f"{float(t_ok.float().mean()):.6f}",
+        uv_max_err_same_tri=f"{float(uv.max()):.3g}",
+        uv_within_1e5=f"{float((uv <= DECODE_UV_TOL).float().mean()):.6f}",
+        uv_max_err_over_tol=f"{float((uv / tol).max()):.3g}",
+        t_max_rel_err_same_tri=f"""{float(((t_dec - ref['t']).abs()
+                                         / ref['t'])[same].max()):.3g}""")
+    if (not bool(t_ok.all()) or not uv_ok
+            or int(same.sum()) < 0.99 * int(hit.sum())):
+        raise AssertionError("17f: the exact decode disagrees with brute")
+
+
+def _options_blocked(dev, raw, cs, sc):
+    """17g: one bounce and one shadow pass through
+    `blocked_sorted_intersectors` beside `sorted_intersectors`: time and
+    K1's visits per tile."""
+    import torch
+
+    from lumenrenderer_tpu_torch.accel import sorting, tiled
+    from lumenrenderer_tpu_torch.ops import visit_scan as vs
+    from lumenrenderer_tpu_torch.render.renderer import KERNEL_VISIT_CAP
+
+    mv = min(cs.num_clusters, KERNEL_VISIT_CAP)
+    pts = sc.tri_pos.reshape(-1, 3)
+    isect, occl = tiled.tiled_intersectors(cs, mv, decode=False)
+    seen = {}
+
+    def counted(closest):
+        def fn(o, d, tn, tx):
+            q = tiled.scan_inputs(cs, o, d, tn, tx, mv)
+            visits = torch.empty(q["args"][0].shape[0], dtype=torch.int32,
+                                 device=dev)
+            vs.visit_scan(*q["args"], **q["kw"], closest=closest,
+                          layout=q["layout"], visits=visits)
+            seen["visits"] = float(visits.float().mean())
+            seen["admitted"] = float(q["args"][3].float().mean())
+            n = o.shape[0]
+            return ({"tri": torch.zeros(n, device=dev),
+                     "overflow": q["overflow"]} if closest
+                    else torch.zeros(n, dtype=torch.bool, device=dev))
+        return fn
+
+    for label, wrap in (("global sort", sorting.sorted_intersectors),
+                        ("block partition",
+                         sorting.blocked_sorted_intersectors)):
+        timed = wrap(isect, occl, pts.amin(0), pts.amax(0))
+        spies = wrap(counted(True), counted(False), pts.amin(0), pts.amax(0))
+        for i, name in ((0, "bounce"), (1, "shadow")):
+            rays = raw[name]
+            ms = cuda_time_ms(lambda: timed[i](*rays), reps=3)
+            spies[i](*rays)
+            say("17g sort", wrapper=label, rays=name, pass_ms=f"{ms:.3f}",
+                visits_run_per_tile=f"{seen['visits']:.3f}",
+                admitted_per_tile=f"{seen['admitted']:.3f}")
+
+
+def phase_options(dev, w=W, h=H):
+    """Phase 17: returns the bf16 rows' checks and launches per kernel."""
+    import torch
+
+    from lumenrenderer_tpu_torch.accel import stream
+
+    checks = {"visit_scan": _options_k1(dev, w, h)}
+    torch.cuda.empty_cache()
+    checks["visit_scan_instanced"], k2_launches = _options_k2(dev, w, h)
+    torch.cuda.empty_cache()
+    checks["pair_scan"], k3_launches = _options_k3(dev, w, h)
+    torch.cuda.empty_cache()
+    launches = {"visit_scan": _options_frames(dev, w, h),
+                "visit_scan_instanced": k2_launches,
+                "pair_scan": k3_launches}
+    torch.cuda.empty_cache()
+    sc, camf = _scene(dev)
+    cs = stream.build_clusters(sc.tri_pos, cluster_size=128).to(dev)
+    raw = _raw_passes(dev, sc, cs, camf(w / h).to(dev), w, h)
+    _options_decode(dev, raw, cs, sc)
+    _options_blocked(dev, raw, cs, sc)
+    return checks, launches
+
+
 def main(argv=None) -> int:
     """No arguments: every phase. `--rank-worker RANK WORLD PORT OUT`: one
     rank of phase 16c's two."""
@@ -3704,6 +4365,7 @@ def main(argv=None) -> int:
     volume = run("14 volumes", phase_volumes, dev)
     app = run("15 application", phase_app, dev)
     bvh_checks, bvh_launches = run("16 bvh and mesh", phase_bvh, dev)
+    bf16_checks, bf16_launches = run("17 options", phase_options, dev)
 
     kernels = []
     for name in KERNELS[:3]:
@@ -3746,6 +4408,21 @@ def main(argv=None) -> int:
         "bound_ms": w_["bound_ms"], "bound_by": w_["bound_by"],
         "library_ms": None})
     kernels += _bvh_rows(bvh_checks, bvh_launches)
+    for name in KERNELS[:3]:
+        for mode in ("closest", "any"):
+            c = bf16_checks[name][mode]
+            kernels.append({
+                "name": f"{name}[{mode}, bf16]", "route": "cuda",
+                "source": f"lumenrenderer_tpu_torch/ops/csrc/{name}.cu",
+                "replaces": REPLACES[name] + " (precision=\"default\")",
+                "launches": bf16_launches[name][mode],
+                **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "full_pass_ms",
+                                     "full_pass_bound_ms",
+                                     "fp32_full_pass_ms",
+                                     "differs_from_fp32")},
+                "bound_peak": "bf16 tensor cores, 989 TFLOP/s",
+                "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

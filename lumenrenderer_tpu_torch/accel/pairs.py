@@ -16,6 +16,10 @@ keeps only the (ray, cluster) pairs each ray enters:
 5. the per-pair keys scatter back to the rays' candidate slots, and a min
    over the slots (any: an OR) gives the ray's result.
 
+As in JAX, `precision` is K3's ("high" and "highest" fp32, "default" the
+TPU's one bf16 pass) and `culling` picks step 1's: "auto", "frustum", and
+the tree for any other value, "dense" included (`pairs.py:135-141`).
+
 Dynamic shapes replace JAX's static ones where that is simpler eagerly:
 `torch.nonzero` (one host sync) then truncation or padding to `p_cap`, and
 scatters into a buffer with one parking slot. The caps (`PAIR_GROUP`,
@@ -29,7 +33,7 @@ import torch
 
 from ..ops import pair_scan as ps
 from .stream import ClusterSet, ray_features
-from .tiled import KEY_MISS, RAY_TILE, cull_tiles, pad_rays
+from .tiled import KEY_MISS, RAY_TILE, cull_tiles, exact_winners, pad_rays
 
 PAIR_GROUP = RAY_TILE * 8   # rays pad to this, and p_cap, s_cap round to it
 REFINE_TILES = 2048         # tiles per chunk of the (T,128,mv,3) refine
@@ -111,7 +115,8 @@ def _emit_sorted_pairs(hit, sel, c: int, mv: int, p_cap: int, s_cap: int):
 
 
 def scan_inputs(cs: ClusterSet, origins, dirs, t_min, t_max,
-                max_visits: int, max_pairs_per_ray: int) -> Dict:
+                max_visits: int, max_pairs_per_ray: int,
+                culling: str = "auto") -> Dict:
     """Steps 1-3 and K3's inputs: {"args": (rf_pairs, feats, tile_cluster),
     "kw": {k, k_bits}}, the table's kernel layout, plus what the reduction
     needs: idx, dest_orig, sel, mv, the padded and real ray counts rp and
@@ -125,7 +130,10 @@ def scan_inputs(cs: ClusterSet, origins, dirs, t_min, t_max,
     rp = o.shape[0]
     tiles = rp // RAY_TILE
     mv = min(max_visits, c)
-    sel, valid, _, cull_ovf = cull_tiles(cs, o, d, tn, tx, tiles, mv)
+    if culling not in ("auto", "frustum"):
+        culling = "tree"
+    sel, valid, _, cull_ovf = cull_tiles(cs, o, d, tn, tx, tiles, mv,
+                                         culling)
     hit = _refine_hits(cs, o, d, tn, tx, sel, valid, tiles)
     p_cap = -(-(rp * max_pairs_per_ray) // PAIR_GROUP) * PAIR_GROUP
     s_cap = -(-(p_cap + c * RAY_TILE) // PAIR_GROUP) * PAIR_GROUP
@@ -145,12 +153,15 @@ def scan_inputs(cs: ClusterSet, origins, dirs, t_min, t_max,
 
 
 def _query(cs: ClusterSet, origins, dirs, t_min, t_max, max_visits: int,
-           max_pairs_per_ray: int, closest: bool, decode: bool
+           max_pairs_per_ray: int, closest: bool, decode: bool,
+           precision: str = "high", culling: str = "auto"
            ) -> Dict[str, torch.Tensor]:
     q = scan_inputs(cs, origins, dirs, t_min, t_max, max_visits,
-                    max_pairs_per_ray)
+                    max_pairs_per_ray, culling)
+    # the ClusterSet carries the fp32 layout; the bf16 one is made per call
+    layout = q["layout"] if not ps.is_bf16(precision) else None
     out_s = ps.pair_scan(*q["args"], **q["kw"], closest=closest,
-                         layout=q["layout"])
+                         layout=layout, precision=precision)
     r, rp, mv = q["r"], q["rp"], q["mv"]
     dev = origins.device
     # step 5: per-pair results back to the rays' candidate slots
@@ -182,49 +193,49 @@ def _query(cs: ClusterSet, origins, dirs, t_min, t_max, max_visits: int,
         return {"t": torch.where(found, t_key, torch.inf),
                 "tri": torch.where(found, tri_g, -1), "overflow": overflow}
     # exact winner: one (r,10,4) coefficient gather and product
-    c, k = cs.num_clusters, cs.tris_per_cluster
-    cols = cs.tri_feat.reshape(c, 10, 4, k)[cl_w, :, :, k_win]
-    res4 = (ray_features(origins, dirs)[:, :, None] * cols).sum(1)
-    det = res4[:, 0]
-    okd = det.abs() > 1e-12
-    inv = torch.where(okd, 1.0 / torch.where(okd, det, 1.0), 0.0)
-    found = found & okd
-    return {"t": torch.where(found, res4[:, 3] * inv, torch.inf),
-            "tri": torch.where(found, tri_g, -1),
-            "u": torch.where(found, res4[:, 1] * inv, 0.0),
-            "v": torch.where(found, res4[:, 2] * inv, 0.0),
+    exact, found = exact_winners(cs.tri_feat, cs.tris_per_cluster, cl_w,
+                                 k_win, origins, dirs, found)
+    return {**exact, "tri": torch.where(found, tri_g, -1),
             "overflow": overflow}
 
 
 def intersect_closest(cs: ClusterSet, origins, dirs, t_min, t_max,
                       max_visits: int = 128, max_pairs_per_ray: int = 8,
-                      decode: bool = True) -> Dict[str, torch.Tensor]:
+                      decode: bool = True, precision: str = "high",
+                      culling: str = "auto") -> Dict[str, torch.Tensor]:
     """Closest hits: {"t", "tri" (-1 = miss), "overflow"}, and with decode
     the exact t and the barycentrics "u", "v"; without it t is the key's
     quantized distance."""
     return _query(cs, origins, dirs, t_min, t_max, max_visits,
-                  max_pairs_per_ray, True, decode)
+                  max_pairs_per_ray, True, decode, precision, culling)
 
 
 def intersect_any(cs: ClusterSet, origins, dirs, t_min, t_max,
-                  max_visits: int = 128, max_pairs_per_ray: int = 8
+                  max_visits: int = 128, max_pairs_per_ray: int = 8,
+                  precision: str = "high", culling: str = "auto"
                   ) -> torch.Tensor:
     """Occlusion mask (R,) bool."""
     return _query(cs, origins, dirs, t_min, t_max, max_visits,
-                  max_pairs_per_ray, False, False)["occluded"]
+                  max_pairs_per_ray, False, False, precision,
+                  culling)["occluded"]
 
 
 def pair_intersectors(cs: ClusterSet, max_visits: int = 128,
-                      max_pairs_per_ray: int = 8, decode: bool = True
+                      max_pairs_per_ray: int = 8, decode: bool = True,
+                      precision: str = "high", culling: str = "auto"
                       ) -> Tuple:
     """Bind a ClusterSet into (intersect_fn, occlude_fn) for the wavefront
-    loop, with the contract of `tiled.tiled_intersectors`."""
+    loop, with the contract of `tiled.tiled_intersectors`; `precision` is
+    K3's."""
+    ps.is_bf16(precision)
 
     def isect(o, d, tn, tx):
         return intersect_closest(cs, o, d, tn, tx, max_visits,
-                                 max_pairs_per_ray, decode)
+                                 max_pairs_per_ray, decode, precision,
+                                 culling)
 
     def occl(o, d, tn, tx):
-        return intersect_any(cs, o, d, tn, tx, max_visits, max_pairs_per_ray)
+        return intersect_any(cs, o, d, tn, tx, max_visits, max_pairs_per_ray,
+                             precision, culling)
 
     return isect, occl

@@ -1,15 +1,21 @@
 """Tiled intersector: 128-ray tiles against ordered lists of SAH clusters.
 
-Port of `lumenrenderer_tpu/accel/tiled.py` on the path the renderer takes:
-tile culling builds each tile's visit list, the visit scan (kernel K1,
+Port of `lumenrenderer_tpu/accel/tiled.py` (its Pallas path): tile culling
+builds each tile's visit list, the visit scan (kernel K1,
 `ops/visit_scan.py`) returns one packed key per ray, and the winner is
-decoded from the key without re-deriving t/u/v (`decode=False`;
-`extract_surface_data` re-derives them exactly). Culling is the JAX Pallas
-path's: `culling="auto"` tests every (tile, cluster) pair against the tile's
-frustum (`_frustum_visits`) up to 2048 clusters and walks the cluster tree
-past that (`_tile_tree_visits`, the walk in `ops/tree_walk.py`); "frustum"
-and "tree" force one. Not ported: the dense per-ray culling path and the
-in-intersector exact decode.
+decoded from the key. With `decode=True` (the default, as in JAX) the
+winner's t, u and v are re-derived exactly from its coefficient columns
+(`exact_winners`); the renderer passes `decode=False` and takes the key's
+quantised t, since `extract_surface_data` re-derives them.
+
+Culling: `culling="auto"` tests every (tile, cluster) pair against the
+tile's frustum (`_frustum_visits`) up to 2048 clusters and walks the cluster
+tree past that (`_tile_tree_visits`, the walk in `ops/tree_walk.py`);
+"frustum" and "tree" force one, and "dense" slab-tests every (ray, cluster)
+pair and takes each tile's union (`_dense_visits`: exact, O(R·C), computed
+in chunks of tiles). `candidate_dtype` picks K1's precision: "float32" and
+"high" run fp32, "bfloat16" the TPU's one bf16 pass (`visit_scan`'s
+"default").
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from ..core import vecmath as vm
 from ..ops import tree_walk as tw
 from ..ops import visit_scan as vs
 from .stream import ClusterSet, ray_features
@@ -24,6 +31,19 @@ from .stream import ClusterSet, ray_features
 RAY_TILE = vs.RAY_TILE
 KEY_MISS = vs.KEY_MISS
 MAX_FRUSTUM_CLUSTERS = 2048
+DENSE_PAIRS = 1 << 22       # (ray, cluster) pairs a chunk of the dense cull
+# candidate_dtype -> the visit scan's precision
+CANDIDATE_PRECISION = {"float32": "highest", "high": "highest",
+                       "bfloat16": "default"}
+
+
+def candidate_precision(candidate_dtype: str) -> str:
+    """The visit scan's precision for `candidate_dtype`; ValueError on an
+    unknown one."""
+    if candidate_dtype not in CANDIDATE_PRECISION:
+        raise ValueError(f"candidate_dtype {candidate_dtype!r} not in "
+                         f"{tuple(CANDIDATE_PRECISION)}")
+    return CANDIDATE_PRECISION[candidate_dtype]
 
 
 def _pad(a: torch.Tensor, r_pad: int, fill: float) -> torch.Tensor:
@@ -47,6 +67,47 @@ def _tile_bounds(o, d, tn, tx, tiles: int, tile: int):
     dhi = torch.where(a3, dt, -big).amax(1)
     t_cap = torch.where(alive, tx.reshape(tiles, tile), -big).amax(1)
     return olo, ohi, dlo, dhi, t_cap, alive.any(1)
+
+
+def _ray_cluster_window(cs, o, d, t_min, t_max):
+    """Dense (R,C) slab test of rays (R,3) within [t_min, t_max] (R,)
+    against the clusters' boxes: (hit (R,C), t_near (R,C), inf where not
+    hit). Memory is (R,C,3) float32 per intermediate."""
+    eps = 1e-20
+    inv = 1.0 / torch.where(d.abs() > eps, d,
+                            torch.where(d >= 0, eps, -eps))
+    t0 = (cs.aabb_lo[None] - o[:, None]) * inv[:, None]
+    t1 = (cs.aabb_hi[None] - o[:, None]) * inv[:, None]
+    tn = torch.minimum(t0, t1).amax(-1)
+    tf = torch.maximum(t0, t1).amin(-1)
+    hit = (tn <= tf) & (tf >= t_min[:, None]) & (tn <= t_max[:, None])
+    # + 0.0 turns -0.0 into +0.0, as jnp.maximum(tn, 0.0) gives
+    return hit, torch.where(hit, tn.clamp_min(0.0) + 0.0, torch.inf)
+
+
+def _dense_visits(cs, o, d, tn, tx, tiles: int, mv: int):
+    """Exact per-ray culling: each tile admits the clusters any of its rays
+    enters (`_ray_cluster_window`), ordered by the nearest entry of its
+    rays (stable: ties keep cluster-id order, as `jnp.argsort`), the first
+    mv kept. Chunks of tiles bound the (rays, C, 3) intermediates to
+    DENSE_PAIRS (ray, cluster) pairs. Returns what `_frustum_visits`
+    returns."""
+    c = cs.num_clusters
+    hit_tc = torch.empty((tiles, c), dtype=torch.bool, device=o.device)
+    tnear_tc = torch.empty((tiles, c), dtype=torch.float32, device=o.device)
+    step = max(1, DENSE_PAIRS // (RAY_TILE * c))
+    for a in range(0, tiles, step):
+        b = min(a + step, tiles)
+        rays = slice(a * RAY_TILE, b * RAY_TILE)
+        hit, tnear = _ray_cluster_window(cs, o[rays], d[rays], tn[rays],
+                                         tx[rays])
+        hit_tc[a:b] = hit.view(b - a, RAY_TILE, c).any(1)
+        tnear_tc[a:b] = tnear.view(b - a, RAY_TILE, c).amin(1)
+    srt, idx = torch.sort(tnear_tc, dim=1, stable=True)
+    order = idx[:, :mv]
+    overflow = (hit_tc.sum(1) > mv).any()
+    return order.to(torch.int32), hit_tc.gather(1, order), srt[:, :mv], \
+        overflow
 
 
 def pad_rays(origins, dirs, t_min, t_max, group: int):
@@ -122,9 +183,10 @@ def _tile_tree_visits(acc, o, d, tn, tx, tiles: int, mv: int,
 def cull_tiles(acc, o, d, tn, tx, tiles: int, mv: int,
                culling: str = "auto", walk: Callable = tw.tile_tree_visits):
     """Each tile's visit list by `culling`: "frustum", "tree" (through
-    `walk`), or "auto" (the frustum up to MAX_FRUSTUM_CLUSTERS clusters or
-    units, the tree past that, as the JAX package's Pallas path chooses).
-    Returns what `_frustum_visits` returns."""
+    `walk`), "dense" (`_dense_visits`), or "auto" (the frustum up to
+    MAX_FRUSTUM_CLUSTERS clusters or units, the tree past that, as the JAX
+    package's Pallas path chooses). Returns what `_frustum_visits`
+    returns."""
     if culling == "auto":
         culling = ("frustum" if acc.num_clusters <= MAX_FRUSTUM_CLUSTERS
                    else "tree")
@@ -132,8 +194,10 @@ def cull_tiles(acc, o, d, tn, tx, tiles: int, mv: int,
         return _frustum_visits(acc, o, d, tn, tx, tiles, mv)
     if culling == "tree":
         return _tile_tree_visits(acc, o, d, tn, tx, tiles, mv, walk)
-    raise NotImplementedError(f"culling={culling!r} is not ported; "
-                              "'auto', 'frustum' and 'tree' are")
+    if culling == "dense":
+        return _dense_visits(acc, o, d, tn, tx, tiles, mv)
+    raise ValueError(f"culling {culling!r} not in ('auto', 'frustum', "
+                     "'tree', 'dense')")
 
 
 def key_bits(k: int, mv: int) -> Tuple[int, int, int]:
@@ -182,6 +246,31 @@ def decode_winners(out: torch.Tensor, q: Dict):
     return found, entry, slot, torch.where(found, t_key, torch.inf)
 
 
+def exact_winners(feats, k: int, cluster, slot, origins, dirs, found):
+    """The exact decode of closest hits: winner i's coefficient columns
+    (cluster[i], slot[i]) of `feats (C,10,4K)` times ray i's features,
+    a chain of float32 fused multiply-adds over the ten features in order
+    (as XLA's dot runs the JAX decode at HIGHEST; no matmul, so no TF32).
+    The chain is what keeps u and v within 1e-6 of JAX's: a plain float32
+    product summed over the features misses that by up to 4.5e-6 on
+    `tests/test_torch_options.py::test_exact_decode_matches_jax`, where
+    the bilinear form cancels. Returns {"t", "u", "v"} (inf, 0, 0 where not found) and found &
+    |det| > 1e-12."""
+    c = feats.shape[0]
+    cols = feats.reshape(c, 10, 4, k)[cluster, :, :, slot]      # (r,10,4)
+    rf = ray_features(origins, dirs)
+    res4 = torch.zeros_like(cols[:, 0])
+    for f in range(10):
+        res4 = vm.fma(rf[:, f, None], cols[:, f], res4)
+    det = res4[:, 0]
+    okd = det.abs() > 1e-12
+    inv = torch.where(okd, 1.0 / torch.where(okd, det, 1.0), 0.0)
+    found = found & okd
+    return {"t": torch.where(found, res4[:, 3] * inv, torch.inf),
+            "u": torch.where(found, res4[:, 1] * inv, 0.0),
+            "v": torch.where(found, res4[:, 2] * inv, 0.0)}, found
+
+
 def scan_inputs(cs: ClusterSet, origins, dirs, t_min, t_max,
                 max_visits: int, culling: str = "auto",
                 walk: Callable = tw.tile_tree_visits) -> Dict:
@@ -204,53 +293,73 @@ def scan_inputs(cs: ClusterSet, origins, dirs, t_min, t_max,
 
 def _query(cs: ClusterSet, origins, dirs, t_min, t_max, max_visits: int,
            closest: bool, scan: Callable = vs.visit_scan,
-           culling: str = "auto", walk: Callable = tw.tile_tree_visits
+           culling: str = "auto", walk: Callable = tw.tile_tree_visits,
+           candidate_dtype: str = "float32", decode: bool = True
            ) -> Dict[str, torch.Tensor]:
+    precision = candidate_precision(candidate_dtype)
     q = scan_inputs(cs, origins, dirs, t_min, t_max, max_visits, culling,
                     walk)
-    out = scan(*q["args"], **q["kw"], closest=closest, layout=q["layout"])
+    # the ClusterSet carries the fp32 layout; the bf16 one is made per call
+    layout = q["layout"] if precision == "highest" else None
+    out = scan(*q["args"], **q["kw"], closest=closest, layout=layout,
+               precision=precision)
     if not closest:
         return {"occluded": (out.reshape(-1)[:q["r"]] > 0) & q["live"],
                 "overflow": q["overflow"]}
     found, cluster, slot, t = decode_winners(out, q)
-    return {"t": t, "tri": torch.where(found, cs.tri_id[cluster, slot], -1),
+    if not decode:
+        return {"t": t,
+                "tri": torch.where(found, cs.tri_id[cluster, slot], -1),
+                "overflow": q["overflow"]}
+    exact, found = exact_winners(cs.tri_feat, cs.tris_per_cluster,
+                                 cluster.clamp_min(0), slot, origins, dirs,
+                                 found)
+    return {**exact, "tri": torch.where(found, cs.tri_id[cluster, slot], -1),
             "overflow": q["overflow"]}
 
 
 def intersect_closest(cs: ClusterSet, origins, dirs, t_min, t_max,
                       max_visits: int = 12, scan: Callable = vs.visit_scan,
                       culling: str = "auto",
-                      walk: Callable = tw.tile_tree_visits):
-    """Closest hits: {"t" (quantized), "tri" (-1 = miss), "overflow"}."""
+                      walk: Callable = tw.tile_tree_visits,
+                      candidate_dtype: str = "float32", decode: bool = True):
+    """Closest hits: {"t", "tri" (-1 = miss), "overflow"}, and with decode
+    the exact t and the barycentrics "u", "v"; without it t is the key's
+    quantized distance."""
     return _query(cs, origins, dirs, t_min, t_max, max_visits, True, scan,
-                  culling, walk)
+                  culling, walk, candidate_dtype, decode)
 
 
 def intersect_any(cs: ClusterSet, origins, dirs, t_min, t_max,
                   max_visits: int = 12, scan: Callable = vs.visit_scan,
                   culling: str = "auto",
-                  walk: Callable = tw.tile_tree_visits):
+                  walk: Callable = tw.tile_tree_visits,
+                  candidate_dtype: str = "float32"):
     """Occlusion mask (R,) bool."""
     return _query(cs, origins, dirs, t_min, t_max, max_visits, False,
-                  scan, culling, walk)["occluded"]
+                  scan, culling, walk, candidate_dtype)["occluded"]
 
 
 def tiled_intersectors(cs: ClusterSet, max_visits: int = 12,
                        scan: Callable = vs.visit_scan,
                        culling: str = "auto",
-                       walk: Callable = tw.tile_tree_visits) -> Tuple:
+                       walk: Callable = tw.tile_tree_visits,
+                       candidate_dtype: str = "float32",
+                       decode: bool = True) -> Tuple:
     """Bind a ClusterSet into (intersect_fn, occlude_fn) for the wavefront
     loop. `scan` is the visit scan and `walk` the tree walk: the kernel
     wrappers, or their plain twins (`visit_scan_ref`,
     `tile_tree_visits_ref`) to compare the two on one device. `culling`:
-    see `cull_tiles`."""
+    see `cull_tiles`; `candidate_dtype`: see `candidate_precision`;
+    `decode`: see `intersect_closest`."""
+    candidate_precision(candidate_dtype)
 
     def isect(o, d, tn, tx):
         return intersect_closest(cs, o, d, tn, tx, max_visits, scan, culling,
-                                 walk)
+                                 walk, candidate_dtype, decode)
 
     def occl(o, d, tn, tx):
         return intersect_any(cs, o, d, tn, tx, max_visits, scan, culling,
-                             walk)
+                             walk, candidate_dtype)
 
     return isect, occl

@@ -16,8 +16,11 @@ mesh-local id, which indexes the flattened SceneData (`flatten_instances`
 order), so shading is unchanged. `refit_instances` follows new transforms
 in O(units) for dynamic scenes, and refits the unit tree conservatively.
 
-Not ported: dense culling and the in-intersector exact decode
-(`decode=False` only).
+As in JAX: `precision` is K2's ("high" and "highest" fp32, "default" the
+TPU's one bf16 pass); `culling="dense"` walks the unit tree, as every value
+but "frustum" and "auto" does there (`two_level.py:238-245`); `_query`'s
+`decode` is accepted and has no effect: the winner's t is the key's
+quantised distance and u, v are left to `extract_surface_data`.
 """
 from __future__ import annotations
 
@@ -144,16 +147,17 @@ def refit_instances(ics: InstancedClusterSet,
 def scan_inputs(ics: InstancedClusterSet, origins, dirs, t_min, t_max,
                 max_visits: int, culling: str = "auto",
                 walk: Callable = tw.tile_tree_visits) -> Dict:
-    """Pad rays to whole tiles, cull the units (`tiled.cull_tiles`), and
+    """Pad rays to whole tiles, cull the units (`tiled.cull_tiles`; "dense"
+    walks the unit tree, as JAX does), and
     build K2's inputs: {"args": (rayblk, wnd, feats, sel_cl, minv12, nv,
     tnb), "kw": {k, mv, k_bits, low_bits}}, the table's kernel layout, plus
     what the decode needs: the (T,mv) unit lists sel, s_bits, overflow, the
     ray count r and the (r,) live mask."""
     r = origins.shape[0]
     o, d, tn, tx = pad_rays(origins, dirs, t_min, t_max, RAY_TILE)
-    sel, nv, tnb, overflow, kw, s_bits = visit_lists(ics, o, d, tn, tx,
-                                                     max_visits, culling,
-                                                     walk)
+    sel, nv, tnb, overflow, kw, s_bits = visit_lists(
+        ics, o, d, tn, tx, max_visits,
+        "tree" if culling == "dense" else culling, walk)
     zeros = torch.zeros((o.shape[0], 6), dtype=torch.float32, device=o.device)
     rayblk = torch.cat([o, d, zeros[:, :2]], dim=1).reshape(
         -1, RAY_TILE, 8).transpose(1, 2).contiguous()
@@ -173,10 +177,15 @@ def scan_inputs(ics: InstancedClusterSet, origins, dirs, t_min, t_max,
 def _query(ics: InstancedClusterSet, origins, dirs, t_min, t_max,
            max_visits: int, closest: bool, culling: str = "auto",
            scan: Callable = vsi.visit_scan_instanced,
-           walk: Callable = tw.tile_tree_visits) -> Dict[str, torch.Tensor]:
+           walk: Callable = tw.tile_tree_visits, precision: str = "high",
+           decode: bool = True) -> Dict[str, torch.Tensor]:
+    del decode  # accepted and unused, as in JAX (ROADMAP C-24)
     q = scan_inputs(ics, origins, dirs, t_min, t_max, max_visits, culling,
                     walk)
-    out = scan(*q["args"], **q["kw"], closest=closest, layout=q["layout"])
+    # the set carries the fp32 layout; the bf16 one is made per call
+    layout = q["layout"] if not vsi.is_bf16(precision) else None
+    out = scan(*q["args"], **q["kw"], closest=closest, layout=layout,
+               precision=precision)
     if not closest:
         return {"occluded": (out.reshape(-1)[:q["r"]] > 0) & q["live"],
                 "overflow": q["overflow"]}
@@ -191,19 +200,22 @@ def _query(ics: InstancedClusterSet, origins, dirs, t_min, t_max,
 def instanced_intersectors(ics: InstancedClusterSet, max_visits: int = 128,
                            culling: str = "auto",
                            scan: Callable = vsi.visit_scan_instanced,
-                           walk: Callable = tw.tile_tree_visits) -> Tuple:
+                           walk: Callable = tw.tile_tree_visits,
+                           precision: str = "high") -> Tuple:
     """Bind an InstancedClusterSet into (intersect_fn, occlude_fn) for the
-    wavefront loop, with the contract of `tiled.tiled_intersectors`: `scan`
-    and `walk` are kernels K2 and W, or their twins
-    (`visit_scan_instanced_ref`, `tile_tree_visits_ref`)."""
+    wavefront loop, with the contract of `tiled.tiled_intersectors`
+    (decode=False): `scan` and `walk` are kernels K2 and W, or their twins
+    (`visit_scan_instanced_ref`, `tile_tree_visits_ref`); `precision` is
+    K2's."""
+    vsi.is_bf16(precision)
 
     def isect(o, d, tn, tx):
         return _query(ics, o, d, tn, tx, max_visits, True, culling, scan,
-                      walk)
+                      walk, precision)
 
     def occl(o, d, tn, tx):
         return _query(ics, o, d, tn, tx, max_visits, False, culling, scan,
-                      walk)["occluded"]
+                      walk, precision)["occluded"]
 
     return isect, occl
 

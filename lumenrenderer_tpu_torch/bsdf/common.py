@@ -33,11 +33,22 @@ def fresnel_dielectric(cos_i: torch.Tensor, eta: torch.Tensor) -> torch.Tensor:
     return torch.where(tir, torch.ones_like(f), f)
 
 
+def ggx_d(nh: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """GGX normal distribution D(h) (isotropic)."""
+    a2 = alpha * alpha
+    d = nh * nh * (a2 - 1.0) + 1.0
+    return _where0(nh > 0.0, a2 / (math.pi * d * d).clamp_min(1e-12))
+
+
 def ggx_lambda(cos_theta: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     """Smith Lambda for GGX."""
     c = cos_theta.abs().clamp(1e-6, 1.0)
     t2 = (1.0 - c * c).clamp_min(0.0) / (c * c)
     return 0.5 * (-1.0 + torch.sqrt(1.0 + alpha * alpha * t2))
+
+
+def smith_g1(cos_theta: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    return 1.0 / (1.0 + ggx_lambda(cos_theta, alpha))
 
 
 def smith_g2(cos_o, cos_i, alpha) -> torch.Tensor:
@@ -81,4 +92,11 @@ def ggx_vndf_pdf_aniso(wo, h, ax, ay):
     oh = (wo * h).sum(-1)
     val = (smith_g1_aniso(wo, ax, ay) * ggx_d_aniso(h, ax, ay)
            * oh.clamp_min(0.0) / wo_z.clamp_min(1e-6))
+    return _where0(wo_z > 0.0, val)
+
+
+def ggx_vndf_pdf(wo_z, nh, oh, alpha):
+    """PDF of isotropic GGX VNDF sampling (half-vector measure)."""
+    val = (smith_g1(wo_z, alpha) * ggx_d(nh, alpha) * oh.clamp_min(0.0)
+           / wo_z.clamp_min(1e-6))
     return _where0(wo_z > 0.0, val)

@@ -1,15 +1,16 @@
 """Pinhole camera, primary rays and motion vectors.
 
-Port of `lumenrenderer_tpu/core/camera.py` (`block_swizzle_map` is not ported:
-swizzled ray order is refused by the integrator). `pixel_ids` traces a
-slice of the frame (a rank's rows under a device mesh): n follows it, and
-width and height stay the full frame's.
+Port of `lumenrenderer_tpu/core/camera.py`. `pixel_ids` traces a slice of
+the frame (a rank's rows under a device mesh) or the frame in another order
+(`block_swizzle_map`'s): n follows it, and width and height stay the full
+frame's.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from . import sampling
@@ -77,6 +78,26 @@ class Camera(TensorStruct):
         """The pose's values as bytes, for camera-move detection."""
         return b"".join(x.detach().cpu().numpy().tobytes()
                         for x in (self.eye, self.u, self.v, self.w))
+
+
+def block_swizzle_map(width: int, height: int, bw: int = 16, bh: int = 8
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """Pixel permutation grouping bw x bh blocks consecutively, so that each
+    128-ray intersector tile is a compact screen block instead of a thin
+    scanline strip: (perm, inv) numpy int32, ray slot i handles pixel
+    perm[i] and image[p] = result[inv[p]]. The identity when the blocks do
+    not tile the frame."""
+    n = width * height
+    if width % bw or height % bh:
+        ident = np.arange(n, dtype=np.int32)
+        return ident, ident
+    ys, xs = np.mgrid[0:height, 0:width]
+    block = (ys // bh) * (width // bw) + (xs // bw)
+    slot = block * (bw * bh) + (ys % bh) * bw + (xs % bw)
+    inv = slot.reshape(-1).astype(np.int32)          # pixel -> slot
+    perm = np.empty(n, np.int32)
+    perm[inv] = np.arange(n, dtype=np.int32)         # slot -> pixel
+    return perm, inv
 
 
 def _ids(n: int, pixel_ids, device) -> torch.Tensor:

@@ -71,6 +71,14 @@ def cosine_hemisphere_pdf(cos_theta: torch.Tensor) -> torch.Tensor:
     return cos_theta.clamp_min(0.0) / math.pi
 
 
+def sample_uniform_sphere(u: torch.Tensor) -> torch.Tensor:
+    """Uniform direction on the unit sphere from (...,2) uniforms."""
+    z = 1.0 - 2.0 * u[..., 0]
+    r = torch.sqrt((1.0 - z * z).clamp_min(0.0))
+    phi = 2.0 * math.pi * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
 def sample_triangle(u: torch.Tensor) -> torch.Tensor:
     """Uniform barycentrics on a triangle from (...,2) uniforms."""
     su = torch.sqrt(u[..., 0])

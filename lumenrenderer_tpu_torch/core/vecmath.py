@@ -25,6 +25,10 @@ def length(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(dot(v, v).clamp_min(0.0))
 
 
+def length_sq(v: torch.Tensor) -> torch.Tensor:
+    return dot(v, v)
+
+
 def normalize(v: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     """Safe normalize: v/|v|; near-zero vectors map to 0."""
     vv = vdot(v, v)
@@ -74,12 +78,40 @@ def to_world(local: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     return local[..., 0:1] * t + local[..., 1:2] * b + local[..., 2:3] * n
 
 
+def to_local(world: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """World direction to the tangent frame about n."""
+    t, b = build_onb(n)
+    return to_local_frame(world, t, b, n)
+
+
 def to_local_frame(world, t, b, n) -> torch.Tensor:
     return torch.stack([dot(world, t), dot(world, b), dot(world, n)], dim=-1)
 
 
 def to_world_frame(local, t, b, n) -> torch.Tensor:
     return local[..., 0:1] * t + local[..., 1:2] * b + local[..., 2:3] * n
+
+
+def face_forward(n: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """n flipped into the hemisphere opposite the incoming direction d."""
+    return torch.where(vdot(n, d) > 0.0, -n, n)
+
+
+def transform_point(m: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A (...,4,4) row-major transform applied to points (...,3)."""
+    return transform_dir(m, p) + m[..., :3, 3]
+
+
+def transform_dir(m: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """The rotation and scale of a (...,4,4) transform applied to
+    directions (...,3)."""
+    return (d[..., None, :] @ m[..., :3, :3].transpose(-1, -2))[..., 0, :]
+
+
+def transform_normal(m_inv: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Normals under the inverse transpose, n' = (M^-1)^T n: pass the
+    inverse matrix."""
+    return (n[..., None, :] @ m_inv[..., :3, :3])[..., 0, :]
 
 
 def safe_rcp(x: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
@@ -90,5 +122,27 @@ def safe_rcp(x: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
                        torch.where(x >= 0.0, 1.0 / eps, -1.0 / eps))
 
 
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """The float32 fused multiply-add a b + c, rounded once (to nearest,
+    ties to even), as CUDA's __fmaf_rn and XLA's CPU dot chains: a b is
+    exact in float64; the float64 sum s and its exact error e (TwoSum) give
+    s rounded to odd (one ulp toward e when e is not 0 and s's last bit is
+    even), whose rounding to float32 is the rounding of the exact a b + c.
+    A sum that is not finite is left as it is."""
+    p, c = a.double() * b.double(), c.double()
+    s = p + c
+    z = s - p
+    e = (p - (s - z)) + (c - z)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(e > 0, torch.inf, -torch.inf).to(s.dtype)
+    odd = torch.where((e != 0) & even & s.isfinite(),
+                      torch.nextafter(s, toward), s)
+    return odd.float()
+
+
 def lerp(a, b, t):
     return a + (b - a) * t
+
+
+def saturate(x):
+    return x.clamp(0.0, 1.0)

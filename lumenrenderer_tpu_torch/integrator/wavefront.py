@@ -71,8 +71,7 @@ DEBUG_STAGES = (
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Frame configuration; same names and defaults as the JAX package's
-    `RenderConfig` for the options the port has. swizzle is kept only to
-    refuse it.
+    `RenderConfig`.
 
     detach_sampling: hits, sampled directions, pdfs, MIS and RR weights
     carry no gradient (keep True). mipmaps: a textured scene's textures are
@@ -81,7 +80,11 @@ class RenderConfig:
     recomputed in the backward instead of keeping their intermediates.
     volume_steps, volume_depths: march steps a segment, and how many depths
     march (a scene with volumes); volume_transmittance: NEE's shadow
-    transmittance estimator, "riemann" (5 steps) or "ratio"."""
+    transmittance estimator, "riemann" (5 steps) or "ratio". swizzle: the
+    frame's rays run in `camera.block_swizzle_map` order (16x8 pixel
+    blocks: compact 128-ray tiles) and every per-pixel output returns in
+    row-major order; it excludes use_restir and a caller's pixel_ids, as in
+    JAX."""
 
     width: int = 128
     height: int = 128
@@ -107,9 +110,8 @@ class RenderConfig:
     debug_checks: bool = False
 
     def __post_init__(self):
-        if self.swizzle:
-            raise NotImplementedError(
-                "RenderConfig.swizzle is not ported to PyTorch yet")
+        if self.swizzle and self.use_restir:
+            raise ValueError("swizzle and use_restir are exclusive")
 
     @property
     def num_pixels(self) -> int:
@@ -200,6 +202,15 @@ def _replayed(body: Callable, *sources: _Replay) -> Callable:
     return run
 
 
+@functools.lru_cache(maxsize=4)
+def _swizzle_ids(width: int, height: int, device: torch.device):
+    """`block_swizzle_map`'s (perm, inv) as int64 tensors on `device`, made
+    once a frame size (the map takes tens of ms on the host at 1440p); the
+    frame only reads them."""
+    return tuple(torch.from_numpy(a).to(device=device, dtype=torch.int64)
+                 for a in camera_mod.block_swizzle_map(width, height))
+
+
 def render_wavefront(scene: SceneData, intersect_fn: Callable,
                      occlude_fn: Callable, camera: camera_mod.Camera,
                      uniforms: sampling.Uniforms, frame_index: int,
@@ -228,9 +239,15 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
     pixel_ids: optional (N',) global pixel indices: trace that slice of the
     frame (under a device mesh, the rank's rows); every per-pixel output
     and draw has N' rows in pixel_ids order, and cfg.width and cfg.height
-    stay the full frame's for the camera. (swizzle, which it excludes, is
-    not ported.)"""
+    stay the full frame's for the camera. cfg.swizzle excludes it: the frame
+    then traces `block_swizzle_map`'s order (slot i draws row i of each
+    draw) and de-swizzles every per-pixel output."""
     dev = camera.eye.device
+    inv_ids = None
+    if cfg.swizzle:
+        if pixel_ids is not None:
+            raise ValueError("pixel_ids and swizzle are exclusive")
+        pixel_ids, inv_ids = _swizzle_ids(cfg.width, cfg.height, dev)
     n = cfg.num_pixels if pixel_ids is None else pixel_ids.shape[0]
     f32 = torch.float32
     sg = _detach if cfg.detach_sampling else (lambda x: x)
@@ -495,8 +512,11 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
             carry = trace_depth(depth, carry, hits, uniforms, occl)
 
     out = {"direct": carry[8], "indirect": carry[9], "specular": carry[10],
-           "volumetric": carry[13], **aovs, "overflow": overflow_any,
-           "restir_state": restir_state}
+           "volumetric": carry[13], **aovs}
+    if inv_ids is not None:
+        # every per-ray output back to row-major pixel order
+        out = {k: (None if v is None else v[inv_ids]) for k, v in out.items()}
+    out.update(overflow=overflow_any, restir_state=restir_state)
     if cfg.debug_checks:
         out["debug_first_bad"] = carry[11]
     return out

@@ -66,6 +66,7 @@ from typing import Dict
 
 import torch
 
+from ..core.vecmath import fma as _fma
 from ..core.vecmath import safe_rcp
 from . import build
 
@@ -91,24 +92,6 @@ _ERRORS: Dict[torch.device, torch.Tensor] = {}
 def reset_launches() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
-
-
-def _fma(a, b, c):
-    """The float32 fused multiply-add a b + c, rounded once (to nearest,
-    ties to even), as the kernel's __fmaf_rn: a b is exact in float64; the
-    float64 sum s and its exact error e (TwoSum) give s rounded to odd (one
-    ulp toward e when e is not 0 and s's last bit is even), whose rounding
-    to float32 is the rounding of the exact a b + c. A sum that is not
-    finite is left as it is."""
-    p, c = a.double() * b.double(), c.double()
-    s = p + c
-    z = s - p
-    e = (p - (s - z)) + (c - z)
-    even = (s.view(torch.int64) & 1) == 0
-    toward = torch.where(e > 0, torch.inf, -torch.inf).to(s.dtype)
-    odd = torch.where((e != 0) & even & s.isfinite(),
-                      torch.nextafter(s, toward), s)
-    return odd.float()
 
 
 def _dot(a, b):

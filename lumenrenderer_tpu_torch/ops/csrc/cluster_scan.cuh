@@ -4,6 +4,15 @@
 // loop for all three, the TMA bulk copy that feeds it, and the visit loop
 // of K1 and K2 (`visit_loop`).
 //
+// Each kernel has two modes. fp32 (the TPU kernels' "highest"): the table
+// and the rays' features in float32. bf16 (their "default", one bf16 MXU
+// pass): the table arrives as bfloat16 (8 bytes a quadruple, half the
+// bytes of each bulk copy) and the rays' ten features are rounded to
+// bfloat16 (round to nearest even) once; both are widened to float32 in
+// registers and run the fp32 mode's FMA chain. A product of two bfloat16
+// values is exact in float32, so this is the TPU's one-pass product with
+// float32 sums; t_min, t_max and the hit test stay float32.
+//
 // The loop's shape: a block of SPLIT slices per 128-ray tile, slice s testing
 // the slots s, s + SPLIT, ... of a cluster's live slots; each thread of a
 // slice holds R rays (g, g + G, ...), so one broadcast float4 of the slab
@@ -14,6 +23,7 @@
 // nlive · 10 float4s, which one thread copies into shared memory with one
 // TMA bulk copy completed on an mbarrier.
 #pragma once
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace lumen {
@@ -22,14 +32,53 @@ constexpr int RT = 128;               // rays (pairs) per tile
 constexpr int NF = 10;                // ray features [o x d, d, o, 1]
 constexpr int KEY_MISS = 0x7F000000;  // closest-mode "no hit" key
 
+// One (det, u, v, t) quadruple of the table: a float4 (fp32 mode) or four
+// bfloat16 in a uint2 (bf16 mode), low half first; `load` widens it.
+template <bool BF16>
+struct Quad {
+    using T = float4;
+    static __device__ __forceinline__ float4 load(const T& q) { return q; }
+};
+
+template <>
+struct Quad<true> {
+    using T = uint2;
+    static __device__ __forceinline__ float4 load(const T& q)
+    {
+        return make_float4(__uint_as_float(q.x << 16),
+                           __uint_as_float(q.x & 0xFFFF0000u),
+                           __uint_as_float(q.y << 16),
+                           __uint_as_float(q.y & 0xFFFF0000u));
+    }
+};
+
+// x rounded to bfloat16 (nearest even) and widened back: the bf16 mode's
+// ray feature.
+__device__ __forceinline__ float round_bf16(float x)
+{
+    return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The thread's rays' features as the mode tests them (rounded in bf16).
+template <bool BF16, int R>
+__device__ __forceinline__ void mode_features(float (&rf)[R][NF])
+{
+    if (BF16) {
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+            for (int f = 0; f < NF; ++f) rf[r][f] = round_bf16(rf[r][f]);
+    }
+}
+
 // Test the thread's R rays against slots j0, j0 + SPLIT, ... below nt of a
-// slab ((K, 10) float4, triangle j's ten (det, u, v, t) quadruples in a
+// slab ((K, 10) quadruples, triangle j's ten (det, u, v, t) quadruples in a
 // row). Closest mode folds the packed key
 // (t's float bits & low_mask) | visit_field | slot into best; any mode ORs
 // hits into occ.
-template <int R, int SPLIT, bool CLOSEST>
-__device__ __forceinline__ void test_rays(const float4* __restrict__ slab,
-                                          int j0, int nt,
+template <int R, int SPLIT, bool CLOSEST, bool BF16>
+__device__ __forceinline__ void test_rays(
+    const typename Quad<BF16>::T* __restrict__ slab, int j0, int nt,
                                           const float (&rf)[R][NF],
                                           const float (&tmin)[R],
                                           const float (&tmax)[R],
@@ -43,7 +92,7 @@ __device__ __forceinline__ void test_rays(const float4* __restrict__ slab,
         for (int r = 0; r < R; ++r) det[r] = un[r] = vn[r] = tn[r] = 0.f;
 #pragma unroll
         for (int f = 0; f < NF; ++f) {
-            const float4 cf = slab[j * NF + f];
+            const float4 cf = Quad<BF16>::load(slab[j * NF + f]);
 #pragma unroll
             for (int r = 0; r < R; ++r) {
                 det[r] = fmaf(rf[r][f], cf.x, det[r]);
@@ -177,30 +226,43 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* bar,
 // tile's min(nv, mv) visits a block-wide vote ends the tile when no live ray
 // can still improve (closest: visit i starts no nearer than its entry-t key
 // tnb[., i]) or every lane is occluded or dead (any); it is conservative, so
-// the result equals a full scan. Visit i's cluster is sel[., i], clamped to
+// the result equals a full scan. In bf16 closest mode only dead lanes end a
+// tile: a rounded triangle may lie nearer than its cluster's fp32 box. Visit i's cluster is sel[., i], clamped to
 // the table; one thread
 // copies its live slots, then the EXTRA float4s that extra(i, dst, bar)
 // copies on the same barrier, into one of two shared buffers, the copy for
 // visit i + 1 in flight while visit i is tested. Each buffer's mbarrier
-// phase parity is its use count. rays(buffer) returns the rays' ten
-// features for the visit (an array of the kernel's registers). Writes the
+// phase parity is its use count. rays(extra) returns the rays' ten
+// features for the visit (an array of the kernel's registers), given the
+// buffer's EXTRA float4s. Writes the
 // tile's keys (bits) to out (T, 128) (dead lanes: closest 0, any 1; callers
 // mask them) and, unless visits is null, the number of visits run to
-// visits (T,). The dynamic shared memory holds the two buffers:
-// 2 (K · 10 + EXTRA) float4s.
-template <int K, int EXTRA, int R, int SPLIT, bool CLOSEST, class Extra,
-          class Rays>
+// visits (T,). The table holds (C, K · 10) quadruples of the mode
+// (`Quad<BF16>`). The dynamic shared memory holds the two buffers:
+// 2 (slab_float4s<K, BF16>() + EXTRA) float4s.
+template <int K, bool BF16>
+__host__ __device__ constexpr int slab_float4s()
+{
+    return K * NF * (int)sizeof(typename Quad<BF16>::T) / 16;
+}
+
+template <int K, int EXTRA, int R, int SPLIT, bool CLOSEST, bool BF16,
+          class Extra, class Rays>
 __device__ __forceinline__ void visit_loop(
-    const float4* __restrict__ slabs, const int* __restrict__ nlive,
+    const void* __restrict__ table, const int* __restrict__ nlive,
     const int* __restrict__ sel, const int* __restrict__ nv,
     const int* __restrict__ tnb, int* __restrict__ out,
     int* __restrict__ visits, int num_clusters, int mv, int k_bits,
     int low_bits, const float (&tmin)[R], const float (&tmax)[R],
     Extra extra, Rays rays)
 {
+    using Q = typename Quad<BF16>::T;
     constexpr int G = RT / R;
-    constexpr int SLAB = K * NF;          // float4s
-    constexpr int STRIDE = SLAB + EXTRA;  // one buffer
+    constexpr int SLAB = slab_float4s<K, BF16>();  // float4s
+    constexpr int STRIDE = SLAB + EXTRA;           // one buffer
+    static_assert(SLAB * 16 == K * NF * (int)sizeof(Q),
+                  "a slab fills whole float4s");
+    const Q* slabs = static_cast<const Q*>(table);
     extern __shared__ __align__(128) float4 buf[];
     __shared__ __align__(8) unsigned long long bar[2];
     __shared__ int part[SPLIT][RT];
@@ -232,9 +294,9 @@ __device__ __forceinline__ void visit_loop(
     auto fetch = [&](int i) {
         const int cl = cluster(i);
         float4* dst = buf + (i & 1) * STRIDE;
-        const unsigned bytes = nlive[cl] * NF * sizeof(float4);
+        const unsigned bytes = nlive[cl] * NF * sizeof(Q);
         mbar_expect(&bar[i & 1], bytes + EXTRA * sizeof(float4));
-        bulk_copy(dst, slabs + (size_t)cl * SLAB, bytes, &bar[i & 1]);
+        bulk_copy(dst, slabs + (size_t)cl * K * NF, bytes, &bar[i & 1]);
         extra(i, dst + SLAB, &bar[i & 1]);
     };
 
@@ -248,7 +310,7 @@ __device__ __forceinline__ void visit_loop(
             const int nxt = ttnb[i] >> low_bits;
 #pragma unroll
             for (int r = 0; r < R; ++r)
-                done &= dead[r] || (best[r] >> low_bits) < nxt;
+                done &= dead[r] || (!BF16 && (best[r] >> low_bits) < nxt);
         } else {
 #pragma unroll
             for (int r = 0; r < R; ++r) done &= occ[r] != 0;
@@ -261,9 +323,10 @@ __device__ __forceinline__ void visit_loop(
         const int nt = nlive[cluster(i)];
         const float4* slot = buf + (i & 1) * STRIDE;
         mbar_wait(&bar[i & 1], (i >> 1) & 1);
-        const float(&rf)[R][NF] = rays(slot);
-        test_rays<R, SPLIT, CLOSEST>(slot, s, nt, rf, tmin, tmax, low_mask,
-                                     i << k_bits, best, occ);
+        const float(&rf)[R][NF] = rays(slot + SLAB);
+        test_rays<R, SPLIT, CLOSEST, BF16>(reinterpret_cast<const Q*>(slot),
+                                           s, nt, rf, tmin, tmax, low_mask,
+                                           i << k_bits, best, occ);
         ran = i + 1;
     }
     // a copy issued for a visit that the vote skipped must land before the

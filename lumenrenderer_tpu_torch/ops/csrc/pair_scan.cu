@@ -18,7 +18,9 @@
 // without touching the table. A live tile's slots [0, nlive) arrive by one
 // TMA bulk copy on an mbarrier while the lanes load their pairs' features.
 // The key has no visit field (low bits = k_bits). K is a template parameter
-// (32, 64, 128), which sizes the slab.
+// (32, 64, 128), which sizes the slab. The bf16 mode (the TPU kernel's
+// precision="default", cluster_scan.cuh) is a template flag: a bfloat16
+// table and the pairs' features rounded once when loaded.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libpair_scan.so pair_scan.cu
@@ -38,16 +40,19 @@ constexpr int THREADS = G * SPLIT;
 static_assert(G == 32, "one warp per slice: its slab reads are broadcasts");
 
 // One block per pair tile; warp s tests slots s, s + SPLIT, ...
-template <int K, bool CLOSEST>
+template <int K, bool CLOSEST, bool BF16>
 __global__ void __launch_bounds__(THREADS)
 pair_scan_kernel(const float* __restrict__ rows,         // (S, 12)
-                 const float4* __restrict__ slabs,       // (C, K * 10)
+                 const void* __restrict__ table,         // (C, K * 10) quads
                  const int* __restrict__ nlive,          // (C,) slots to test
                  const int* __restrict__ tile_cluster,   // (S / 128,)
                  int* __restrict__ out,                  // (S,)
                  int num_clusters, int k_bits)
 {
-    extern __shared__ __align__(128) float4 slab[];  // (K, 10) float4
+    using Q = typename lumen::Quad<BF16>::T;
+    extern __shared__ __align__(128) float4 smem[];
+    Q* slab = reinterpret_cast<Q*>(smem);            // (K, 10) quads
+    const Q* slabs = static_cast<const Q*>(table);
     __shared__ __align__(8) unsigned long long bar;
     __shared__ int part[SPLIT][RT];
 
@@ -75,7 +80,7 @@ pair_scan_kernel(const float* __restrict__ rows,         // (S, 12)
         const int nt = nlive[cl];
         if (tid == 0)
             lumen::bulk_load(slab, slabs + (size_t)cl * K * NF,
-                             nt * NF * sizeof(float4), &bar);
+                             nt * NF * sizeof(Q), &bar);
         // the pairs' features load while the slab is in flight
         float rf[R][NF];
 #pragma unroll
@@ -84,10 +89,10 @@ pair_scan_kernel(const float* __restrict__ rows,         // (S, 12)
 #pragma unroll
             for (int f = 0; f < NF; ++f) rf[r][f] = p[f];
         }
+        lumen::mode_features<BF16>(rf);
         lumen::mbar_wait(&bar, 0);
-        lumen::test_rays<R, SPLIT, CLOSEST>(slab, s, nt, rf, tmin, tmax,
-                                            ~((1 << k_bits) - 1), 0, best,
-                                            occ);
+        lumen::test_rays<R, SPLIT, CLOSEST, BF16>(
+            slab, s, nt, rf, tmin, tmax, ~((1 << k_bits) - 1), 0, best, occ);
         lumen::combine<R, SPLIT, CLOSEST>(part, g, s, best, occ);
     }
     if (s == 0) {
@@ -99,26 +104,30 @@ pair_scan_kernel(const float* __restrict__ rows,         // (S, 12)
 
 struct Args {
     const float* rows;
-    const float4* slabs;
+    const void* slabs;
     const int *nlive, *tile_cluster;
     int* out;
     int tiles, num_clusters, k_bits;
 };
 
-template <int K, bool CLOSEST>
+template <int K, bool CLOSEST, bool BF16>
 int launch_mode(const Args& a, cudaStream_t s)
 {
-    const size_t smem = (size_t)K * NF * sizeof(float4);
-    pair_scan_kernel<K, CLOSEST><<<a.tiles, THREADS, smem, s>>>(
+    const size_t smem = lumen::slab_float4s<K, BF16>() * sizeof(float4);
+    pair_scan_kernel<K, CLOSEST, BF16><<<a.tiles, THREADS, smem, s>>>(
         a.rows, a.slabs, a.nlive, a.tile_cluster, a.out, a.num_clusters,
         a.k_bits);
     return static_cast<int>(cudaGetLastError());
 }
 
 template <int K>
-int launch(const Args& a, bool closest, cudaStream_t s)
+int launch(const Args& a, bool closest, bool bf16, cudaStream_t s)
 {
-    return closest ? launch_mode<K, true>(a, s) : launch_mode<K, false>(a, s);
+    if (bf16)
+        return closest ? launch_mode<K, true, true>(a, s)
+                       : launch_mode<K, false, true>(a, s);
+    return closest ? launch_mode<K, true, false>(a, s)
+                   : launch_mode<K, false, false>(a, s);
 }
 
 }  // namespace
@@ -126,19 +135,20 @@ int launch(const Args& a, bool closest, cudaStream_t s)
 extern "C" int pair_scan_launch(const void* rows, const void* slabs,
                                 const void* nlive, const void* tile_cluster,
                                 void* out, int tiles, int num_clusters, int k,
-                                int k_bits, int closest, void* stream)
+                                int k_bits, int closest, int bf16,
+                                void* stream)
 {
     if (tiles == 0) return 0;
     const Args a{static_cast<const float*>(rows),
-                 static_cast<const float4*>(slabs),
+                 slabs,
                  static_cast<const int*>(nlive),
                  static_cast<const int*>(tile_cluster),
                  static_cast<int*>(out), tiles, num_clusters, k_bits};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (k) {
-    case 32: return launch<32>(a, closest != 0, s);
-    case 64: return launch<64>(a, closest != 0, s);
-    case 128: return launch<128>(a, closest != 0, s);
+    case 32: return launch<32>(a, closest != 0, bf16 != 0, s);
+    case 64: return launch<64>(a, closest != 0, bf16 != 0, s);
+    case 128: return launch<128>(a, closest != 0, bf16 != 0, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

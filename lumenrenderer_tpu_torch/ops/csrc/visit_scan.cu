@@ -36,6 +36,9 @@
 //   visits each tile ran.
 // Measured alternatives (2 rays a thread, 64 or 256 threads, the triangle
 // loop unrolled by 2 or 4) were slower on the interior passes.
+// - The bf16 mode (the TPU kernel's precision="default", cluster_scan.cuh)
+//   is a template flag: a bfloat16 table (the bulk copies move half the
+//   bytes), the ray features rounded once when loaded, the same FMA chain.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libvisit_scan.so visit_scan.cu
@@ -56,10 +59,10 @@ static_assert(G == 32, "one warp per slice: its slab reads are broadcasts");
 // One block per tile (lumen::visit_loop): warp s tests slots s, s + SPLIT,
 // ... of each slab; its lane g holds rays g + r * G, whose features stay in
 // registers across the visits.
-template <int K, bool CLOSEST>
+template <int K, bool CLOSEST, bool BF16>
 __global__ void __launch_bounds__(THREADS)
 visit_scan_kernel(const float* __restrict__ rf_t,    // (T, 128, 12)
-                  const float4* __restrict__ slabs,  // (C, K * 10)
+                  const void* __restrict__ slabs,    // (C, K * 10) quads
                   const int* __restrict__ nlive,     // (C,) slots to test
                   const int* __restrict__ sel,       // (T, mv) cluster ids
                   const int* __restrict__ nv,        // (T,) live visits
@@ -79,7 +82,8 @@ visit_scan_kernel(const float* __restrict__ rf_t,    // (T, 128, 12)
         tmin[r] = p[10];
         tmax[r] = p[11];
     }
-    lumen::visit_loop<K, 0, R, SPLIT, CLOSEST>(
+    lumen::mode_features<BF16>(rf);
+    lumen::visit_loop<K, 0, R, SPLIT, CLOSEST, BF16>(
         slabs, nlive, sel, nv, tnb, out, visits, num_clusters, mv, k_bits,
         low_bits, tmin, tmax, [](int, float4*, unsigned long long*) {},
         [&](const float4*) -> const float(&)[R][NF] { return rf; });
@@ -87,26 +91,30 @@ visit_scan_kernel(const float* __restrict__ rf_t,    // (T, 128, 12)
 
 struct Args {
     const float* rf_t;
-    const float4* slabs;
+    const void* slabs;
     const int *nlive, *sel, *nv, *tnb;
     int *out, *visits;
     int tiles, num_clusters, mv, k_bits, low_bits;
 };
 
-template <int K>
-int launch(const Args& a, bool closest, cudaStream_t s)
+template <int K, bool CLOSEST, bool BF16>
+int launch_mode(const Args& a, cudaStream_t s)
 {
-    const size_t smem = 2 * (size_t)K * NF * sizeof(float4);
-    if (closest) {
-        visit_scan_kernel<K, true><<<a.tiles, THREADS, smem, s>>>(
-            a.rf_t, a.slabs, a.nlive, a.sel, a.nv, a.tnb, a.out, a.visits,
-            a.num_clusters, a.mv, a.k_bits, a.low_bits);
-    } else {
-        visit_scan_kernel<K, false><<<a.tiles, THREADS, smem, s>>>(
-            a.rf_t, a.slabs, a.nlive, a.sel, a.nv, a.tnb, a.out, a.visits,
-            a.num_clusters, a.mv, a.k_bits, a.low_bits);
-    }
+    const size_t smem = 2 * lumen::slab_float4s<K, BF16>() * sizeof(float4);
+    visit_scan_kernel<K, CLOSEST, BF16><<<a.tiles, THREADS, smem, s>>>(
+        a.rf_t, a.slabs, a.nlive, a.sel, a.nv, a.tnb, a.out, a.visits,
+        a.num_clusters, a.mv, a.k_bits, a.low_bits);
     return static_cast<int>(cudaGetLastError());
+}
+
+template <int K>
+int launch(const Args& a, bool closest, bool bf16, cudaStream_t s)
+{
+    if (bf16)
+        return closest ? launch_mode<K, true, true>(a, s)
+                       : launch_mode<K, false, true>(a, s);
+    return closest ? launch_mode<K, true, false>(a, s)
+                   : launch_mode<K, false, false>(a, s);
 }
 
 }  // namespace
@@ -117,11 +125,11 @@ extern "C" int visit_scan_launch(const void* rf_t, const void* slabs,
                                  void* visits,
                                  int tiles, int num_clusters, int k, int mv,
                                  int k_bits, int low_bits, int closest,
-                                 void* stream)
+                                 int bf16, void* stream)
 {
     if (tiles == 0) return 0;
     const Args a{static_cast<const float*>(rf_t),
-                 static_cast<const float4*>(slabs),
+                 slabs,
                  static_cast<const int*>(nlive),
                  static_cast<const int*>(sel),
                  static_cast<const int*>(nv),
@@ -131,9 +139,9 @@ extern "C" int visit_scan_launch(const void* rf_t, const void* slabs,
                  tiles, num_clusters, mv, k_bits, low_bits};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (k) {
-    case 32: return launch<32>(a, closest != 0, s);
-    case 64: return launch<64>(a, closest != 0, s);
-    case 128: return launch<128>(a, closest != 0, s);
+    case 32: return launch<32>(a, closest != 0, bf16 != 0, s);
+    case 64: return launch<64>(a, closest != 0, bf16 != 0, s);
+    case 128: return launch<128>(a, closest != 0, bf16 != 0, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

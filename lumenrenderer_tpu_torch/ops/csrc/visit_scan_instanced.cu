@@ -27,6 +27,10 @@
 // template parameter (32, 64, 128), which sizes the buffers. Measured
 // alternatives (one or two warps per tile, two rays a lane, buffers sized
 // to the longest cluster) were no faster on the instanced passes.
+// The bf16 mode (the TPU kernel's precision="default", cluster_scan.cuh) is
+// a template flag: a bfloat16 table, and each visit's ten object-space
+// features formed in float32, then rounded to bfloat16 (as the TPU rounds
+// its product's operands), then tested by the same FMA chain.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libvisit_scan_instanced.so visit_scan_instanced.cu
@@ -83,12 +87,12 @@ __device__ __forceinline__ void object_features(const float* m,
 // One block per tile (lumen::visit_loop): warp s tests slots s, s + SPLIT,
 // ... of each unit's slab; its lane g holds rays g + r * G, in world space
 // across the visits and in the unit's object space for each.
-template <int K, bool CLOSEST>
+template <int K, bool CLOSEST, bool BF16>
 __global__ void __launch_bounds__(THREADS)
 visit_scan_instanced_kernel(
     const float* __restrict__ rayblk,  // (T, 8, 128) rows o, d, pad
     const float* __restrict__ wnd,     // (T, 128, 8) cols tmin, tmax, pad
-    const float4* __restrict__ slabs,  // (C, K * 10) object space
+    const void* __restrict__ slabs,    // (C, K * 10) object-space quads
     const int* __restrict__ nlive,     // (C,) slots to test
     const int* __restrict__ sel_cl,    // (T, mv) cluster ids
     const float* __restrict__ minv12,  // (T, mv, 12) world -> object
@@ -110,7 +114,7 @@ visit_scan_instanced_kernel(
         tmin[r] = w[0];
         tmax[r] = w[1];
     }
-    lumen::visit_loop<K, AFFINE, R, SPLIT, CLOSEST>(
+    lumen::visit_loop<K, AFFINE, R, SPLIT, CLOSEST, BF16>(
         slabs, nlive, sel_cl, nv, tnb, out, visits, num_clusters, mv, k_bits,
         low_bits, tmin, tmax,
         // the visit's affine lands after the unit's slab, on its barrier
@@ -118,21 +122,21 @@ visit_scan_instanced_kernel(
             lumen::bulk_copy(dst, minv12 + ((size_t)tile * mv + i) * 12,
                              AFFINE * sizeof(float4), bar);
         },
-        [&](const float4* slot) -> const float(&)[R][NF] {
+        [&](const float4* affine) -> const float(&)[R][NF] {
             float m[12];
-            const float* mp =
-                reinterpret_cast<const float*>(slot + K * NF);
+            const float* mp = reinterpret_cast<const float*>(affine);
 #pragma unroll
             for (int j = 0; j < 12; ++j) m[j] = mp[j];
 #pragma unroll
             for (int r = 0; r < R; ++r) object_features(m, wo[r], rf[r]);
+            lumen::mode_features<BF16>(rf);
             return rf;
         });
 }
 
 struct Args {
     const float *rayblk, *wnd;
-    const float4* slabs;
+    const void* slabs;
     const int *nlive, *sel_cl;
     const float* minv12;
     const int *nv, *tnb;
@@ -140,20 +144,26 @@ struct Args {
     int tiles, num_clusters, mv, k_bits, low_bits;
 };
 
-template <int K, bool CLOSEST>
+template <int K, bool CLOSEST, bool BF16>
 int launch_mode(const Args& a, cudaStream_t s)
 {
-    const size_t smem = 2 * ((size_t)K * NF + AFFINE) * sizeof(float4);
-    visit_scan_instanced_kernel<K, CLOSEST><<<a.tiles, THREADS, smem, s>>>(
+    const size_t smem =
+        2 * (lumen::slab_float4s<K, BF16>() + AFFINE) * sizeof(float4);
+    visit_scan_instanced_kernel<K, CLOSEST, BF16>
+        <<<a.tiles, THREADS, smem, s>>>(
         a.rayblk, a.wnd, a.slabs, a.nlive, a.sel_cl, a.minv12, a.nv, a.tnb,
         a.out, a.visits, a.num_clusters, a.mv, a.k_bits, a.low_bits);
     return static_cast<int>(cudaGetLastError());
 }
 
 template <int K>
-int launch(const Args& a, bool closest, cudaStream_t s)
+int launch(const Args& a, bool closest, bool bf16, cudaStream_t s)
 {
-    return closest ? launch_mode<K, true>(a, s) : launch_mode<K, false>(a, s);
+    if (bf16)
+        return closest ? launch_mode<K, true, true>(a, s)
+                       : launch_mode<K, false, true>(a, s);
+    return closest ? launch_mode<K, true, false>(a, s)
+                   : launch_mode<K, false, false>(a, s);
 }
 
 }  // namespace
@@ -162,12 +172,12 @@ extern "C" int visit_scan_instanced_launch(
     const void* rayblk, const void* wnd, const void* slabs, const void* nlive,
     const void* sel_cl, const void* minv12, const void* nv, const void* tnb,
     void* out, void* visits, int tiles, int num_clusters, int k, int mv,
-    int k_bits, int low_bits, int closest, void* stream)
+    int k_bits, int low_bits, int closest, int bf16, void* stream)
 {
     if (tiles == 0) return 0;
     const Args a{static_cast<const float*>(rayblk),
                  static_cast<const float*>(wnd),
-                 static_cast<const float4*>(slabs),
+                 slabs,
                  static_cast<const int*>(nlive),
                  static_cast<const int*>(sel_cl),
                  static_cast<const float*>(minv12),
@@ -178,9 +188,9 @@ extern "C" int visit_scan_instanced_launch(
                  tiles, num_clusters, mv, k_bits, low_bits};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (k) {
-    case 32: return launch<32>(a, closest != 0, s);
-    case 64: return launch<64>(a, closest != 0, s);
-    case 128: return launch<128>(a, closest != 0, s);
+    case 32: return launch<32>(a, closest != 0, bf16 != 0, s);
+    case 64: return launch<64>(a, closest != 0, bf16 != 0, s);
+    case 128: return launch<128>(a, closest != 0, bf16 != 0, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

@@ -30,6 +30,10 @@ table. K is a template parameter (32, 64 or 128; any other K raises). One
 CUDA kernel replaces both Pallas variants (the table resident in VMEM, or
 streamed by DMA): the table stays in device memory behind the 50 MB L2.
 
+Precision as K1's (`visit_scan`): "highest" and "high" test in float32,
+"default" (the TPU's one bf16 pass) rounds the pairs' ten features and the
+table to bfloat16 and forms their products exactly in float32.
+
 Not carried over: the grid of G = 8 tiles per program (S only needs to be a
 multiple of 128 here), and the FR = 16 feature-row padding.
 
@@ -44,25 +48,35 @@ import torch
 
 from . import build
 from .visit_scan import (KERNEL_K, KEY_MISS, RAY_TILE, check_scalars,
-                         layout_expect, slab_hits, slab_layout)
+                         count_launch, is_bf16, layout_expect,
+                         ordered_product, round_bf16, slab_hits,
+                         slab_layout)
 
-# launches of the CUDA kernel per mode (the CPU twin does not count)
+# launches of the CUDA kernel per mode, fp32 and bf16 (the CPU twin does not
+# count)
 LAUNCHES = {"closest": 0, "any": 0}
+LAUNCHES_BF16 = {"closest": 0, "any": 0}
 
 
 def reset_launches() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    for counts in (LAUNCHES, LAUNCHES_BF16):
+        for key in counts:
+            counts[key] = 0
 
 
 def pair_scan_ref(rf_pairs, feats, tile_cluster, *, k: int, k_bits: int,
-                  closest: bool, layout=None) -> torch.Tensor:
+                  closest: bool, layout=None, precision: str = "highest"
+                  ) -> torch.Tensor:
     """Plain PyTorch twin of the kernel: one (128, 10)·(10, 4K) product per
     pair tile. Memory is (S / 128, 128, 4K) float32."""
     del layout  # only the kernel reads it
     rf = rf_pairs.reshape(-1, RAY_TILE, 12)
-    hit, tb = slab_hits(rf[..., :10].contiguous(), feats[tile_cluster.long()],
-                        rf[..., 10:11], rf[..., 11:12], k, closest)
+    rfm, product = rf[..., :10].contiguous(), torch.bmm
+    if is_bf16(precision):
+        rfm, feats = round_bf16(rfm), round_bf16(feats)
+        product = ordered_product
+    hit, tb = slab_hits(rfm, feats[tile_cluster.long()],
+                        rf[..., 10:11], rf[..., 11:12], k, closest, product)
     if not closest:
         return hit.any(-1).to(torch.int32).reshape(-1)
     kid = torch.arange(k, dtype=torch.int32, device=rf.device)
@@ -72,7 +86,8 @@ def pair_scan_ref(rf_pairs, feats, tile_cluster, *, k: int, k_bits: int,
 
 
 def pair_scan(rf_pairs, feats, tile_cluster, *, k: int, k_bits: int,
-              closest: bool, layout=None) -> torch.Tensor:
+              closest: bool, layout=None, precision: str = "highest"
+              ) -> torch.Tensor:
     """Run the pair scan (contract in the module docstring): (S,) int32 keys
     (closest) or occlusion bits (any). `layout`: as for
     `visit_scan.visit_scan`."""
@@ -80,16 +95,18 @@ def pair_scan(rf_pairs, feats, tile_cluster, *, k: int, k_bits: int,
     if s % RAY_TILE:
         raise ValueError(f"{s} pairs: not a multiple of {RAY_TILE}")
     tiles = s // RAY_TILE
+    bf16 = is_bf16(precision)
     build.check_tensors(rf_pairs.device, {
         "rf_pairs": (rf_pairs, torch.float32, (s, 12)),
         "feats": (feats, torch.float32, (feats.shape[0], 10, 4 * k)),
         "tile_cluster": (tile_cluster, torch.int32, (tiles,)),
-        **layout_expect(feats, k, layout),
+        **layout_expect(feats, k, layout, bf16),
     })
     check_scalars(k, 1, k_bits, k_bits)   # one visit, no visit field
     if rf_pairs.device.type == "cpu":
         return pair_scan_ref(rf_pairs, feats, tile_cluster, k=k,
-                             k_bits=k_bits, closest=closest)
+                             k_bits=k_bits, closest=closest,
+                             precision=precision)
     if rf_pairs.device.type != "cuda":
         raise ValueError(f"pair_scan runs on cpu or cuda, not "
                          f"{rf_pairs.device}")
@@ -98,13 +115,13 @@ def pair_scan(rf_pairs, feats, tile_cluster, *, k: int, k_bits: int,
                          f"{k}")
     fn = build.load_function(
         "pair_scan", "pair_scan_launch",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     # made here, they are freed on return, but the caching allocator hands
     # their memory only to work queued after the kernel on this stream
-    slabs, nlive = slab_layout(feats, k) if layout is None else layout
+    slabs, nlive = slab_layout(feats, k, bf16) if layout is None else layout
     out = torch.empty((s,), dtype=torch.int32, device=rf_pairs.device)
     build.launch(fn, rf_pairs.device, rf_pairs.data_ptr(), slabs.data_ptr(),
                  nlive.data_ptr(), tile_cluster.data_ptr(), out.data_ptr(),
-                 tiles, feats.shape[0], k, k_bits, int(closest))
-    LAUNCHES["closest" if closest else "any"] += 1
+                 tiles, feats.shape[0], k, k_bits, int(closest), int(bf16))
+    count_launch(LAUNCHES, LAUNCHES_BF16, closest, bf16)
     return out

@@ -17,12 +17,25 @@ key `(t_bits & ~low_mask) | (visit << k_bits) | slot`, 0x7F000000 for a
 miss; any mode returns 1 where any triangle hits. Dead lanes (tmax < tmin)
 return 0 in closest mode and 1 in any mode; callers mask them.
 
+Precision (`precision`, the TPU kernel's argument): "highest" (and "high",
+a bf16 three-pass split on the TPU, which the port runs as exact fp32) tests
+in float32; "default", the TPU's one bf16 MXU pass, rounds the ten ray
+features and the coefficient table to bfloat16 (round to nearest even) and
+forms their products exactly in float32, summed in float32; t_min, t_max and
+the hit test stay float32. The bf16 twin is the fp32 twin on the rounded
+inputs (`round_bf16`), its product summed in the kernel's order
+(`ordered_product`). A rounded triangle may lie nearer than its cluster's
+fp32 box, so in this mode the closest vote ends a tile only when all its
+lanes are dead, and the result equals a full scan (the TPU kernel keeps
+its entry-t check every 4 visits and can drop such a hit: ROADMAP C-25).
+
 What bounds it on an H100: fp32 FMA issue. A visit costs
 live rays × live triangles × 40 FMAs = 80 flop per ray-triangle pair; at
 67 TFLOP/s (fp32, no tensor cores) that is the bound, since the bytes (ray
 features, visit lists, at most a 20 KB slab per visit from L2) take a small
-fraction of it at 3.35 TB/s. Geometry stays exact fp32, so tensor cores
-(TF32 or bf16 splits) are not used.
+fraction of it at 3.35 TB/s. Tensor cores are not used, in either mode:
+the bf16 mode reads a bfloat16 table (half the bytes) and runs the fp32
+mode's FMA chain on the widened values.
 
 The design (details in the source): a block of four warps per tile, each
 warp testing an interleaved quarter of the cluster's triangles and each
@@ -36,7 +49,8 @@ visit's slab is one contiguous block, copied by one TMA
 bulk copy into one of two shared buffers while the previous visit is
 tested; a conservative block-wide vote before every visit
 (`__syncthreads_and`) that ends the tile when no live ray can still
-improve, so the result equals a full scan. An optional int32 counter
+improve (bf16 closest: when all its lanes are dead), so the result equals
+a full scan. An optional int32 counter
 receives the visits each tile ran; `executed_visits_ref` replays the same
 vote from the twin.
 
@@ -58,22 +72,59 @@ from . import build
 KEY_MISS = 0x7F000000
 RAY_TILE = 128
 KERNEL_K = (32, 64, 128)     # cluster sizes the kernel is built for
-# launches of the CUDA kernel per mode (the CPU twin does not count)
+PRECISIONS = {"highest": False, "high": False, "default": True}  # -> bf16
+# launches of the CUDA kernel per mode, fp32 and bf16 (the CPU twin does not
+# count)
 LAUNCHES = {"closest": 0, "any": 0}
+LAUNCHES_BF16 = {"closest": 0, "any": 0}
 
 
 def reset_launches() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    for counts in (LAUNCHES, LAUNCHES_BF16):
+        for key in counts:
+            counts[key] = 0
 
 
-def slab_hits(rf, slab, tmin, tmax, k: int, closest: bool):
+def is_bf16(precision: str) -> bool:
+    """Whether `precision` ("highest", "high" or "default") is the bf16
+    mode (shared by K1, K2 and K3); raise ValueError on another."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision {precision!r} not in "
+                         f"{tuple(PRECISIONS)}")
+    return PRECISIONS[precision]
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bfloat16 (nearest even), as float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def count_launch(counts_fp32: dict, counts_bf16: dict, closest: bool,
+                 bf16: bool) -> None:
+    (counts_bf16 if bf16 else counts_fp32)[
+        "closest" if closest else "any"] += 1
+
+
+def ordered_product(rf, slab):
+    """rf (T,128,10) times slab (T,10,4K), summed over the ten features in
+    the kernels' order. The bf16 twins' product: each product of two
+    bfloat16 values is exact in float32, so this equals the kernels' chain
+    of fused multiply-adds bit for bit, whatever order a matmul would
+    take."""
+    res = rf[..., 0:1] * slab[:, 0:1] + 0.0     # the chain starts at +0
+    for f in range(1, rf.shape[-1]):
+        res = res + rf[..., f:f + 1] * slab[:, f:f + 1]
+    return res
+
+
+def slab_hits(rf, slab, tmin, tmax, k: int, closest: bool,
+              product=torch.bmm):
     """The kernels' test (`test_rays` in csrc/cluster_scan.cuh, shared by
     K1, K2 and K3) of ray features rf (T,128,10) against one
-    coefficient slab per tile (T,10,4K) within [tmin, tmax] (T,128,1):
-    hit (T,128,K) bool and, in closest mode, t's float bits (T,128,K) int32
-    (else None)."""
-    res = torch.bmm(rf, slab)                               # (T, 128, 4K)
+    coefficient slab per tile (T,10,4K) within [tmin, tmax] (T,128,1), the
+    product formed by `product`: hit (T,128,K) bool and, in closest mode,
+    t's float bits (T,128,K) int32 (else None)."""
+    res = product(rf, slab)                                 # (T, 128, 4K)
     det, un, vn, tn = res.split(k, dim=-1)
     s = torch.sign(det)
     ad = det * s
@@ -87,7 +138,8 @@ def slab_hits(rf, slab, tmin, tmax, k: int, closest: bool):
 
 
 def _running_ref(rays, feats, sel, nv, tmin, tmax, dead, *, k: int,
-                 k_bits: int, low_bits: int, closest: bool):
+                 k_bits: int, low_bits: int, closest: bool,
+                 product=torch.bmm):
     """Yield the twin's running (T,128) state before visit 0 and after each
     visit i < max(nv): the minimum key so far (closest, KEY_MISS for none)
     or the OR of hits so far (any, bool, dead lanes True)."""
@@ -100,7 +152,7 @@ def _running_ref(rays, feats, sel, nv, tmin, tmax, dead, *, k: int,
     yield state
     for i in range(int(nv.max()) if tiles else 0):
         hit, tb = slab_hits(rays(i), feats[sel[:, i].long()], tmin, tmax, k,
-                            closest)
+                            closest, product)
         hit &= (i < nv)[:, None, None]
         if closest:
             key = (tb & low_mask) | (i << k_bits) | kid
@@ -112,15 +164,15 @@ def _running_ref(rays, feats, sel, nv, tmin, tmax, dead, *, k: int,
 
 
 def scan_visits_ref(rays, feats, sel, nv, tmin, tmax, dead, *, k: int,
-                    k_bits: int, low_bits: int, closest: bool
-                    ) -> torch.Tensor:
+                    k_bits: int, low_bits: int, closest: bool,
+                    product=torch.bmm) -> torch.Tensor:
     """Plain twin of the kernels' visit loop without its early-out, which is
     conservative, so the results are equal. `rays(i)` gives the (T,128,10)
     features of visit i. Runs every tile for max(nv) visits; memory is
     (T,128,4K) float32 per visit."""
     for state in _running_ref(rays, feats, sel, nv, tmin, tmax, dead, k=k,
                               k_bits=k_bits, low_bits=low_bits,
-                              closest=closest):
+                              closest=closest, product=product):
         pass
     if closest:
         return torch.where(dead, torch.zeros_like(state), state)
@@ -128,20 +180,25 @@ def scan_visits_ref(rays, feats, sel, nv, tmin, tmax, dead, *, k: int,
 
 
 def replay_visits_ref(rays, feats, sel, nv, tnb, tmin, tmax, dead, *, k: int,
-                      mv: int, k_bits: int, low_bits: int, closest: bool
-                      ) -> torch.Tensor:
+                      mv: int, k_bits: int, low_bits: int, closest: bool,
+                      product=torch.bmm, bf16: bool = False) -> torch.Tensor:
     """The number of visits each tile runs under the kernels' block-wide
     vote, replayed from the twin's running state: (T,) int32. Before visit i
     (i < min(nv, mv)) the tile stops when every lane is dead or, closest,
     holds a key whose t field lies below that of the entry t `tnb[:, i]`
-    (later visits start no nearer), or, any, is occluded."""
+    (later visits start no nearer; not in the bf16 mode, whose rounded
+    triangles may lie nearer than their cluster's box), or, any, is
+    occluded."""
     n = nv.clamp_max(mv)
     ran = n.clone()
     stopped = torch.zeros_like(n, dtype=torch.bool)
     states = _running_ref(rays, feats, sel, nv, tmin, tmax, dead, k=k,
-                          k_bits=k_bits, low_bits=low_bits, closest=closest)
+                          k_bits=k_bits, low_bits=low_bits, closest=closest,
+                          product=product)
     for i, state in enumerate(states):
-        if closest:
+        if closest and bf16:
+            done = dead.all(1)
+        elif closest:
             nxt = tnb[:, min(i, mv - 1)] >> low_bits
             done = (dead | ((state >> low_bits) < nxt[:, None])).all(1)
         else:
@@ -152,38 +209,51 @@ def replay_visits_ref(rays, feats, sel, nv, tnb, tmin, tmax, dead, *, k: int,
     return ran.to(torch.int32)
 
 
+def _mode_inputs(rf_t, feats, precision: str):
+    """The ray features (T,128,10), the table and the product the mode
+    tests them with."""
+    if is_bf16(precision):
+        return round_bf16(rf_t[..., :10]), round_bf16(feats), ordered_product
+    return rf_t[..., :10], feats, torch.bmm
+
+
 def visit_scan_ref(rf_t, feats, sel, nv, tnb, *, k: int, mv: int,
-                   k_bits: int, low_bits: int, closest: bool, layout=None
-                   ) -> torch.Tensor:
+                   k_bits: int, low_bits: int, closest: bool, layout=None,
+                   precision: str = "highest") -> torch.Tensor:
     """Plain PyTorch twin of the kernel (same contract, no early-out)."""
     del tnb, mv, layout  # only the kernel reads them
-    rfm = rf_t[..., :10]
+    rfm, feats, product = _mode_inputs(rf_t, feats, precision)
     return scan_visits_ref(lambda i: rfm, feats, sel, nv, rf_t[..., 10:11],
                            rf_t[..., 11:12], rf_t[..., 11] < rf_t[..., 10],
                            k=k, k_bits=k_bits, low_bits=low_bits,
-                           closest=closest)
+                           closest=closest, product=product)
 
 
 def executed_visits_ref(rf_t, feats, sel, nv, tnb, *, k: int, mv: int,
-                        k_bits: int, low_bits: int, closest: bool
-                        ) -> torch.Tensor:
+                        k_bits: int, low_bits: int, closest: bool,
+                        precision: str = "highest") -> torch.Tensor:
     """Plain twin of the kernel's visit counter: (T,) int32 visits each tile
     runs (`replay_visits_ref` with the tile's fixed rays)."""
-    rfm = rf_t[..., :10]
+    rfm, feats, product = _mode_inputs(rf_t, feats, precision)
     return replay_visits_ref(lambda i: rfm, feats, sel, nv, tnb,
                              rf_t[..., 10:11], rf_t[..., 11:12],
                              rf_t[..., 11] < rf_t[..., 10], k=k, mv=mv,
                              k_bits=k_bits, low_bits=low_bits,
-                             closest=closest)
+                             closest=closest, product=product,
+                             bf16=is_bf16(precision))
 
 
-def slab_layout(feats: torch.Tensor, k: int):
+def slab_layout(feats: torch.Tensor, k: int, bf16: bool = False):
     """The kernel's order of the coefficient table and its live slots:
     (slabs (C,K,10,4), nlive (C,) int32). Global (f, q·K + j) goes to
     ((j·10 + f)·4 + q), so that each cluster's slab is one contiguous block
-    of K·10 float4s (triangle j's ten (det, u, v, t) quadruples in a row).
+    of K·10 quadruples (triangle j's ten (det, u, v, t) in a row).
     nlive is one past the cluster's last slot with a nonzero coefficient
-    (at least 1): the slots after it are padding, which never hits."""
+    (at least 1): the slots after it are padding, which never hits. With
+    `bf16`, slabs are bfloat16 and nlive counts the rounded table."""
+    if bf16:
+        slabs, nlive = slab_layout(round_bf16(feats), k)
+        return slabs.to(torch.bfloat16), nlive
     c = feats.shape[0]
     slabs = feats.view(c, 10, 4, k).permute(0, 3, 1, 2).contiguous()
     slot = torch.arange(1, k + 1, dtype=torch.int32, device=feats.device)
@@ -207,18 +277,19 @@ def check_scalars(k: int, mv: int, k_bits: int, low_bits: int) -> None:
                          "memory")
 
 
-def layout_expect(feats, k: int, layout) -> dict:
-    """check_tensors entries of a (slabs, nlive) layout of `feats`, if any
-    (shared by K1, K2 and K3)."""
+def layout_expect(feats, k: int, layout, bf16: bool = False) -> dict:
+    """check_tensors entries of a (slabs, nlive) layout of `feats` in the
+    mode's type, if any (shared by K1, K2 and K3)."""
     if layout is None:
         return {}
     c = feats.shape[0]
-    return {"slabs": (layout[0], torch.float32, (c, k, 10, 4)),
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    return {"slabs": (layout[0], dtype, (c, k, 10, 4)),
             "nlive": (layout[1], torch.int32, (c,))}
 
 
 def _check(rf_t, feats, sel, nv, tnb, k, mv, k_bits, low_bits, visits,
-           layout):
+           layout, bf16):
     tiles = rf_t.shape[0]
     expect = {
         "rf_t": (rf_t, torch.float32, (tiles, RAY_TILE, 12)),
@@ -226,7 +297,7 @@ def _check(rf_t, feats, sel, nv, tnb, k, mv, k_bits, low_bits, visits,
         "sel": (sel, torch.int32, (tiles, mv)),
         "nv": (nv, torch.int32, (tiles,)),
         "tnb": (tnb, torch.int32, (tiles, mv)),
-        **layout_expect(feats, k, layout),
+        **layout_expect(feats, k, layout, bf16),
     }
     if visits is not None:
         expect["visits"] = (visits, torch.int32, (tiles,))
@@ -235,17 +306,20 @@ def _check(rf_t, feats, sel, nv, tnb, k, mv, k_bits, low_bits, visits,
 
 
 def visit_scan(rf_t, feats, sel, nv, tnb, *, k: int, mv: int, k_bits: int,
-               low_bits: int, closest: bool, visits=None, layout=None
-               ) -> torch.Tensor:
+               low_bits: int, closest: bool, visits=None, layout=None,
+               precision: str = "highest") -> torch.Tensor:
     """Run the visit scan (contract in the module docstring): (T, 128) int32
     keys (closest) or occlusion bits (any). `visits`, an int32 (T,) tensor,
     receives the number of visits each tile ran (on the CPU, from
     `executed_visits_ref`). `layout`, the (slabs, nlive) of `feats` from
-    `slab_layout` (as a ClusterSet carries them), spares the kernel path
-    laying the table out on every call."""
+    `slab_layout` in the mode's type (a ClusterSet carries the fp32 one),
+    spares the kernel path laying the table out on every call; the bf16
+    mode without one lays out a bfloat16 copy per call."""
+    bf16 = is_bf16(precision)
     _check(rf_t, feats, sel, nv, tnb, k, mv, k_bits, low_bits, visits,
-           layout)
-    kw = dict(k=k, mv=mv, k_bits=k_bits, low_bits=low_bits, closest=closest)
+           layout, bf16)
+    kw = dict(k=k, mv=mv, k_bits=k_bits, low_bits=low_bits, closest=closest,
+              precision=precision)
     if rf_t.device.type == "cpu":
         if visits is not None:
             visits.copy_(executed_visits_ref(rf_t, feats, sel, nv, tnb, **kw))
@@ -256,18 +330,19 @@ def visit_scan(rf_t, feats, sel, nv, tnb, *, k: int, mv: int, k_bits: int,
         raise ValueError(f"the visit scan kernel takes K in {KERNEL_K}, not "
                          f"{k}")
     fn = build.load_function("visit_scan", "visit_scan_launch",
-                             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                              + [ctypes.c_void_p])
     tiles = rf_t.shape[0]
     # made here, they are freed on return, but the caching allocator hands
     # their memory only to work queued after the kernel on this stream
-    slabs, nlive = slab_layout(feats, k) if layout is None else layout
+    slabs, nlive = slab_layout(feats, k, bf16) if layout is None else layout
     out = torch.empty((tiles, RAY_TILE), dtype=torch.int32,
                       device=rf_t.device)
     build.launch(fn, rf_t.device, rf_t.data_ptr(), slabs.data_ptr(),
                  nlive.data_ptr(), sel.data_ptr(), nv.data_ptr(),
                  tnb.data_ptr(), out.data_ptr(),
                  None if visits is None else visits.data_ptr(), tiles,
-                 feats.shape[0], k, mv, k_bits, low_bits, int(closest))
-    LAUNCHES["closest" if closest else "any"] += 1
+                 feats.shape[0], k, mv, k_bits, low_bits, int(closest),
+                 int(bf16))
+    count_launch(LAUNCHES, LAUNCHES_BF16, closest, bf16)
     return out

@@ -36,6 +36,11 @@ runs before every visit; an optional int32 counter receives the visits each
 tile ran, and `executed_visits_instanced_ref` replays the same vote from
 the twin. K is a template parameter (32, 64 or 128; any other K raises).
 
+Precision as K1's (`visit_scan`): "highest" and "high" test in float32;
+"default" (the TPU's one bf16 pass) forms each visit's ten features in
+float32, rounds them to bfloat16, and tests them against the bfloat16
+table by K1's bf16 product, and K1's bf16 vote.
+
 Not carried over: the T % 8 padding and (T/8, 8, 128) blocks, the FR = 16
 feature-row padding, and the `RESIDENT_BYTES` limit (a VMEM limit; here the
 table stays in device memory behind L2).
@@ -50,16 +55,21 @@ import ctypes
 import torch
 
 from . import build
-from .visit_scan import (KERNEL_K, RAY_TILE, check_scalars, layout_expect,
-                         replay_visits_ref, scan_visits_ref, slab_layout)
+from .visit_scan import (KERNEL_K, RAY_TILE, check_scalars, count_launch,
+                         is_bf16, layout_expect, ordered_product,
+                         replay_visits_ref, round_bf16, scan_visits_ref,
+                         slab_layout)
 
-# launches of the CUDA kernel per mode (the CPU twin does not count)
+# launches of the CUDA kernel per mode, fp32 and bf16 (the CPU twin does not
+# count)
 LAUNCHES = {"closest": 0, "any": 0}
+LAUNCHES_BF16 = {"closest": 0, "any": 0}
 
 
 def reset_launches() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    for counts in (LAUNCHES, LAUNCHES_BF16):
+        for key in counts:
+            counts[key] = 0
 
 
 def object_space_features(rayblk: torch.Tensor, m: torch.Tensor
@@ -82,42 +92,61 @@ def object_space_features(rayblk: torch.Tensor, m: torch.Tensor
                         torch.ones_like(oox)], dim=-1)
 
 
+def _mode_rays(rayblk, minv12, feats, precision: str) -> dict:
+    """The mode's rays(i) (visit i's features, rounded to bfloat16 after
+    they are formed in the bf16 mode), table and product (`visit_scan`'s
+    `_mode_inputs`)."""
+    if is_bf16(precision):
+        return {"rays": lambda i: round_bf16(object_space_features(
+            rayblk, minv12[:, i])), "feats": round_bf16(feats),
+            "product": ordered_product}
+    return {"rays": lambda i: object_space_features(rayblk, minv12[:, i]),
+            "feats": feats, "product": torch.bmm}
+
+
 def visit_scan_instanced_ref(rayblk, wnd, feats, sel_cl, minv12, nv, tnb, *,
                              k: int, mv: int, k_bits: int, low_bits: int,
-                             closest: bool, layout=None) -> torch.Tensor:
+                             closest: bool, layout=None,
+                             precision: str = "highest") -> torch.Tensor:
     """Plain PyTorch twin of the kernel (same contract, no early-out): K1's
     twin loop with the object-space features of each visit."""
     del tnb, mv, layout  # only the kernel reads them
-    return scan_visits_ref(
-        lambda i: object_space_features(rayblk, minv12[:, i]), feats, sel_cl,
-        nv, wnd[..., 0:1], wnd[..., 1:2], wnd[..., 1] < wnd[..., 0], k=k,
-        k_bits=k_bits, low_bits=low_bits, closest=closest)
+    mode = _mode_rays(rayblk, minv12, feats, precision)
+    return scan_visits_ref(mode["rays"], mode["feats"], sel_cl, nv,
+                           wnd[..., 0:1], wnd[..., 1:2],
+                           wnd[..., 1] < wnd[..., 0], k=k, k_bits=k_bits,
+                           low_bits=low_bits, closest=closest,
+                           product=mode["product"])
 
 
 def executed_visits_instanced_ref(rayblk, wnd, feats, sel_cl, minv12, nv,
                                   tnb, *, k: int, mv: int, k_bits: int,
-                                  low_bits: int, closest: bool
+                                  low_bits: int, closest: bool,
+                                  precision: str = "highest"
                                   ) -> torch.Tensor:
     """Plain twin of the kernel's visit counter: (T,) int32 visits each
     tile runs under the kernel's vote before every visit, replayed from the
     twin (`replay_visits_ref` with each visit's object-space features); a
     tile whose lanes are all dead runs none."""
+    mode = _mode_rays(rayblk, minv12, feats, precision)
     return replay_visits_ref(
-        lambda i: object_space_features(rayblk, minv12[:, i]), feats, sel_cl,
-        nv, tnb, wnd[..., 0:1], wnd[..., 1:2], wnd[..., 1] < wnd[..., 0], k=k,
-        mv=mv, k_bits=k_bits, low_bits=low_bits, closest=closest)
+        mode["rays"], mode["feats"], sel_cl, nv, tnb, wnd[..., 0:1],
+        wnd[..., 1:2], wnd[..., 1] < wnd[..., 0], k=k, mv=mv, k_bits=k_bits,
+        low_bits=low_bits, closest=closest, product=mode["product"],
+        bf16=is_bf16(precision))
 
 
 def visit_scan_instanced(rayblk, wnd, feats, sel_cl, minv12, nv, tnb, *,
                          k: int, mv: int, k_bits: int, low_bits: int,
-                         closest: bool, visits=None, layout=None
-                         ) -> torch.Tensor:
+                         closest: bool, visits=None, layout=None,
+                         precision: str = "highest") -> torch.Tensor:
     """Run the instanced visit scan (contract in the module docstring):
     (T, 128) int32 keys (closest) or occlusion bits (any). `visits`, an
     int32 (T,) tensor, receives the number of visits each tile ran (on the
     CPU, from `executed_visits_instanced_ref`). `layout`: as for
     `visit_scan.visit_scan`."""
     tiles = rayblk.shape[0]
+    bf16 = is_bf16(precision)
     expect = {
         "rayblk": (rayblk, torch.float32, (tiles, 8, RAY_TILE)),
         "wnd": (wnd, torch.float32, (tiles, RAY_TILE, 8)),
@@ -126,14 +155,15 @@ def visit_scan_instanced(rayblk, wnd, feats, sel_cl, minv12, nv, tnb, *,
         "minv12": (minv12, torch.float32, (tiles, mv, 12)),
         "nv": (nv, torch.int32, (tiles,)),
         "tnb": (tnb, torch.int32, (tiles, mv)),
-        **layout_expect(feats, k, layout),
+        **layout_expect(feats, k, layout, bf16),
     }
     if visits is not None:
         expect["visits"] = (visits, torch.int32, (tiles,))
     build.check_tensors(rayblk.device, expect)
     check_scalars(k, mv, k_bits, low_bits)
     args = (rayblk, wnd, feats, sel_cl, minv12, nv, tnb)
-    kw = dict(k=k, mv=mv, k_bits=k_bits, low_bits=low_bits, closest=closest)
+    kw = dict(k=k, mv=mv, k_bits=k_bits, low_bits=low_bits, closest=closest,
+              precision=precision)
     if rayblk.device.type == "cpu":
         if visits is not None:
             visits.copy_(executed_visits_instanced_ref(*args, **kw))
@@ -148,16 +178,17 @@ def visit_scan_instanced(rayblk, wnd, feats, sel_cl, minv12, nv, tnb, *,
         raise ValueError("minv12 must be 16-byte aligned (TMA bulk copy)")
     fn = build.load_function(
         "visit_scan_instanced", "visit_scan_instanced_launch",
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     # made here, they are freed on return, but the caching allocator hands
     # their memory only to work queued after the kernel on this stream
-    slabs, nlive = slab_layout(feats, k) if layout is None else layout
+    slabs, nlive = slab_layout(feats, k, bf16) if layout is None else layout
     out = torch.empty((tiles, RAY_TILE), dtype=torch.int32,
                       device=rayblk.device)
     build.launch(fn, rayblk.device, rayblk.data_ptr(), wnd.data_ptr(),
                  slabs.data_ptr(), nlive.data_ptr(), sel_cl.data_ptr(),
                  minv12.data_ptr(), nv.data_ptr(), tnb.data_ptr(),
                  out.data_ptr(), None if visits is None else visits.data_ptr(),
-                 tiles, feats.shape[0], k, mv, k_bits, low_bits, int(closest))
-    LAUNCHES["closest" if closest else "any"] += 1
+                 tiles, feats.shape[0], k, mv, k_bits, low_bits, int(closest),
+                 int(bf16))
+    count_launch(LAUNCHES, LAUNCHES_BF16, closest, bf16)
     return out

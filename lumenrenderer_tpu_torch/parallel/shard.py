@@ -74,9 +74,9 @@ def row_range(height: int, mesh) -> Tuple[int, int]:
     return rank * rows, (rank + 1) * rows
 
 
-def pixel_ids(width: int, height: int, mesh, device=None) -> torch.Tensor:
+def pixel_ids(width: int, height: int, mesh, *, device) -> torch.Tensor:
     """(width * height / world,) int64 global indices of this rank's
-    pixels, row-major."""
+    pixels, row-major, on `device` (required: the frame's device)."""
     r0, r1 = row_range(height, mesh)
     return torch.arange(r0 * width, r1 * width, dtype=torch.int64,
                         device=device)

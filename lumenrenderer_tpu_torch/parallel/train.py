@@ -125,7 +125,7 @@ def make_sharded_train_step(
     the whole frame (N,3) or the rank's rows (n,3); returns (state with
     step + 1, the whole frame's loss before the step, on every rank)."""
     ids = shard.pixel_ids(cfg.width, cfg.height, mesh,
-                          scene.env_radiance.device)
+                          device=scene.env_radiance.device)
     elements = cfg.num_pixels * 3
     init_one, _ = make_train_step(scene, intersect_fn, occlude_fn, camera,
                                   cfg, optimizer)

@@ -11,7 +11,10 @@ passes device="cpu". "tiled" clusters the flattened world-space triangles
 each unique mesh once in object space and culls (instance, cluster) units
 (kernel K2). Culling tests each tile's frustum against every cluster or
 unit up to 2048 of them and walks their tree past that (kernel W); the
-`culling` argument can force either. On the CPU each kernel runs as its
+`culling` argument can force either, or ask for "dense" per-ray culling
+("tiled"; the unit tree for "two_level", as in JAX).
+`candidate_dtype="bfloat16"` runs K1 ("tiled") or K2 ("two_level") in its
+bf16 mode, the TPU's one bf16 pass. On the CPU each kernel runs as its
 plain PyTorch twin. "stream" is the pair stream of `accel/stream.py` (the
 CLI's default) and "brute" tests every triangle (the oracle); neither has a
 kernel. "sah" and "bvh" build a binned-SAH BVH on the host, "lbvh" a
@@ -89,10 +92,13 @@ class Renderer:
         max_visits="auto" caps the visit list at min(units, 128) with the
         kernels, min(units, 24) ("tiled") or 64 ("two_level") with the CPU
         twins. culling: "auto" (frustum up to 2048 clusters or units, the
-        tree past that), "frustum" or "tree" ("dense" is not ported).
-        candidate_dtype: "high" (the JAX default, a bf16 three-pass
-        split there) and "float32" both run exact fp32 here; "bfloat16" is
-        not ported. device: where the scene, state and frame live (default:
+        tree past that), "frustum", "tree" or "dense" (every ray against
+        every cluster, the tiles' exact unions; "two_level" walks its unit
+        tree, as JAX does). candidate_dtype: "high" (the JAX default, a
+        bf16 three-pass split there) and "float32" both run exact fp32
+        here; "bfloat16" runs K1 ("tiled") or K2 ("two_level") in its bf16
+        mode, the TPU's one bf16 pass (JAX's two-level path asks K2 for a
+        precision it does not know: ROADMAP C-23). device: where the scene, state and frame live (default:
         the current CUDA device; without one this raises, and device="cpu"
         runs the kernels' plain twins on the CPU). dynamic: a DynamicScene
         whose build() is `scene`. With config.use_restir, depth 0's direct
@@ -117,14 +123,9 @@ class Renderer:
                              "for the instance and mesh tables")
         if mesh is not None and dynamic is not None and accel != "tiled":
             raise ValueError("dynamic+mesh needs accel='tiled'")
-        if culling not in ("auto", "frustum", "tree"):
-            raise NotImplementedError(
-                f"culling={culling!r} is not ported; 'auto', 'frustum' and "
-                "'tree' are")
-        if candidate_dtype == "bfloat16":
-            raise NotImplementedError("bfloat16 candidates are not ported")
-        if candidate_dtype not in ("high", "float32"):
-            raise ValueError(f"unknown candidate_dtype {candidate_dtype!r}")
+        if culling not in ("auto", "frustum", "tree", "dense"):
+            raise ValueError(f"unknown culling {culling!r}")
+        tiled.candidate_precision(candidate_dtype)   # ValueError if unknown
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -149,6 +150,7 @@ class Renderer:
         self.config = config
         self.accel_kind = accel
         self.culling = culling
+        self.candidate_dtype = candidate_dtype
         self.scene = scene.to(self.device)
         self._mesh = mesh
         self._pixel_ids = None
@@ -158,7 +160,7 @@ class Renderer:
 
             self._rank, world = shard.rank_and_size(mesh)
             self._pixel_ids = shard.pixel_ids(config.width, config.height,
-                                              mesh, self.device)
+                                              mesh, device=self.device)
             self.scene = scene = shard.replicate(self.scene, mesh)
         self.clusters = None
         self.instanced = None
@@ -222,11 +224,14 @@ class Renderer:
 
     def _bind_accel(self):
         if self.accel_kind == "tiled":
+            # decode=False: extract_surface_data re-derives t, u and v
             self._isect, self._occl = tiled.tiled_intersectors(
-                self.clusters, self.max_visits, culling=self.culling)
+                self.clusters, self.max_visits, culling=self.culling,
+                candidate_dtype=self.candidate_dtype, decode=False)
         elif self.accel_kind == "two_level":
             self._isect, self._occl = two_level.instanced_intersectors(
-                self.instanced, self.max_visits, culling=self.culling)
+                self.instanced, self.max_visits, culling=self.culling,
+                precision=tiled.candidate_precision(self.candidate_dtype))
         elif self.accel_kind == "stream":
             self._isect, self._occl = stream.stream_intersectors(
                 self.clusters, self.max_pairs_per_ray)

@@ -12,6 +12,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from _torch_port_helpers import (ListUniforms, jax_frame_uniforms, n,
                                  port_camera, port_clusters, port_scene, rng,
                                  t)
@@ -215,5 +216,14 @@ def test_frame_matches_jax_with_same_uniforms(scene, bsdf, strategy):
 
 
 def test_refusals():
-    with pytest.raises(NotImplementedError):
-        pwf.RenderConfig(swizzle=True)
+    """swizzle excludes ReSTIR and a caller's pixel_ids, as in JAX
+    (wavefront.py:191,194)."""
+    with pytest.raises(ValueError):
+        pwf.RenderConfig(swizzle=True, use_restir=True)
+    jb, camf = jpresets.cornell_box()
+    sc = jb.build()
+    cfg = pwf.RenderConfig(width=16, height=8, max_depth=1, swizzle=True)
+    with pytest.raises(ValueError):
+        pwf.render_wavefront(port_scene(sc), None, None,
+                             port_camera(camf(2.0)), ListUniforms([]), 0,
+                             cfg, pixel_ids=torch.arange(64))

@@ -6,7 +6,9 @@ Marked `cuda`: these need an NVIDIA GPU with nvcc (Hopper, sm_90a) and skip
 where torch.cuda.is_available() is False. Run them on the card with
 `python -m pytest --noconftest tests/test_torch_kernels.py -q`.
 Tolerance: keys identical on at least 99.99% of rays, every differing key a
-tie within the key's t resolution; occlusion bits identical; K1's and K2's
+tie within the key's t resolution (the bf16 mode, precision="default":
+keys identical, also where a rounded triangle lies nearer than its
+cluster's box); occlusion bits identical; K1's and K2's
 visit counters identical to `executed_visits_ref` and
 `executed_visits_instanced_ref`; K3's dead tiles the miss key (0); W's
 lists, entry t (bit for bit) and counts identical to its twin's; T's
@@ -52,14 +54,19 @@ def _inputs(dev, n_tris=2000, r=8192, k=64, seed=0):
     return tiled.scan_inputs(cs, o, d, 1e-4, tx, min(cs.num_clusters, 128))
 
 
-def _check_against_twin(mod, kernel, twin, q, closest, low_bits):
-    kw = dict(q["kw"], closest=closest)
+def _check_against_twin(mod, kernel, twin, q, closest, low_bits,
+                        precision="highest"):
+    kw = dict(q["kw"], closest=closest, precision=precision)
     mod.reset_launches()
     kern = kernel(*q["args"], **kw)
     ref = twin(*q["args"], **kw)
     torch.cuda.synchronize()
-    assert mod.LAUNCHES["closest" if closest else "any"] == 1
+    bf16 = precision == "default"
+    counts = mod.LAUNCHES_BF16 if bf16 else mod.LAUNCHES
+    assert counts["closest" if closest else "any"] == 1
     diff = kern != ref
+    if bf16:
+        assert torch.equal(kern, ref)
     if not closest:
         assert not bool(diff.any())
         return
@@ -73,7 +80,8 @@ def _check_against_twin(mod, kernel, twin, q, closest, low_bits):
 
 
 def _check_counter(args, kw):
-    """K1's visit counter against the replay of its vote on the twin."""
+    """K1's visit counter against the replay of its vote on the twin (kw
+    may carry the precision)."""
     visits = torch.full((args[0].shape[0],), -1, dtype=torch.int32,
                         device=args[0].device)
     vs.visit_scan(*args, **kw, visits=visits)
@@ -83,14 +91,43 @@ def _check_counter(args, kw):
     return visits
 
 
+@pytest.mark.parametrize("precision", ["highest", "default"])
 @pytest.mark.parametrize("k", [32, 64, 128])
 @pytest.mark.parametrize("closest", [True, False])
-def test_kernel_matches_twin(dev, closest, k):
+def test_kernel_matches_twin(dev, closest, k, precision):
     q = _inputs(dev, n_tris=4000, k=k)
     _check_against_twin(vs, vs.visit_scan, vs.visit_scan_ref, q, closest,
-                        q["kw"]["low_bits"])
-    visits = _check_counter(q["args"], dict(q["kw"], closest=closest))
+                        q["kw"]["low_bits"], precision)
+    visits = _check_counter(q["args"], dict(q["kw"], closest=closest,
+                                            precision=precision))
     assert int(visits.sum()) > 0
+
+
+@pytest.mark.parametrize("closest", [True, False])
+def test_bf16_kernel_keeps_hits_nearer_than_their_box(dev, closest):
+    """Rays head-on into a stack of triangles 1e-3 apart: many bf16-rounded
+    winners lie nearer than their cluster's fp32 entry t. The bf16 kernel
+    equals its twin (the full scan), and in closest mode every tile runs
+    all its visits."""
+    g = np.random.default_rng(44)
+    m, r = 256, 2048
+    tris = np.zeros((m, 3, 3), np.float32)
+    tris[:, :, 0] = (1.0 + 1e-3 * np.arange(m))[:, None]
+    tris[:, :, 1:] = np.float32([[-3, -3], [3, -3], [0, 4]])
+    tris[:, :, 1:] += g.uniform(-0.9, 0.9, size=(m, 3, 2))
+    tris[:, :, 0] += g.normal(size=(m, 3)) * 1e-4
+    cs = stream.build_clusters(torch.from_numpy(tris), cluster_size=32)
+    o = np.zeros((r, 3), np.float32)
+    o[:, 1:] = g.uniform(-1, 1, (r, 2))
+    d = torch.tensor([1.0, 0.0, 0.0]).expand(r, 3)
+    q = tiled.scan_inputs(cs.to(dev), torch.from_numpy(o).to(dev),
+                          d.to(dev), 1e-4, 1e9, cs.num_clusters)
+    _check_against_twin(vs, vs.visit_scan, vs.visit_scan_ref, q, closest,
+                        q["kw"]["low_bits"], "default")
+    visits = _check_counter(q["args"], dict(q["kw"], closest=closest,
+                                            precision="default"))
+    if closest:
+        assert torch.equal(visits, q["args"][3])
 
 
 @pytest.mark.parametrize("closest", [True, False])
@@ -146,7 +183,8 @@ def _instanced_inputs(dev, k=32, seed=1):
 
 
 def _check_instanced_counter(args, kw):
-    """K2's visit counter against the replay of its vote on the twin."""
+    """K2's visit counter against the replay of its vote on the twin (kw
+    may carry the precision)."""
     visits = torch.full((args[0].shape[0],), -1, dtype=torch.int32,
                         device=args[0].device)
     vsi.visit_scan_instanced(*args, **kw, visits=visits)
@@ -156,15 +194,16 @@ def _check_instanced_counter(args, kw):
     return visits
 
 
+@pytest.mark.parametrize("precision", ["highest", "default"])
 @pytest.mark.parametrize("k", [32, 64, 128])
 @pytest.mark.parametrize("closest", [True, False])
-def test_instanced_kernel_matches_twin(dev, closest, k):
+def test_instanced_kernel_matches_twin(dev, closest, k, precision):
     q = _instanced_inputs(dev, k)
     _check_against_twin(vsi, vsi.visit_scan_instanced,
                         vsi.visit_scan_instanced_ref, q, closest,
-                        q["kw"]["low_bits"])
-    visits = _check_instanced_counter(q["args"], dict(q["kw"],
-                                                      closest=closest))
+                        q["kw"]["low_bits"], precision)
+    visits = _check_instanced_counter(q["args"], dict(
+        q["kw"], closest=closest, precision=precision))
     assert int(visits.sum()) > 0
 
 
@@ -204,12 +243,13 @@ def _pair_inputs(dev, k=64, seed=2):
     return pairs.scan_inputs(cs, o, d, 1e-4, tx, 128, 16)
 
 
+@pytest.mark.parametrize("precision", ["highest", "default"])
 @pytest.mark.parametrize("k", [32, 64, 128])
 @pytest.mark.parametrize("closest", [True, False])
-def test_pair_kernel_matches_twin(dev, closest, k):
+def test_pair_kernel_matches_twin(dev, closest, k, precision):
     q = _pair_inputs(dev, k)
     _check_against_twin(ps, ps.pair_scan, ps.pair_scan_ref, q, closest,
-                        q["kw"]["k_bits"])
+                        q["kw"]["k_bits"], precision)
 
 
 @pytest.mark.parametrize("closest", [True, False])

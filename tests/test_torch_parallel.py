@@ -274,8 +274,8 @@ class _Mesh:
 
 def test_rows_seeds_and_refusals():
     assert shard.row_range(16, _Mesh(1, 4)) == (4, 8)
-    assert n(shard.pixel_ids(3, 4, _Mesh(1, 2))).tolist() == list(range(6,
-                                                                         12))
+    assert n(shard.pixel_ids(3, 4, _Mesh(1, 2), device="cpu")).tolist() == \
+        list(range(6, 12))
     with pytest.raises(ValueError):
         shard.row_range(10, _Mesh(0, 4))
     assert prenderer.rank_seed(5, 0) == 5

@@ -145,8 +145,8 @@ def test_debug_checks_and_png(tmp_path):
 def test_renderer_refusals():
     sc = presets.furnace_scene()[0].build()
     cfg = RenderConfig(width=8, height=8)
-    for kw in ({"candidate_dtype": "bfloat16"}, {"culling": "dense"}):
-        with pytest.raises(NotImplementedError):
+    for kw in ({"candidate_dtype": "float16"}, {"culling": "sparse"}):
+        with pytest.raises(ValueError):
             Renderer(sc, cfg, device="cpu", **kw)
     with pytest.raises(ValueError):     # no such accel
         Renderer(sc, cfg, device="cpu", accel="octree")
