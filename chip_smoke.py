@@ -6,8 +6,9 @@
 Phases, one line each or more (any failure raises, so the exit code is
 non-zero), each with its seconds:
   1. environment: torch, CUDA, nvcc, the card's name and power limit;
-  2. build kernels K1, K2, K3, W and T (ops/csrc/*.cu) with nvcc from this
-     checkout, one nvcc each, all at once; ptxas registers and spills;
+  2. build kernels K1, K2, K3, W and T and the tensor-core probe
+     (ops/csrc/*.cu) with nvcc from this checkout, one nvcc each, all at
+     once; ptxas registers and spills;
   3. K1 against its plain PyTorch twin on the card: 1,024 tiles each of the
      interior scene's 2560x1440 primary pass and sorted bounce and shadow
      passes, closest and any mode, with kernel and twin times per call;
@@ -194,15 +195,24 @@ non-zero), each with its seconds:
      halo, a 320x180 training step whose parameters are equal on both
      ranks. The `kernels` line has T's rows for the SAH BVH and the LBVH;
  17. the options on the interior at 2560x1440, depth 5, Disney + MIS:
-     17a: K1 in its bf16 mode (precision="default") against its twin on
-     1,024 tiles of each of the primary, sorted bounce and shadow passes,
-     closest and any, keys, bits and visit counters torch.equal; every
-     tile of each pass in bf16 and in fp32 (times in this call, flop,
-     bound, share) and the share of live rays whose winner or bit differs
-     from fp32 (printed, not barred: bf16 geometry is lossy by design);
-     17b: the same for K2 on phase 6's passes and K3 on phase 8's pair
-     tiles, then a two-level bf16 frame (K2's bf16 launches) and a bf16
-     pair frame (K3's); 17c: Renderer(candidate_dtype="bfloat16"), 1
+     17h (run first): the tensor cores: the probe (ops/mma_probe.py), one
+     m16n8k16 bf16 product per case on crafted sums, compared bit for bit
+     with candidate models of its rounding (its table; fails unless the
+     bf16 twins' model, `visit_scan.MMA_MODEL`, fits every sum of the
+     kernels' kind), and the SASS of K1's and K3's bf16 kernels (HMMA in
+     their loops; the loop's other instructions on the no-hit path a
+     pair, for the epilogue bound);
+     17a: K1 in its bf16 mode (precision="default", on the tensor cores)
+     against its twin (`mma_product`) on 1,024 tiles of each of the
+     primary, sorted bounce and shadow passes, closest and any, keys, bits
+     and visit counters torch.equal; every tile of each pass in bf16 and
+     in fp32 (times in this call, flop, bound, the epilogue bound, shares)
+     and the share of live rays whose winner or bit differs from fp32
+     (printed, not barred: bf16 geometry is lossy by design); 17b: the
+     same for K2 on phase 6's passes (no epilogue bound: its bf16 mode
+     stays on the CUDA cores) and K3 on phase 8's pair tiles, then a
+     two-level bf16 frame (K2's bf16 launches) and a bf16 pair frame
+     (K3's); 17c: Renderer(candidate_dtype="bfloat16"), 1
      warm-up and 3 timed frames beside the default frame's (ms/frame, K1
      bf16 launches, 5 closest and 5 any a frame, the mean beside fp32's);
      17d: culling="dense" at max_visits = C = 84 (ms/frame, peak memory,
@@ -218,12 +228,17 @@ non-zero), each with its seconds:
      a shadow pass through `blocked_sorted_intersectors` beside
      `sorted_intersectors` (pass ms, K1's visits per tile). The `kernels`
      line gains the bf16 rows of K1, K2 and K3 (their bytes count the
-     table at 2 bytes a value, their flop go at the bf16 tensor-core rate).
+     table at 2 bytes a value, their flop go at the bf16 tensor-core rate;
+     K1's and K3's also carry their design, the epilogue bound, its
+     share and which bound sets their pace).
 Then a JSON line of per-kernel results, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}. Needs no network; exits
 non-zero without a CUDA device or without the package next to it.
 
-Bounds: a kernel's least time is the larger of its flop over the H100's
+The epilogue bound of K1's and K3's bf16 modes: the live pairs (flop / 80)
+times the CUDA-core instructions a pair (17h's SASS count), over 132 SMs x
+128 lanes at the card's maximum SM clock (nvidia-smi). Bounds: a kernel's
+least time is the larger of its flop over the H100's
 67 TFLOP/s of fp32 (no tensor cores; the bf16 rows: 989 TFLOP/s, the
 bf16 tensor-core rate, the peak for bf16 operands) and its bytes (each input read once,
 each output written once) over 3.35 TB/s. The flop are those these inputs
@@ -246,6 +261,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -267,7 +283,7 @@ RESTIR_RATIO = (0.6, 1.05)   # ReSTIR / NEE image mean (biased reuse)
 N_INSTANCES = 120
 PAIRS_PER_RAY = 8
 KERNELS = ("visit_scan", "visit_scan_instanced", "pair_scan", "tree_walk",
-           "bvh_traverse")
+           "bvh_traverse", "mma_probe")
 MEGA_TRIS, MEGA_LIGHTS = 1_000_000, 256      # the JAX bench's mega scene
 UNITS_INSTANCES = 2100       # phase 11b: 2,101 units
 GRAD_RTOL = 2e-3             # phase 12: linearity, central difference
@@ -276,6 +292,15 @@ TRAIN_STEPS, TRAIN_LR = 3, 0.05
 PEAK_FLOPS = 67e12           # H100 SXM, fp32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12     # H100 SXM, bf16 on the tensor cores, dense
 PEAK_BYTES = 3.35e12         # H100 SXM, HBM3
+SMS, LANES = 132, 128        # H100 SXM: SMs, lanes issued a cycle per SM
+MMA_DESIGN = "mma.sync m16n8k16"
+MMA_ENTRIES = {              # the bf16 tensor-core kernels at K = 128
+    ("visit_scan", "closest"): "visit_scan_mma_kernelILi128ELb1E",
+    ("visit_scan", "any"): "visit_scan_mma_kernelILi128ELb0E",
+    ("pair_scan", "closest"): "pair_scan_mma_kernelILi128ELb1E",
+    ("pair_scan", "any"): "pair_scan_mma_kernelILi128ELb0E",
+}
+MMA_PAIRS_PER_LANE = 4       # a lane's pairs per group: 4 rays, 1 triangle
 FLOP_PER_PAIR = 80           # 40 FMAs per ray-triangle test
 AFFINE_FLOP = 42             # K2: a ray's object-space features per visit
 REPLACES = {
@@ -3718,8 +3743,16 @@ def _bf16_disagreement(out32, out16, closest, low_bits, live):
     return float((out32 != out16)[live].float().mean())
 
 
+def _epilogue_ms(flop, per_pair, clock_mhz):
+    """The epilogue bound: the live pairs (flop / FLOP_PER_PAIR) times the
+    instructions a pair on the CUDA cores (from the SASS), over SMS x LANES
+    lanes at the card's clock."""
+    return (flop / FLOP_PER_PAIR * per_pair
+            / (SMS * LANES * clock_mhz * 1e6) * 1e3)
+
+
 def _hold_bf16(phase, label, passes, subset, kernel, twin, counter, work,
-               live_of, low_bits):
+               live_of, low_bits, epilogue=None):
     """Each pass's subset through `kernel` in its bf16 mode and through its
     twin, in both modes: raise unless keys (bits) and, where the kernel
     counts, visit counters (`counter(args, kw)`, which raises) are
@@ -3728,12 +3761,15 @@ def _hold_bf16(phase, label, passes, subset, kernel, twin, counter, work,
     (flop, bytes, fields) at the bf16 tensor-core rate, the peak for these
     operands, and the share of the full pass's live rays
     (`live_of(q)`) whose winner or bit differs from fp32 (not barred).
-    Returns per mode the kernels line's numbers, means over the passes."""
+    `epilogue` ({mode: instructions a pair}, the clock in MHz), for the
+    tensor-core kernels, adds the epilogue bound and says which bound sets
+    the pace. Returns per mode the kernels line's numbers, means over the
+    passes."""
     import torch
 
     results = {}
     for mode, closest in (("closest", True), ("any", False)):
-        rows = []
+        rows, epi = [], []
         for name, q in passes.items():
             args = subset(q)
             kw = dict(q["kw"], closest=closest, precision="default")
@@ -3747,7 +3783,7 @@ def _hold_bf16(phase, label, passes, subset, kernel, twin, counter, work,
                     f"{int((kern != ref).sum())} of {kern.numel()} differ")
             counted = counter(args, kw)
             ms = cuda_time_ms(lambda: kernel(*args, **kw))
-            plain_ms = cuda_time_ms(lambda: twin(*args, **kw), reps=2)
+            plain_ms = cuda_time_ms(lambda: twin(*args, **kw), reps=1)
             full16 = cuda_time_ms(lambda: kernel(*q["args"], **kw))
             full32 = cuda_time_ms(lambda: kernel(*q["args"], **kw32))
             flop, nb, _ = work(q, args, kw)
@@ -3757,6 +3793,18 @@ def _hold_bf16(phase, label, passes, subset, kernel, twin, counter, work,
             share = _bf16_disagreement(
                 kernel(*q["args"], **kw32), kernel(*q["args"], **kw),
                 closest, low_bits(q), live_of(q))
+            fields = {}
+            if epilogue is not None:
+                per_pair, clock = epilogue[0][mode], epilogue[1]
+                e_ms = _epilogue_ms(flop, per_pair, clock)
+                fe_ms = _epilogue_ms(f_flop, per_pair, clock)
+                epi.append((e_ms, fe_ms))
+                fields = dict(
+                    design=repr(MMA_DESIGN), epilogue_bound_ms=f"{e_ms:.4f}",
+                    epilogue_share=f"{e_ms / ms:.3f}",
+                    full_epilogue_bound_ms=f"{fe_ms:.4f}",
+                    full_epilogue_share=f"{fe_ms / full16:.3f}",
+                    paced_by="epilogue" if fe_ms > fb_ms else fb_by)
             say(phase, kernel=label, precision="bf16", mode=mode, rays=name,
                 subset_equal=True, **counted, kernel_ms=f"{ms:.4f}",
                 twin_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.4f}",
@@ -3765,7 +3813,7 @@ def _hold_bf16(phase, label, passes, subset, kernel, twin, counter, work,
                 full_pass_fp32_ms=f"{full32:.4f}", **extra,
                 flop=f"{f_flop:.4g}", bytes=f_nb,
                 full_pass_bound_ms=f"{fb_ms:.4f}", full_bound_by=fb_by,
-                full_share=f"{fb_ms / full16:.3f}",
+                full_share=f"{fb_ms / full16:.3f}", **fields,
                 differs_from_fp32=f"{share:.5f}")
             rows.append((ms, plain_ms, b_ms, full16, fb_ms, full32, share,
                          flop, nb))
@@ -3778,6 +3826,16 @@ def _hold_bf16(phase, label, passes, subset, kernel, twin, counter, work,
                                  PEAK_BF16_FLOPS)[1],
             "full_pass_ms": mean[3], "full_pass_bound_ms": mean[4],
             "fp32_full_pass_ms": mean[5], "differs_from_fp32": mean[6]}
+        if epilogue is not None:
+            e_ms = sum(e[0] for e in epi) / len(epi)
+            fe_ms = sum(e[1] for e in epi) / len(epi)
+            results[mode].update({
+                "design": MMA_DESIGN, "epilogue_bound_ms": e_ms,
+                "epilogue_share": e_ms / mean[0],
+                "full_pass_epilogue_bound_ms": fe_ms,
+                "epilogue_instructions_per_pair": epilogue[0][mode],
+                "paced_by": ("epilogue" if fe_ms > mean[4]
+                             else results[mode]["bound_by"])})
     return results
 
 
@@ -3797,18 +3855,125 @@ def _visits_equal(kernel, replay, args, kw):
             "subset_visits_per_tile": f"{float(visits.float().mean()):.3f}"}
 
 
-def _with_layouts(fn, fp32_layout, feats, k):
-    """fn with the table's kernel layout of each precision, made once."""
+def _with_layouts(fn, fp32_layout, feats, k, mma=True):
+    """fn with the table's kernel layout of each precision, made once (the
+    bf16 one in fragment order for K1 and K3, `mma`; K2's in slab order)."""
     from lumenrenderer_tpu_torch.ops import visit_scan as vs
 
     layouts = {"highest": fp32_layout,
-               "default": vs.slab_layout(feats, k, bf16=True)}
+               "default": (vs.mma_layout(feats, k) if mma
+                           else vs.slab_layout(feats, k, bf16=True))}
     return lambda *a, **kw: fn(*a, **kw, layout=layouts[kw["precision"]])
 
 
-def _options_k1(dev, w=W, h=H, n_tiles=SUBSET_TILES):
-    """17a: K1's bf16 mode against its twin on the primary, sorted bounce
-    and shadow passes of the interior."""
+def _bra_target(text):
+    """The target address of a SASS branch, else None."""
+    m = re.match(r"(?:@!?U?P\w+\s+)?BRA(?:\.\S+)?\s+(?:`\()?0x([0-9a-f]+)",
+                 text)
+    return int(m.group(1), 16) if m else None
+
+
+def _sass_functions(lib):
+    """Per function of a built library, its SASS instructions [(address,
+    text)], from cuobjdump."""
+    from lumenrenderer_tpu_torch.ops import build
+
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True, check=True).stdout
+    funcs, cur = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s+Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and cur is not None:
+            cur.append((int(m.group(1), 16), m.group(2).strip()))
+    return funcs
+
+
+def mma_loop_count(instrs):
+    """(HMMAs, instructions) of one pass through the loop around a
+    kernel's HMMAs on its no-hit path: from the target of the nearest
+    backward branch after them to that branch, every forward branch inside
+    the loop taken (they skip a pair's window test once an earlier test
+    failed, and the work of a hit)."""
+    hmma = [a for a, t in instrs if t.startswith("HMMA")]
+    if not hmma:
+        return 0, 0
+    end, head = min((a, tgt) for a, t in instrs
+                    for tgt in [_bra_target(t)]
+                    if tgt is not None and a > hmma[-1] and tgt <= hmma[0])
+    index = {a: i for i, (a, _) in enumerate(instrs)}
+    i, count, n_hmma = index[head], 0, 0
+    while True:
+        a, t = instrs[i]
+        count += 1
+        n_hmma += t.startswith("HMMA")
+        tgt = _bra_target(t)
+        if a == end:
+            return n_hmma, count
+        i = index[tgt] if tgt is not None and a < tgt <= end else i + 1
+
+
+def _options_tensor_cores(dev):
+    """17h: the tensor cores. The probe (ops/mma_probe.py): one m16n8k16 per
+    case on crafted sums, each result against the candidate models bit for
+    bit; raise unless the bf16 twins' model (MMA_MODEL) fits every sum of
+    the kernels' kind. Then the SASS of the bf16 kernels of K1 and K3:
+    raise unless their loops run HMMA; each loop's instructions on the
+    no-hit path, less its HMMAs, over the lane's 4 pairs, are the
+    epilogue's instructions a pair. Returns ({kernel: {mode: instructions
+    a pair}}, the clock in MHz)."""
+    from lumenrenderer_tpu_torch.ops import build
+    from lumenrenderer_tpu_torch.ops import mma_probe as mp
+    from lumenrenderer_tpu_torch.ops.visit_scan import MMA_MODEL
+
+    out = mp.run_probe(dev)
+    fams = list(next(iter(out["table"].values())))
+    ranked = sorted(out["table"].items(), key=lambda kv: sum(
+        v[0] for f, v in kv[1].items() if f in mp.KERNEL_FAMILIES))
+    say("17h probe", families=",".join(fams),
+        sums_per_family=mp.CASES_PER_FAMILY * 128,
+        columns="value mismatches/zero-sign mismatches")
+    for name, row in ranked[:6] + [kv for kv in ranked
+                                   if kv[0] in ("chain", "exact-rn")]:
+        say("17h probe", model=name,
+            mismatches=" ".join(f"{row[f][0]}/{row[f][1]}" for f in fams))
+    say("17h probe", fits=json.dumps(out["fits"]),
+        twins_model=mp.model_name(MMA_MODEL),
+        pinned=json.dumps(out["pinned"]))
+    if mp.model_name(MMA_MODEL) not in out["fits"]:
+        raise AssertionError("17h: the twins' tensor-core model does not fit "
+                             "the card")
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    per_pair = {}
+    for name in ("visit_scan", "pair_scan"):
+        funcs = _sass_functions(build.library_path(name))
+        for mode in ("closest", "any"):
+            (fname, instrs), = [(f, i) for f, i in funcs.items()
+                                if MMA_ENTRIES[name, mode] in f]
+            n_hmma, count = mma_loop_count(instrs)
+            total = sum(t.startswith("HMMA") for _, t in instrs)
+            if n_hmma == 0:
+                raise AssertionError(f"17h: no HMMA in {fname}'s loop")
+            per = (count - n_hmma) / MMA_PAIRS_PER_LANE
+            per_pair.setdefault(name, {})[mode] = per
+            say("17h sass", kernel=name, mode=mode, k=128,
+                hmma_in_function=total, hmma_in_loop=n_hmma,
+                loop_instructions=count,
+                epilogue_instructions_per_pair=per, clock_max_mhz=clock)
+    return per_pair, clock
+
+
+def _options_k1(dev, epilogue, w=W, h=H, n_tiles=SUBSET_TILES):
+    """17a: K1's bf16 mode (the tensor cores) against its twin on the
+    primary, sorted bounce and shadow passes of the interior; `epilogue`:
+    (its instructions a pair per mode, the clock in MHz)."""
     import torch
 
     from lumenrenderer_tpu_torch.accel import stream, tiled
@@ -3845,7 +4010,7 @@ def _options_k1(dev, w=W, h=H, n_tiles=SUBSET_TILES):
         lambda args, kw: _visits_equal(kernel, vs.executed_visits_ref, args,
                                        kw),
         work, lambda q: q["args"][0][..., 11] >= q["args"][0][..., 10],
-        lambda q: q["kw"]["low_bits"])
+        lambda q: q["kw"]["low_bits"], epilogue)
 
 
 def _options_k2(dev, w=W, h=H, n_tiles=SUBSET_TILES):
@@ -3871,7 +4036,7 @@ def _options_k2(dev, w=W, h=H, n_tiles=SUBSET_TILES):
         lambda o, d, tn, tx: two_level.scan_inputs(ics, o, d, tn, tx, mv),
         primary=True)
     kernel = _with_layouts(vsi.visit_scan_instanced, (ics.slabs, ics.nlive),
-                           ics.tri_feat, ics.tri_id.shape[1])
+                           ics.tri_feat, ics.tri_id.shape[1], mma=False)
     live_tris = vs.slab_layout(ics.tri_feat, ics.tri_id.shape[1],
                                bf16=True)[1].double()
 
@@ -3919,9 +4084,10 @@ def _options_k2(dev, w=W, h=H, n_tiles=SUBSET_TILES):
     return checks, launches
 
 
-def _options_k3(dev, w=W, h=H, n_tiles=SUBSET_TILES):
-    """17b: K3's bf16 mode against its twin on the interior's pair tiles,
-    then one bf16 pair frame (K3's bf16 launches)."""
+def _options_k3(dev, epilogue, w=W, h=H, n_tiles=SUBSET_TILES):
+    """17b: K3's bf16 mode (the tensor cores) against its twin on the
+    interior's pair tiles, then one bf16 pair frame (K3's bf16 launches);
+    `epilogue` as for `_options_k1`."""
     import torch
 
     from lumenrenderer_tpu_torch.accel import pairs, stream
@@ -3969,7 +4135,7 @@ def _options_k3(dev, w=W, h=H, n_tiles=SUBSET_TILES):
         "17b bf16 K3", "pair_scan", passes, subset, kernel, ps.pair_scan_ref,
         lambda args, kw: {}, work,
         lambda q: q["args"][0][:, 11] >= q["args"][0][:, 10],
-        lambda q: q["kw"]["k_bits"])
+        lambda q: q["kw"]["k_bits"], epilogue)
     del passes
     cfg = wf.RenderConfig(width=w, height=h, max_depth=5, bsdf="disney",
                           light_strategy="mis")
@@ -4298,11 +4464,14 @@ def phase_options(dev, w=W, h=H):
 
     from lumenrenderer_tpu_torch.accel import stream
 
-    checks = {"visit_scan": _options_k1(dev, w, h)}
+    per_pair, clock = _options_tensor_cores(dev)
+    checks = {"visit_scan": _options_k1(
+        dev, (per_pair["visit_scan"], clock), w, h)}
     torch.cuda.empty_cache()
     checks["visit_scan_instanced"], k2_launches = _options_k2(dev, w, h)
     torch.cuda.empty_cache()
-    checks["pair_scan"], k3_launches = _options_k3(dev, w, h)
+    checks["pair_scan"], k3_launches = _options_k3(
+        dev, (per_pair["pair_scan"], clock), w, h)
     torch.cuda.empty_cache()
     launches = {"visit_scan": _options_frames(dev, w, h),
                 "visit_scan_instanced": k2_launches,
@@ -4422,6 +4591,11 @@ def main(argv=None) -> int:
                                      "fp32_full_pass_ms",
                                      "differs_from_fp32")},
                 "bound_peak": "bf16 tensor cores, 989 TFLOP/s",
+                **{k: c[k] for k in ("design", "epilogue_bound_ms",
+                                     "epilogue_share",
+                                     "full_pass_epilogue_bound_ms",
+                                     "epilogue_instructions_per_pair",
+                                     "paced_by") if k in c},
                 "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

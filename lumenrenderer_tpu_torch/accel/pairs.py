@@ -32,7 +32,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..ops import pair_scan as ps
-from .stream import ClusterSet, ray_features
+from .stream import ClusterSet, mma_kernel_layout, ray_features
 from .tiled import KEY_MISS, RAY_TILE, cull_tiles, exact_winners, pad_rays
 
 PAIR_GROUP = RAY_TILE * 8   # rays pad to this, and p_cap, s_cap round to it
@@ -158,8 +158,9 @@ def _query(cs: ClusterSet, origins, dirs, t_min, t_max, max_visits: int,
            ) -> Dict[str, torch.Tensor]:
     q = scan_inputs(cs, origins, dirs, t_min, t_max, max_visits,
                     max_pairs_per_ray, culling)
-    # the ClusterSet carries the fp32 layout; the bf16 one is made per call
-    layout = q["layout"] if not ps.is_bf16(precision) else None
+    # the ClusterSet carries the fp32 layout and keeps the bf16 one
+    layout = (mma_kernel_layout(cs) if ps.is_bf16(precision)
+              else q["layout"])
     out_s = ps.pair_scan(*q["args"], **q["kw"], closest=closest,
                          layout=layout, precision=precision)
     r, rp, mv = q["r"], q["rp"], q["mv"]

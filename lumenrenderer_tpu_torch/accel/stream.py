@@ -9,7 +9,8 @@ tree over the cluster boxes (one cluster per leaf) serves tree culling, for
 scenes of more than 2048 clusters. Each ClusterSet also carries its table in
 the kernels' order (`ops.visit_scan.slab_layout`) and its tree as kernel W's
 node records (`ops.tree_walk.node_records`), made once per build or refit
-rather than per kernel call.
+rather than per kernel call, and keeps the bf16 kernels' table
+(`ops.visit_scan.mma_layout`) from its first bf16 query (`mma_kernel_layout`).
 
 The pair-stream intersector of that file, the CLI's default accel, follows
 (`intersect_closest`, `intersect_any`, `stream_intersectors`): a dense
@@ -32,7 +33,7 @@ import torch
 from ..core import vecmath as vm
 from ..core.struct import TensorStruct
 from ..ops.tree_walk import node_records
-from ..ops.visit_scan import slab_layout
+from ..ops.visit_scan import mma_layout, slab_layout
 from ..scene.textures import take_rows
 from .sah import build_sah_arrays, build_sah_boxes
 
@@ -108,6 +109,18 @@ def kernel_layout(tri_feat: torch.Tensor) -> dict:
     """The `slabs` and `nlive` fields of a (C,10,4K) coefficient table."""
     slabs, nlive = slab_layout(tri_feat, tri_feat.shape[2] // 4)
     return dict(slabs=slabs, nlive=nlive)
+
+
+def mma_kernel_layout(cs) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 kernels' (frags, nlive) of a ClusterSet's table
+    (`ops.visit_scan.mma_layout`), made at its first call and kept on the
+    set; a refit, a rebuild or a move makes a new set, which makes its
+    own."""
+    layout = cs.__dict__.get("_mma_layout")
+    if layout is None:
+        layout = mma_layout(cs.tri_feat, cs.tris_per_cluster)
+        object.__setattr__(cs, "_mma_layout", layout)   # a frozen dataclass
+    return layout
 
 
 def global_box_tree(tree: dict, lo: torch.Tensor, hi: torch.Tensor) -> dict:

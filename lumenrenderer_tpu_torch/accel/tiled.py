@@ -26,7 +26,7 @@ import torch
 from ..core import vecmath as vm
 from ..ops import tree_walk as tw
 from ..ops import visit_scan as vs
-from .stream import ClusterSet, ray_features
+from .stream import ClusterSet, mma_kernel_layout, ray_features
 
 RAY_TILE = vs.RAY_TILE
 KEY_MISS = vs.KEY_MISS
@@ -299,8 +299,9 @@ def _query(cs: ClusterSet, origins, dirs, t_min, t_max, max_visits: int,
     precision = candidate_precision(candidate_dtype)
     q = scan_inputs(cs, origins, dirs, t_min, t_max, max_visits, culling,
                     walk)
-    # the ClusterSet carries the fp32 layout; the bf16 one is made per call
-    layout = q["layout"] if precision == "highest" else None
+    # the ClusterSet carries the fp32 layout and keeps the bf16 one
+    layout = (q["layout"] if precision == "highest"
+              else mma_kernel_layout(cs))
     out = scan(*q["args"], **q["kw"], closest=closest, layout=layout,
                precision=precision)
     if not closest:

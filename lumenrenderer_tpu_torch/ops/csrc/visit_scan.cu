@@ -36,9 +36,20 @@
 //   visits each tile ran.
 // Measured alternatives (2 rays a thread, 64 or 256 threads, the triangle
 // loop unrolled by 2 or 4) were slower on the interior passes.
-// - The bf16 mode (the TPU kernel's precision="default", cluster_scan.cuh)
-//   is a template flag: a bfloat16 table (the bulk copies move half the
-//   bytes), the ray features rounded once when loaded, the same FMA chain.
+// The bf16 mode (the TPU kernel's precision="default") is its own kernel,
+// `visit_scan_mma_kernel`: the product on the tensor cores (mma.sync
+// m16n8k16, bf16 inputs, float32 sums), so fp32 FMA issue no longer bounds
+// it; what is left on the CUDA cores is the epilogue of every (ray,
+// triangle) pair: the sign flip, six compares and the key. Four warps per
+// tile, each owning 32 rays (two m16 tiles) whose rounded features sit in
+// A fragments made once; every warp walks all live slots of the visit's
+// cluster in groups of four triangles, the table in fragment order
+// (ops/visit_scan.py `mma_layout`, 128 bytes a triangle, one 16-byte
+// shared load a lane a group), so each lane finds det, u, v and t of one
+// triangle for four rays in its own accumulators. The vote, the bulk
+// copies and the key are the fp32 mode's (cluster_scan.cuh
+// `visit_loop_mma`); the closest vote ends a tile only when its lanes are
+// dead (ROADMAP C-25).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libvisit_scan.so visit_scan.cu
@@ -59,7 +70,7 @@ static_assert(G == 32, "one warp per slice: its slab reads are broadcasts");
 // One block per tile (lumen::visit_loop): warp s tests slots s, s + SPLIT,
 // ... of each slab; its lane g holds rays g + r * G, whose features stay in
 // registers across the visits.
-template <int K, bool CLOSEST, bool BF16>
+template <int K, bool CLOSEST>
 __global__ void __launch_bounds__(THREADS)
 visit_scan_kernel(const float* __restrict__ rf_t,    // (T, 128, 12)
                   const void* __restrict__ slabs,    // (C, K * 10) quads
@@ -82,11 +93,37 @@ visit_scan_kernel(const float* __restrict__ rf_t,    // (T, 128, 12)
         tmin[r] = p[10];
         tmax[r] = p[11];
     }
-    lumen::mode_features<BF16>(rf);
-    lumen::visit_loop<K, 0, R, SPLIT, CLOSEST, BF16>(
+    lumen::visit_loop<K, 0, R, SPLIT, CLOSEST, false>(
         slabs, nlive, sel, nv, tnb, out, visits, num_clusters, mv, k_bits,
         low_bits, tmin, tmax, [](int, float4*, unsigned long long*) {},
         [&](const float4*) -> const float(&)[R][NF] { return rf; });
+}
+
+// The bf16 mode: one block of four warps per tile on the tensor cores
+// (lumen::visit_loop_mma); lane (g, q) of warp w holds rays
+// lumen::mma_row(w, g, r), r < 4.
+template <int K, bool CLOSEST>
+__global__ void __launch_bounds__(THREADS)
+visit_scan_mma_kernel(const float* __restrict__ rf_t,   // (T, 128, 12)
+                      const uint4* __restrict__ frags,  // (C, K / 4, 32)
+                      const int* __restrict__ nlive,    // (C,) % 4 == 0
+                      const int* __restrict__ sel,      // (T, mv)
+                      const int* __restrict__ nv,       // (T,)
+                      int* __restrict__ out,            // (T, 128)
+                      int* __restrict__ visits,         // (T,) or null
+                      int num_clusters, int mv, int k_bits, int low_bits)
+{
+    const int lane = threadIdx.x % 32;
+    const int w = threadIdx.x / 32;
+    const float* rows = rf_t + (size_t)blockIdx.x * RT * 12;
+    unsigned a[2][4];
+    float tmin[4], tmax[4];
+    lumen::mma_ray_fragments(
+        [&](int r) { return rows + lumen::mma_row(w, lane >> 2, r) * 12; },
+        lane & 3, a, tmin, tmax);
+    lumen::visit_loop_mma<K, CLOSEST>(frags, nlive, sel, nv, out, visits,
+                                      num_clusters, mv, k_bits, low_bits,
+                                      a, tmin, tmax);
 }
 
 struct Args {
@@ -97,13 +134,23 @@ struct Args {
     int tiles, num_clusters, mv, k_bits, low_bits;
 };
 
-template <int K, bool CLOSEST, bool BF16>
+template <int K, bool CLOSEST>
 int launch_mode(const Args& a, cudaStream_t s)
 {
-    const size_t smem = 2 * lumen::slab_float4s<K, BF16>() * sizeof(float4);
-    visit_scan_kernel<K, CLOSEST, BF16><<<a.tiles, THREADS, smem, s>>>(
+    const size_t smem = 2 * lumen::slab_float4s<K, false>() * sizeof(float4);
+    visit_scan_kernel<K, CLOSEST><<<a.tiles, THREADS, smem, s>>>(
         a.rf_t, a.slabs, a.nlive, a.sel, a.nv, a.tnb, a.out, a.visits,
         a.num_clusters, a.mv, a.k_bits, a.low_bits);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <int K, bool CLOSEST>
+int launch_mma(const Args& a, cudaStream_t s)
+{
+    const size_t smem = 2 * lumen::mma_slab_uint4s<K>() * sizeof(uint4);
+    visit_scan_mma_kernel<K, CLOSEST><<<a.tiles, THREADS, smem, s>>>(
+        a.rf_t, static_cast<const uint4*>(a.slabs), a.nlive, a.sel, a.nv,
+        a.out, a.visits, a.num_clusters, a.mv, a.k_bits, a.low_bits);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -111,10 +158,10 @@ template <int K>
 int launch(const Args& a, bool closest, bool bf16, cudaStream_t s)
 {
     if (bf16)
-        return closest ? launch_mode<K, true, true>(a, s)
-                       : launch_mode<K, false, true>(a, s);
-    return closest ? launch_mode<K, true, false>(a, s)
-                   : launch_mode<K, false, false>(a, s);
+        return closest ? launch_mma<K, true>(a, s)
+                       : launch_mma<K, false>(a, s);
+    return closest ? launch_mode<K, true>(a, s)
+                   : launch_mode<K, false>(a, s);
 }
 
 }  // namespace

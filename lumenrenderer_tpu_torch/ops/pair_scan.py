@@ -16,8 +16,10 @@ special case.
 
 What bounds it on an H100: per live tile 128 pairs x the cluster's live
 triangles x 40 fp32 FMAs, on a slab of at most 20 KB read from L2: fp32
-issue, as K1. The design is K1's, on the loop the three kernels share
-(`csrc/cluster_scan.cuh`): a block of four warps per pair tile, each warp
+issue, as K1 (in bf16 the product goes to the tensor cores and the pairs'
+epilogue on the CUDA cores sets the pace). The fp32 design is K1's, on the
+loop the three kernels share (`csrc/cluster_scan.cuh`): a block of four
+warps per pair tile, each warp
 testing an interleaved quarter of the cluster's live slots and each lane
 four pairs, so one broadcast float4 of the slab feeds 16 FMAs; the table in
 the kernels' order (`visit_scan.slab_layout`, carried by the ClusterSet,
@@ -32,7 +34,13 @@ streamed by DMA): the table stays in device memory behind the 50 MB L2.
 
 Precision as K1's (`visit_scan`): "highest" and "high" test in float32,
 "default" (the TPU's one bf16 pass) rounds the pairs' ten features and the
-table to bfloat16 and forms their products exactly in float32.
+table to bfloat16 and forms the product on the tensor cores, with K1's
+bf16 design for one visit: four warps of 32 pairs each in A fragments,
+every warp walking all live slots of the tile's cluster in groups of four
+triangles of the table in fragment order (`visit_scan.mma_layout`), one
+mma.sync m16n8k16 per m16 tile and n8 tile, the fp32 epilogue on the
+accumulators. The twin sums as the tensor cores do
+(`visit_scan.mma_product`).
 
 Not carried over: the grid of G = 8 tiles per program (S only needs to be a
 multiple of 128 here), and the FR = 16 feature-row padding.
@@ -48,9 +56,8 @@ import torch
 
 from . import build
 from .visit_scan import (KERNEL_K, KEY_MISS, RAY_TILE, check_scalars,
-                         count_launch, is_bf16, layout_expect,
-                         ordered_product, round_bf16, slab_hits,
-                         slab_layout)
+                         count_launch, is_bf16, layout_expect, mma_layout,
+                         mma_product, round_bf16, slab_hits, slab_layout)
 
 # launches of the CUDA kernel per mode, fp32 and bf16 (the CPU twin does not
 # count)
@@ -74,7 +81,7 @@ def pair_scan_ref(rf_pairs, feats, tile_cluster, *, k: int, k_bits: int,
     rfm, product = rf[..., :10].contiguous(), torch.bmm
     if is_bf16(precision):
         rfm, feats = round_bf16(rfm), round_bf16(feats)
-        product = ordered_product
+        product = mma_product
     hit, tb = slab_hits(rfm, feats[tile_cluster.long()],
                         rf[..., 10:11], rf[..., 11:12], k, closest, product)
     if not closest:
@@ -100,7 +107,7 @@ def pair_scan(rf_pairs, feats, tile_cluster, *, k: int, k_bits: int,
         "rf_pairs": (rf_pairs, torch.float32, (s, 12)),
         "feats": (feats, torch.float32, (feats.shape[0], 10, 4 * k)),
         "tile_cluster": (tile_cluster, torch.int32, (tiles,)),
-        **layout_expect(feats, k, layout, bf16),
+        **layout_expect(feats, k, layout, mma=bf16),
     })
     check_scalars(k, 1, k_bits, k_bits)   # one visit, no visit field
     if rf_pairs.device.type == "cpu":
@@ -118,7 +125,9 @@ def pair_scan(rf_pairs, feats, tile_cluster, *, k: int, k_bits: int,
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     # made here, they are freed on return, but the caching allocator hands
     # their memory only to work queued after the kernel on this stream
-    slabs, nlive = slab_layout(feats, k, bf16) if layout is None else layout
+    if layout is None:
+        layout = mma_layout(feats, k) if bf16 else slab_layout(feats, k)
+    slabs, nlive = layout
     out = torch.empty((s,), dtype=torch.int32, device=rf_pairs.device)
     build.launch(fn, rf_pairs.device, rf_pairs.data_ptr(), slabs.data_ptr(),
                  nlive.data_ptr(), tile_cluster.data_ptr(), out.data_ptr(),

@@ -21,26 +21,30 @@ Precision (`precision`, the TPU kernel's argument): "highest" (and "high",
 a bf16 three-pass split on the TPU, which the port runs as exact fp32) tests
 in float32; "default", the TPU's one bf16 MXU pass, rounds the ten ray
 features and the coefficient table to bfloat16 (round to nearest even) and
-forms their products exactly in float32, summed in float32; t_min, t_max and
-the hit test stay float32. The bf16 twin is the fp32 twin on the rounded
-inputs (`round_bf16`), its product summed in the kernel's order
-(`ordered_product`). A rounded triangle may lie nearer than its cluster's
-fp32 box, so in this mode the closest vote ends a tile only when all its
-lanes are dead, and the result equals a full scan (the TPU kernel keeps
-its entry-t check every 4 visits and can drop such a hit: ROADMAP C-25).
+forms the product on the tensor cores: exact products, summed as one
+m16n8k16 bf16 product sums them (`mma_product`, the model that
+`ops/mma_probe.py` found to match the card bit for bit: the ten products
+aligned to the largest exponent sum, cut toward zero 25 bits below it,
+summed, and the sum cut toward zero to float32); t_min, t_max and the hit
+test stay float32. The bf16 twin is the fp32 twin on the rounded inputs
+(`round_bf16`) with `mma_product` as its product. A rounded triangle may
+lie nearer than its cluster's fp32 box, so in this mode the closest vote
+ends a tile only when all its lanes are dead, and the result equals a full
+scan (the TPU kernel keeps its entry-t check every 4 visits and can drop
+such a hit: ROADMAP C-25).
 
-What bounds it on an H100: fp32 FMA issue. A visit costs
+What bounds it on an H100: in fp32, FMA issue. A visit costs
 live rays × live triangles × 40 FMAs = 80 flop per ray-triangle pair; at
 67 TFLOP/s (fp32, no tensor cores) that is the bound, since the bytes (ray
 features, visit lists, at most a 20 KB slab per visit from L2) take a small
-fraction of it at 3.35 TB/s. Tensor cores are not used, in either mode:
-the bf16 mode reads a bfloat16 table (half the bytes) and runs the fp32
-mode's FMA chain on the widened values.
+fraction of it at 3.35 TB/s. In bf16 the product goes to the tensor cores
+(989 TFLOP/s dense), and the epilogue that every pair still runs on the
+CUDA cores (the sign flip, six compares, the key) sets the pace.
 
-The design (details in the source): a block of four warps per tile, each
-warp testing an interleaved quarter of the cluster's triangles and each
-lane 4 rays, so one broadcast float4 of the slab feeds 16 FMAs; only the
-live slots of each cluster (`slab_layout`'s `nlive`) are copied and
+The fp32 design (details in the source): a block of four warps per tile,
+each warp testing an interleaved quarter of the cluster's triangles and
+each lane 4 rays, so one broadcast float4 of the slab feeds 16 FMAs; only
+the live slots of each cluster (`slab_layout`'s `nlive`) are copied and
 tested; signs normalised by XOR with det's sign bit, t by one exact
 division for hits only; K a template parameter (32, 64 or 128; any other K
 raises); the slab table in the kernel's order (`slab_layout`, made once
@@ -54,9 +58,21 @@ a full scan. An optional int32 counter
 receives the visits each tile ran; `executed_visits_ref` replays the same
 vote from the twin.
 
+The bf16 design: four warps per tile, warp w owning rays 32w ... 32w + 31
+(two m16 tiles) in A fragments of their rounded features, made once; every
+warp walks all live slots of each visit's cluster in groups of four
+triangles, each group two n8 tiles (mma.sync m16n8k16, the ten features
+padded to one k-step of 16) whose columns interleave (det, u) and (v, t),
+so that each lane finds one triangle's four quantities for four rays in
+its own accumulators and runs the fp32 epilogue on them; the table in
+fragment order (`mma_layout`, 128 bytes a triangle, made at the first bf16
+query of a ClusterSet and kept on it), one TMA bulk copy a visit; each quad
+of lanes folds its keys (bits) with two shuffles.
+
 Not carried over: the (T/8, 8, 128) output blocks and 8-tile padding (a TPU
-layout; this returns (T, 128)), the feature-row padding to 16, and the
-unused `tri_id` argument.
+layout; this returns (T, 128)), the feature-row padding to 16 (the fp32
+mode's; the bf16 mode pads to 16 in its k-step), and the unused `tri_id`
+argument.
 
 On a CPU tensor the wrapper runs `visit_scan_ref`, the plain PyTorch twin; on
 a CUDA tensor it launches the kernel or raises.
@@ -107,14 +123,72 @@ def count_launch(counts_fp32: dict, counts_bf16: dict, closest: bool,
 
 def ordered_product(rf, slab):
     """rf (T,128,10) times slab (T,10,4K), summed over the ten features in
-    the kernels' order. The bf16 twins' product: each product of two
-    bfloat16 values is exact in float32, so this equals the kernels' chain
-    of fused multiply-adds bit for bit, whatever order a matmul would
-    take."""
+    the kernels' order. K2's bf16 twin's product: each product of two
+    bfloat16 values is exact in float32, so this equals K2's chain of fused
+    multiply-adds bit for bit, whatever order a matmul would take."""
     res = rf[..., 0:1] * slab[:, 0:1] + 0.0     # the chain starts at +0
     for f in range(1, rf.shape[-1]):
         res = res + rf[..., f:f + 1] * slab[:, f:f + 1]
     return res
+
+
+# How one m16n8k16 bf16 product of the tensor cores sums its terms from a
+# zero accumulator (`mma_product`): the k slots in blocks of `block`, the
+# block's exact products and the running sum aligned to the largest
+# exponent (`align`: "sum", the exponent of 1.x times 1.x, or "norm", the
+# product's own), each cut to `frac_bits` bits below it (`term`: "rz"
+# toward zero, "rd" toward -inf), their integer sum rounded to float32
+# (`final`: "rn" nearest even, "rz" toward zero).
+MMA_MODEL = {"block": 16, "align": "sum", "frac_bits": 25, "term": "rz",
+             "final": "rz"}
+
+
+def _pow2(e: torch.Tensor) -> torch.Tensor:
+    """2^e exactly as float64, for integer e in [-1022, 1023]."""
+    return ((e.long() + 1023) << 52).view(torch.float64)
+
+
+def _round_f32(x: torch.Tensor, final: str) -> torch.Tensor:
+    """float64 x to float32, to nearest even or toward zero."""
+    f = x.float()
+    if final == "rz":
+        over = f.double().abs() > x.abs()
+        f = torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+    return f
+
+
+def mma_product(rf, slab, model=None):
+    """rf (T,M,F) times slab (T,F,N), both bfloat16 values in float32, with
+    feature f in k slot f of m16n8k16 tensor-core products (F <= 16; the
+    kernels' F = 10, slots 10-15 zero), summed as `model` (MMA_MODEL, the
+    card's, by default) says: exactly, in float64 holding integers of at
+    most 53 bits, then rounded once a block. The bf16 twins' product."""
+    m = MMA_MODEL if model is None else model
+    nf = rf.shape[-1]
+    none, valid = -(1 << 20), -(1 << 19)      # a zero's exponent
+    ea = torch.where(rf != 0, torch.frexp(rf)[1] - 1, none)   # of 1.x
+    eb = torch.where(slab != 0, torch.frexp(slab)[1] - 1, none)
+    rf, slab = rf.double(), slab.double()
+    acc = torch.zeros(rf.shape[:-1] + slab.shape[-1:], dtype=torch.float64,
+                      device=rf.device)
+    cut = torch.trunc if m["term"] == "rz" else torch.floor
+    for lo in range(0, nf, m["block"]):
+        fs = range(lo, min(nf, lo + m["block"]))
+        lead = torch.where(acc != 0, torch.frexp(acc)[1] - 1, none)
+        for f in fs:
+            if m["align"] == "sum":
+                e = ea[..., f:f + 1] + eb[:, f:f + 1]
+            else:
+                p = rf[..., f:f + 1] * slab[:, f:f + 1]
+                e = torch.where(p != 0, torch.frexp(p)[1] - 1, none)
+            lead = torch.maximum(lead, e)
+        q = torch.where(lead > valid, lead - m["frac_bits"], 0)
+        scale = _pow2(-q)
+        s = cut(acc * scale)
+        for f in fs:
+            s += cut((rf[..., f:f + 1] * slab[:, f:f + 1]).mul_(scale))
+        acc = _round_f32(s.mul_(_pow2(q)), m["final"]).double()
+    return acc.float()
 
 
 def slab_hits(rf, slab, tmin, tmax, k: int, closest: bool,
@@ -190,6 +264,8 @@ def replay_visits_ref(rays, feats, sel, nv, tnb, tmin, tmax, dead, *, k: int,
     triangles may lie nearer than their cluster's box), or, any, is
     occluded."""
     n = nv.clamp_max(mv)
+    if closest and bf16:             # only dead lanes end a tile
+        return torch.where(dead.all(1), 0, n).to(torch.int32)
     ran = n.clone()
     stopped = torch.zeros_like(n, dtype=torch.bool)
     states = _running_ref(rays, feats, sel, nv, tmin, tmax, dead, k=k,
@@ -213,7 +289,7 @@ def _mode_inputs(rf_t, feats, precision: str):
     """The ray features (T,128,10), the table and the product the mode
     tests them with."""
     if is_bf16(precision):
-        return round_bf16(rf_t[..., :10]), round_bf16(feats), ordered_product
+        return round_bf16(rf_t[..., :10]), round_bf16(feats), mma_product
     return rf_t[..., :10], feats, torch.bmm
 
 
@@ -262,6 +338,34 @@ def slab_layout(feats: torch.Tensor, k: int, bf16: bool = False):
     return slabs, nlive.to(torch.int32)
 
 
+def mma_layout(feats: torch.Tensor, k: int):
+    """The bf16 kernels' table in tensor-core fragment order (K1 and K3):
+    (frags (C,K/4,32,8) bfloat16, nlive (C,) int32). Group j of a cluster
+    holds triangles 4j ... 4j + 3 as two n8 tiles of B (k = feature, slots
+    10-15 zero): column n of tile h is quantity 2h + n % 2 of [det|u|v|t]
+    of triangle 4j + n // 2. Lane 4g + q's 8 values are its fragments of
+    tile 0 then tile 1: rows 2q, 2q + 1, 2q + 8, 2q + 9 of column g. nlive
+    is `slab_layout`'s of the rounded table, rounded up to a multiple of
+    4: the padding slots it takes in have det = 0 and fail the test."""
+    if k % 4:
+        raise ValueError(f"mma_layout needs K divisible by 4, not {k}")
+    c = feats.shape[0]
+    dev = feats.device
+    nlive = slab_layout(round_bf16(feats), k)[1]
+    nlive = ((nlive + 3) // 4 * 4).clamp_max(k).to(torch.int32)
+    table = torch.zeros((c, 16, 4 * k), dtype=torch.bfloat16, device=dev)
+    table[:, :10] = feats.to(torch.bfloat16)
+    lane = torch.arange(32, device=dev)
+    g, q = lane // 4, lane % 4
+    rows = torch.stack([2 * q, 2 * q + 1, 2 * q + 8, 2 * q + 9], -1)
+    qty = 2 * torch.arange(2, device=dev)[None] + (g % 2)[:, None]
+    tri = (4 * torch.arange(k // 4, device=dev)[:, None]
+           + (g // 2)[None])                                  # (K/4, 32)
+    cols = qty[None, :, :, None] * k + tri[:, :, None, None]  # (K/4,32,2,1)
+    frags = table[:, rows[None, :, None, :], cols]        # (C,K/4,32,2,4)
+    return frags.reshape(c, k // 4, 32, 8).contiguous(), nlive
+
+
 def check_scalars(k: int, mv: int, k_bits: int, low_bits: int) -> None:
     """Raise ValueError on a visit count, key layout or cluster size the
     kernels do not take (shared by K1, K2 and K3)."""
@@ -277,15 +381,20 @@ def check_scalars(k: int, mv: int, k_bits: int, low_bits: int) -> None:
                          "memory")
 
 
-def layout_expect(feats, k: int, layout, bf16: bool = False) -> dict:
+def layout_expect(feats, k: int, layout, bf16: bool = False,
+                  mma: bool = False) -> dict:
     """check_tensors entries of a (slabs, nlive) layout of `feats` in the
-    mode's type, if any (shared by K1, K2 and K3)."""
+    mode's type, if any (shared by K1, K2 and K3); `mma`: the bf16 mode's
+    `mma_layout` (K1 and K3)."""
     if layout is None:
         return {}
     c = feats.shape[0]
-    dtype = torch.bfloat16 if bf16 else torch.float32
-    return {"slabs": (layout[0], dtype, (c, k, 10, 4)),
-            "nlive": (layout[1], torch.int32, (c,))}
+    if mma:
+        slabs = (layout[0], torch.bfloat16, (c, k // 4, 32, 8))
+    else:
+        slabs = (layout[0], torch.bfloat16 if bf16 else torch.float32,
+                 (c, k, 10, 4))
+    return {"slabs": slabs, "nlive": (layout[1], torch.int32, (c,))}
 
 
 def _check(rf_t, feats, sel, nv, tnb, k, mv, k_bits, low_bits, visits,
@@ -297,7 +406,7 @@ def _check(rf_t, feats, sel, nv, tnb, k, mv, k_bits, low_bits, visits,
         "sel": (sel, torch.int32, (tiles, mv)),
         "nv": (nv, torch.int32, (tiles,)),
         "tnb": (tnb, torch.int32, (tiles, mv)),
-        **layout_expect(feats, k, layout, bf16),
+        **layout_expect(feats, k, layout, mma=bf16),
     }
     if visits is not None:
         expect["visits"] = (visits, torch.int32, (tiles,))
@@ -312,9 +421,9 @@ def visit_scan(rf_t, feats, sel, nv, tnb, *, k: int, mv: int, k_bits: int,
     keys (closest) or occlusion bits (any). `visits`, an int32 (T,) tensor,
     receives the number of visits each tile ran (on the CPU, from
     `executed_visits_ref`). `layout`, the (slabs, nlive) of `feats` from
-    `slab_layout` in the mode's type (a ClusterSet carries the fp32 one),
-    spares the kernel path laying the table out on every call; the bf16
-    mode without one lays out a bfloat16 copy per call."""
+    `slab_layout` (fp32) or `mma_layout` (bf16) (a ClusterSet carries the
+    fp32 one and keeps the bf16 one from its first bf16 query), spares the
+    kernel path laying the table out on every call."""
     bf16 = is_bf16(precision)
     _check(rf_t, feats, sel, nv, tnb, k, mv, k_bits, low_bits, visits,
            layout, bf16)
@@ -335,7 +444,9 @@ def visit_scan(rf_t, feats, sel, nv, tnb, *, k: int, mv: int, k_bits: int,
     tiles = rf_t.shape[0]
     # made here, they are freed on return, but the caching allocator hands
     # their memory only to work queued after the kernel on this stream
-    slabs, nlive = slab_layout(feats, k, bf16) if layout is None else layout
+    if layout is None:
+        layout = mma_layout(feats, k) if bf16 else slab_layout(feats, k)
+    slabs, nlive = layout
     out = torch.empty((tiles, RAY_TILE), dtype=torch.int32,
                       device=rf_t.device)
     build.launch(fn, rf_t.device, rf_t.data_ptr(), slabs.data_ptr(),

@@ -39,7 +39,9 @@ the twin. K is a template parameter (32, 64 or 128; any other K raises).
 Precision as K1's (`visit_scan`): "highest" and "high" test in float32;
 "default" (the TPU's one bf16 pass) forms each visit's ten features in
 float32, rounds them to bfloat16, and tests them against the bfloat16
-table by K1's bf16 product, and K1's bf16 vote.
+table (`slab_layout(..., bf16=True)`) with exact products summed by the
+fp32 mode's FMA chain on the CUDA cores (`ordered_product`; K1 and K3 use
+the tensor cores instead), and K1's bf16 vote.
 
 Not carried over: the T % 8 padding and (T/8, 8, 128) blocks, the FR = 16
 feature-row padding, and the `RESIDENT_BYTES` limit (a VMEM limit; here the

@@ -8,7 +8,10 @@ where torch.cuda.is_available() is False. Run them on the card with
 Tolerance: keys identical on at least 99.99% of rays, every differing key a
 tie within the key's t resolution (the bf16 mode, precision="default":
 keys identical, also where a rounded triangle lies nearer than its
-cluster's box); occlusion bits identical; K1's and K2's
+cluster's box; K1 and K3 form its product on the tensor cores and their
+twins sum as the tensor-core probe found the card to, bit for bit, and the
+probe's results equal that model's on every crafted sum); occlusion bits
+identical; K1's and K2's
 visit counters identical to `executed_visits_ref` and
 `executed_visits_instanced_ref`; K3's dead tiles the miss key (0); W's
 lists, entry t (bit for bit) and counts identical to its twin's; T's
@@ -23,6 +26,7 @@ from lumenrenderer_tpu_torch.accel import (lbvh, pairs, sah, stream, tiled,
                                            two_level)
 from lumenrenderer_tpu_torch.integrator.wavefront import RenderConfig
 from lumenrenderer_tpu_torch.ops import bvh_traverse as bt
+from lumenrenderer_tpu_torch.ops import mma_probe as mp
 from lumenrenderer_tpu_torch.ops import pair_scan as ps
 from lumenrenderer_tpu_torch.ops import tree_walk as tw
 from lumenrenderer_tpu_torch.ops import visit_scan as vs
@@ -160,6 +164,73 @@ def test_kernel_edge_tiles(dev, closest):
     assert int(visits[1]) == 0 and int(visits[2]) == 0
     if closest:
         assert int(visits[0]) == 128
+
+
+def test_mma_probe_equals_the_twins_model(dev):
+    """One m16n8k16 bf16 product per crafted case on the card equals
+    `mma_product` under MMA_MODEL bit for bit, every family (full16 too)."""
+    mp.LAUNCHES = 0
+    for fam, (a, b) in mp.probe_cases(seed=3).items():
+        ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+        got = mp.mma_probe(ta.to(dev), tb.to(dev)).cpu()
+        want = vs.mma_product(ta, tb)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), fam
+    assert mp.LAUNCHES == len(mp.probe_cases(seed=3, n=1))
+
+
+@pytest.mark.parametrize("closest", [True, False])
+def test_bf16_kernel_edge_tiles(dev, closest):
+    """K1's tensor-core mode: a tile with nv = mv = 128 visits, one with
+    none, one whose lanes are all dead, one with a single live ray, and
+    clusters cut to 1, 3 and 5 live slots (nlive rounded up to 4): keys
+    and bits equal the twin's, the counter the replay's."""
+    q = _inputs(dev, n_tris=5000, k=32)
+    rf_t, feats, sel, nv, tnb = (a.clone() for a in q["args"])
+    kw = dict(q["kw"], closest=closest, precision="default")
+    sel[0] = torch.arange(128, device=dev, dtype=torch.int32)
+    nv[0] = 128
+    nv[1] = 0
+    rf_t[2, :, 11] = -1.0
+    rf_t[3, 1:, 11] = -1.0
+    for cl, live in ((0, 1), (1, 3), (2, 5)):
+        feats.view(-1, 10, 4, 32)[cl, :, :, live:] = 0.0
+    nl = vs.mma_layout(feats, 32)[1]
+    assert bool((nl % 4 == 0).all()) and int(nl[0]) == 4
+    args = (rf_t, feats, sel, nv, tnb)
+    kern = vs.visit_scan(*args, **kw)
+    ref = vs.visit_scan_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(kern, ref)
+    assert torch.equal(kern[2], torch.full_like(kern[2], 0 if closest else 1))
+    visits = _check_counter(args, kw)
+    assert int(visits[1]) == 0 and int(visits[2]) == 0
+    if closest:                 # only dead lanes end a bf16 closest tile
+        assert int(visits[0]) == 128
+
+
+@pytest.mark.parametrize("closest", [True, False])
+def test_bf16_pair_kernel_dead_tail_and_short_clusters(dev, closest):
+    """K3's tensor-core mode on the stream's dead tail, a tile with one
+    live pair and clusters cut to 1 and 6 live slots: equal to the twin,
+    dead tiles the miss key (0)."""
+    q = _pair_inputs(dev)
+    rf_pairs, feats, tile_cluster = (a.clone() for a in q["args"])
+    rows = rf_pairs.view(-1, 128, 12)
+    live = (rows[..., 11] >= rows[..., 10]).any(1)
+    first = int((live & (tile_cluster > 0)).nonzero()[0, 0])
+    rows[first, 1:, 10], rows[first, 1:, 11] = 1.0, 0.0
+    for cl, cut in ((int(tile_cluster[first]), 1), (0, 6)):
+        feats.view(-1, 10, 4, 64)[cl, :, :, cut:] = 0.0
+    args = (rf_pairs, feats, tile_cluster)
+    _check_against_twin(ps, ps.pair_scan, ps.pair_scan_ref,
+                        {"args": args, "kw": q["kw"]}, closest,
+                        q["kw"]["k_bits"], "default")
+    kern = ps.pair_scan(*args, **q["kw"], closest=closest,
+                        precision="default").view(-1, 128)
+    torch.cuda.synchronize()
+    dead = (rows[..., 11] < rows[..., 10]).all(1)
+    miss = vs.KEY_MISS if closest else 0
+    assert bool((kern[dead] == miss).all()) and int(dead.sum()) > 1
 
 
 def test_kernel_rejects_unsupported_cluster_size(dev):
