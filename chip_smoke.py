@@ -199,9 +199,10 @@ non-zero), each with its seconds:
      m16n8k16 bf16 product per case on crafted sums, compared bit for bit
      with candidate models of its rounding (its table; fails unless the
      bf16 twins' model, `visit_scan.MMA_MODEL`, fits every sum of the
-     kernels' kind), and the SASS of K1's and K3's bf16 kernels (HMMA in
-     their loops; the loop's other instructions on the no-hit path a
-     pair, for the epilogue bound);
+     kernels' kind), and the SASS of K1's, K2's and K3's bf16 kernels
+     (HMMA in their loops; the loop's other instructions on the no-hit
+     path a pair, and K2's visit loop's instructions outside it a
+     ray-visit, for the epilogue bound);
      17a: K1 in its bf16 mode (precision="default", on the tensor cores)
      against its twin (`mma_product`) on 1,024 tiles of each of the
      primary, sorted bounce and shadow passes, closest and any, keys, bits
@@ -209,8 +210,8 @@ non-zero), each with its seconds:
      in fp32 (times in this call, flop, bound, the epilogue bound, shares)
      and the share of live rays whose winner or bit differs from fp32
      (printed, not barred: bf16 geometry is lossy by design); 17b: the
-     same for K2 on phase 6's passes (no epilogue bound: its bf16 mode
-     stays on the CUDA cores) and K3 on phase 8's pair tiles, then a
+     same for K2 on 256 tiles of each of phase 6's passes (its twin's
+     exact sum is slow) and K3 on phase 8's pair tiles, then a
      two-level bf16 frame (K2's bf16 launches) and a bf16 pair frame
      (K3's); 17c: Renderer(candidate_dtype="bfloat16"), 1
      warm-up and 3 timed frames beside the default frame's (ms/frame, K1
@@ -229,15 +230,17 @@ non-zero), each with its seconds:
      `sorted_intersectors` (pass ms, K1's visits per tile). The `kernels`
      line gains the bf16 rows of K1, K2 and K3 (their bytes count the
      table at 2 bytes a value, their flop go at the bf16 tensor-core rate;
-     K1's and K3's also carry their design, the epilogue bound, its
-     share and which bound sets their pace).
+     they also carry their design, the epilogue bound, its share and
+     which bound sets their pace, and K2's its instructions a ray-visit).
 Then a JSON line of per-kernel results, the card's name and power limit, and
 as the last line {"ok": true, "device": {...}}. Needs no network; exits
 non-zero without a CUDA device or without the package next to it.
 
-The epilogue bound of K1's and K3's bf16 modes: the live pairs (flop / 80)
-times the CUDA-core instructions a pair (17h's SASS count), over 132 SMs x
-128 lanes at the card's maximum SM clock (nvidia-smi). Bounds: a kernel's
+The epilogue bound of the bf16 modes: the live pairs (flop / 80, less
+K2's affine flop) times the CUDA-core instructions a pair (17h's SASS
+count), plus for K2 the live ray-visits times its instructions a ray-visit
+(17h), over 132 SMs x 128 lanes at the card's maximum SM clock
+(nvidia-smi). Bounds: a kernel's
 least time is the larger of its flop over the H100's
 67 TFLOP/s of fp32 (no tensor cores; the bf16 rows: 989 TFLOP/s, the
 bf16 tensor-core rate, the peak for bf16 operands) and its bytes (each input read once,
@@ -297,6 +300,10 @@ MMA_DESIGN = "mma.sync m16n8k16"
 MMA_ENTRIES = {              # the bf16 tensor-core kernels at K = 128
     ("visit_scan", "closest"): "visit_scan_mma_kernelILi128ELb1E",
     ("visit_scan", "any"): "visit_scan_mma_kernelILi128ELb0E",
+    ("visit_scan_instanced", "closest"):
+        "visit_scan_instanced_mma_kernelILi128ELb1E",
+    ("visit_scan_instanced", "any"):
+        "visit_scan_instanced_mma_kernelILi128ELb0E",
     ("pair_scan", "closest"): "pair_scan_mma_kernelILi128ELb1E",
     ("pair_scan", "any"): "pair_scan_mma_kernelILi128ELb0E",
 }
@@ -3727,6 +3734,7 @@ DECODE_UV_ROUNDINGS = 16     # plus this many float32 roundings (2^-24) of
                              # both cancel, the decode's bilinear form in
                              # world coordinates and Moller-Trumbore
 OPTION_PAIRS_PER_RAY = 16    # 17b: the bf16 pair frame's pair cap
+K2_BF16_SUBSET_TILES = 256   # 17b: K2's tiles held against its exact twin
 
 
 def _bf16_disagreement(out32, out16, closest, low_bits, live):
@@ -3743,11 +3751,14 @@ def _bf16_disagreement(out32, out16, closest, low_bits, live):
     return float((out32 != out16)[live].float().mean())
 
 
-def _epilogue_ms(flop, per_pair, clock_mhz):
-    """The epilogue bound: the live pairs (flop / FLOP_PER_PAIR) times the
-    instructions a pair on the CUDA cores (from the SASS), over SMS x LANES
-    lanes at the card's clock."""
-    return (flop / FLOP_PER_PAIR * per_pair
+def _epilogue_ms(flop, per_pair, clock_mhz, ray_visits=0, per_visit=0):
+    """The epilogue bound: the live pairs ((flop less K2's AFFINE_FLOP a
+    live ray-visit) / FLOP_PER_PAIR) times the instructions a pair on the
+    CUDA cores, plus the live ray-visits times K2's instructions a
+    ray-visit (both from the SASS), over SMS x LANES lanes at the card's
+    clock."""
+    pairs = (flop - AFFINE_FLOP * ray_visits) / FLOP_PER_PAIR
+    return ((pairs * per_pair + ray_visits * per_visit)
             / (SMS * LANES * clock_mhz * 1e6) * 1e3)
 
 
@@ -3761,10 +3772,11 @@ def _hold_bf16(phase, label, passes, subset, kernel, twin, counter, work,
     (flop, bytes, fields) at the bf16 tensor-core rate, the peak for these
     operands, and the share of the full pass's live rays
     (`live_of(q)`) whose winner or bit differs from fp32 (not barred).
-    `epilogue` ({mode: instructions a pair}, the clock in MHz), for the
-    tensor-core kernels, adds the epilogue bound and says which bound sets
-    the pace. Returns per mode the kernels line's numbers, means over the
-    passes."""
+    `epilogue` ({mode: instructions a pair}, the clock in MHz, and for K2
+    {mode: instructions a live ray-visit}, whose count `work` gives as
+    its field "ray_visits") adds the epilogue bound and says which bound
+    sets the pace. Returns per mode the kernels line's numbers, means over
+    the passes."""
     import torch
 
     results = {}
@@ -3786,7 +3798,7 @@ def _hold_bf16(phase, label, passes, subset, kernel, twin, counter, work,
             plain_ms = cuda_time_ms(lambda: twin(*args, **kw), reps=1)
             full16 = cuda_time_ms(lambda: kernel(*q["args"], **kw))
             full32 = cuda_time_ms(lambda: kernel(*q["args"], **kw32))
-            flop, nb, _ = work(q, args, kw)
+            flop, nb, sub = work(q, args, kw)
             f_flop, f_nb, extra = work(q, q["args"], kw)
             b_ms, b_by = bound_ms(flop, nb, PEAK_BF16_FLOPS)
             fb_ms, fb_by = bound_ms(f_flop, f_nb, PEAK_BF16_FLOPS)
@@ -3796,8 +3808,11 @@ def _hold_bf16(phase, label, passes, subset, kernel, twin, counter, work,
             fields = {}
             if epilogue is not None:
                 per_pair, clock = epilogue[0][mode], epilogue[1]
-                e_ms = _epilogue_ms(flop, per_pair, clock)
-                fe_ms = _epilogue_ms(f_flop, per_pair, clock)
+                per_visit = epilogue[2][mode] if len(epilogue) > 2 else 0
+                e_ms = _epilogue_ms(flop, per_pair, clock,
+                                    sub.get("ray_visits", 0), per_visit)
+                fe_ms = _epilogue_ms(f_flop, per_pair, clock,
+                                     extra.get("ray_visits", 0), per_visit)
                 epi.append((e_ms, fe_ms))
                 fields = dict(
                     design=repr(MMA_DESIGN), epilogue_bound_ms=f"{e_ms:.4f}",
@@ -3834,6 +3849,8 @@ def _hold_bf16(phase, label, passes, subset, kernel, twin, counter, work,
                 "epilogue_share": e_ms / mean[0],
                 "full_pass_epilogue_bound_ms": fe_ms,
                 "epilogue_instructions_per_pair": epilogue[0][mode],
+                **({"instructions_per_ray_visit": epilogue[2][mode]}
+                   if len(epilogue) > 2 else {}),
                 "paced_by": ("epilogue" if fe_ms > mean[4]
                              else results[mode]["bound_by"])})
     return results
@@ -3855,14 +3872,12 @@ def _visits_equal(kernel, replay, args, kw):
             "subset_visits_per_tile": f"{float(visits.float().mean()):.3f}"}
 
 
-def _with_layouts(fn, fp32_layout, feats, k, mma=True):
+def _with_layouts(fn, fp32_layout, feats, k):
     """fn with the table's kernel layout of each precision, made once (the
-    bf16 one in fragment order for K1 and K3, `mma`; K2's in slab order)."""
+    bf16 one in fragment order)."""
     from lumenrenderer_tpu_torch.ops import visit_scan as vs
 
-    layouts = {"highest": fp32_layout,
-               "default": (vs.mma_layout(feats, k) if mma
-                           else vs.slab_layout(feats, k, bf16=True))}
+    layouts = {"highest": fp32_layout, "default": vs.mma_layout(feats, k)}
     return lambda *a, **kw: fn(*a, **kw, layout=layouts[kw["precision"]])
 
 
@@ -3893,22 +3908,30 @@ def _sass_functions(lib):
     return funcs
 
 
-def mma_loop_count(instrs):
-    """(HMMAs, instructions) of one pass through the loop around a
-    kernel's HMMAs on its no-hit path: from the target of the nearest
-    backward branch after them to that branch, every forward branch inside
-    the loop taken (they skip a pair's window test once an earlier test
-    failed, and the work of a hit)."""
-    hmma = [a for a, t in instrs if t.startswith("HMMA")]
-    if not hmma:
-        return 0, 0
+def _loop_around(instrs, first, last):
+    """(head, end) of the innermost loop around the addresses first ...
+    last: the nearest backward branch after them whose target is at or
+    before first, and that target."""
     end, head = min((a, tgt) for a, t in instrs
                     for tgt in [_bra_target(t)]
-                    if tgt is not None and a > hmma[-1] and tgt <= hmma[0])
+                    if tgt is not None and a > last and tgt <= first)
+    return head, end
+
+
+def _loop_pass(instrs, head, end, skip=None):
+    """(HMMAs, instructions) of one pass from head to the backward branch
+    at end, every forward branch inside the loop taken (on the kernels'
+    no-hit path they skip a pair's window test once an earlier test
+    failed, the work of a hit, and thread 0's bulk copies) and backward
+    ones not; the addresses of `skip` (head, end), an inner loop, jumped
+    over."""
     index = {a: i for i, (a, _) in enumerate(instrs)}
     i, count, n_hmma = index[head], 0, 0
     while True:
         a, t = instrs[i]
+        if skip is not None and skip[0] <= a <= skip[1]:
+            i = index[skip[1]] + 1
+            continue
         count += 1
         n_hmma += t.startswith("HMMA")
         tgt = _bra_target(t)
@@ -3917,15 +3940,37 @@ def mma_loop_count(instrs):
         i = index[tgt] if tgt is not None and a < tgt <= end else i + 1
 
 
+def mma_loop_count(instrs):
+    """(HMMAs, instructions) of one pass through the loop around a
+    kernel's HMMAs on its no-hit path (`_loop_pass`)."""
+    hmma = [a for a, t in instrs if t.startswith("HMMA")]
+    if not hmma:
+        return 0, 0
+    return _loop_pass(instrs, *_loop_around(instrs, hmma[0], hmma[-1]))
+
+
+def mma_visit_count(instrs):
+    """Instructions of one pass through the visit loop around the loop of
+    a kernel's HMMAs, that loop left out, on the path of a thread that
+    issues no bulk copy (`_loop_pass`): the vote, the wait and, in K2, the
+    A fragments formed, traded and rounded."""
+    hmma = [a for a, t in instrs if t.startswith("HMMA")]
+    inner = _loop_around(instrs, hmma[0], hmma[-1])
+    return _loop_pass(instrs, *_loop_around(instrs, *inner), skip=inner)[1]
+
+
 def _options_tensor_cores(dev):
     """17h: the tensor cores. The probe (ops/mma_probe.py): one m16n8k16 per
     case on crafted sums, each result against the candidate models bit for
     bit; raise unless the bf16 twins' model (MMA_MODEL) fits every sum of
-    the kernels' kind. Then the SASS of the bf16 kernels of K1 and K3:
+    the kernels' kind. Then the SASS of the bf16 kernels of K1, K2 and K3:
     raise unless their loops run HMMA; each loop's instructions on the
     no-hit path, less its HMMAs, over the lane's 4 pairs, are the
-    epilogue's instructions a pair. Returns ({kernel: {mode: instructions
-    a pair}}, the clock in MHz)."""
+    epilogue's instructions a pair; K2's visit loop's other instructions
+    (the vote, the wait, the A fragments formed and traded) are its
+    instructions a ray and visit (a block's 128 lanes for its 128 rays).
+    Returns ({kernel: {mode: instructions a pair}}, {mode: K2's
+    instructions a ray-visit}, the clock in MHz)."""
     from lumenrenderer_tpu_torch.ops import build
     from lumenrenderer_tpu_torch.ops import mma_probe as mp
     from lumenrenderer_tpu_torch.ops.visit_scan import MMA_MODEL
@@ -3951,8 +3996,8 @@ def _options_tensor_cores(dev):
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True).stdout.split()[0])
-    per_pair = {}
-    for name in ("visit_scan", "pair_scan"):
+    per_pair, per_visit = {}, {}
+    for name in ("visit_scan", "visit_scan_instanced", "pair_scan"):
         funcs = _sass_functions(build.library_path(name))
         for mode in ("closest", "any"):
             (fname, instrs), = [(f, i) for f, i in funcs.items()
@@ -3963,11 +4008,16 @@ def _options_tensor_cores(dev):
                 raise AssertionError(f"17h: no HMMA in {fname}'s loop")
             per = (count - n_hmma) / MMA_PAIRS_PER_LANE
             per_pair.setdefault(name, {})[mode] = per
+            visit = {}
+            if name == "visit_scan_instanced":
+                per_visit[mode] = mma_visit_count(instrs)
+                visit = {"instructions_per_ray_visit": per_visit[mode]}
             say("17h sass", kernel=name, mode=mode, k=128,
                 hmma_in_function=total, hmma_in_loop=n_hmma,
                 loop_instructions=count,
-                epilogue_instructions_per_pair=per, clock_max_mhz=clock)
-    return per_pair, clock
+                epilogue_instructions_per_pair=per, **visit,
+                clock_max_mhz=clock)
+    return per_pair, per_visit, clock
 
 
 def _options_k1(dev, epilogue, w=W, h=H, n_tiles=SUBSET_TILES):
@@ -4013,9 +4063,11 @@ def _options_k1(dev, epilogue, w=W, h=H, n_tiles=SUBSET_TILES):
         lambda q: q["kw"]["low_bits"], epilogue)
 
 
-def _options_k2(dev, w=W, h=H, n_tiles=SUBSET_TILES):
-    """17b: K2's bf16 mode against its twin on the instanced scene's
-    passes, then the two-level bf16 frame (K2's bf16 launches)."""
+def _options_k2(dev, epilogue, w=W, h=H, n_tiles=K2_BF16_SUBSET_TILES):
+    """17b: K2's bf16 mode (the tensor cores) against its twin on the
+    instanced scene's passes, then the two-level bf16 frame (K2's bf16
+    launches); `epilogue`: (its instructions a pair per mode, the clock in
+    MHz, its instructions a ray-visit per mode)."""
     import torch
 
     from lumenrenderer_tpu_torch.accel import stream, two_level
@@ -4036,7 +4088,7 @@ def _options_k2(dev, w=W, h=H, n_tiles=SUBSET_TILES):
         lambda o, d, tn, tx: two_level.scan_inputs(ics, o, d, tn, tx, mv),
         primary=True)
     kernel = _with_layouts(vsi.visit_scan_instanced, (ics.slabs, ics.nlive),
-                           ics.tri_feat, ics.tri_id.shape[1], mma=False)
+                           ics.tri_feat, ics.tri_id.shape[1])
     live_tris = vs.slab_layout(ics.tri_feat, ics.tri_id.shape[1],
                                bf16=True)[1].double()
 
@@ -4046,12 +4098,14 @@ def _options_k2(dev, w=W, h=H, n_tiles=SUBSET_TILES):
         visits = torch.empty(tiles, dtype=torch.int32, device=dev)
         kernel(*args, **kw, visits=visits)
         live_rays = (wnd[..., 1] >= wnd[..., 0]).sum(1)
+        ray_visits = float((live_rays * visits).sum())
         flop = (visit_flop(live_rays, live_tris, sel_cl, visits)
-                + AFFINE_FLOP * float((live_rays * visits).sum()))
+                + AFFINE_FLOP * ray_visits)
         nb = (_nbytes(rayblk[:, :6], wnd, nv) + feats.numel() * 2
               + int(visits.sum()) * 56 + tiles * (128 + 1) * 4)
         return flop, nb, {
-            "visits_per_tile": f"{float(visits.float().mean()):.3f}"}
+            "visits_per_tile": f"{float(visits.float().mean()):.3f}",
+            "ray_visits": ray_visits}
 
     checks = _hold_bf16(
         "17b bf16 K2", "visit_scan_instanced", passes,
@@ -4060,7 +4114,7 @@ def _options_k2(dev, w=W, h=H, n_tiles=SUBSET_TILES):
         lambda args, kw: _visits_equal(
             kernel, vsi.executed_visits_instanced_ref, args, kw),
         work, lambda q: q["args"][1][..., 1] >= q["args"][1][..., 0],
-        lambda q: q["kw"]["low_bits"])
+        lambda q: q["kw"]["low_bits"], epilogue)
     del passes
     cfg = RenderConfig(width=w, height=h, max_depth=5, bsdf="disney",
                        light_strategy="mis")
@@ -4464,11 +4518,12 @@ def phase_options(dev, w=W, h=H):
 
     from lumenrenderer_tpu_torch.accel import stream
 
-    per_pair, clock = _options_tensor_cores(dev)
+    per_pair, per_visit, clock = _options_tensor_cores(dev)
     checks = {"visit_scan": _options_k1(
         dev, (per_pair["visit_scan"], clock), w, h)}
     torch.cuda.empty_cache()
-    checks["visit_scan_instanced"], k2_launches = _options_k2(dev, w, h)
+    checks["visit_scan_instanced"], k2_launches = _options_k2(
+        dev, (per_pair["visit_scan_instanced"], clock, per_visit), w, h)
     torch.cuda.empty_cache()
     checks["pair_scan"], k3_launches = _options_k3(
         dev, (per_pair["pair_scan"], clock), w, h)
@@ -4595,6 +4650,7 @@ def main(argv=None) -> int:
                                      "epilogue_share",
                                      "full_pass_epilogue_bound_ms",
                                      "epilogue_instructions_per_pair",
+                                     "instructions_per_ray_visit",
                                      "paced_by") if k in c},
                 "library_ms": None})
     print(json.dumps({"kernels": kernels}))

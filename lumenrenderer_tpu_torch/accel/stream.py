@@ -112,10 +112,10 @@ def kernel_layout(tri_feat: torch.Tensor) -> dict:
 
 
 def mma_kernel_layout(cs) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The bf16 kernels' (frags, nlive) of a ClusterSet's table
-    (`ops.visit_scan.mma_layout`), made at its first call and kept on the
-    set; a refit, a rebuild or a move makes a new set, which makes its
-    own."""
+    """The bf16 kernels' (frags, nlive) of a ClusterSet's (or an
+    InstancedClusterSet's) table (`ops.visit_scan.mma_layout`), made at its
+    first call and kept on the set; a refit, a rebuild or a move makes a new
+    set, which makes its own."""
     layout = cs.__dict__.get("_mma_layout")
     if layout is None:
         layout = mma_layout(cs.tri_feat, cs.tris_per_cluster)

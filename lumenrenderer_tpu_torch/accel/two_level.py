@@ -34,7 +34,7 @@ from ..core.struct import TensorStruct
 from ..ops import tree_walk as tw
 from ..ops import visit_scan_instanced as vsi
 from .stream import (TREE_FIELDS, box_tree, build_clusters, global_box_tree,
-                     kernel_layout)
+                     kernel_layout, mma_kernel_layout)
 from .tiled import RAY_TILE, decode_winners, pad_rays, visit_lists
 
 
@@ -65,6 +65,8 @@ class InstancedClusterSet(TensorStruct):
     slabs: torch.Tensor          # (C,K,10,4) tri_feat in the kernels' order
     nlive: torch.Tensor          # (C,) int32 live slots per cluster
     tris_per_cluster: int
+    # the bf16 mode's table in fragment order is made at the set's first
+    # bf16 query and kept on it (`stream.mma_kernel_layout`)
 
     @property
     def num_clusters(self) -> int:
@@ -182,8 +184,9 @@ def _query(ics: InstancedClusterSet, origins, dirs, t_min, t_max,
     del decode  # accepted and unused, as in JAX (ROADMAP C-24)
     q = scan_inputs(ics, origins, dirs, t_min, t_max, max_visits, culling,
                     walk)
-    # the set carries the fp32 layout; the bf16 one is made per call
-    layout = q["layout"] if not vsi.is_bf16(precision) else None
+    # the set carries the fp32 layout and keeps the bf16 one
+    layout = (mma_kernel_layout(ics) if vsi.is_bf16(precision)
+              else q["layout"])
     out = scan(*q["args"], **q["kw"], closest=closest, layout=layout,
                precision=precision)
     if not closest:

@@ -1,22 +1,21 @@
 // Shared device code of the cluster intersection kernels K1 (visit_scan.cu),
 // K2 (visit_scan_instanced.cu) and K3 (pair_scan.cu): Möller–Trumbore
 // written as the bilinear form f (10) · tri_feat (10, 4K), tested by one
-// loop for all three in fp32 (`test_rays`), the tensor-core loop of K1's
-// and K3's bf16 mode (`test_rays_mma`), the TMA bulk copy that feeds them,
-// and the visit loops of K1 and K2 (`visit_loop`, `visit_loop_mma`).
+// loop for all three in fp32 (`test_rays`), the tensor-core loop of their
+// bf16 mode (`test_rays_mma`), the TMA bulk copy that feeds them, and the
+// visit loops of K1 and K2 (`visit_loop`, `visit_loop_mma`).
 //
 // Each kernel has two modes. fp32 (the TPU kernels' "highest"): the table
 // and the rays' features in float32, on the CUDA cores. bf16 (their
 // "default", one bf16 MXU pass): the rays' ten features are rounded to
-// bfloat16 (round to nearest even) once and the table arrives as bfloat16.
-// K1 and K3 then form the product on the tensor cores, one mma.sync
-// m16n8k16 per 16 rays and two triangles' (det, u) or (v, t) columns, the
-// ten features padded to the 16 of one k-step; the products are exact and
-// the tensor cores sum them in their own way (ops/mma_probe.py measures
-// it; `visit_scan.mma_product` is the twins' copy). K2 forms its features
-// per visit in instance space and still widens them and the bfloat16 table
-// to float32 and runs the fp32 mode's FMA chain (`Quad<true>`). In both,
-// t_min, t_max and the hit test stay float32.
+// bfloat16 (round to nearest even), K1's and K3's once, K2's per visit
+// after they are formed in instance space, and the table arrives as
+// bfloat16 in fragment order (`mma_layout`). The product runs on the
+// tensor cores, one mma.sync m16n8k16 per 16 rays and two triangles'
+// (det, u) or (v, t) columns, the ten features padded to the 16 of one
+// k-step; the products are exact and the tensor cores sum them in their
+// own way (ops/mma_probe.py measures it; `visit_scan.mma_product` is the
+// twins' copy). In both modes t_min, t_max and the hit test stay float32.
 //
 // The fp32 loop's shape: a block of SPLIT slices per 128-ray tile, slice s
 // testing the slots s, s + SPLIT, ... of a cluster's live slots; each
@@ -26,8 +25,7 @@
 // bits equal theirs. The slabs arrive in the kernels' order
 // (ops/visit_scan.py `slab_layout`): a cluster's live slots are one
 // contiguous block of nlive · 10 float4s, which one thread copies into
-// shared memory with one TMA bulk copy completed on an mbarrier. The
-// tensor-core loop's table is in fragment order instead (`mma_layout`).
+// shared memory with one TMA bulk copy completed on an mbarrier.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -37,46 +35,6 @@ namespace lumen {
 constexpr int RT = 128;               // rays (pairs) per tile
 constexpr int NF = 10;                // ray features [o x d, d, o, 1]
 constexpr int KEY_MISS = 0x7F000000;  // closest-mode "no hit" key
-
-// One (det, u, v, t) quadruple of the table: a float4 (fp32 mode) or four
-// bfloat16 in a uint2 (K2's bf16 mode), low half first; `load` widens it.
-template <bool BF16>
-struct Quad {
-    using T = float4;
-    static __device__ __forceinline__ float4 load(const T& q) { return q; }
-};
-
-template <>
-struct Quad<true> {
-    using T = uint2;
-    static __device__ __forceinline__ float4 load(const T& q)
-    {
-        return make_float4(__uint_as_float(q.x << 16),
-                           __uint_as_float(q.x & 0xFFFF0000u),
-                           __uint_as_float(q.y << 16),
-                           __uint_as_float(q.y & 0xFFFF0000u));
-    }
-};
-
-// x rounded to bfloat16 (nearest even) and widened back: K2's bf16 mode's
-// ray feature.
-__device__ __forceinline__ float round_bf16(float x)
-{
-    return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// The thread's rays' features as the mode tests them (rounded in K2's
-// bf16 mode).
-template <bool BF16, int R>
-__device__ __forceinline__ void mode_features(float (&rf)[R][NF])
-{
-    if (BF16) {
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-#pragma unroll
-            for (int f = 0; f < NF; ++f) rf[r][f] = round_bf16(rf[r][f]);
-    }
-}
 
 // One m16n8k16 tensor-core product with bfloat16 inputs and float32 sums,
 // from zero: d = a · b. The fragments are PTX's (lane = 4 g + q): a holds
@@ -97,13 +55,13 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
           "f"(0.f));
 }
 
-// -- the bf16 mode of K1 and K3 on the tensor cores ------------------------
+// -- the bf16 mode of K1, K2 and K3 on the tensor cores --------------------
 //
 // A block of four warps per 128-ray (pair) tile; warp w owns rows 32 w ...
 // 32 w + 31, two m16 tiles. Lane (g, q) = (lane >> 2, lane & 3) holds the A
-// fragments of both (8 registers, the rounded features, made once) and, in
-// its accumulators, rows 32 w + 16 mt + 8 h + g (mt, h in {0, 1}): its four
-// rays, numbered r = 2 mt + h. The table comes in groups of four
+// fragments of both (8 registers, the rounded features: K1's and K3's made
+// once, K2's per visit) and, in its accumulators, rows 32 w + 16 mt + 8 h
+// + g (mt, h in {0, 1}): its four rays, numbered r = 2 mt + h. The table comes in groups of four
 // triangles; a group is two n8 tiles whose columns interleave (det0, u0,
 // det1, u1, ...) and (v0, t0, ...), so lane (g, q) finds det, u, v and t of
 // the group's triangle q for its four rays in its own accumulators. Each
@@ -248,9 +206,9 @@ __device__ __forceinline__ void test_rays_mma(
 // row). Closest mode folds the packed key
 // (t's float bits & low_mask) | visit_field | slot into best; any mode ORs
 // hits into occ.
-template <int R, int SPLIT, bool CLOSEST, bool BF16>
-__device__ __forceinline__ void test_rays(
-    const typename Quad<BF16>::T* __restrict__ slab, int j0, int nt,
+template <int R, int SPLIT, bool CLOSEST>
+__device__ __forceinline__ void test_rays(const float4* __restrict__ slab,
+                                          int j0, int nt,
                                           const float (&rf)[R][NF],
                                           const float (&tmin)[R],
                                           const float (&tmax)[R],
@@ -264,7 +222,7 @@ __device__ __forceinline__ void test_rays(
         for (int r = 0; r < R; ++r) det[r] = un[r] = vn[r] = tn[r] = 0.f;
 #pragma unroll
         for (int f = 0; f < NF; ++f) {
-            const float4 cf = Quad<BF16>::load(slab[j * NF + f]);
+            const float4 cf = slab[j * NF + f];
 #pragma unroll
             for (int r = 0; r < R; ++r) {
                 det[r] = fmaf(rf[r][f], cf.x, det[r]);
@@ -392,49 +350,43 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* bar,
                  :: "r"(smem_addr(bar)), "r"(parity) : "memory");
 }
 
-// The visit loop of K1 and K2 for the block's tile (blockIdx.x): SPLIT
-// warps, thread g of warp s holding the rays g + r * (RT / R) with windows
-// [tmin, tmax] (tmax < tmin: a padded or terminated lane). Before each of the
-// tile's min(nv, mv) visits a block-wide vote ends the tile when no live ray
-// can still improve (closest: visit i starts no nearer than its entry-t key
-// tnb[., i]) or every lane is occluded or dead (any); it is conservative, so
-// the result equals a full scan. In bf16 closest mode only dead lanes end a
-// tile: a rounded triangle may lie nearer than its cluster's fp32 box. Visit i's cluster is sel[., i], clamped to
-// the table; one thread
-// copies its live slots, then the EXTRA float4s that extra(i, dst, bar)
-// copies on the same barrier, into one of two shared buffers, the copy for
-// visit i + 1 in flight while visit i is tested. Each buffer's mbarrier
-// phase parity is its use count. rays(extra) returns the rays' ten
-// features for the visit (an array of the kernel's registers), given the
-// buffer's EXTRA float4s. Writes the
-// tile's keys (bits) to out (T, 128) (dead lanes: closest 0, any 1; callers
-// mask them) and, unless visits is null, the number of visits run to
-// visits (T,). The table holds (C, K · 10) quadruples of the mode
-// (`Quad<BF16>`). The dynamic shared memory holds the two buffers:
-// 2 (slab_float4s<K, BF16>() + EXTRA) float4s.
-template <int K, bool BF16>
+// The fp32 visit loop of K1 and K2 for the block's tile (blockIdx.x):
+// SPLIT warps, thread g of warp s holding the rays g + r * (RT / R) with
+// windows [tmin, tmax] (tmax < tmin: a padded or terminated lane). Before
+// each of the tile's min(nv, mv) visits a block-wide vote ends the tile
+// when no live ray can still improve (closest: visit i starts no nearer
+// than its entry-t key tnb[., i]) or every lane is occluded or dead (any);
+// it is conservative, so the result equals a full scan. Visit i's cluster
+// is sel[., i], clamped to the table; one thread copies its live slots,
+// then the EXTRA float4s that extra(i, dst, bar) copies on the same
+// barrier, into one of two shared buffers, the copy for visit i + 1 in
+// flight while visit i is tested. Each buffer's mbarrier phase parity is
+// its use count. rays(extra) returns the rays' ten features for the visit
+// (an array of the kernel's registers), given the buffer's EXTRA float4s.
+// Writes the tile's keys (bits) to out (T, 128) (dead lanes: closest 0,
+// any 1; callers mask them) and, unless visits is null, the number of
+// visits run to visits (T,). The table holds (C, K · 10) float4
+// quadruples. The dynamic shared memory holds the two buffers:
+// 2 (slab_float4s<K>() + EXTRA) float4s.
+template <int K>
 __host__ __device__ constexpr int slab_float4s()
 {
-    return K * NF * (int)sizeof(typename Quad<BF16>::T) / 16;
+    return K * NF;
 }
 
-template <int K, int EXTRA, int R, int SPLIT, bool CLOSEST, bool BF16,
-          class Extra, class Rays>
+template <int K, int EXTRA, int R, int SPLIT, bool CLOSEST, class Extra,
+          class Rays>
 __device__ __forceinline__ void visit_loop(
-    const void* __restrict__ table, const int* __restrict__ nlive,
+    const float4* __restrict__ slabs, const int* __restrict__ nlive,
     const int* __restrict__ sel, const int* __restrict__ nv,
     const int* __restrict__ tnb, int* __restrict__ out,
     int* __restrict__ visits, int num_clusters, int mv, int k_bits,
     int low_bits, const float (&tmin)[R], const float (&tmax)[R],
     Extra extra, Rays rays)
 {
-    using Q = typename Quad<BF16>::T;
     constexpr int G = RT / R;
-    constexpr int SLAB = slab_float4s<K, BF16>();  // float4s
+    constexpr int SLAB = slab_float4s<K>();        // float4s
     constexpr int STRIDE = SLAB + EXTRA;           // one buffer
-    static_assert(SLAB * 16 == K * NF * (int)sizeof(Q),
-                  "a slab fills whole float4s");
-    const Q* slabs = static_cast<const Q*>(table);
     extern __shared__ __align__(128) float4 buf[];
     __shared__ __align__(8) unsigned long long bar[2];
     __shared__ int part[SPLIT][RT];
@@ -466,7 +418,7 @@ __device__ __forceinline__ void visit_loop(
     auto fetch = [&](int i) {
         const int cl = cluster(i);
         float4* dst = buf + (i & 1) * STRIDE;
-        const unsigned bytes = nlive[cl] * NF * sizeof(Q);
+        const unsigned bytes = nlive[cl] * NF * sizeof(float4);
         mbar_expect(&bar[i & 1], bytes + EXTRA * sizeof(float4));
         bulk_copy(dst, slabs + (size_t)cl * K * NF, bytes, &bar[i & 1]);
         extra(i, dst + SLAB, &bar[i & 1]);
@@ -482,7 +434,7 @@ __device__ __forceinline__ void visit_loop(
             const int nxt = ttnb[i] >> low_bits;
 #pragma unroll
             for (int r = 0; r < R; ++r)
-                done &= dead[r] || (!BF16 && (best[r] >> low_bits) < nxt);
+                done &= dead[r] || (best[r] >> low_bits) < nxt;
         } else {
 #pragma unroll
             for (int r = 0; r < R; ++r) done &= occ[r] != 0;
@@ -496,9 +448,8 @@ __device__ __forceinline__ void visit_loop(
         const float4* slot = buf + (i & 1) * STRIDE;
         mbar_wait(&bar[i & 1], (i >> 1) & 1);
         const float(&rf)[R][NF] = rays(slot + SLAB);
-        test_rays<R, SPLIT, CLOSEST, BF16>(reinterpret_cast<const Q*>(slot),
-                                           s, nt, rf, tmin, tmax, low_mask,
-                                           i << k_bits, best, occ);
+        test_rays<R, SPLIT, CLOSEST>(slot, s, nt, rf, tmin, tmax, low_mask,
+                                     i << k_bits, best, occ);
         ran = i + 1;
     }
     // a copy issued for a visit that the vote skipped must land before the
@@ -515,29 +466,34 @@ __device__ __forceinline__ void visit_loop(
     if (visits != nullptr && tid == 0) visits[tile] = ran;
 }
 
-// The visit loop of K1's bf16 mode for the block's tile (blockIdx.x), on
-// the tensor cores: four warps, lane (g, q) of warp w holding the A
-// fragments `a` and windows of its four rays (`mma_row`). Before each of
-// the tile's min(nv, mv) visits a block-wide vote ends the tile when every
-// lane is occluded or dead (any) or, closest, when every lane is dead: a
-// rounded triangle may lie nearer than its cluster's fp32 box, so the
-// entry-t test of the fp32 mode does not apply (ROADMAP C-25), and the
-// result equals a full scan. Visit i's cluster is sel[., i], clamped to the
-// table; one thread copies its nlive (a multiple of 4) slots in fragment
-// order, nlive · 128 bytes, into one of two shared buffers, the copy for
-// visit i + 1 in flight while visit i is tested. Warps own disjoint rays,
-// so only the lanes of a quad fold their keys (bits). Writes out (T, 128)
-// (dead lanes: closest 0, any 1) and, unless visits is null, the visits
-// run. The dynamic shared memory holds 2 mma_slab_uint4s<K>() uint4s.
-template <int K, bool CLOSEST>
+// The bf16 visit loop of K1 and K2 for the block's tile (blockIdx.x), on
+// the tensor cores: four warps, lane (g, q) of warp w holding the windows of
+// its four rays (`mma_row`). Before each of the tile's min(nv, mv) visits a
+// block-wide vote ends the tile when every lane is occluded or dead (any)
+// or, closest, when every lane is dead: a rounded triangle may lie nearer
+// than its cluster's fp32 box, so the entry-t test of the fp32 mode does
+// not apply (ROADMAP C-25), and the result equals a full scan. Visit i's
+// cluster is sel[., i], clamped to the table; one thread copies its nlive
+// (a multiple of 4) slots in fragment order, nlive · 128 bytes, then the
+// EXTRA uint4s that extra(i, dst, bar) copies on the same barrier, into one
+// of two shared buffers, the copy for visit i + 1 in flight while visit i
+// is tested. frags(extra) returns the lane's A fragments for the visit (an
+// array of the kernel's registers: K1 its fragments made once, K2 those it
+// forms from the visit's affine), given the buffer's EXTRA uint4s. Warps
+// own disjoint rays, so only the lanes of a quad fold their keys (bits).
+// Writes out (T, 128) (dead lanes: closest 0, any 1) and, unless visits is
+// null, the visits run. The dynamic shared memory holds the two buffers:
+// 2 (mma_slab_uint4s<K>() + EXTRA) uint4s.
+template <int K, int EXTRA, bool CLOSEST, class Extra, class Frags>
 __device__ __forceinline__ void visit_loop_mma(
     const uint4* __restrict__ table, const int* __restrict__ nlive,
     const int* __restrict__ sel, const int* __restrict__ nv,
     int* __restrict__ out, int* __restrict__ visits, int num_clusters,
-    int mv, int k_bits, int low_bits, const unsigned (&a)[2][4],
-    const float (&tmin)[4], const float (&tmax)[4])
+    int mv, int k_bits, int low_bits, const float (&tmin)[4],
+    const float (&tmax)[4], Extra extra, Frags frags)
 {
     constexpr int SLAB = mma_slab_uint4s<K>();
+    constexpr int STRIDE = SLAB + EXTRA;           // one buffer
     extern __shared__ __align__(128) uint4 mbuf[];
     __shared__ __align__(8) unsigned long long bar[2];
 
@@ -565,8 +521,11 @@ __device__ __forceinline__ void visit_loop_mma(
     };
     auto fetch = [&](int i) {
         const int cl = cluster(i);
-        bulk_load(mbuf + (i & 1) * SLAB, table + (size_t)cl * SLAB,
-                  nlive[cl] * (MMA_GROUP_BYTES / MMA_GROUP), &bar[i & 1]);
+        uint4* dst = mbuf + (i & 1) * STRIDE;
+        const unsigned bytes = nlive[cl] * (MMA_GROUP_BYTES / MMA_GROUP);
+        mbar_expect(&bar[i & 1], bytes + EXTRA * sizeof(uint4));
+        bulk_copy(dst, table + (size_t)cl * SLAB, bytes, &bar[i & 1]);
+        extra(i, dst + SLAB, &bar[i & 1]);
     };
 
     int ran = 0;
@@ -583,9 +542,11 @@ __device__ __forceinline__ void visit_loop_mma(
             if (i + 1 < n) fetch(i + 1);
         }
         const int ng = nlive[cluster(i)] / MMA_GROUP;
+        const uint4* slot = mbuf + (i & 1) * STRIDE;
         mbar_wait(&bar[i & 1], (i >> 1) & 1);
-        test_rays_mma<CLOSEST>(mbuf + (i & 1) * SLAB, ng, a, tmin, tmax,
-                               low_mask, i << k_bits, lane, best, occ);
+        const unsigned(&a)[2][4] = frags(slot + SLAB);
+        test_rays_mma<CLOSEST>(slot, ng, a, tmin, tmax, low_mask,
+                               i << k_bits, lane, best, occ);
         ran = i + 1;
     }
     // a copy issued for a visit that the vote skipped must land before the

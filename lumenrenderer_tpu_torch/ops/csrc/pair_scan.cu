@@ -94,7 +94,7 @@ pair_scan_kernel(const float* __restrict__ rows,         // (S, 12)
             for (int f = 0; f < NF; ++f) rf[r][f] = p[f];
         }
         lumen::mbar_wait(&bar, 0);
-        lumen::test_rays<R, SPLIT, CLOSEST, false>(
+        lumen::test_rays<R, SPLIT, CLOSEST>(
             slab, s, nt, rf, tmin, tmax, ~((1 << k_bits) - 1), 0, best, occ);
         lumen::combine<R, SPLIT, CLOSEST>(part, g, s, best, occ);
     }
@@ -175,7 +175,7 @@ struct Args {
 template <int K, bool CLOSEST>
 int launch_mode(const Args& a, cudaStream_t s)
 {
-    const size_t smem = lumen::slab_float4s<K, false>() * sizeof(float4);
+    const size_t smem = lumen::slab_float4s<K>() * sizeof(float4);
     pair_scan_kernel<K, CLOSEST><<<a.tiles, THREADS, smem, s>>>(
         a.rows, a.slabs, a.nlive, a.tile_cluster, a.out, a.num_clusters,
         a.k_bits);

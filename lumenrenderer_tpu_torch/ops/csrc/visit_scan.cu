@@ -73,7 +73,7 @@ static_assert(G == 32, "one warp per slice: its slab reads are broadcasts");
 template <int K, bool CLOSEST>
 __global__ void __launch_bounds__(THREADS)
 visit_scan_kernel(const float* __restrict__ rf_t,    // (T, 128, 12)
-                  const void* __restrict__ slabs,    // (C, K * 10) quads
+                  const float4* __restrict__ slabs,  // (C, K * 10) quads
                   const int* __restrict__ nlive,     // (C,) slots to test
                   const int* __restrict__ sel,       // (T, mv) cluster ids
                   const int* __restrict__ nv,        // (T,) live visits
@@ -93,7 +93,7 @@ visit_scan_kernel(const float* __restrict__ rf_t,    // (T, 128, 12)
         tmin[r] = p[10];
         tmax[r] = p[11];
     }
-    lumen::visit_loop<K, 0, R, SPLIT, CLOSEST, false>(
+    lumen::visit_loop<K, 0, R, SPLIT, CLOSEST>(
         slabs, nlive, sel, nv, tnb, out, visits, num_clusters, mv, k_bits,
         low_bits, tmin, tmax, [](int, float4*, unsigned long long*) {},
         [&](const float4*) -> const float(&)[R][NF] { return rf; });
@@ -121,9 +121,10 @@ visit_scan_mma_kernel(const float* __restrict__ rf_t,   // (T, 128, 12)
     lumen::mma_ray_fragments(
         [&](int r) { return rows + lumen::mma_row(w, lane >> 2, r) * 12; },
         lane & 3, a, tmin, tmax);
-    lumen::visit_loop_mma<K, CLOSEST>(frags, nlive, sel, nv, out, visits,
-                                      num_clusters, mv, k_bits, low_bits,
-                                      a, tmin, tmax);
+    lumen::visit_loop_mma<K, 0, CLOSEST>(
+        frags, nlive, sel, nv, out, visits, num_clusters, mv, k_bits,
+        low_bits, tmin, tmax, [](int, uint4*, unsigned long long*) {},
+        [&](const uint4*) -> const unsigned(&)[2][4] { return a; });
 }
 
 struct Args {
@@ -137,10 +138,10 @@ struct Args {
 template <int K, bool CLOSEST>
 int launch_mode(const Args& a, cudaStream_t s)
 {
-    const size_t smem = 2 * lumen::slab_float4s<K, false>() * sizeof(float4);
+    const size_t smem = 2 * lumen::slab_float4s<K>() * sizeof(float4);
     visit_scan_kernel<K, CLOSEST><<<a.tiles, THREADS, smem, s>>>(
-        a.rf_t, a.slabs, a.nlive, a.sel, a.nv, a.tnb, a.out, a.visits,
-        a.num_clusters, a.mv, a.k_bits, a.low_bits);
+        a.rf_t, static_cast<const float4*>(a.slabs), a.nlive, a.sel, a.nv,
+        a.tnb, a.out, a.visits, a.num_clusters, a.mv, a.k_bits, a.low_bits);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,6 @@
 """The tensor-core probe: how one bf16 m16n8k16 product sums its terms.
 
-Kernels K1 and K3 form their bf16 mode's product (the TPU kernels'
+Kernels K1, K2 and K3 form their bf16 mode's product (the TPU kernels'
 precision="default") on the tensor cores, whose float32 accumulation is no
 chain of round-to-nearest fused multiply-adds. Published measurements of
 earlier cards (Fasi, Higham, Mikaitis and Pranesh, "Numerical behavior of

@@ -123,9 +123,10 @@ def count_launch(counts_fp32: dict, counts_bf16: dict, closest: bool,
 
 def ordered_product(rf, slab):
     """rf (T,128,10) times slab (T,10,4K), summed over the ten features in
-    the kernels' order. K2's bf16 twin's product: each product of two
-    bfloat16 values is exact in float32, so this equals K2's chain of fused
-    multiply-adds bit for bit, whatever order a matmul would take."""
+    order as a chain of float32 fused multiply-adds from +0 would sum them
+    (each product of two bfloat16 values is exact in float32). The
+    tensor-core probe's "chain" model (`ops/mma_probe.py`), which the card
+    does not follow."""
     res = rf[..., 0:1] * slab[:, 0:1] + 0.0     # the chain starts at +0
     for f in range(1, rf.shape[-1]):
         res = res + rf[..., f:f + 1] * slab[:, f:f + 1]
@@ -339,7 +340,7 @@ def slab_layout(feats: torch.Tensor, k: int, bf16: bool = False):
 
 
 def mma_layout(feats: torch.Tensor, k: int):
-    """The bf16 kernels' table in tensor-core fragment order (K1 and K3):
+    """The bf16 kernels' table in tensor-core fragment order (K1-K3):
     (frags (C,K/4,32,8) bfloat16, nlive (C,) int32). Group j of a cluster
     holds triangles 4j ... 4j + 3 as two n8 tiles of B (k = feature, slots
     10-15 zero): column n of tile h is quantity 2h + n % 2 of [det|u|v|t]
@@ -381,19 +382,17 @@ def check_scalars(k: int, mv: int, k_bits: int, low_bits: int) -> None:
                          "memory")
 
 
-def layout_expect(feats, k: int, layout, bf16: bool = False,
-                  mma: bool = False) -> dict:
-    """check_tensors entries of a (slabs, nlive) layout of `feats` in the
-    mode's type, if any (shared by K1, K2 and K3); `mma`: the bf16 mode's
-    `mma_layout` (K1 and K3)."""
+def layout_expect(feats, k: int, layout, mma: bool = False) -> dict:
+    """check_tensors entries of a (slabs, nlive) layout of `feats`, if any
+    (shared by K1, K2 and K3): the fp32 mode's `slab_layout`, or with
+    `mma` the bf16 mode's `mma_layout`."""
     if layout is None:
         return {}
     c = feats.shape[0]
     if mma:
         slabs = (layout[0], torch.bfloat16, (c, k // 4, 32, 8))
     else:
-        slabs = (layout[0], torch.bfloat16 if bf16 else torch.float32,
-                 (c, k, 10, 4))
+        slabs = (layout[0], torch.float32, (c, k, 10, 4))
     return {"slabs": slabs, "nlive": (layout[1], torch.int32, (c,))}
 
 

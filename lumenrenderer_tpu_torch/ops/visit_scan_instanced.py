@@ -19,9 +19,9 @@ Dead lanes return 0 in closest mode and 1 in any mode.
 
 What bounds it on an H100: K1's slab test (fp32 issue, the table behind
 L2), plus per visit 12 affine floats and about 30 flops per ray for the
-affine and the cross product. The design is K1's, on the loop the three
-kernels share (`csrc/cluster_scan.cuh`): four warps per tile, each on an
-interleaved quarter of the unit's live slots (`visit_scan.slab_layout`,
+affine and the cross product. The fp32 design is K1's, on the loop the
+three kernels share (`csrc/cluster_scan.cuh`): four warps per tile, each on
+an interleaved quarter of the unit's live slots (`visit_scan.slab_layout`,
 carried by the InstancedClusterSet, else made per call; 12 of 128 for a
 box), each lane holding four rays' world origin
 and direction; per visit
@@ -39,9 +39,11 @@ the twin. K is a template parameter (32, 64 or 128; any other K raises).
 Precision as K1's (`visit_scan`): "highest" and "high" test in float32;
 "default" (the TPU's one bf16 pass) forms each visit's ten features in
 float32, rounds them to bfloat16, and tests them against the bfloat16
-table (`slab_layout(..., bf16=True)`) with exact products summed by the
-fp32 mode's FMA chain on the CUDA cores (`ordered_product`; K1 and K3 use
-the tensor cores instead), and K1's bf16 vote.
+table in fragment order (`mma_layout`) on the tensor cores: exact products
+summed as one m16n8k16 product sums them (`mma_product`, as K1's twin),
+and K1's bf16 vote. Its own kernel does it: K1's tensor-core loop, whose A
+fragments K2 forms per visit, each quad of lanes forming its four rays'
+features once (lane q ray q) and trading the bf16 words by shuffles.
 
 Not carried over: the T % 8 padding and (T/8, 8, 128) blocks, the FR = 16
 feature-row padding, and the `RESIDENT_BYTES` limit (a VMEM limit; here the
@@ -58,7 +60,7 @@ import torch
 
 from . import build
 from .visit_scan import (KERNEL_K, RAY_TILE, check_scalars, count_launch,
-                         is_bf16, layout_expect, ordered_product,
+                         is_bf16, layout_expect, mma_layout, mma_product,
                          replay_visits_ref, round_bf16, scan_visits_ref,
                          slab_layout)
 
@@ -101,7 +103,7 @@ def _mode_rays(rayblk, minv12, feats, precision: str) -> dict:
     if is_bf16(precision):
         return {"rays": lambda i: round_bf16(object_space_features(
             rayblk, minv12[:, i])), "feats": round_bf16(feats),
-            "product": ordered_product}
+            "product": mma_product}
     return {"rays": lambda i: object_space_features(rayblk, minv12[:, i]),
             "feats": feats, "product": torch.bmm}
 
@@ -146,7 +148,8 @@ def visit_scan_instanced(rayblk, wnd, feats, sel_cl, minv12, nv, tnb, *,
     (T, 128) int32 keys (closest) or occlusion bits (any). `visits`, an
     int32 (T,) tensor, receives the number of visits each tile ran (on the
     CPU, from `executed_visits_instanced_ref`). `layout`: as for
-    `visit_scan.visit_scan`."""
+    `visit_scan.visit_scan` (the InstancedClusterSet carries the fp32 one
+    and keeps the bf16 one from its first bf16 query)."""
     tiles = rayblk.shape[0]
     bf16 = is_bf16(precision)
     expect = {
@@ -157,7 +160,7 @@ def visit_scan_instanced(rayblk, wnd, feats, sel_cl, minv12, nv, tnb, *,
         "minv12": (minv12, torch.float32, (tiles, mv, 12)),
         "nv": (nv, torch.int32, (tiles,)),
         "tnb": (tnb, torch.int32, (tiles, mv)),
-        **layout_expect(feats, k, layout, bf16),
+        **layout_expect(feats, k, layout, mma=bf16),
     }
     if visits is not None:
         expect["visits"] = (visits, torch.int32, (tiles,))
@@ -183,7 +186,9 @@ def visit_scan_instanced(rayblk, wnd, feats, sel_cl, minv12, nv, tnb, *,
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     # made here, they are freed on return, but the caching allocator hands
     # their memory only to work queued after the kernel on this stream
-    slabs, nlive = slab_layout(feats, k, bf16) if layout is None else layout
+    if layout is None:
+        layout = mma_layout(feats, k) if bf16 else slab_layout(feats, k)
+    slabs, nlive = layout
     out = torch.empty((tiles, RAY_TILE), dtype=torch.int32,
                       device=rayblk.device)
     build.launch(fn, rayblk.device, rayblk.data_ptr(), wnd.data_ptr(),

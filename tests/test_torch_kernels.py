@@ -8,10 +8,10 @@ where torch.cuda.is_available() is False. Run them on the card with
 Tolerance: keys identical on at least 99.99% of rays, every differing key a
 tie within the key's t resolution (the bf16 mode, precision="default":
 keys identical, also where a rounded triangle lies nearer than its
-cluster's box; K1 and K3 form its product on the tensor cores and their
-twins sum as the tensor-core probe found the card to, bit for bit, and the
-probe's results equal that model's on every crafted sum); occlusion bits
-identical; K1's and K2's
+cluster's box; K1, K2 and K3 form its product on the tensor cores and
+their twins sum as the tensor-core probe found the card to, bit for bit,
+and the probe's results equal that model's on every crafted sum);
+occlusion bits identical; K1's and K2's
 visit counters identical to `executed_visits_ref` and
 `executed_visits_instanced_ref`; K3's dead tiles the miss key (0); W's
 lists, entry t (bit for bit) and counts identical to its twin's; T's
@@ -298,6 +298,77 @@ def test_instanced_kernel_edge_tiles(dev, closest):
                         q["kw"]["low_bits"])
     visits = _check_instanced_counter(args, kw)
     assert int(visits[1]) == 0 and int(visits[2]) == 0
+
+
+@pytest.mark.parametrize("k", [32, 64, 128])
+@pytest.mark.parametrize("closest", [True, False])
+def test_bf16_instanced_kernel_edge_tiles(dev, closest, k):
+    """K2's tensor-core mode: a tile with no visits, one whose lanes are
+    all dead (0 visits), one with a single live ray, and the two unit
+    meshes cut to 5 and 1 live slots (nlive rounded up to 8 and 4): keys
+    and bits equal the twin's, the counter the replay's."""
+    q = _instanced_inputs(dev, k)
+    rayblk, wnd, feats, sel_cl, minv12, nv, tnb = (a.clone()
+                                                   for a in q["args"])
+    for cl, live in ((0, 5), (1, 1)):
+        feats.view(-1, 10, 4, k)[cl, :, :, live:] = 0.0
+    assert vs.mma_layout(feats, k)[1].tolist() == [8, 4]
+    nv[1] = 0
+    wnd[2, :, 1] = -1.0
+    wnd[3, 1:, 1] = -1.0
+    args = (rayblk, wnd, feats, sel_cl, minv12, nv, tnb)
+    kw = dict(q["kw"], closest=closest, precision="default")
+    _check_against_twin(vsi, vsi.visit_scan_instanced,
+                        vsi.visit_scan_instanced_ref,
+                        {"args": args, "kw": q["kw"]}, closest,
+                        q["kw"]["low_bits"], "default")
+    kern = vsi.visit_scan_instanced(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(kern[2], torch.full_like(kern[2], 0 if closest else 1))
+    visits = _check_instanced_counter(args, kw)
+    assert int(visits[1]) == 0 and int(visits[2]) == 0
+    if closest:                 # only dead lanes end a bf16 closest tile
+        ran = torch.where(wnd[..., 1].ge(wnd[..., 0]).any(1),
+                          nv.clamp_max(q["kw"]["mv"]), 0)
+        assert torch.equal(visits, ran.to(torch.int32))
+
+
+@pytest.mark.parametrize("closest", [True, False])
+def test_bf16_instanced_kernel_keeps_hits_nearer_than_their_box(dev,
+                                                                closest):
+    """K2's version of K1's stack: 128 triangles 1e-3 apart as one unit
+    mesh, under two scaled and moved instances, rays head-on: many
+    bf16-rounded winners lie nearer than their unit's fp32 entry t. The
+    kernel equals its twin (the full scan), and in closest mode every tile
+    runs all its listed visits."""
+    g = np.random.default_rng(46)
+    m, r = 128, 2048
+    tris = np.zeros((m, 3, 3), np.float32)
+    tris[:, :, 0] = (1.0 + 1e-3 * np.arange(m))[:, None]
+    tris[:, :, 1:] = np.float32([[-3, -3], [3, -3], [0, 4]])
+    tris[:, :, 1:] += g.uniform(-0.9, 0.9, size=(m, 3, 2))
+    tris[:, :, 0] += g.normal(size=(m, 3)) * 1e-4
+    mats = []
+    for shift, scale in ((0.5, 1.1), (3.0, 0.9)):
+        m4 = np.eye(4, dtype=np.float32)
+        m4[:3, :3] *= scale
+        m4[:3, 3] = (shift, 0.2, -0.1)
+        mats.append(m4)
+    ics = two_level.build_instanced([tris], [0, 0], mats,
+                                    cluster_size=128).to(dev)
+    o = np.zeros((r, 3), np.float32)
+    o[:, 1:] = g.uniform(-1, 1, (r, 2))
+    d = torch.tensor([1.0, 0.0, 0.0]).expand(r, 3)
+    q = two_level.scan_inputs(ics, torch.from_numpy(o).to(dev), d.to(dev),
+                              1e-4, 1e9, 2)
+    _check_against_twin(vsi, vsi.visit_scan_instanced,
+                        vsi.visit_scan_instanced_ref, q, closest,
+                        q["kw"]["low_bits"], "default")
+    visits = _check_instanced_counter(q["args"], dict(
+        q["kw"], closest=closest, precision="default"))
+    if closest:
+        assert torch.equal(visits, q["args"][5])
+        assert int(q["args"][5].sum()) == 2 * visits.shape[0]
 
 
 def _pair_inputs(dev, k=64, seed=2):

@@ -13,11 +13,16 @@ references:
   `ops/pallas/instanced.py:81-93`, rounded to bfloat16, times the rounded
   table (an einsum at HIGHEST), then the kernel's sign-normalised hit test
   and packed key (t by an exact division).
-Tolerances: occlusion bits and K2's keys bit for bit; K1's and K3's keys
-bit for bit or a tie within the key's t quantum plus the Pallas kernel's
-2^-16 reciprocal error (its t comes from an approximate reciprocal and one
+Tolerances: occlusion bits bit for bit; K1's and K3's keys bit for bit or
+a tie within the key's t quantum plus the Pallas kernel's 2^-16
+reciprocal error (its t comes from an approximate reciprocal and one
 Newton step), with the winner's visit and slot fields equal on >= 99% of
-the rays that both hit. Visit lists uncapped and capped.
+the rays that both hit. K2's twin sums as the tensor cores do
+(`mma_product`), not as the einsum's float32 sum, so the two may differ in
+the last bits of a sum; on this test's rays no key moves, and its keys are
+held bit for bit (`test_torch_bf16_mma_instanced.py` holds other rays to
+the tie bar, and the kernel's data flow to the twin bit for bit). Visit
+lists uncapped and capped.
 """
 import jax
 import jax.numpy as jnp
