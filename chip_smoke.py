@@ -791,9 +791,12 @@ def _device_kernels(fn):
         us = getattr(e, "self_device_time_total", None)
         return (us if us is not None else e.self_cuda_time_total) / 1e3
 
-    # device-side events only: an aten op's row repeats its kernels' time
+    # device-side events only: an aten op's row repeats its kernels' time,
+    # and a range's annotation on the device timeline (the program's spans
+    # record under the profiler) spans the kernels inside it
     return wall_ms, sorted(((dev_ms(e), e.key, e.count) for e in events
                             if e.device_type == torch.autograd.DeviceType.CUDA
+                            and not getattr(e, "is_user_annotation", False)
                             and dev_ms(e) > 0), reverse=True)
 
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
 from . import morton
 
 DEAD_KEY = 0xFFFFFFFF  # dead rays sort last: live tiles stay tight
@@ -58,14 +59,16 @@ def sorted_intersectors(isect, occl, scene_lo, scene_hi):
         return order, o[order], d[order], tn_b[order], tx_b[order]
 
     def isect_sorted(o, d, tn, tx):
-        order, os_, ds_, tns, txs = _prep(o, d, tn, tx, capsule=False)
-        res = isect(os_, ds_, tns, txs)
-        inv = _inverse(order)
-        return {k: (v[inv] if v.ndim > 0 else v) for k, v in res.items()}
+        with profiling.span("accel.sort"):
+            order, os_, ds_, tns, txs = _prep(o, d, tn, tx, capsule=False)
+            res = isect(os_, ds_, tns, txs)
+            inv = _inverse(order)
+            return {k: (v[inv] if v.ndim > 0 else v) for k, v in res.items()}
 
     def occl_sorted(o, d, tn, tx):
-        order, os_, ds_, tns, txs = _prep(o, d, tn, tx, capsule=True)
-        return occl(os_, ds_, tns, txs)[_inverse(order)]
+        with profiling.span("accel.sort"):
+            order, os_, ds_, tns, txs = _prep(o, d, tn, tx, capsule=True)
+            return occl(os_, ds_, tns, txs)[_inverse(order)]
 
     return isect_sorted, occl_sorted
 

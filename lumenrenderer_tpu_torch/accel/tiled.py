@@ -26,6 +26,7 @@ import torch
 from ..core import vecmath as vm
 from ..ops import tree_walk as tw
 from ..ops import visit_scan as vs
+from ..utils import profiling
 from .stream import ClusterSet, mma_kernel_layout, ray_features
 
 RAY_TILE = vs.RAY_TILE
@@ -297,26 +298,38 @@ def _query(cs: ClusterSet, origins, dirs, t_min, t_max, max_visits: int,
            candidate_dtype: str = "float32", decode: bool = True
            ) -> Dict[str, torch.Tensor]:
     precision = candidate_precision(candidate_dtype)
-    q = scan_inputs(cs, origins, dirs, t_min, t_max, max_visits, culling,
-                    walk)
+    with profiling.span("accel.cull"):
+        q = scan_inputs(cs, origins, dirs, t_min, t_max, max_visits,
+                        culling, walk)
     # the ClusterSet carries the fp32 layout and keeps the bf16 one
     layout = (q["layout"] if precision == "highest"
               else mma_kernel_layout(cs))
-    out = scan(*q["args"], **q["kw"], closest=closest, layout=layout,
-               precision=precision)
-    if not closest:
-        return {"occluded": (out.reshape(-1)[:q["r"]] > 0) & q["live"],
-                "overflow": q["overflow"]}
-    found, cluster, slot, t = decode_winners(out, q)
-    if not decode:
-        return {"t": t,
+    with profiling.span("accel.k1"):
+        counter = {}
+        if scan is vs.visit_scan and profiling.is_recording():
+            # the frame's own launches count their visits while recording
+            counter["visits"] = torch.empty(q["args"][0].shape[0],
+                                            dtype=torch.int32,
+                                            device=origins.device)
+        out = scan(*q["args"], **q["kw"], closest=closest, layout=layout,
+                   precision=precision, **counter)
+        if counter:
+            profiling.count_visits(counter["visits"], q["args"][3])
+    with profiling.span("accel.decode"):
+        if not closest:
+            return {"occluded": (out.reshape(-1)[:q["r"]] > 0) & q["live"],
+                    "overflow": q["overflow"]}
+        found, cluster, slot, t = decode_winners(out, q)
+        if not decode:
+            return {"t": t,
+                    "tri": torch.where(found, cs.tri_id[cluster, slot], -1),
+                    "overflow": q["overflow"]}
+        exact, found = exact_winners(cs.tri_feat, cs.tris_per_cluster,
+                                     cluster.clamp_min(0), slot, origins,
+                                     dirs, found)
+        return {**exact,
                 "tri": torch.where(found, cs.tri_id[cluster, slot], -1),
                 "overflow": q["overflow"]}
-    exact, found = exact_winners(cs.tri_feat, cs.tris_per_cluster,
-                                 cluster.clamp_min(0), slot, origins, dirs,
-                                 found)
-    return {**exact, "tri": torch.where(found, cs.tri_id[cluster, slot], -1),
-            "overflow": q["overflow"]}
 
 
 def intersect_closest(cs: ClusterSet, origins, dirs, t_min, t_max,

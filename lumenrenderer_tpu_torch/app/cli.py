@@ -12,6 +12,11 @@ Usage:
 `--cpu` renders on the CPU (the kernels' plain twins); without it and
 without a CUDA device the Renderer raises and the command exits non-zero.
 
+`--spans` records the program's spans in every frame (`utils/profiling.py`)
+and prints, with the mean stage times at the end, each span's mean self
+host ms and, on the card, self device ms a frame ("<span> self host",
+"<span> self device").
+
 `--distributed` joins the process group that torchrun describes
 (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK; NCCL, or gloo with `--cpu`),
 and `--mesh` shards the frame's rows over its ranks (a one-rank group
@@ -22,6 +27,7 @@ without `--distributed`); rank 0 writes the PNGs and the log lines:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 
 import numpy as np
@@ -84,6 +90,9 @@ def main(argv=None) -> int:
                    default=None, help="volume shadow transmittance estimator")
     p.add_argument("--stats-every", type=int, default=0,
                    help="refresh per-stage FrameStats every N frames")
+    p.add_argument("--spans", action="store_true",
+                   help="record the program's spans every frame and print "
+                        "each span's mean self host and device ms")
     p.add_argument("--mesh", action="store_true",
                    help="shard the frame's rows over the process group's "
                         "ranks")
@@ -148,6 +157,7 @@ def _render(args, rank: int) -> int:
     from ..integrator.wavefront import RenderConfig
     from ..render import tonemap
     from ..render.renderer import Renderer
+    from ..utils import profiling
     from ..utils.profiling import FrameStats, Profiler
 
     scene, cam = build_scene(cfg)
@@ -173,16 +183,20 @@ def _render(args, rank: int) -> int:
     st = renderer.init_state(cfg.seed)
     prof = Profiler()
     aux = {}
-    for i in range(cfg.spp):
-        st, aux = renderer.render_frame(st, cam)
-        stats = renderer.get_last_frame_stats()
-        fs = FrameStats(i)
-        fs.times_ms = {k: v for k, v in stats.items()
-                       if isinstance(v, float)}
-        prof.add(fs)
-        if (i + 1) % 8 == 0 or i == 0:
-            log(f"frame {i + 1}/{cfg.spp}  "
-                f"{stats['Total Frame Time']:.1f} ms")
+    with (profiling.recording() if args.spans
+          else contextlib.nullcontext()):
+        for i in range(cfg.spp):
+            st, aux = renderer.render_frame(st, cam)
+            stats = renderer.get_last_frame_stats()
+            fs = FrameStats(i)
+            fs.times_ms = {k: v for k, v in stats.items()
+                           if isinstance(v, float)}
+            if "spans" in stats:
+                fs.add_spans(stats["spans"])
+            prof.add(fs)
+            if (i + 1) % 8 == 0 or i == 0:
+                log(f"frame {i + 1}/{cfg.spp}  "
+                    f"{stats['Total Frame Time']:.1f} ms")
 
     # under a mesh, every rank's rows
     img = renderer.full_frame(st.accum)

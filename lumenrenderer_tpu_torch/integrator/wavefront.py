@@ -51,6 +51,7 @@ from ..core import sampling
 from ..core import vecmath as vm
 from ..scene.materials import GatheredMaterial
 from ..scene.scene import SceneData
+from ..utils import profiling
 from ..volume import march as vmarch
 from . import nee as nee_mod
 from .surface import SurfaceData, extract_surface_data
@@ -255,29 +256,6 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
     def zeros(*shape, dtype=f32):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
-    ray_o, ray_d = camera_mod.generate_primary_rays(
-        camera, cfg.width, cfg.height, frame_index, uniforms, cfg.jitter,
-        pixel_ids=pixel_ids)
-    # ray-footprint mip selection: the per-pixel angular spread (the
-    # camera's half-screen vector v spans height / 2 pixels) and the path
-    # length so far (bounce rays keep widening)
-    use_mips = cfg.mipmaps and scene.textures.count > 1
-    mip_spread = (2.0 * torch.linalg.norm(camera.v) / cfg.height
-                  if use_mips else None)
-    carry = (ray_o, ray_d,
-             torch.ones((n, 3), dtype=f32, device=dev),          # throughput
-             torch.ones(n, dtype=torch.bool, device=dev),        # alive
-             torch.full((n,), torch.inf, dtype=f32, device=dev),  # prev_pdf
-             torch.ones(n, dtype=torch.bool, device=dev),  # prev_specular
-             zeros(n, dtype=torch.bool),                   # first_specular
-             zeros(n, 3),                                  # beer_sigma
-             zeros(n, 3), zeros(n, 3), zeros(n, 3),  # direct, indirect, spec
-             zeros(dtype=torch.int32),                     # first_bad
-             zeros(n) if use_mips else None,               # path_dist
-             None if scene.volumes is None else zeros(n, 3))  # volumetric
-    overflow_any = zeros(dtype=torch.bool)
-    aovs: Dict[str, torch.Tensor] = {}
-
     def chk(fb, stage: str, depth_i: int, *arrs):
         if not cfg.debug_checks:
             return fb
@@ -288,14 +266,38 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
         return torch.where((fb == 0) & bad, idx, fb).to(torch.int32)
 
     t_min = RAY_EPS
-    light_table = nee_mod.build_light_table(scene, cfg.light_selection)
-    s_isect, occl = intersect_fn, occlude_fn
-    if cfg.sort_secondary:
-        from ..accel import sorting as sorting_mod
+    with profiling.span("wavefront.primary"):
+        ray_o, ray_d = camera_mod.generate_primary_rays(
+            camera, cfg.width, cfg.height, frame_index, uniforms, cfg.jitter,
+            pixel_ids=pixel_ids)
+        # ray-footprint mip selection: the per-pixel angular spread (the
+        # camera's half-screen vector v spans height / 2 pixels) and the
+        # path length so far (bounce rays keep widening)
+        use_mips = cfg.mipmaps and scene.textures.count > 1
+        mip_spread = (2.0 * torch.linalg.norm(camera.v) / cfg.height
+                      if use_mips else None)
+        carry = (ray_o, ray_d,
+                 torch.ones((n, 3), dtype=f32, device=dev),    # throughput
+                 torch.ones(n, dtype=torch.bool, device=dev),  # alive
+                 torch.full((n,), torch.inf, dtype=f32,
+                            device=dev),                       # prev_pdf
+                 torch.ones(n, dtype=torch.bool, device=dev),  # prev_specular
+                 zeros(n, dtype=torch.bool),                   # first_specular
+                 zeros(n, 3),                                  # beer_sigma
+                 zeros(n, 3), zeros(n, 3), zeros(n, 3),  # direct, indir, spec
+                 zeros(dtype=torch.int32),                     # first_bad
+                 zeros(n) if use_mips else None,               # path_dist
+                 None if scene.volumes is None else zeros(n, 3))  # volumetric
+        overflow_any = zeros(dtype=torch.bool)
+        aovs: Dict[str, torch.Tensor] = {}
+        light_table = nee_mod.build_light_table(scene, cfg.light_selection)
+        s_isect, occl = intersect_fn, occlude_fn
+        if cfg.sort_secondary:
+            from ..accel import sorting as sorting_mod
 
-        pts = scene.tri_pos.reshape(-1, 3)
-        s_isect, occl = sorting_mod.sorted_intersectors(
-            intersect_fn, occlude_fn, pts.amin(0), pts.amax(0))
+            pts = scene.tri_pos.reshape(-1, 3)
+            s_isect, occl = sorting_mod.sorted_intersectors(
+                intersect_fn, occlude_fn, pts.amin(0), pts.amax(0))
     isect, s_isect, occl = map(_detached, (intersect_fn, s_isect, occl))
     alpha_on = cfg.alpha_test or cfg.alpha_materials
     env = scene.env_radiance[None, :]
@@ -307,35 +309,38 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
         (ray_o, ray_d, throughput, alive, prev_pdf, prev_specular,
          first_specular, beer_sigma, direct, indirect, specular_ch,
          first_bad, path_dist, volumetric) = carry
-        first_bad = chk(first_bad, "intersect", depth,
-                        torch.where(torch.isinf(hits["t"]), 0.0, hits["t"]))
-        sd = extract_surface_data(scene, ray_o, ray_d, hits["tri"],
-                                  mip_spread=mip_spread, mip_dist0=path_dist,
-                                  detach_geom=cfg.detach_sampling,
-                                  with_tangent=cfg.extract_tangent)
-        if use_mips:
-            path_dist = path_dist + torch.where(sd.valid, sg(sd.t), 0.0)
-        if cfg.detach_sampling:
-            # geometry does not depend on the differentiated parameters;
-            # detached here, no gradient meets t, u, v's 1 / det (about
-            # 1e14 near the det guard)
-            sd = sd.replace(position=sg(sd.position), normal=sg(sd.normal),
-                            geo_normal=sg(sd.geo_normal),
-                            tangent=sg(sd.tangent), t=sg(sd.t),
-                            uv=sg(sd.uv))
-        hit_mask = sd.valid & alive
-        wo = -ray_d
-        first_bad = chk(first_bad, "extract_surface_data", depth,
-                        _sel(hit_mask, sd.position, 0.0),
-                        _sel(hit_mask, sd.normal, 0.0),
-                        _sel(hit_mask, sd.base_color, 0.0),
-                        _sel(hit_mask, sd.emissive, 0.0),
-                        torch.where(hit_mask, sd.roughness, 0.0))
+        with profiling.span("wavefront.surface", depth=depth):
+            first_bad = chk(first_bad, "intersect", depth,
+                            torch.where(torch.isinf(hits["t"]), 0.0,
+                                        hits["t"]))
+            sd = extract_surface_data(scene, ray_o, ray_d, hits["tri"],
+                                      mip_spread=mip_spread,
+                                      mip_dist0=path_dist,
+                                      detach_geom=cfg.detach_sampling,
+                                      with_tangent=cfg.extract_tangent)
+            if use_mips:
+                path_dist = path_dist + torch.where(sd.valid, sg(sd.t), 0.0)
+            if cfg.detach_sampling:
+                # geometry does not depend on the differentiated parameters;
+                # detached here, no gradient meets t, u, v's 1 / det (about
+                # 1e14 near the det guard)
+                sd = sd.replace(position=sg(sd.position), normal=sg(sd.normal),
+                                geo_normal=sg(sd.geo_normal),
+                                tangent=sg(sd.tangent), t=sg(sd.t),
+                                uv=sg(sd.uv))
+            hit_mask = sd.valid & alive
+            wo = -ray_d
+            first_bad = chk(first_bad, "extract_surface_data", depth,
+                            _sel(hit_mask, sd.position, 0.0),
+                            _sel(hit_mask, sd.normal, 0.0),
+                            _sel(hit_mask, sd.base_color, 0.0),
+                            _sel(hit_mask, sd.emissive, 0.0),
+                            torch.where(hit_mask, sd.roughness, 0.0))
 
-        # Beer's-law absorption over the interior segment just traversed
-        if cfg.bsdf == "disney" and depth > 0:
-            seg = torch.where(sd.valid, sd.t.clamp_max(1e6), 0.0)
-            throughput = throughput * torch.exp(-beer_sigma * seg[:, None])
+            # Beer's-law absorption over the interior segment just traversed
+            if cfg.bsdf == "disney" and depth > 0:
+                seg = torch.where(sd.valid, sd.t.clamp_max(1e6), 0.0)
+                throughput = throughput * torch.exp(-beer_sigma * seg[:, None])
 
         # volumetric segment: in-scattering and transmittance up to the hit
         if scene.volumes is not None and depth < cfg.volume_depths:
@@ -350,39 +355,41 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
             first_bad = chk(first_bad, "volumetric", depth, volumetric,
                             throughput)
 
-        # miss: environment light
-        env_contrib = _sel(alive & ~sd.valid, throughput * env, 0.0)
-        if depth == 0:
-            direct = direct + env_contrib
-        else:
-            specular_ch = specular_ch + _sel(first_specular, env_contrib, 0.0)
-            indirect = indirect + _sel(first_specular, 0.0, env_contrib)
+        with profiling.span("wavefront.emission", depth=depth):
+            # miss: environment light
+            env_contrib = _sel(alive & ~sd.valid, throughput * env, 0.0)
+            if depth == 0:
+                direct = direct + env_contrib
+            else:
+                specular_ch = specular_ch + _sel(first_specular,
+                                                 env_contrib, 0.0)
+                indirect = indirect + _sel(first_specular, 0.0, env_contrib)
 
-        if depth == 0:
-            aovs["depth"] = torch.where(hit_mask, sd.t, 0.0)
-            aovs["normal"] = _sel(hit_mask, sd.normal, 0.0)
-            aovs["albedo"] = _sel(hit_mask, sd.base_color, 0.0)
-            aovs["motion"] = camera_mod.motion_vectors(
-                sd.position, hit_mask, camera, cfg.width, cfg.height,
-                pixel_ids=pixel_ids)
+            if depth == 0:
+                aovs["depth"] = torch.where(hit_mask, sd.t, 0.0)
+                aovs["normal"] = _sel(hit_mask, sd.normal, 0.0)
+                aovs["albedo"] = _sel(hit_mask, sd.base_color, 0.0)
+                aovs["motion"] = camera_mod.motion_vectors(
+                    sd.position, hit_mask, camera, cfg.width, cfg.height,
+                    pixel_ids=pixel_ids)
 
-        # emissive surface hit
-        em = throughput * sd.emissive
-        if depth == 0:
-            direct = direct + _sel(hit_mask, em, 0.0)
-        elif cfg.light_strategy == "bsdf":
-            indirect = indirect + _sel(hit_mask, em, 0.0)
-        elif cfg.light_strategy == "mis":
-            lpdf = nee_mod.light_pdf_solid_angle(light_table, ray_d, sd.t,
-                                                 sd.light_row)
-            w = torch.where(prev_specular, 1.0,
-                            sg(sampling.power_heuristic(prev_pdf, lpdf)))
-            # the mask goes into the scalar, before it meets a live value
-            em_w = em * torch.where(hit_mask, w, 0.0)[:, None]
-            specular_ch = specular_ch + _sel(first_specular, em_w, 0.0)
-            indirect = indirect + _sel(first_specular, 0.0, em_w)
-        first_bad = chk(first_bad, "emissive/light channels", depth,
-                        direct, indirect, specular_ch)
+            # emissive surface hit
+            em = throughput * sd.emissive
+            if depth == 0:
+                direct = direct + _sel(hit_mask, em, 0.0)
+            elif cfg.light_strategy == "bsdf":
+                indirect = indirect + _sel(hit_mask, em, 0.0)
+            elif cfg.light_strategy == "mis":
+                lpdf = nee_mod.light_pdf_solid_angle(light_table, ray_d, sd.t,
+                                                     sd.light_row)
+                w = torch.where(prev_specular, 1.0,
+                                sg(sampling.power_heuristic(prev_pdf, lpdf)))
+                # the mask goes into the scalar, before it meets a live value
+                em_w = em * torch.where(hit_mask, w, 0.0)[:, None]
+                specular_ch = specular_ch + _sel(first_specular, em_w, 0.0)
+                indirect = indirect + _sel(first_specular, 0.0, em_w)
+            first_bad = chk(first_bad, "emissive/light channels", depth,
+                            direct, indirect, specular_ch)
 
         # per-material alpha and sidedness: pass through without shading
         if alpha_on:
@@ -400,104 +407,112 @@ def render_wavefront(scene: SceneData, intersect_fn: Callable,
         else:
             passthrough = zeros(n, dtype=torch.bool)
 
-        if cfg.use_restir and depth == 0 and restir_fn is not None:
-            # the sorted occluder, as NEE's shadow rays use
-            restir_out, restir_state = restir_fn(
-                scene, sd, wo, hit_mask, aovs["motion"], restir_state, uni,
-                occlude_fn=occl_d)
-            direct = direct + throughput * restir_out
-        elif cfg.light_strategy in ("nee", "mis"):
-            ls = nee_mod.sample_light(light_table, uni(n, 3), sd.position)
-            cos_s = vm.dot(sd.normal, ls.wi)
-            f_val, bsdf_pdf = _bsdf_eval(cfg, sd, wo, ls.wi)
-            pdf_sa = nee_mod.pdf_solid_angle(ls)
-            contrib_valid = (hit_mask & ls.valid & (cos_s > 0.0)
-                             & (pdf_sa > 1e-12)
-                             & (vm.luminance(ls.radiance) > 0.0))
-            mis_w = (sg(sampling.power_heuristic(pdf_sa, bsdf_pdf))
-                     if cfg.light_strategy == "mis" else 1.0)
-            so = sd.position + sd.geo_normal * RAY_EPS
-            occluded = occl_d(so, ls.wi, RAY_EPS,
-                              torch.where(contrib_valid,
-                                          ls.dist - 2.0 * RAY_EPS, -1.0))
-            # validity and occlusion go into the detached scalar before
-            # the product, so no inf or NaN meets a live gradient
-            scale = torch.where(
-                contrib_valid & ~occluded,
-                sg(cos_s).clamp_min(0.0) * mis_w
-                / sg(pdf_sa).clamp_min(1e-12), 0.0)
-            if scene.volumes is not None:
-                # participating media along the shadow segment (always 5
-                # steps with "riemann", as in the JAX package)
-                scale = scale * sg(vmarch.transmittance_only(
-                    scene.volumes, so, ls.wi, RAY_EPS,
-                    torch.where(contrib_valid, ls.dist - 2.0 * RAY_EPS, 0.0),
-                    uniforms=uni, estimator=cfg.volume_transmittance))
-            shadowed = throughput * f_val * ls.radiance * scale[:, None]
-            first_bad = chk(first_bad, "nee/shade_direct", depth, shadowed)
-            if depth == 0:
-                direct = direct + shadowed
-            else:
-                specular_ch = specular_ch + _sel(first_specular, shadowed,
-                                                 0.0)
-                indirect = indirect + _sel(first_specular, 0.0, shadowed)
+        with profiling.span("wavefront.nee", depth=depth):
+            if cfg.use_restir and depth == 0 and restir_fn is not None:
+                # the sorted occluder, as NEE's shadow rays use
+                restir_out, restir_state = restir_fn(
+                    scene, sd, wo, hit_mask, aovs["motion"], restir_state, uni,
+                    occlude_fn=occl_d)
+                direct = direct + throughput * restir_out
+            elif cfg.light_strategy in ("nee", "mis"):
+                ls = nee_mod.sample_light(light_table, uni(n, 3), sd.position)
+                cos_s = vm.dot(sd.normal, ls.wi)
+                f_val, bsdf_pdf = _bsdf_eval(cfg, sd, wo, ls.wi)
+                pdf_sa = nee_mod.pdf_solid_angle(ls)
+                contrib_valid = (hit_mask & ls.valid & (cos_s > 0.0)
+                                 & (pdf_sa > 1e-12)
+                                 & (vm.luminance(ls.radiance) > 0.0))
+                mis_w = (sg(sampling.power_heuristic(pdf_sa, bsdf_pdf))
+                         if cfg.light_strategy == "mis" else 1.0)
+                so = sd.position + sd.geo_normal * RAY_EPS
+                occluded = occl_d(so, ls.wi, RAY_EPS,
+                                  torch.where(contrib_valid,
+                                              ls.dist - 2.0 * RAY_EPS, -1.0))
+                # validity and occlusion go into the detached scalar before
+                # the product, so no inf or NaN meets a live gradient
+                scale = torch.where(
+                    contrib_valid & ~occluded,
+                    sg(cos_s).clamp_min(0.0) * mis_w
+                    / sg(pdf_sa).clamp_min(1e-12), 0.0)
+                if scene.volumes is not None:
+                    # participating media along the shadow segment (always 5
+                    # steps with "riemann", as in the JAX package)
+                    scale = scale * sg(vmarch.transmittance_only(
+                        scene.volumes, so, ls.wi, RAY_EPS,
+                        torch.where(contrib_valid,
+                                    ls.dist - 2.0 * RAY_EPS, 0.0),
+                        uniforms=uni, estimator=cfg.volume_transmittance))
+                shadowed = throughput * f_val * ls.radiance * scale[:, None]
+                first_bad = chk(first_bad, "nee/shade_direct", depth, shadowed)
+                if depth == 0:
+                    direct = direct + shadowed
+                else:
+                    specular_ch = specular_ch + _sel(first_specular, shadowed,
+                                                     0.0)
+                    indirect = indirect + _sel(first_specular, 0.0, shadowed)
 
-        if depth + 1 < cfg.max_depth:
-            wi, f_val, pdf, is_spec = _bsdf_sample(cfg, sd, wo, uni(n, 4))
-            # the direction and its density are sampling machinery; f is
-            # the integrand and stays live
-            wi = sg(wi)
-            cos_i = vm.dot(sd.normal, wi).abs()
-            valid_bounce = (hit_mask & (pdf > 1e-9)
-                            & torch.isfinite(wi).all(-1))
-            new_tp = throughput * f_val * (
-                sg(cos_i) / sg(pdf).clamp_min(1e-9))[:, None]
-            new_tp = _sel(valid_bounce, new_tp, 0.0)
-            if depth >= cfg.rr_start_depth:
-                p_survive = sg(new_tp.amax(-1).clamp(cfg.rr_min_prob, 1.0))
-                survive = uni(n) < p_survive
-                new_tp = _sel(survive, new_tp / p_survive[:, None], 0.0)
-                valid_bounce = valid_bounce & survive
-            side = torch.sign(vm.dot(sd.geo_normal, wi))[..., None]
-            bounce_o = sd.position + sd.geo_normal * side * RAY_EPS
-            next_o = _sel(passthrough, sd.position + ray_d * RAY_EPS,
-                          bounce_o)
-            next_d = _sel(passthrough, ray_d, wi)
-            next_alive = valid_bounce | passthrough
-            ray_o = _sel(next_alive, next_o, ray_o)
-            ray_d = _sel(next_alive, next_d, ray_d)
-            throughput = _sel(passthrough, throughput, new_tp)
-            # the previous pdf feeds only the detached MIS weight
-            prev_pdf = torch.where(passthrough, prev_pdf, sg(pdf))
-            prev_specular = torch.where(passthrough, prev_specular, is_spec)
-            if depth == 0:
-                first_specular = is_spec & valid_bounce & ~passthrough
-            if cfg.bsdf == "disney":
-                # a refraction crossing the surface enters or leaves a medium
-                crossing = valid_bounce & (vm.dot(sd.geo_normal, wi) < 0.0)
-                sigma_mat = -torch.log(GatheredMaterial(sd.mat_rows)
-                                       .transmittance.clamp(1e-6, 1.0))
-                beer_sigma = _sel(crossing & sd.front_face, sg(sigma_mat),
-                                  beer_sigma)
-                beer_sigma = _sel(crossing & ~sd.front_face, 0.0, beer_sigma)
-            alive = next_alive & (throughput.amax(-1) > 0.0)
-            first_bad = chk(first_bad, "bsdf_sample/throughput", depth,
-                            _sel(alive, throughput, 0.0),
-                            _sel(alive, ray_d, 0.0))
-        elif alpha_on:
-            # passthrough at the depth horizon still sees the environment
-            indirect = indirect + _sel(passthrough, throughput * env, 0.0)
+        with profiling.span("wavefront.bounce", depth=depth):
+            if depth + 1 < cfg.max_depth:
+                wi, f_val, pdf, is_spec = _bsdf_sample(cfg, sd, wo, uni(n, 4))
+                # the direction and its density are sampling machinery; f is
+                # the integrand and stays live
+                wi = sg(wi)
+                cos_i = vm.dot(sd.normal, wi).abs()
+                valid_bounce = (hit_mask & (pdf > 1e-9)
+                                & torch.isfinite(wi).all(-1))
+                new_tp = throughput * f_val * (
+                    sg(cos_i) / sg(pdf).clamp_min(1e-9))[:, None]
+                new_tp = _sel(valid_bounce, new_tp, 0.0)
+                if depth >= cfg.rr_start_depth:
+                    p_survive = sg(new_tp.amax(-1).clamp(cfg.rr_min_prob, 1.0))
+                    survive = uni(n) < p_survive
+                    new_tp = _sel(survive, new_tp / p_survive[:, None], 0.0)
+                    valid_bounce = valid_bounce & survive
+                side = torch.sign(vm.dot(sd.geo_normal, wi))[..., None]
+                bounce_o = sd.position + sd.geo_normal * side * RAY_EPS
+                next_o = _sel(passthrough, sd.position + ray_d * RAY_EPS,
+                              bounce_o)
+                next_d = _sel(passthrough, ray_d, wi)
+                next_alive = valid_bounce | passthrough
+                ray_o = _sel(next_alive, next_o, ray_o)
+                ray_d = _sel(next_alive, next_d, ray_d)
+                throughput = _sel(passthrough, throughput, new_tp)
+                # the previous pdf feeds only the detached MIS weight
+                prev_pdf = torch.where(passthrough, prev_pdf, sg(pdf))
+                prev_specular = torch.where(passthrough, prev_specular,
+                                            is_spec)
+                if depth == 0:
+                    first_specular = is_spec & valid_bounce & ~passthrough
+                if cfg.bsdf == "disney":
+                    # a refraction crossing the surface enters or leaves a
+                    # medium
+                    crossing = valid_bounce & (vm.dot(sd.geo_normal, wi) < 0.0)
+                    sigma_mat = -torch.log(GatheredMaterial(sd.mat_rows)
+                                           .transmittance.clamp(1e-6, 1.0))
+                    beer_sigma = _sel(crossing & sd.front_face, sg(sigma_mat),
+                                      beer_sigma)
+                    beer_sigma = _sel(crossing & ~sd.front_face, 0.0,
+                                      beer_sigma)
+                alive = next_alive & (throughput.amax(-1) > 0.0)
+                first_bad = chk(first_bad, "bsdf_sample/throughput", depth,
+                                _sel(alive, throughput, 0.0),
+                                _sel(alive, ray_d, 0.0))
+            elif alpha_on:
+                # passthrough at the depth horizon still sees the environment
+                indirect = indirect + _sel(passthrough, throughput * env, 0.0)
         return (ray_o, ray_d, throughput, alive, prev_pdf, prev_specular,
                 first_specular, beer_sigma, direct, indirect, specular_ch,
                 first_bad, path_dist, volumetric)
 
     for depth in range(cfg.max_depth):
         ray_o, ray_d, alive = carry[0], carry[1], carry[3]
-        # dead lanes get t_max < t_min: skipped and left out of tile bounds
-        t_max_ray = torch.where(alive, camera.t_max, -1.0)
-        hits = (s_isect if depth > 0 else isect)(ray_o, ray_d, t_min,
-                                                 t_max_ray)
-        overflow_any = overflow_any | hits["overflow"]
+        with profiling.span("wavefront.intersect", depth=depth):
+            # dead lanes get t_max < t_min: skipped and left out of tile
+            # bounds
+            t_max_ray = torch.where(alive, camera.t_max, -1.0)
+            hits = (s_isect if depth > 0 else isect)(ray_o, ray_d, t_min,
+                                                     t_max_ray)
+            overflow_any = overflow_any | hits["overflow"]
         if depth > 0 and cfg.remat and torch.is_grad_enabled():
             # depth 0 stays live (its AOVs and ReSTIR state); deeper depths
             # keep only their inputs and are recomputed in the backward,

@@ -27,6 +27,7 @@ from ..core.camera import Camera
 from ..core.sampling import Uniforms
 from ..integrator import wavefront
 from ..scene.scene import SceneData
+from ..utils import profiling
 from . import shard
 
 MATERIAL_PARAMS = ("base_color", "roughness", "metallic", "emissive")
@@ -77,11 +78,16 @@ def make_train_step(
 
     def train_step(state: TrainState, uniforms: Uniforms, frame_idx: int,
                    target: torch.Tensor):
-        state.opt.zero_grad(set_to_none=True)
-        with torch.enable_grad():
-            loss = loss_fn(state.params, uniforms, frame_idx, target)
-            loss.backward()
-        state.opt.step()
+        with profiling.unit("train.step"):
+            with profiling.span("train.optimizer"):
+                state.opt.zero_grad(set_to_none=True)
+            with torch.enable_grad():
+                with profiling.span("train.forward"):
+                    loss = loss_fn(state.params, uniforms, frame_idx, target)
+                with profiling.span("train.backward"):
+                    loss.backward()
+            with profiling.span("train.optimizer"):
+                state.opt.step()
         return TrainState(state.params, state.opt, state.step + 1), \
             loss.detach()
 

@@ -51,6 +51,7 @@ from ..integrator import wavefront
 from ..integrator.surface import extract_surface_data
 from ..scene.scene import SceneData
 from ..utils import log as log_mod
+from ..utils import profiling
 from . import state as state_mod
 from . import tonemap
 
@@ -289,7 +290,7 @@ class Renderer:
                     self._last_drift, self.DRIFT_REBUILD_RATIO)
         self._bind_accel()
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            profiling.synchronize(self.device)
         return (time.perf_counter() - t0) * 1e3
 
     # -- public API -----------------------------------------------------------
@@ -324,8 +325,9 @@ class Renderer:
                 sampling.generator_uniforms(st.generator), st.frame_index,
                 self.config, restir_state=st.restir,
                 restir_fn=self._restir_fn, pixel_ids=self._pixel_ids)
-            accum = tonemap.blend_accumulate(
-                st.accum, wavefront.merge_channels(out), st.blend_count)
+            with profiling.span("frame.accumulate"):
+                accum = tonemap.blend_accumulate(
+                    st.accum, wavefront.merge_channels(out), st.blend_count)
         new_st = dataclasses.replace(
             st, accum=accum, blend_count=st.blend_count + 1,
             frame_index=st.frame_index + 1, restir=out["restir_state"])
@@ -343,7 +345,8 @@ class Renderer:
                         aux[k].to(torch.int32), self._mesh,
                         torch.distributed.ReduceOp.MAX).to(aux[k].dtype)
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with profiling.span("frame.wait"):
+                profiling.synchronize(self.device)
             if self.bvh is not None:
                 from ..ops import bvh_traverse
 
@@ -358,24 +361,28 @@ class Renderer:
     def render_frame(self, st: state_mod.FrameState, camera: Camera):
         """One progressive frame: (new_state, aux AOV dict). Accumulation
         restarts when the camera's pose differs in value from the one the
-        state accumulated."""
+        state accumulated. Inside a `utils.profiling.recording()` block,
+        `frame_stats["spans"]` is the frame's span table."""
         t0 = time.perf_counter()
-        camera = camera.to(self.device)
-        if self._reset_on_camera_move:
-            sig = camera.signature()
-            if st.camera_sig is not None and sig != st.camera_sig:
-                st = state_mod.reset_accumulation(st)
-            st = dataclasses.replace(st, camera_sig=sig)
-        rebake_ms = None
-        if self._dynamic is not None and self._dynamic.dirty:
-            rebake_ms = self._rebake()
-        new_st, aux = self._step(st, camera)
-        self._frames_done += 1
-        self.frame_stats = {
-            "Total Frame Time": (time.perf_counter() - t0) * 1e3,
-            "Frame": self._frames_done,
-            "overflow": bool(aux["overflow"]),
-        }
+        with profiling.unit("frame") as frame:
+            camera = camera.to(self.device)
+            if self._reset_on_camera_move:
+                sig = camera.signature()
+                if st.camera_sig is not None and sig != st.camera_sig:
+                    st = state_mod.reset_accumulation(st)
+                st = dataclasses.replace(st, camera_sig=sig)
+            rebake_ms = None
+            if self._dynamic is not None and self._dynamic.dirty:
+                rebake_ms = self._rebake()
+            new_st, aux = self._step(st, camera)
+            self._frames_done += 1
+            self.frame_stats = {
+                "Total Frame Time": (time.perf_counter() - t0) * 1e3,
+                "Frame": self._frames_done,
+                "overflow": bool(aux["overflow"]),
+            }
+        if frame.unit is not None and profiling.in_recording_block():
+            self.frame_stats["spans"] = profiling.span_table(frame.unit)
         if rebake_ms is not None:
             self.frame_stats["Rebake Time"] = rebake_ms
         if self._last_drift is not None:
@@ -464,7 +471,7 @@ class Renderer:
 
         def sync():
             if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+                profiling.synchronize(dev)
 
         def timeit(name: str, fn: Callable, *args):
             with torch.no_grad():
