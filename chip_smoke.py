@@ -87,7 +87,10 @@ non-zero), each with its seconds:
      graph and the backward (ms, mean of 3 after a warm-up), bench.py's
      ratio (forward and backward over the forward), peak memory of each,
      K1's launches per forward and backward (5 closest, 5 any: the
-     recompute launches none), a profile of the backward; the gradient
+     recompute launches none) and the row scatter's (5 on 16-byte
+     vectors, a depth's attribute gather; 11 on floats, a depth's light
+     rows and packed materials and the lights' emissive once), a profile
+     of the backward; the gradient
      finite, > 0 on the lights and >= 0 elsewhere, equal to the frame's
      mean through linearity and to a central difference at 1 +- 0.25
      (rtol 2e-3), and to the gradient without remat (rtol 1e-5, with its
@@ -95,6 +98,17 @@ non-zero), each with its seconds:
      twin (rtol 1e-5); 3 Adam steps of `parallel.train.make_train_step` on
      the emissive toward a target rendered at twice the emission, each
      lowering the loss;
+ 12b. the row gathers' backward (`ops/row_gather.py`, kernel
+     `row_scatter.cu`) at the inverse-rendering cell's 1280x720 and at
+     2560x1440: the (table, indices) of every `gather_rows` call of one
+     frame under grad (interior, depth 5, Disney, MIS, remat on), each
+     depth's attribute gather and NEE's light-row gather scattered by the
+     kernel against the float64 twin (1e-5 of the magnitudes summed), its
+     CUDA-event time, bytes bound (the gradient and indices read once, the
+     table written once) and share, its global row updates per entry, and
+     two library kernels timed beside it at the same indices: PyTorch's
+     backward of `table[idx]` (`indexing_backward_kernel`, `library_ms`)
+     and `zeros().index_add_` (per-element atomics, `index_add_ms`);
  13. the textured slice: presets.interior_scene(600, 64) given UVs (the
      room's quads 0-5, the boxes a box projection divided by 4) and 16
      textures made from a numpy seed (checker and value noise; base colour
@@ -258,7 +272,9 @@ counts out. Kernel T: its own BOX_TEST_OPS (26) per box test (each ray's
 root and two per internal node popped) and SLOT_TEST_OPS (54) per leaf slot
 tested, from its counters; its bytes are the rays in, the results out and the BVH once. No
 single PyTorch call computes any of the five functions, so library_ms is
-null.
+null. The row scatter (12b) is bound by bytes: the incoming gradient and
+the indices read once and the table written once; its library_ms is
+PyTorch's backward of `table[idx]` at the same indices.
 """
 from __future__ import annotations
 
@@ -286,7 +302,7 @@ RESTIR_RATIO = (0.6, 1.05)   # ReSTIR / NEE image mean (biased reuse)
 N_INSTANCES = 120
 PAIRS_PER_RAY = 8
 KERNELS = ("visit_scan", "visit_scan_instanced", "pair_scan", "tree_walk",
-           "bvh_traverse", "mma_probe")
+           "bvh_traverse", "mma_probe", "row_scatter")
 MEGA_TRIS, MEGA_LIGHTS = 1_000_000, 256      # the JAX bench's mega scene
 UNITS_INSTANCES = 2100       # phase 11b: 2,101 units
 GRAD_RTOL = 2e-3             # phase 12: linearity, central difference
@@ -1802,7 +1818,8 @@ def _rel_err(a, b) -> float:
 def phase_gradients(dev, w=W, h=H, frames=SLICE_FRAMES):
     """The JAX bench's BENCH_GRAD workload (bench.py:100-148): the gradient
     of the interior frame's mean with respect to every material's emissive,
-    remat on, through Renderer(accel="tiled")'s intersectors (K1)."""
+    remat on, through Renderer(accel="tiled")'s intersectors (K1). Returns
+    the row scatter's launches of one forward and backward, by path."""
     import dataclasses
 
     import torch
@@ -1810,6 +1827,7 @@ def phase_gradients(dev, w=W, h=H, frames=SLICE_FRAMES):
     from lumenrenderer_tpu_torch.accel import tiled
     from lumenrenderer_tpu_torch.core import sampling
     from lumenrenderer_tpu_torch.integrator import wavefront as wf
+    from lumenrenderer_tpu_torch.ops import row_gather as rg
     from lumenrenderer_tpu_torch.ops import visit_scan as vs
     from lumenrenderer_tpu_torch.parallel import train
     from lumenrenderer_tpu_torch.render.renderer import Renderer
@@ -1854,10 +1872,13 @@ def phase_gradients(dev, w=W, h=H, frames=SLICE_FRAMES):
         peak_bwd = max(peak_bwd, torch.cuda.max_memory_allocated(dev))
     graph_ms, bwd_ms = sum(graph_ms) / frames, sum(bwd_ms) / frames
 
-    # the main path: K1 launches of one forward and backward
+    # the main path: K1's and the row scatter's launches of one forward and
+    # backward
     vs.reset_launches()
+    rg.reset_launches()
     mean, grad = _grad(frame, em0)
     launches = dict(vs.LAUNCHES)
+    scatters = dict(rg.LAUNCHES)
     say("12 gradients", size=f"{w}x{h}", depth=cfg.max_depth,
         materials=em0.shape[0], lights=int(scene.lights.count),
         forward_ms=f"{fwd_ms:.1f}", forward_graph_ms=f"{graph_ms:.1f}",
@@ -1868,19 +1889,27 @@ def phase_gradients(dev, w=W, h=H, frames=SLICE_FRAMES):
         peak_forward_graph_gib=f"{peak_graph / gib:.2f}",
         graph_held_gib=f"{held / gib:.2f}",
         peak_backward_gib=f"{peak_bwd / gib:.2f}",
-        k1_launches_fwd_bwd=json.dumps(launches))
+        k1_launches_fwd_bwd=json.dumps(launches),
+        row_scatter_launches_bwd=json.dumps(scatters))
     if launches != {"closest": cfg.max_depth, "any": cfg.max_depth}:
         raise AssertionError(f"K1 launches per forward and backward "
                              f"{launches}, expected {cfg.max_depth} in each "
                              "mode (the recompute launches none)")
+    # a depth's attribute gather (52 columns) on 16-byte vectors; a depth's
+    # light rows (17) and packed materials (25), and the lights' emissive
+    # (3) once, on floats
+    want = {"float4": cfg.max_depth, "float": 2 * cfg.max_depth + 1}
+    if scatters != want:
+        raise AssertionError(f"row scatter launches per backward {scatters}, "
+                             f"expected {want}")
 
     leaf = em0.clone().requires_grad_(True)
     loss = frame(leaf)
     torch.cuda.synchronize(dev)
-    # the row gathers' backward: a sort of the rows' indices, then the
-    # accumulation onto the attribute and light tables
+    # the row gathers' backward: the row scatter-add (`row_scatter.cu`) onto
+    # the attribute, light, material and emissive tables
     _profile_frame("12 profile backward", loss.backward, "visit_scan_kernel",
-                   also=("indexing_backward", "RadixSort"))
+                   also=("row_scatter", "indexing_backward", "RadixSort"))
 
     # once without remat
     frame_nr = _emission_frame(scene, r._isect, r._occl, cam,
@@ -1970,6 +1999,138 @@ def phase_gradients(dev, w=W, h=H, frames=SLICE_FRAMES):
     if not all(math.isfinite(x) for x in losses) or not all(
             b < a for a, b in zip(losses, losses[1:])):
         raise AssertionError(f"the training loss did not fall: {losses}")
+    return scatters
+
+
+def _frame_gathers(dev, w, h):
+    """The (table, indices, caller) of every `gather_rows` call of one w x h
+    interior frame (depth 5, Disney, MIS, remat on) under grad of the
+    emissive and base colour, the tables detached."""
+    import torch
+
+    from lumenrenderer_tpu_torch.core import sampling
+    from lumenrenderer_tpu_torch.integrator import nee, surface
+    from lumenrenderer_tpu_torch.integrator import wavefront as wf
+    from lumenrenderer_tpu_torch.ops import row_gather as rg
+    from lumenrenderer_tpu_torch.render.renderer import Renderer
+    from lumenrenderer_tpu_torch.scene import lights, presets
+
+    builder, camf = presets.interior_scene(n_boxes=600, n_lights=64)
+    r = Renderer(builder.build(),
+                 wf.RenderConfig(width=w, height=h, max_depth=5,
+                                 bsdf="disney", light_strategy="mis",
+                                 remat=True),
+                 accel="tiled", device=dev)
+    m = r.scene.materials
+    scene = r.scene.replace(materials=m.replace(
+        emissive=m.emissive.clone().requires_grad_(),
+        base_color=m.base_color.clone().requires_grad_()))
+    seen = []
+
+    def spy(table, idx):
+        seen.append((table.detach(), idx, sys._getframe(1).f_code.co_name))
+        return rg.gather_rows(table, idx)
+
+    mods = (surface, nee, lights)
+    for mod in mods:
+        mod.gather_rows = spy
+    try:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        wf.render_wavefront(scene, r._isect, r._occl, camf(w / h).to(dev),
+                            sampling.generator_uniforms(gen), 0, r.config)
+    finally:
+        for mod in mods:
+            mod.gather_rows = rg.gather_rows
+    return seen
+
+
+def phase_row_scatter(dev, launches):
+    """12b: the row gathers' backward at 1280x720 and 2560x1440 (module
+    docstring). Returns the `kernels` line's rows, each with `launches`,
+    its path's launches in phase 12's forward and backward (by path)."""
+    import torch
+
+    from lumenrenderer_tpu_torch.ops import row_gather as rg
+    from lumenrenderer_tpu_torch.utils import profiling
+
+    rows_out = []
+    for w, h in ((1280, 720), (2560, 1440)):
+        calls = _frame_gathers(dev, w, h)
+        attr = [c for c in calls if c[2] == "extract_surface_data"]
+        light = [c for c in calls if c[2] == "select_light"][:1]
+        total = {"ms": 0.0, "bound_ms": 0.0, "index_add_ms": 0.0,
+                 "library_ms": 0.0}
+        for depth, (table, idx, caller) in enumerate(attr + light):
+            n, (t_rows, c) = idx.numel(), table.shape
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(depth)
+            g = torch.randn((n, c), generator=gen, device=dev)
+            idx = idx.reshape(-1)
+            rg.reset_launches()
+            with profiling.recording():
+                with profiling.unit("12b"):
+                    got = rg.gather_rows_backward(g, idx, t_rows)
+            counts = profiling.span_table()["spans"]["12b"]
+            profiling.reset()
+            path = [k for k, v in rg.LAUNCHES.items() if v][0]
+            ref = rg.gather_rows_backward_ref(g.cpu().double(), idx.cpu(),
+                                              t_rows)
+            mag = rg.gather_rows_backward_ref(g.cpu().double().abs(),
+                                              idx.cpu(), t_rows)
+            err = ((got.cpu().double() - ref).abs() - 1e-5 * mag).max()
+            if float(err) > 1e-6:
+                raise AssertionError(f"row scatter of {caller} at {w}x{h} "
+                                     f"differs from its twin")
+            ms = cuda_time_ms(lambda: rg.gather_rows_backward(g, idx, t_rows))
+            # the gradient and the indices read once, the table written once
+            nbytes = n * (c * 4 + idx.element_size()) + t_rows * c * 4
+            bound = nbytes / PEAK_BYTES * 1e3
+            add_ms = cuda_time_ms(lambda: torch.zeros(
+                (t_rows, c), device=dev).index_add_(0, idx, g))
+            lib_ms = None
+            if depth < 2 or caller == "select_light":
+                leaf = table.clone().requires_grad_()
+                out = leaf[idx]
+                lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
+                    out, leaf, g, retain_graph=True), reps=2)
+                del leaf, out
+            label = ("light rows" if caller == "select_light"
+                     else f"attributes depth {depth}")
+            say("12b row scatter", size=f"{w}x{h}", gather=repr(label),
+                path=path, entries=n, table=f"{t_rows}x{c}",
+                ms=f"{ms:.4f}", bound_ms=f"{bound:.4f}",
+                share=f"{bound / ms:.3f}",
+                updates_pct=f"{100 * counts['row_scatter_updates'] / n:.2f}",
+                index_add_ms=f"{add_ms:.4f}",
+                library_ms=("null" if lib_ms is None else f"{lib_ms:.2f}"))
+            if caller == "extract_surface_data":
+                total["ms"] += ms
+                total["bound_ms"] += bound
+                total["index_add_ms"] += add_ms
+                if lib_ms is not None:
+                    total["library_ms"] += lib_ms
+            rows_out.append({
+                "name": f"row_scatter[{label}, {w}x{h}]", "route": "cuda",
+                "source": "lumenrenderer_tpu_torch/ops/csrc/row_scatter.cu",
+                "replaces": "none (XLA's scatter-add; in the port PyTorch's "
+                            "indexing_backward_kernel)",
+                "launches": launches[path], "path": path, "entries": n,
+                "table": [t_rows, c], "ms": round(ms, 4),
+                "bound_ms": round(bound, 4), "bound_by": "bytes",
+                "updates_per_entry": round(
+                    counts["row_scatter_updates"] / n, 4),
+                "index_add_ms": round(add_ms, 4),
+                "library_ms": None if lib_ms is None else round(lib_ms, 2)})
+        say("12b row scatter", size=f"{w}x{h}",
+            attribute_gathers=len(attr),
+            attribute_ms_per_frame=f"{total['ms']:.3f}",
+            attribute_bound_ms_per_frame=f"{total['bound_ms']:.3f}",
+            attribute_index_add_ms_per_frame=f"{total['index_add_ms']:.3f}",
+            library_ms_depths_0_1=f"{total['library_ms']:.1f}")
+        del calls, attr, light
+        torch.cuda.empty_cache()
+    return rows_out
 
 
 # -- phase 13: a textured glTF interior through the cache -------------------
@@ -4587,7 +4748,9 @@ def main(argv=None) -> int:
     run("10 restir slice", phase_restir_slice, dev)
     mega = run("11 mega slice", phase_mega, dev)
     run("11b two-level units", phase_units_past_2048, dev)
-    run("12 gradients", phase_gradients, dev)
+    scatter_launches = run("12 gradients", phase_gradients, dev)
+    scatter_rows = run("12b row scatter", phase_row_scatter, dev,
+                       scatter_launches)
     textured = run("13 textured", phase_textured, dev)
     volume = run("14 volumes", phase_volumes, dev)
     app = run("15 application", phase_app, dev)
@@ -4635,6 +4798,7 @@ def main(argv=None) -> int:
         "bound_ms": w_["bound_ms"], "bound_by": w_["bound_by"],
         "library_ms": None})
     kernels += _bvh_rows(bvh_checks, bvh_launches)
+    kernels += scatter_rows
     for name in KERNELS[:3]:
         for mode in ("closest", "any"):
             c = bf16_checks[name][mode]

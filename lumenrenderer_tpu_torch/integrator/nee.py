@@ -13,6 +13,7 @@ import torch
 
 from ..core import sampling
 from ..core import vecmath as vm
+from ..ops.row_gather import gather_rows
 from ..scene.scene import SceneData
 
 
@@ -88,7 +89,7 @@ def select_light(table: LightTable, u0: torch.Tensor):
     """Invert the CDF: idx = #{cdf < u0}, clamped; returns (idx, rows)."""
     L = table.cdf.shape[0]
     idx = torch.searchsorted(table.cdf, u0.contiguous()).clamp(0, L - 1)
-    return idx, table.aug[idx]
+    return idx, gather_rows(table.aug, idx)
 
 
 def sample_light(table: LightTable, u: torch.Tensor,
@@ -123,7 +124,7 @@ def light_pdf_solid_angle(table: LightTable, wi: torch.Tensor,
                           light_row: torch.Tensor) -> torch.Tensor:
     """Solid-angle pdf NEE would give direction wi hitting light row
     `light_row` at distance hit_t (-1 = not a light): MIS weights."""
-    prow = table.aug[light_row.clamp_min(0).long()]
+    prow = gather_rows(table.aug, light_row.clamp_min(0).long())
     cos_l = vm.dot(prow[:, 9:12], -wi).clamp_min(0.0)
     pdf_a = prow[:, 16] / prow[:, 12].clamp_min(1e-12)
     pdf_sa = pdf_a * hit_t * hit_t / cos_l.clamp_min(1e-6)

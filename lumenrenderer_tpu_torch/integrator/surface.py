@@ -17,6 +17,7 @@ import torch
 
 from ..core import vecmath as vm
 from ..core.struct import TensorStruct
+from ..ops.row_gather import gather_rows
 from ..scene.materials import GatheredMaterial
 from ..scene.scene import SceneData
 from ..scene.textures import sample_bilinear, sample_trilinear, take_rows
@@ -69,7 +70,8 @@ def _attr_table(scene: SceneData, with_uv: bool, with_tangent: bool):
         add("uv", scene.tri_uv.reshape(n, 6))
     if with_tangent:
         add("tangent", scene.tri_tangent.reshape(n, 12))
-    add("material", scene.materials.packed()[scene.tri_mat.long()])
+    add("material", gather_rows(scene.materials.packed(),
+                                 scene.tri_mat.long()))
     add("em_mode", scene.inst_emission_mode[inst][:, None].float())
     add("em_override", scene.inst_emission_override[inst])
     add("mat_idx", scene.tri_mat[:, None].float())      # exact below 2^24
@@ -117,7 +119,7 @@ def extract_surface_data(scene: SceneData, ray_o: torch.Tensor,
     valid = hit_tri >= 0
     textured = scene.textures.count > 1
     table, col = _attr_table(scene, textured, with_tangent)
-    att = table[hit_tri.clamp_min(0).long()]
+    att = gather_rows(table, hit_tri.clamp_min(0).long())
 
     def c(name, lo=0, hi=None):
         s0, s1 = col[name]

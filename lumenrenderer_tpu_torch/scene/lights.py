@@ -15,6 +15,7 @@ import torch
 
 from ..core import vecmath as vm
 from ..core.struct import TensorStruct
+from ..ops.row_gather import gather_rows
 from .geometry import EmissionMode, FlatGeometry
 from .materials import MaterialTable
 
@@ -46,7 +47,7 @@ def radiance(lights: TriangleLights, materials: MaterialTable,
              idx: torch.Tensor) -> torch.Tensor:
     """Radiance of light rows `idx` (...,) -> (...,3), honouring the
     per-instance emission mode (ENABLED, OVERRIDE, DISABLED)."""
-    mat = materials.emissive[lights.mat_idx[idx].long()]
+    mat = gather_rows(materials.emissive, lights.mat_idx[idx].long())
     inst = lights.inst_idx[idx].long()
     mode = inst_emission_mode[inst]
     override = inst_emission_override[inst]

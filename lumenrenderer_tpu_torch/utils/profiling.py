@@ -28,8 +28,10 @@ PyTorch's sync debug mode reports the implicit waits: a CUDA tensor read
 on the host, `.cpu()`, `bool()`, a copy from pageable host memory; the
 program's own waits go through `synchronize`, which also times them as
 `host_wait_ms`); `device_allocs`, the caching allocator's device
-allocations and retries over each unit (`device_memory_stats`); and K1's
-visits run and listed (`count_visits`). The outermost open unit switches
+allocations and retries over each unit (`device_memory_stats`); K1's
+visits run and listed (`count_visits`); and the row scatter-add's entries
+scattered and global row updates issued (`count_row_scatter`, the backward
+of `ops/row_gather.py`). The outermost open unit switches
 sync debug mode to warn and counts its warnings; a mode the caller set to
 warn still warns, and one set to raise is left alone (and not counted).
 
@@ -39,7 +41,7 @@ its child spans cover), counters, and the units recorded;
 `span_table(unit)` takes one closed unit's spans into those totals and
 returns that unit's table alone; `per_unit(field, match)` is a field of
 the totals a unit; `reset()` forgets it all. Recording launches no
-kernel: the events and the visit tensors are kept until `span_table()`
+kernel: the events and the counter tensors are kept until `span_table()`
 resolves them, except that past `HELD_UNITS` units held (a profiler
 session whose spans nobody reads) a unit's close resolves the oldest,
 and past `HELD_LOOSE_SPANS` spans outside units a span's close resolves
@@ -267,6 +269,7 @@ class _Span:
         self.counts = {"host_syncs": 0, "host_wait_ms": 0.0,
                        "device_allocs": None}
         self.visits: List = []              # K1 launches' (visits, nv)
+        self.scatters: List = []            # row scatters' (entries, updates)
         self.events = None
         self.child_host_ms = self.child_device_ms = 0.0
 
@@ -396,6 +399,15 @@ def count_visits(visits: torch.Tensor, nv: torch.Tensor) -> None:
         s.visits.append((visits, nv))
 
 
+def count_row_scatter(counter: torch.Tensor) -> None:
+    """Charge one row scatter-add to the innermost span: counter (2,) the
+    entries it scattered and the global row updates it issued. Kept as it
+    is; `span_table()` sums them."""
+    s = _LOG.innermost()
+    if s is not None:
+        s.scatters.append(counter)
+
+
 def reset() -> None:
     """Forget every recorded span and the totals (call it outside any open
     span)."""
@@ -408,7 +420,8 @@ def _row() -> Dict:
     return {"calls": 0, "host_ms": 0.0, "host_self_ms": 0.0,
             "device_ms": None, "device_self_ms": None, "host_syncs": 0,
             "host_wait_ms": 0.0, "device_allocs": None, "k1_visits_run": 0,
-            "k1_visits_listed": 0}
+            "k1_visits_listed": 0, "row_scatter_rows": 0,
+            "row_scatter_updates": 0}
 
 
 def _add(a, b):
@@ -425,7 +438,7 @@ def _merge(rows: Dict[str, Dict], more: Dict[str, Dict]) -> None:
 
 def _take(units) -> Dict:
     """Resolve the held spans of `units` after one sync (their events and
-    visit tensors; each child's times go to its parent), take them into the
+    counter tensors; each child's times go to its parent), take them into the
     totals and return their own table."""
     spans = [s for u in units for s in _LOG.held.pop(u, ())]
     if any(s.events is not None for s in spans):
@@ -433,7 +446,9 @@ def _take(units) -> Dict:
     pairs = [p for s in spans for p in s.visits]
     sums = (torch.stack([t.sum() for p in pairs for t in p]).tolist()
             if pairs else [])
-    at = 0
+    scatters = [c.cpu() for s in spans for c in s.scatters]
+    scattered = torch.stack(scatters).tolist() if scatters else []
+    at = sat = 0
     for s in spans:
         s.host_ms = (s.t1 - s.t0) * 1e-6
         s.device_ms = (None if s.events is None
@@ -442,7 +457,11 @@ def _take(units) -> Dict:
         s.k1_visits_run = int(sum(sums[at:at + 2 * n:2]))
         s.k1_visits_listed = int(sum(sums[at + 1:at + 2 * n:2]))
         at += 2 * n
-        s.events, s.visits = None, []
+        m = len(s.scatters)
+        s.row_scatter_rows = int(sum(r for r, _ in scattered[sat:sat + m]))
+        s.row_scatter_updates = int(sum(u for _, u in scattered[sat:sat + m]))
+        sat += m
+        s.events, s.visits, s.scatters = None, [], []
         if s.parent is not None:
             s.parent.child_host_ms += s.host_ms
             if s.device_ms is not None:
@@ -464,6 +483,8 @@ def _take(units) -> Dict:
             r[field] = _add(r[field], v)
         r["k1_visits_run"] += s.k1_visits_run
         r["k1_visits_listed"] += s.k1_visits_listed
+        r["row_scatter_rows"] += s.row_scatter_rows
+        r["row_scatter_updates"] += s.row_scatter_updates
     _merge(_LOG.rows, rows)
     _LOG.units_taken += n_units
     return {"units": n_units, "spans": rows}
@@ -476,7 +497,8 @@ def span_table(unit: Optional[int] = None) -> Dict:
     "host_ms", "host_self_ms", "device_ms", "device_self_ms" (None without
     CUDA events), "host_syncs", "host_wait_ms" (host ms blocked in
     `synchronize`), "device_allocs" (units only; None without CUDA),
-    "k1_visits_run", "k1_visits_listed"}}}. Totals over the units, in ms;
+    "k1_visits_run", "k1_visits_listed", "row_scatter_rows",
+    "row_scatter_updates"}}}. Totals over the units, in ms;
     the key is the span's name, with "/backward" after it for spans opened
     in a backward pass. Self = inclusive less what the span's children
     cover. Synchronises once where CUDA events are held."""
