@@ -48,14 +48,14 @@ non-zero), each with its seconds:
  10. the ReSTIR slice (the JAX bench's restir workload):
      Renderer(accel="tiled") with use_restir on the restir scene (7,722
      triangles, 512 emissive) at 2560x1440, 1 spp, depth 5, Disney, NEE,
-     the default RestirConfig (tile-candidate RIS), 1 warm-up and 3 timed
-     frames on one camera: ms/frame, peak memory, overflow, reservoir
-     invariants, max M growing from frame 1 to 2, K1 launched 5 times
-     closest and 6 any per frame (4 NEE shadow passes and ReSTIR's 2
-     visibility passes); the 4-frame mean against 4 NEE frames of the same
-     scene and seed, in (0.6, 1.05); one profiled frame; each ReSTIR pass
-     timed with CUDA events on a frame's depth-0 surface; the round trip of
-     light indices bit-cast through float32;
+     the default RestirConfig (tile-candidate RIS), 4 frames on one
+     camera, untimed (the benchmark's restir.still cell times the frame
+     and its passes): overflow, reservoir invariants, max M growing from
+     frame 1 to 2, K1 launched 5 times closest and 6 any per frame (4 NEE
+     shadow passes and ReSTIR's 2 visibility passes); the 4-frame mean
+     against 4 NEE frames of the same scene and seed, in (0.6, 1.05); K1
+     against its twin on both visibility passes' rays of a frame's depth-0
+     surface; the round trip of light indices bit-cast through float32;
  11. the mega slice (the JAX bench's mega workload): mega_scene(1,000,000
      triangles, 256 lights), 11,670 clusters of 128, culled through the
      cluster tree by kernel W; host build seconds (scene, Renderer, tree);
@@ -296,7 +296,7 @@ PIXEL_RTOL, PIXEL_ATOL = 1e-3, 1e-4
 AOV_TOL = 1e-3               # full slices: primary depth and normal
 MEAN_RTOL = 0.01             # full slices: image means
 TIMED_FRAMES = 5
-SLICE_FRAMES = 3             # timed frames of phases 7, 9 and 10
+SLICE_FRAMES = 3             # frames after the first in phases 7, 9, 10
 RESTIR_LIGHTS = 256          # the JAX bench's restir scene
 RESTIR_RATIO = (0.6, 1.05)   # ReSTIR / NEE image mean (biased reuse)
 N_INSTANCES = 120
@@ -1226,11 +1226,10 @@ def phase_pair_slice(dev, w=W, h=H, frames=SLICE_FRAMES):
     return launches
 
 
-def _restir_pass_times(r, st, cam, dev):
-    """CUDA-event times of each ReSTIR pass (mean of 3 after a warm-up) on
-    the depth-0 surface of one frame of Renderer r, with st's history; the
-    visibility passes through the frame's sorted K1 occluder. Returns the
-    RIS pass's peak device memory above what was allocated before it."""
+def _restir_visibility_k1(r, st, cam, dev):
+    """K1 held against its twin on both ReSTIR visibility passes' rays,
+    sorted as the frame sorts them, on the depth-0 surface of one frame of
+    Renderer r with st's history."""
     import torch
 
     from lumenrenderer_tpu_torch.accel import sorting, tiled
@@ -1241,8 +1240,7 @@ def _restir_pass_times(r, st, cam, dev):
         extract_surface_data
     from lumenrenderer_tpu_torch.restir import di
 
-    cfg, rd = r.config, r._restir_fn
-    rcfg, sc = rd.cfg, r.scene
+    cfg, rcfg, sc = r.config, r._restir_fn.cfg, r.scene
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     uni = sampling.generator_uniforms(gen)
@@ -1262,23 +1260,14 @@ def _restir_pass_times(r, st, cam, dev):
         rad_all = nee.all_light_radiance(sc)
         cdf, pdf = di.build_light_cdf(sc, rad_all)
         bags = di.fill_light_bags(cdf, rcfg, uni)
-        torch.cuda.synchronize(dev)
-        base = torch.cuda.memory_allocated(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
         res_ris = di.ris_primary(sc, sd, bags, pdf, rcfg, w, uni,
                                  rad_all=rad_all)
-        torch.cuda.synchronize(dev)
-        ris_peak = torch.cuda.max_memory_allocated(dev) - base
         res_vis = di.visibility_pass(sc, sd, res_ris, occl, hit,
                                      rad_all=rad_all)
         res_t = di.temporal_pass(sc, sd, res_vis, st.restir, motion, rcfg, w,
                                  h, uni, rad_all=rad_all)
         res_s = di.spatial_pass(sc, sd, res_t, hit, rcfg, w, h, uni,
                                 rad_all=rad_all)
-        res_f = di.visibility_pass(sc, sd, res_s, occl, hit,
-                                   rad_all=rad_all)
-        # K1 on the visibility passes' own rays, sorted as the frame sorts
-        # them: held against its twin, timed, bounded
         captured = {}
 
         def capture(name):
@@ -1296,38 +1285,6 @@ def _restir_pass_times(r, st, cam, dev):
         _hold_k1("10 restir K1", captured,
                  _live_tris(r.clusters.tri_feat, 128), SUBSET_TILES)
 
-        def cdf_bags():
-            c, _ = di.build_light_cdf(sc, nee.all_light_radiance(sc))
-            di.fill_light_bags(c, rcfg, uni)
-
-        passes = {
-            "cdf_bags": cdf_bags,
-            "ris": lambda: di.ris_primary(sc, sd, bags, pdf, rcfg, w, uni,
-                                          rad_all=rad_all),
-            "visibility_1": lambda: di.visibility_pass(
-                sc, sd, res_ris, occl, hit, rad_all=rad_all),
-            "temporal": lambda: di.temporal_pass(
-                sc, sd, res_vis, st.restir, motion, rcfg, w, h, uni,
-                rad_all=rad_all),
-            "spatial": lambda: di.spatial_pass(sc, sd, res_t, hit, rcfg, w,
-                                               h, uni, rad_all=rad_all),
-            "visibility_2": lambda: di.visibility_pass(
-                sc, sd, res_s, occl, hit, rad_all=rad_all),
-            "shade": lambda: di.shade(sc, sd, -d, res_f, rd.eval_f, hit,
-                                      rad_all=rad_all),
-        }
-        times = {k: cuda_time_ms(fn, reps=3) for k, fn in passes.items()}
-        say("10 restir passes", **{f"{k}_ms": f"{v:.3f}"
-                                   for k, v in times.items()},
-            total_ms=f"{sum(times.values()):.3f}",
-            ris_peak_gib=f"{ris_peak / 2**30:.2f}",
-            hit_pixels=int(hit.sum()))
-        for name in ("ris", "spatial", "shade"):
-            _, kernels = _device_kernels(passes[name])
-            for ms, key, count in kernels[:4]:
-                say("10 restir passes", restir_pass=name,
-                    kernel=repr(key[:90]), ms=f"{ms:.2f}", calls=count)
-
 
 def phase_restir_slice(dev, w=W, h=H, frames=SLICE_FRAMES):
     import torch
@@ -1339,10 +1296,8 @@ def phase_restir_slice(dev, w=W, h=H, frames=SLICE_FRAMES):
     sc, cam = builder.build(), camf(w / h)
     cfg = _restir_config(w, h)
     r = Renderer(sc, cfg, accel="tiled", device=dev)
-    torch.cuda.reset_peak_memory_stats(dev)
     vs.reset_launches()
     st, _ = r.render_frame(r.init_state(0), cam)
-    warm_ms = r.frame_stats["Total Frame Time"]
     run = {"st": st, "overflow": r.frame_stats["overflow"],
            "max_m": [float(st.restir.reservoir.m.max())]}
 
@@ -1351,10 +1306,10 @@ def phase_restir_slice(dev, w=W, h=H, frames=SLICE_FRAMES):
         run["overflow"] |= r.frame_stats["overflow"]
         run["max_m"].append(float(run["st"].restir.reservoir.m.max()))
 
-    ms = timed_frames(one, frames)
+    for _ in range(frames):
+        one()
     launches = dict(vs.LAUNCHES)
     per_frame = {k: v / (frames + 1) for k, v in launches.items()}
-    peak = torch.cuda.max_memory_allocated(dev)
     st = run["st"]
     img = st.accum
     finite = bool(torch.isfinite(img).all())
@@ -1367,10 +1322,7 @@ def phase_restir_slice(dev, w=W, h=H, frames=SLICE_FRAMES):
     idx_ok = bool(((res.light_idx >= 0) & (res.light_idx < n_lights)).all())
     say("10 restir slice", size=f"{w}x{h}", tris=sc.num_triangles,
         lights=n_lights, clusters=r.clusters.num_clusters,
-        max_visits=r.max_visits, warmup_ms=f"{warm_ms:.1f}",
-        ms_per_frame=f"{ms:.1f}",
-        primary_rays_per_s=f"{w * h / ms * 1e3:.4g}",
-        peak_mem_gib=f"{peak / 2**30:.2f}", overflow=run["overflow"],
+        max_visits=r.max_visits, overflow=run["overflow"],
         mean=f"{mean:.5f}", finite=finite, valid=bool(st.restir.valid),
         max_m=json.dumps(run["max_m"]), reservoir_ok=fields_ok,
         light_idx_ok=idx_ok, launches=json.dumps(launches),
@@ -1403,21 +1355,16 @@ def phase_restir_slice(dev, w=W, h=H, frames=SLICE_FRAMES):
     rn = Renderer(sc, _restir_config(w, h, use_restir=False), accel="tiled",
                   device=dev)
     st_n, _ = rn.render_frame(rn.init_state(0), cam)
-    run_n = {"st": st_n}
-
-    def one_n():
-        run_n["st"], _ = rn.render_frame(run_n["st"], cam)
-
-    ms_n = timed_frames(one_n, frames)
-    ratio = mean / float(run_n["st"].accum.mean())
+    for _ in range(frames):
+        st_n, _ = rn.render_frame(st_n, cam)
+    ratio = mean / float(st_n.accum.mean())
     say("10 restir slice", reference="NEE, same scene and seed",
-        ms_per_frame=f"{ms_n:.1f}", frames=frames + 1,
-        mean_ratio=f"{ratio:.5f}", bound=json.dumps(RESTIR_RATIO))
+        frames=frames + 1, mean_ratio=f"{ratio:.5f}",
+        bound=json.dumps(RESTIR_RATIO))
     if not RESTIR_RATIO[0] < ratio < RESTIR_RATIO[1]:
         raise AssertionError(f"ReSTIR / NEE mean {ratio} outside "
                              f"{RESTIR_RATIO}")
-    _profile_frame("10 profile", one, "visit_scan_kernel")
-    _restir_pass_times(r, run["st"], cam, dev)
+    _restir_visibility_k1(r, run["st"], cam, dev)
     return launches
 
 

@@ -13,6 +13,14 @@ the bags' uniforms; RIS's bag and slot integers, barycentric and pick
 uniforms; the temporal combine's uniform (when there is a history); per
 spatial iteration the angle, radius and pick uniforms; in a scene with
 volumes, the shading's transmittance uniform last.
+
+While spans record (`utils/profiling.py`), `RestirDI` opens one span a pass:
+`restir.cdf` (the light radiance, the CDF and the bags), `restir.ris`,
+`restir.visibility` (each of the two, holding the occluder's query),
+`restir.temporal`, `restir.spatial` and `restir.shade` (shading, the
+volumes' transmittance and the new state); each visibility pass charges
+the rays it sent and the live ones among them (`count_restir_rays`) as a
+device counter.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ import torch
 from ..core import vecmath as vm
 from ..core.struct import TensorStruct
 from ..integrator import nee as nee_mod
+from ..utils import profiling
 
 SHADOW_EPS = 1e-3
 
@@ -285,7 +294,14 @@ def visibility_pass(scene, sd, res: Reservoir, occlude_fn, hit_mask,
                     rad_all=None) -> Reservoir:
     """Zero the reservoirs whose chosen sample is occluded, and those of
     pixels that hit nothing. Every pixel's ray goes to the occluder, missed
-    pixels included: the tiles' bounds and the sort see them all."""
+    pixels included: the tiles' bounds and the sort see them all. While
+    spans record, the rays sent and the live ones (a hit and a nonzero
+    weight) are charged as a device counter, with no host wait."""
+    if profiling.is_recording():
+        live = hit_mask & (res.w_out > 0)
+        profiling.count_restir_rays(torch.stack([
+            torch.full((), live.numel(), dtype=torch.int64,
+                       device=live.device), live.sum()]))
     _, wi, dist = _target_phat(scene, sd, res.light_idx, res.bary,
                                rad_all=rad_all)
     o = sd.position + sd.geo_normal * SHADOW_EPS
@@ -553,36 +569,43 @@ class RestirDI:
         current frame's)."""
         cfg = self.cfg
         occl = occlude_fn if occlude_fn is not None else self.occlude_fn
-        rad_all = nee_mod.all_light_radiance(scene)
-        cdf, pdf = build_light_cdf(scene, rad_all)
-        bags = fill_light_bags(cdf, cfg, draws)
-        res = ris_primary(scene, sd, bags, pdf, cfg, self.width, draws,
-                          rad_all=rad_all)
+        with profiling.span("restir.cdf"):
+            rad_all = nee_mod.all_light_radiance(scene)
+            cdf, pdf = build_light_cdf(scene, rad_all)
+            bags = fill_light_bags(cdf, cfg, draws)
+        with profiling.span("restir.ris"):
+            res = ris_primary(scene, sd, bags, pdf, cfg, self.width, draws,
+                              rad_all=rad_all)
         if cfg.biased:
             # visibility reuse: occluded reservoirs are zeroed before reuse
-            res = visibility_pass(scene, sd, res, occl, hit_mask,
-                                  rad_all=rad_all)
+            with profiling.span("restir.visibility"):
+                res = visibility_pass(scene, sd, res, occl, hit_mask,
+                                      rad_all=rad_all)
         if state is not None:
-            res = temporal_pass(scene, sd, res, state, motion, cfg,
-                                self.width, self.height, draws,
-                                rad_all=rad_all)
-        res = spatial_pass(scene, sd, res, hit_mask, cfg, self.width,
-                           self.height, draws, rad_all=rad_all,
-                           halo=self.halo)
-        res_final = visibility_pass(scene, sd, res, occl, hit_mask,
+            with profiling.span("restir.temporal"):
+                res = temporal_pass(scene, sd, res, state, motion, cfg,
+                                    self.width, self.height, draws,
                                     rad_all=rad_all)
-        color = shade(scene, sd, wo, res_final, self.eval_f, hit_mask,
-                      rad_all=rad_all)
-        if scene.volumes is not None:
-            color = color * volumetric_transmittance(
-                scene, sd, res_final, scene.volumes, draws, hit_mask,
-                rad_all=rad_all)[:, None]
-        new_state = RestirState(
-            # biased mode carries the visibility-zeroed reservoirs forward;
-            # unbiased keeps the pre-shading ones
-            reservoir=res_final if cfg.biased else res,
-            prev_depth=sd_depth(sd), prev_normal=sd.normal,
-            prev_position=sd.position,
-            prev_albedo=vm.luminance(sd.base_color),
-            valid=torch.tensor(True, device=sd.position.device))
+        with profiling.span("restir.spatial"):
+            res = spatial_pass(scene, sd, res, hit_mask, cfg, self.width,
+                               self.height, draws, rad_all=rad_all,
+                               halo=self.halo)
+        with profiling.span("restir.visibility"):
+            res_final = visibility_pass(scene, sd, res, occl, hit_mask,
+                                        rad_all=rad_all)
+        with profiling.span("restir.shade"):
+            color = shade(scene, sd, wo, res_final, self.eval_f, hit_mask,
+                          rad_all=rad_all)
+            if scene.volumes is not None:
+                color = color * volumetric_transmittance(
+                    scene, sd, res_final, scene.volumes, draws, hit_mask,
+                    rad_all=rad_all)[:, None]
+            new_state = RestirState(
+                # biased mode carries the visibility-zeroed reservoirs
+                # forward; unbiased keeps the pre-shading ones
+                reservoir=res_final if cfg.biased else res,
+                prev_depth=sd_depth(sd), prev_normal=sd.normal,
+                prev_position=sd.position,
+                prev_albedo=vm.luminance(sd.base_color),
+                valid=torch.tensor(True, device=sd.position.device))
         return color, new_state

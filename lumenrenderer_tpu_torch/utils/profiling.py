@@ -29,9 +29,11 @@ on the host, `.cpu()`, `bool()`, a copy from pageable host memory; the
 program's own waits go through `synchronize`, which also times them as
 `host_wait_ms`); `device_allocs`, the caching allocator's device
 allocations and retries over each unit (`device_memory_stats`); K1's
-visits run and listed (`count_visits`); and the row scatter-add's entries
+visits run and listed (`count_visits`); the row scatter-add's entries
 scattered and global row updates issued (`count_row_scatter`, the backward
-of `ops/row_gather.py`). The outermost open unit switches
+of `ops/row_gather.py`); and ReSTIR's visibility rays sent and live
+(`count_restir_rays`, `restir/di.py`). The last two are device tensors,
+kept until `span_table()` resolves them. The outermost open unit switches
 sync debug mode to warn and counts its warnings; a mode the caller set to
 warn still warns, and one set to raise is left alone (and not counted).
 
@@ -269,7 +271,7 @@ class _Span:
         self.counts = {"host_syncs": 0, "host_wait_ms": 0.0,
                        "device_allocs": None}
         self.visits: List = []              # K1 launches' (visits, nv)
-        self.scatters: List = []            # row scatters' (entries, updates)
+        self.device_counts: List = []       # (fields, (len(fields),) tensor)
         self.events = None
         self.child_host_ms = self.child_device_ms = 0.0
 
@@ -399,13 +401,32 @@ def count_visits(visits: torch.Tensor, nv: torch.Tensor) -> None:
         s.visits.append((visits, nv))
 
 
+# the device counters: each count charges a tensor of these fields, in
+# order, to the innermost span
+ROW_SCATTER = ("row_scatter_rows", "row_scatter_updates")
+RESTIR_RAYS = ("restir_rays_sent", "restir_rays_live")
+DEVICE_COUNTERS = ROW_SCATTER + RESTIR_RAYS
+
+
+def _count_device(fields, counter: torch.Tensor) -> None:
+    s = _LOG.innermost()
+    if s is not None:
+        s.device_counts.append((fields, counter))
+
+
 def count_row_scatter(counter: torch.Tensor) -> None:
     """Charge one row scatter-add to the innermost span: counter (2,) the
     entries it scattered and the global row updates it issued. Kept as it
     is; `span_table()` sums them."""
-    s = _LOG.innermost()
-    if s is not None:
-        s.scatters.append(counter)
+    _count_device(ROW_SCATTER, counter)
+
+
+def count_restir_rays(counter: torch.Tensor) -> None:
+    """Charge one ReSTIR visibility pass to the innermost span: counter (2,)
+    the rays it sent to the occluder and those of pixels that hit something
+    and hold a nonzero reservoir weight. Kept as it is; `span_table()` sums
+    them."""
+    _count_device(RESTIR_RAYS, counter)
 
 
 def reset() -> None:
@@ -420,8 +441,8 @@ def _row() -> Dict:
     return {"calls": 0, "host_ms": 0.0, "host_self_ms": 0.0,
             "device_ms": None, "device_self_ms": None, "host_syncs": 0,
             "host_wait_ms": 0.0, "device_allocs": None, "k1_visits_run": 0,
-            "k1_visits_listed": 0, "row_scatter_rows": 0,
-            "row_scatter_updates": 0}
+            "k1_visits_listed": 0,
+            **{field: 0 for field in DEVICE_COUNTERS}}
 
 
 def _add(a, b):
@@ -446,9 +467,7 @@ def _take(units) -> Dict:
     pairs = [p for s in spans for p in s.visits]
     sums = (torch.stack([t.sum() for p in pairs for t in p]).tolist()
             if pairs else [])
-    scatters = [c.cpu() for s in spans for c in s.scatters]
-    scattered = torch.stack(scatters).tolist() if scatters else []
-    at = sat = 0
+    at = 0
     for s in spans:
         s.host_ms = (s.t1 - s.t0) * 1e-6
         s.device_ms = (None if s.events is None
@@ -457,11 +476,11 @@ def _take(units) -> Dict:
         s.k1_visits_run = int(sum(sums[at:at + 2 * n:2]))
         s.k1_visits_listed = int(sum(sums[at + 1:at + 2 * n:2]))
         at += 2 * n
-        m = len(s.scatters)
-        s.row_scatter_rows = int(sum(r for r, _ in scattered[sat:sat + m]))
-        s.row_scatter_updates = int(sum(u for _, u in scattered[sat:sat + m]))
-        sat += m
-        s.events, s.visits, s.scatters = None, [], []
+        s.device_totals = dict.fromkeys(DEVICE_COUNTERS, 0)
+        for fields, counter in s.device_counts:
+            for field, v in zip(fields, counter.tolist()):
+                s.device_totals[field] += int(v)
+        s.events, s.visits, s.device_counts = None, [], []
         if s.parent is not None:
             s.parent.child_host_ms += s.host_ms
             if s.device_ms is not None:
@@ -483,8 +502,8 @@ def _take(units) -> Dict:
             r[field] = _add(r[field], v)
         r["k1_visits_run"] += s.k1_visits_run
         r["k1_visits_listed"] += s.k1_visits_listed
-        r["row_scatter_rows"] += s.row_scatter_rows
-        r["row_scatter_updates"] += s.row_scatter_updates
+        for field, v in s.device_totals.items():
+            r[field] += v
     _merge(_LOG.rows, rows)
     _LOG.units_taken += n_units
     return {"units": n_units, "spans": rows}
@@ -497,8 +516,9 @@ def span_table(unit: Optional[int] = None) -> Dict:
     "host_ms", "host_self_ms", "device_ms", "device_self_ms" (None without
     CUDA events), "host_syncs", "host_wait_ms" (host ms blocked in
     `synchronize`), "device_allocs" (units only; None without CUDA),
-    "k1_visits_run", "k1_visits_listed", "row_scatter_rows",
-    "row_scatter_updates"}}}. Totals over the units, in ms;
+    "k1_visits_run", "k1_visits_listed", and each of DEVICE_COUNTERS:
+    "row_scatter_rows", "row_scatter_updates", "restir_rays_sent",
+    "restir_rays_live"}}}. Totals over the units, in ms;
     the key is the span's name, with "/backward" after it for spans opened
     in a backward pass. Self = inclusive less what the span's children
     cover. Synchronises once where CUDA events are held."""
