@@ -33,11 +33,6 @@ def moller_trumbore(o, d, p0, e1, e2, backface_cull: bool = False):
     return torch.where(hit, t, torch.inf), u, v, hit
 
 
-def _per_ray(x, r: int, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32,
-                           device=like.device).expand(r)
-
-
 def intersect_closest(tri_pos, origins, dirs, t_min, t_max,
                       chunk: int = 4096):
     """Closest hits of rays (R,3) against every triangle of tri_pos
@@ -47,8 +42,8 @@ def intersect_closest(tri_pos, origins, dirs, t_min, t_max,
     e1 = tri_pos[:, 1] - p0
     e2 = tri_pos[:, 2] - p0
     r = origins.shape[0]
-    tn = _per_ray(t_min, r, origins)
-    tx = _per_ray(t_max, r, origins)
+    tn = vm.per_ray(t_min, r, origins.device)
+    tx = vm.per_ray(t_max, r, origins.device)
     out = {k: [] for k in ("t", "tri", "u", "v")}
     for a in range(0, r, chunk):
         b = min(a + chunk, r)

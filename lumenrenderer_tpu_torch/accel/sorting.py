@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core import vecmath as vm
 from ..utils import profiling
 from . import morton
 
@@ -48,10 +49,8 @@ def sorted_intersectors(isect, occl, scene_lo, scene_hi):
 
     def _prep(o, d, tn, tx, capsule):
         r = o.shape[0]
-        tn_b = torch.as_tensor(tn, dtype=torch.float32,
-                               device=o.device).expand(r)
-        tx_b = torch.as_tensor(tx, dtype=torch.float32,
-                               device=o.device).expand(r)
+        tn_b = vm.per_ray(tn, r, o.device)
+        tx_b = vm.per_ray(tx, r, o.device)
         key = (capsule_sort_key(o, d, tx_b, scene_lo, scene_hi) if capsule
                else ray_sort_key(o, d, scene_lo, scene_hi))
         key = torch.where(tx_b > tn_b, key, torch.full_like(key, DEAD_KEY))
@@ -107,10 +106,8 @@ def blocked_sorted_intersectors(isect, occl, scene_lo, scene_hi,
 
     def _pack(o, d, tn, tx):
         r = o.shape[0]
-        tn_b = torch.as_tensor(tn, dtype=torch.float32,
-                               device=o.device).expand(r)
-        tx_b = torch.as_tensor(tx, dtype=torch.float32,
-                               device=o.device).expand(r)
+        tn_b = vm.per_ray(tn, r, o.device)
+        tx_b = vm.per_ray(tx, r, o.device)
         packed = torch.cat([o, d, tn_b[:, None], tx_b[:, None]], dim=1)
         pad = (-r) % block
         if pad:

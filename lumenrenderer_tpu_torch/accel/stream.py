@@ -340,9 +340,8 @@ def pair_stream(cs: ClusterSet, origins, dirs, t_min, t_max,
     """A query's pair stream: {"t_min", "t_max" (R,), "padded_ray",
     "tile_cluster", "overflow", "pairs" (the pairs kept)}."""
     r = origins.shape[0]
-    f32 = dict(dtype=torch.float32, device=origins.device)
-    tn = torch.as_tensor(t_min, **f32).expand(r)
-    tx = torch.as_tensor(t_max, **f32).expand(r)
+    tn = vm.per_ray(t_min, r, origins.device)
+    tx = vm.per_ray(t_max, r, origins.device)
     max_pairs, _ = _sizes(r, cs.num_clusters, max_pairs_per_ray)
     mask = _ray_cluster_mask(cs, origins, dirs, tn, tx)
     pair_ray, pair_cluster, overflow = _extract_pairs(mask, max_pairs)

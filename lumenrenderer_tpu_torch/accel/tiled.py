@@ -116,8 +116,8 @@ def pad_rays(origins, dirs, t_min, t_max, group: int):
     multiple of `group`: (o, d, tn, tx). Padded rays are dead (tx < tn)."""
     r = origins.shape[0]
     dev = origins.device
-    t_min_b = torch.as_tensor(t_min, dtype=torch.float32, device=dev).expand(r)
-    t_max_b = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(r)
+    t_min_b = vm.per_ray(t_min, r, dev)
+    t_max_b = vm.per_ray(t_max, r, dev)
     r_pad = (-r) % group
     return (_pad(origins, r_pad, 0.0), _pad(dirs, r_pad, 1.0),
             _pad(t_min_b, r_pad, 0.0), _pad(t_max_b, r_pad, -1.0))

@@ -12,26 +12,25 @@ from typing import Tuple
 
 import torch
 
+from ..core import vecmath as vm
 from ..ops import bvh_traverse as bt
 from .format import BVH
 
 
-def _per_ray(x, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=like.device
-                           ).expand(like.shape[0]).contiguous()
+def _walk(walk, bvh, origins, dirs, t_min, t_max, any_hit: bool):
+    r, dev = origins.shape[0], origins.device
+    return walk(bvh, origins.contiguous(), dirs.contiguous(),
+                vm.per_ray(t_min, r, dev).contiguous(),
+                vm.per_ray(t_max, r, dev).contiguous(), any_hit=any_hit)
 
 
 def _closest(walk, bvh, origins, dirs, t_min, t_max):
-    t, tri, u, v = walk(bvh, origins.contiguous(), dirs.contiguous(),
-                        _per_ray(t_min, origins),
-                        _per_ray(t_max, origins), any_hit=False)
+    t, tri, u, v = _walk(walk, bvh, origins, dirs, t_min, t_max, False)
     return {"t": t, "tri": tri, "u": u, "v": v}
 
 
 def _any(walk, bvh, origins, dirs, t_min, t_max):
-    return walk(bvh, origins.contiguous(), dirs.contiguous(),
-                _per_ray(t_min, origins), _per_ray(t_max, origins),
-                any_hit=True)
+    return _walk(walk, bvh, origins, dirs, t_min, t_max, True)
 
 
 def intersect_closest(bvh: BVH, origins, dirs, t_min, t_max):

@@ -107,23 +107,29 @@ def _ids(n: int, pixel_ids, device) -> torch.Tensor:
 
 
 def generate_primary_rays(camera: Camera, width: int, height: int,
-                          frame_index: int, uniforms: sampling.Uniforms | None
-                          = None, jitter: str = "halton",
+                          frame_index: int | torch.Tensor,
+                          uniforms: sampling.Uniforms | None = None,
+                          jitter: str = "halton",
                           pixel_ids: torch.Tensor | None = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One jittered primary ray per pixel, row-major: (origins, dirs) (N,3),
     or one per entry of `pixel_ids` (N',), global pixel indices.
 
     jitter: "halton" (Halton(2,3) by frame), "random" (draws (N,2) from
-    `uniforms`) or anything else for the pixel center."""
+    `uniforms`) or anything else for the pixel center. frame_index is an
+    int or an integer () tensor (read on the device, as a CUDA graph's
+    input is)."""
     dev = camera.eye.device
     n = width * height if pixel_ids is None else pixel_ids.shape[0]
     ids = _ids(n, pixel_ids, dev)
     px = ids % width
     py = ids // width
     if jitter == "halton":
-        j = sampling.halton23(torch.full((n,), int(frame_index),
-                                         dtype=torch.int64, device=dev))
+        j = sampling.halton23(
+            frame_index.to(device=dev, dtype=torch.int64).expand(n)
+            if isinstance(frame_index, torch.Tensor)
+            else torch.full((n,), int(frame_index), dtype=torch.int64,
+                            device=dev))
     elif jitter == "random" and uniforms is not None:
         j = uniforms(n, 2)
     else:

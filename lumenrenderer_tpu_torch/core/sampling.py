@@ -98,7 +98,8 @@ def sample_ggx_vndf(wo: torch.Tensor, roughness: torch.Tensor,
     t1_raw = (torch.stack([-vh[..., 1], vh[..., 0], torch.zeros_like(lensq)],
                           dim=-1)
               * torch.rsqrt(lensq.clamp_min(1e-7))[..., None])
-    x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=vh.dtype, device=vh.device)
+    # made on the device: an upload would make the host wait
+    x_axis = torch.eye(3, dtype=vh.dtype, device=vh.device)[0]
     t1 = torch.where((lensq > 1e-7)[..., None], t1_raw, x_axis.expand_as(vh))
     t2 = vm.cross(vh, t1)
     r = torch.sqrt(u[..., 0])

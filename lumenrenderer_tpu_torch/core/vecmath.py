@@ -4,6 +4,8 @@ Port of `lumenrenderer_tpu/core/vecmath.py`.
 """
 from __future__ import annotations
 
+import numbers
+
 import torch
 
 
@@ -146,3 +148,14 @@ def lerp(a, b, t):
 
 def saturate(x):
     return x.clamp(0.0, 1.0)
+
+
+def per_ray(x, r: int, device) -> torch.Tensor:
+    """x, a number or a () or (r,) tensor or array, as a float32 (r,)
+    tensor on `device`. A number is filled in on the device, not uploaded:
+    an upload from host memory makes the host wait, and a CUDA graph
+    cannot hold it."""
+    if isinstance(x, numbers.Number):
+        return torch.full((), x, dtype=torch.float32,
+                          device=device).expand(r)
+    return torch.as_tensor(x, dtype=torch.float32, device=device).expand(r)

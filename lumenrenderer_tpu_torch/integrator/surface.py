@@ -159,9 +159,9 @@ def extract_surface_data(scene: SceneData, ray_o: torch.Tensor,
                                + v_ * c("tangent", 8, 11))
         handed = torch.sign(c("tangent", 3, 4)[:, 0] + 1e-8)
     else:
-        y_axis = torch.tensor([[0.0, 1.0, 0.0]], device=ray_d.device)
-        x_axis = torch.tensor([[1.0, 0.0, 0.0]], device=ray_d.device)
-        a = torch.where(geo_normal[:, 1:2].abs() < 0.9, y_axis, x_axis)
+        # made on the device: an upload would make the host wait
+        axes = torch.eye(3, device=ray_d.device)
+        a = torch.where(geo_normal[:, 1:2].abs() < 0.9, axes[1:2], axes[0:1])
         tangent = vm.normalize(vm.cross(a, geo_normal))
         handed = None                    # a frame of handedness +1
     front_face = vm.dot(geo_normal, -ray_d) >= 0.0

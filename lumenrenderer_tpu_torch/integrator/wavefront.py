@@ -214,7 +214,8 @@ def _swizzle_ids(width: int, height: int, device: torch.device):
 
 def render_wavefront(scene: SceneData, intersect_fn: Callable,
                      occlude_fn: Callable, camera: camera_mod.Camera,
-                     uniforms: sampling.Uniforms, frame_index: int,
+                     uniforms: sampling.Uniforms,
+                     frame_index: int | torch.Tensor,
                      cfg: RenderConfig,
                      restir_state=None,
                      restir_fn: Optional[Callable] = None,

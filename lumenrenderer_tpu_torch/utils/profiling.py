@@ -33,9 +33,13 @@ visits run and listed (`count_visits`); the row scatter-add's entries
 scattered and global row updates issued (`count_row_scatter`, the backward
 of `ops/row_gather.py`); and ReSTIR's visibility rays sent and live
 (`count_restir_rays`, `restir/di.py`). The last two are device tensors,
-kept until `span_table()` resolves them. The outermost open unit switches
-sync debug mode to warn and counts its warnings; a mode the caller set to
-warn still warns, and one set to raise is left alone (and not counted).
+kept until `span_table()` resolves them. `graph_replays`, the replays of
+a captured training step (`count_graph_replay`, `parallel/train.py`), is
+charged to the open unit. Inside a `paused()` block nothing records: a
+CUDA graph's capture holds no span's events and no counter's tensors.
+The outermost open unit switches sync debug mode to warn and counts its
+warnings; a mode the caller set to warn still warns, and one set to
+raise is left alone (and not counted).
 
 `span_table()` synchronises once, resolves what was recorded and returns
 each span name's calls, host and device ms (inclusive and self: less what
@@ -191,6 +195,7 @@ HELD_UNITS = 64
 HELD_LOOSE_SPANS = 4096     # the same for spans outside any unit
 
 _recording_blocks = 0       # open recording() blocks
+_paused_blocks = 0          # open paused() blocks
 
 
 class _Off:
@@ -269,7 +274,7 @@ class _Span:
     def __init__(self, name: str, attrs: Dict, is_unit: bool):
         self.name, self.attrs, self.is_unit = name, attrs, is_unit
         self.counts = {"host_syncs": 0, "host_wait_ms": 0.0,
-                       "device_allocs": None}
+                       "device_allocs": None, "graph_replays": 0}
         self.visits: List = []              # K1 launches' (visits, nv)
         self.device_counts: List = []       # (fields, (len(fields),) tensor)
         self.events = None
@@ -337,10 +342,18 @@ class _Span:
         return False
 
 
+def _records() -> bool:
+    return not _paused_blocks and (
+        bool(_recording_blocks) or _autograd_profiler._is_profiler_enabled)
+
+
 def is_recording() -> bool:
     """True while spans record: inside a `recording()` block or while a
-    `torch.profiler` session records."""
-    return bool(_recording_blocks) or _autograd_profiler._is_profiler_enabled
+    `torch.profiler` session records, outside any `paused()` block. The
+    counters ask this; `span` and `unit` ask the same of `_records`, so
+    that patching this alone switches the counters off and keeps the
+    spans."""
+    return _records()
 
 
 def in_recording_block() -> bool:
@@ -360,10 +373,22 @@ def recording():
         _recording_blocks -= 1
 
 
+@contextlib.contextmanager
+def paused():
+    """Record nothing inside the block, even while someone records (a CUDA
+    graph's capture: its kernels run later, on replay)."""
+    global _paused_blocks
+    _paused_blocks += 1
+    try:
+        yield
+    finally:
+        _paused_blocks -= 1
+
+
 def span(name: str, **attrs):
     """A span of the program's stage `name` (module docstring), with
     attributes such as depth=; a shared no-op while nothing records."""
-    if not (_recording_blocks or _autograd_profiler._is_profiler_enabled):
+    if not _records():
         return _OFF
     return _Span(name, attrs, False)
 
@@ -373,7 +398,7 @@ def unit(name: str):
     spans inside share its id (`.unit`, None while nothing records), the
     implicit host syncs inside are counted, and the allocator's device
     allocations across it."""
-    if not (_recording_blocks or _autograd_profiler._is_profiler_enabled):
+    if not _records():
         return _OFF
     return _Span(name, {}, True)
 
@@ -429,6 +454,13 @@ def count_restir_rays(counter: torch.Tensor) -> None:
     _count_device(RESTIR_RAYS, counter)
 
 
+def count_graph_replay() -> None:
+    """Charge one replay of a captured CUDA graph to the open unit."""
+    u = _LOG.open_unit
+    if u is not None:
+        u.counts["graph_replays"] += 1
+
+
 def reset() -> None:
     """Forget every recorded span and the totals (call it outside any open
     span)."""
@@ -440,8 +472,8 @@ def reset() -> None:
 def _row() -> Dict:
     return {"calls": 0, "host_ms": 0.0, "host_self_ms": 0.0,
             "device_ms": None, "device_self_ms": None, "host_syncs": 0,
-            "host_wait_ms": 0.0, "device_allocs": None, "k1_visits_run": 0,
-            "k1_visits_listed": 0,
+            "host_wait_ms": 0.0, "device_allocs": None, "graph_replays": 0,
+            "k1_visits_run": 0, "k1_visits_listed": 0,
             **{field: 0 for field in DEVICE_COUNTERS}}
 
 
@@ -516,11 +548,11 @@ def span_table(unit: Optional[int] = None) -> Dict:
     "host_ms", "host_self_ms", "device_ms", "device_self_ms" (None without
     CUDA events), "host_syncs", "host_wait_ms" (host ms blocked in
     `synchronize`), "device_allocs" (units only; None without CUDA),
-    "k1_visits_run", "k1_visits_listed", and each of DEVICE_COUNTERS:
-    "row_scatter_rows", "row_scatter_updates", "restir_rays_sent",
-    "restir_rays_live"}}}. Totals over the units, in ms;
-    the key is the span's name, with "/backward" after it for spans opened
-    in a backward pass. Self = inclusive less what the span's children
+    "graph_replays" (units only), "k1_visits_run", "k1_visits_listed",
+    and each of DEVICE_COUNTERS: "row_scatter_rows",
+    "row_scatter_updates", "restir_rays_sent", "restir_rays_live"}}}.
+    Totals over the units, in ms; the key is the span's name, with
+    "/backward" after it for spans opened in a backward pass. Self = inclusive less what the span's children
     cover. Synchronises once where CUDA events are held."""
     if unit is not None:
         return _take([unit])

@@ -352,7 +352,7 @@ def run_mod():
     ("interior.preview",
      ("enqueue_ms.preview", "host_syncs.preview", "k1_visits_run_pct"),
      ("sort_ms", "cull_ms")),
-    ("interior_inverse.fit", ("host_syncs.fit",),
+    ("interior_inverse.fit", ("host_syncs.fit", "graph_steps_pct.fit"),
      ("recompute_ms", "device_allocs.fit")),
 ])
 def test_traced_cpu_cell_reads_the_program_spans(run_mod, cell, number,
@@ -377,6 +377,7 @@ def test_traced_cpu_cell_reads_the_program_spans(run_mod, cell, number,
         assert read["host_syncs.preview"] == 0.0     # no waits on the CPU
     else:
         assert read["host_syncs.fit"] == 0.0
+        assert read["graph_steps_pct.fit"] == 100.0  # set-up captured it
 
 
 @pytest.mark.cuda
