@@ -1,79 +1,71 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (Hopper, sm_90a).
+"""Card-side check of the PyTorch/CUDA port on one NVIDIA GPU (Hopper, sm_90a).
 
     python3 chip_smoke.py
 
-Phases, one line each or more (any failure raises, so the exit code is
-non-zero), each with its seconds:
+Each phase holds the port's kernels against their plain PyTorch twins, or
+its frames against each other or against a reference, and raises on the
+first failure, so the exit code is non-zero. The benchmark (`perfbench/`)
+times the port; this script times nothing but prints each phase's seconds.
+Phases:
   1. environment: torch, CUDA, nvcc, the card's name and power limit;
-  2. build kernels K1, K2, K3, W and T and the tensor-core probe
-     (ops/csrc/*.cu) with nvcc from this checkout, one nvcc each, all at
-     once; ptxas registers and spills;
-  3. K1 against its plain PyTorch twin on the card: 1,024 tiles each of the
-     interior scene's 2560x1440 primary pass and sorted bounce and shadow
-     passes, closest and any mode, with kernel and twin times per call;
-     K1's visit counter against `executed_visits_ref` on each subset; the
-     kernel on every tile of each pass, with its executed visits per tile,
-     flop, bound and share of the bound;
+  2. build kernels K1, K2, K3, W, T, the tensor-core probe and the row
+     scatter (ops/csrc/*.cu) with nvcc from this checkout, one nvcc each,
+     all at once; ptxas registers and spills;
+  3. K1 against its twin: 1,024 tiles each of the interior scene's
+     2560x1440 primary pass and sorted bounce and shadow passes, closest
+     and any mode, keys identical on MATCH_FRACTION of the rays and ties
+     elsewhere, bits identical; K1's visit counter equal to
+     `executed_visits_ref` on each subset;
   4. the tiled slice at 320x180: one frame through the kernel and one
-     through the twin from the same generator seed;
+     through the twin from the same generator seed, PIXEL_FRACTION of the
+     pixels within PIXEL_RTOL;
   4b. the same for a ReSTIR DI frame of the bench's restir scene (600
      boxes, 256 lights) at 320x180 (per-pixel RIS: 180 does not divide by
      16), depth 5, Disney, NEE elsewhere;
   5. the tiled slice at full size: Renderer(accel="tiled") on the interior
-     scene (600 boxes, 64 lights), 2560x1440, 1 spp, depth 5, Disney + MIS:
-     1 warm-up and 5 timed frames; K1 must launch 5 times per frame in each
-     mode; then one more frame under torch.profiler (device kernel time,
-     idle share, K1's share, the top kernels), as phases 7 and 9 do for
-     theirs with K2 and K3;
-  6. K2 against its twin: 1,024 tiles each of the 2560x1440 primary pass
-     and sorted bounce and shadow passes of the instanced scene (120 box
-     instances and a light: 121 units, 2 unique meshes), closest and any
-     mode; K2's visit counter against `executed_visits_instanced_ref` on
-     each subset; the kernel on every tile of each pass, with its executed
-     visits per tile, flop, bound and share; and K1's full-pass times on the
-     bounce and shadow passes through the flattened clusters;
+     scene (600 boxes, 64 lights), 2560x1440, 1 spp, depth 5, Disney + MIS,
+     two frames: finite, mean > 0, no overflow, K1 launched 5 times a frame
+     in each mode;
+  6. K2 against its twin as in phase 3, on the instanced scene (120 box
+     instances and a light: 121 units, 2 unique meshes), its visit counter
+     equal to `executed_visits_instanced_ref`;
   7. the two-level slice: Renderer(accel="two_level", dynamic=...) on that
-     scene at 2560x1440, depth 5, Disney + MIS, 1 warm-up and 3 timed
-     frames, held against Renderer(accel="tiled"); then instance 0 moves
-     by +50 in x and the next frame is held against a fresh build;
-  8. K3 against its twin: 1,024 pair tiles, evenly spaced over the live
-     tiles, of the interior scene's 2560x1440 primary pass and sorted
-     bounce and shadow passes, with the bound of the live pair tiles; the
-     kernel on every tile of each pass, whose dead tiles (every pair dead,
-     the run-padded tail) must hold the miss key or 0;
+     scene at 2560x1440, depth 5, Disney + MIS, 4 frames: K2 launched, no
+     overflow, held against Renderer(accel="tiled") (_hold_frames: the first
+     frame's primary AOVs, the 4-frame means); then instance 0 moves by +50
+     in x, which changes the image, and the next frame is held against a
+     fresh build;
+  8. K3 against its twin as in phase 3 on 1,024 pair tiles, evenly spaced
+     over the live tiles, of each pass; on every tile of each pass the dead
+     tiles (every pair dead, the run-padded tail) hold the miss key or 0;
   9. the pair slice: render_wavefront with pair_intersectors on the
-     interior scene at 2560x1440, depth 5, Disney + MIS, 1 warm-up and 3
-     timed frames, held against the tiled frame from the same seed;
+     interior scene at 2560x1440, depth 5, Disney + MIS: the smallest pair
+     cap from 8 up (at most 16) whose first frame does not overflow, then
+     4 frames, K3 launched, held against the tiled frames of the same seed;
  10. the ReSTIR slice (the JAX bench's restir workload):
      Renderer(accel="tiled") with use_restir on the restir scene (7,722
      triangles, 512 emissive) at 2560x1440, 1 spp, depth 5, Disney, NEE,
      the default RestirConfig (tile-candidate RIS), 4 frames on one
-     camera, untimed (the benchmark's restir.still cell times the frame
-     and its passes): overflow, reservoir invariants, max M growing from
-     frame 1 to 2, K1 launched 5 times closest and 6 any per frame (4 NEE
-     shadow passes and ReSTIR's 2 visibility passes); the 4-frame mean
-     against 4 NEE frames of the same scene and seed, in (0.6, 1.05); K1
-     against its twin on both visibility passes' rays of a frame's depth-0
-     surface; the round trip of light indices bit-cast through float32;
+     camera: overflow, reservoir invariants, max M growing from frame 1 to
+     2, K1 launched 5 times closest and 6 any per frame (4 NEE shadow
+     passes and ReSTIR's 2 visibility passes); the 4-frame mean against 4
+     NEE frames of the same scene and seed, in (0.6, 1.05); K1 against its
+     twin on both visibility passes' rays of a frame's depth-0 surface; the
+     round trip of light indices bit-cast through float32;
  11. the mega slice (the JAX bench's mega workload): mega_scene(1,000,000
      triangles, 256 lights), 11,670 clusters of 128, culled through the
-     cluster tree by kernel W; host build seconds (scene, Renderer, tree);
-     W against its twin on every tile of the 2560x1440 primary pass and
-     sorted bounce and shadow passes (raw lists, entry t bits, counts, and
-     the sorted visit lists sel, nv, tnb and overflow all identical), with
-     its full-pass time, the twin's pops (the stopped one-node-a-step
-     walk) beside the kernel's own, the admitted
-     clusters per tile from one uncapped call, the share of tiles over the
-     visit cap and the bound; K1 against its twin on 1,024 tiles of each
-     pass and on every tile, as in phase 3; a
-     320x180 depth-3 mega frame through K1 and W and through their twins; the
-     2560x1440 frame through Renderer(accel="tiled") (1 warm-up and 3 timed
-     frames: ms/frame, peak memory, overflow, K1 5 closest and 5 any
-     launches and W 10 per frame), one profiled frame, and frames with and
-     without the ClusterSet's cached kernel layout;
- 11b. two-level past 2048 units: instanced_boxes(2,100) (2,101 units)
-     at 2560x1440 through accel="two_level" (K2, W on the unit tree), its
+     cluster tree by kernel W: W against its twin on every tile of the
+     2560x1440 primary pass and sorted bounce and shadow passes (raw lists,
+     entry t bits and counts, and so the sorted visit lists sel, nv, tnb
+     and overflow, identical; one uncapped call overflows on the same
+     tiles); K1 against its twin as in phase 3; a 320x180 depth-3 mega
+     frame through K1 and W and through their twins; two 2560x1440 frames
+     through Renderer(accel="tiled"): finite, mean > 0, K1 5 closest and 5
+     any launches and W 10 a frame (overflow is true there, as on the
+     reference);
+ 11b. two-level past 2048 units: instanced_boxes(2,100) (2,101 units) at
+     2560x1440 through accel="two_level" (K2, W on the unit tree), its
      primary AOVs held against the tiled frame of the same scene with
      culling="tree" by phase 7's rule; W on the unit tree against its twin
      on every tile of the primary, bounce and shadow passes, as in phase
@@ -83,198 +75,129 @@ non-zero), each with its seconds:
      the 2560x1440 interior frame (600 boxes, 64 lights, depth 5, Disney,
      MIS, remat on) differentiated with respect to every material's
      emissive through Renderer(accel="tiled")'s intersectors, each call
-     from a fresh generator of one seed: the forward without and with a
-     graph and the backward (ms, mean of 3 after a warm-up), bench.py's
-     ratio (forward and backward over the forward), peak memory of each,
-     K1's launches per forward and backward (5 closest, 5 any: the
-     recompute launches none) and the row scatter's (5 on 16-byte
-     vectors, a depth's attribute gather; 11 on floats, a depth's light
-     rows and packed materials and the lights' emissive once), a profile
-     of the backward; the gradient
-     finite, > 0 on the lights and >= 0 elsewhere, equal to the frame's
-     mean through linearity and to a central difference at 1 +- 0.25
-     (rtol 2e-3), and to the gradient without remat (rtol 1e-5, with its
-     peak memory); a 320x180 gradient through K1 equal to one through its
-     twin (rtol 1e-5); 3 Adam steps of `parallel.train.make_train_step` on
-     the emissive toward a target rendered at twice the emission, each
-     lowering the loss;
+     from a fresh generator of one seed: K1's launches per forward and
+     backward (5 closest, 5 any: the recompute launches none) and the row
+     scatter's (5 on 16-byte vectors, a depth's attribute gather; 11 on
+     floats, a depth's light rows and packed materials and the lights'
+     emissive once); the gradient finite, > 0 on the lights and >= 0
+     elsewhere, equal to the frame's mean through linearity and to a
+     central difference at 1 +- 0.25 (rtol 2e-3), and to the gradient
+     without remat (rtol 1e-5); a 320x180 gradient through K1 equal to one
+     through its twin (rtol 1e-5); 3 Adam steps of
+     `parallel.train.make_train_step` on the emissive toward a target
+     rendered at twice the emission, each lowering the loss;
  12b. the row gathers' backward (`ops/row_gather.py`, kernel
      `row_scatter.cu`) at the inverse-rendering cell's 1280x720 and at
      2560x1440: the (table, indices) of every `gather_rows` call of one
      frame under grad (interior, depth 5, Disney, MIS, remat on), each
      depth's attribute gather and NEE's light-row gather scattered by the
-     kernel against the float64 twin (1e-5 of the magnitudes summed), its
-     CUDA-event time, bytes bound (the gradient and indices read once, the
-     table written once) and share, its global row updates per entry, and
-     two library kernels timed beside it at the same indices: PyTorch's
-     backward of `table[idx]` (`indexing_backward_kernel`, `library_ms`)
-     and `zeros().index_add_` (per-element atomics, `index_add_ms`);
+     kernel against the float64 twin (1e-5 of the magnitudes summed);
  13. the textured slice: presets.interior_scene(600, 64) given UVs (the
      room's quads 0-5, the boxes a box projection divided by 4) and 16
      textures made from a numpy seed (checker and value noise; base colour
      2 at 2048^2 and 6 at 1024^2, 4 normal and 4 metal-rough maps at
      1024^2), written as .gltf, .bin and PNGs in a temporary directory;
      13a: the scene cache built cold by `scene/cache.load_or_build` and
-     loaded warm (host seconds, every leaf equal), then a 320x180 depth-3
-     textured frame through K1 and through its twin as phase 11's small
-     frames; 13b: Renderer(accel="tiled") at 2560x1440, 1 spp, depth 5,
-     Disney, MIS, mipmaps on: 1 warm-up and 3 timed frames (ms/frame, peak
-     memory, atlas bytes, overflow false, K1 5 closest and 5 any launches a
-     frame), one profiled frame, the sampler's texel gather of one level at
-     the primary hits timed as `take_rows` and as PyTorch's row gather
-     (CUDA events, with its bytes bound), the 3-frame mean with mipmaps
-     off within 5% of the mipmapped one, and the same scene without its
-     textures timed beside it; 13c: the gradient of the mean of a 640x360 depth-5
-     frame (remat on) with respect to the atlas texels and the emissive:
-     forward and backward ms, peak memory, a profile of the backward, the
-     gradient finite and non-zero on every sampled base-colour texture,
-     linear in emission, and (Lambert, no Russian roulette, so no sampling
-     decision depends on the base colour) against a central difference of
-     the room's base-colour texture's scale at 1 +- 0.01 (rtol 2e-3);
+     loaded warm, every leaf equal, then a 320x180 depth-3 textured frame
+     through K1 and through its twin as phase 11's small frames; 13b:
+     Renderer(accel="tiled") at 2560x1440, 1 spp, depth 5, Disney, MIS,
+     mipmaps on: two frames (overflow false, K1 5 closest and 5 any
+     launches a frame), the sampler's texel gather of one level at the
+     primary hits through `take_rows` equal to PyTorch's row gather, the
+     3-frame mean with mipmaps off within 5% of the mipmapped one; 13c: the
+     gradient of the mean of a 640x360 depth-5 frame (remat on) with
+     respect to the atlas texels and the emissive: finite and non-zero on
+     every sampled base-colour texture, linear in emission, and (Lambert,
+     no Russian roulette, so no sampling decision depends on the base
+     colour) against a central difference of the room's base-colour
+     texture's scale at 1 +- 0.01 (rtol 2e-3);
  14. volumes: a 384^3 cloud (sphere_density(384, 0.4, 0.15) times
      noise_density(384, 11), sigma_t 0.5, albedo 0.9) in a box a third of
      the interior's room across; 14a: the port's .nvdb reader against the
-     SDK's values for tests/data/sphere_fog.nvdb, the cloud's host seconds
-     (grid, dense, sparse) and device bytes, its centre transmittance (in
-     0.2-0.6), and 320x180 depth-3 frames with the .nvdb fog re-seated in
-     the room and with the dense cloud, each through K1 and its twin as
-     phase 11's; 14b: Renderer(accel="tiled") at 2560x1440, depth 5,
-     Disney, MIS, volume_steps 5, volume_depths 2, Riemann: 1 warm-up and
-     3 timed frames (ms/frame, peak, K1 5 closest and 15 any launches a
-     frame: 5 NEE and 10 march light-ray passes), the volumetric channel
-     non-zero, one profiled frame, and the room without the cloud timed
-     beside it; 14c: the sparse cloud (its mean within 1e-5 of the dense
-     frame's), then ratio tracking (ms/frame, launches, a profile, its mean
-     within 10% of Riemann's); 14d: the restir workload of phase 10 in the
-     cloud, timed against the same frame without it, and its mean below
-     the same frame's (same draws) with the cloud's extinction at 0, its
-     direct channel at most that frame's everywhere;
-     14e: d mean / d density at 2560x1440, remat on (forward, backward,
-     peak, K1 5 + 15 launches a forward and backward, a profile of the
-     backward), d mean / d bricks of the sparse cloud, remat off within
-     1e-5, a 320x180 gradient through K1 against its twin (1e-5), and on a
+     SDK's values for tests/data/sphere_fog.nvdb, the cloud's centre
+     transmittance (in 0.2-0.6), and 320x180 depth-3 frames with the .nvdb
+     fog re-seated in the room and with the dense cloud, each through K1
+     and its twin as phase 11's; 14b: Renderer(accel="tiled") at 2560x1440,
+     depth 5, Disney, MIS, volume_steps 5, volume_depths 2, Riemann, 4
+     frames (K1 5 closest and 15 any launches a frame: 5 NEE and 10 march
+     light-ray passes), the volumetric channel non-zero; 14c: the sparse
+     cloud (its mean within 1e-5 of the dense frame's), then ratio tracking
+     (its mean within 10% of Riemann's); 14d: the restir workload of phase
+     10 in the cloud (two frames, its launches), its mean below the same
+     frame's (same draws) with the cloud's extinction at 0, its direct
+     channel at most that frame's everywhere; 14e: d mean / d density at
+     2560x1440, remat on (K1 5 + 15 launches a forward and backward),
+     d mean / d bricks of the sparse cloud, remat off within 1e-5, a
+     320x180 gradient through K1 against its twin (1e-5), and on a
      BSDF-sampled frame without Russian roulette a central difference of
      the density's scale at 1 +- 0.01 (rtol 1e-2);
  15. the application on the interior at 2560x1440, depth 5, Disney + MIS:
-     15a: Renderer(accel="stream") (24 pairs per ray), each query of one
-     frame's live pairs, overflow, tiles and product blocks, 1 warm-up and
-     3 timed frames (ms/frame, peak), held against the tiled frame of the
-     same seed by phase 9's bar, one profiled frame, and a 320x180 depth-3
-     stream frame whose closest queries are each held against brute force
-     (triangles equal but for ties; primary t within 2e-4 relative + 1e-5,
+     15a: Renderer(accel="stream") (24 pairs per ray), no query of one
+     frame overflowing, 4 frames held against the tiled frames of the same
+     seed by phase 9's bar, and a 320x180 depth-3 stream frame whose
+     closest queries are each held against brute force (triangles equal
+     but for ties; primary t within 2e-4 relative + 1e-5,
      tests/test_stream.py's bar); 15b: `denoise_frame` and `upscale` to
-     3840x2160 (Lanczos3, sharpen 0.3) of a 1-spp tiled frame (CUDA
-     events, mean of 3; launches and device time from one profiled call;
-     peak), the denoised frame nearer a 16-frame reference than the raw
-     one, the upscaled image finite and >= 0, its weight matrices built on
-     the card within 1e-5 of the CPU's (their distance from a float64
-     build is printed); 15c: `render_sequence` over a 3-camera pan with
-     temporal denoising (ms per camera), and on a static camera the
-     temporal output's flicker below the raw frames'; 15d: a checkpoint
-     after 2 frames loaded into init_state(999), the next frame equal to
-     the uninterrupted one within 1e-6 (file bytes, save and load ms);
-     15e: `profile_stages` of the interior frame, then the CLI in
-     subprocesses on the card: a JSON config naming the tiled accel,
-     `--preset interior --size 2560x1440 --out-size 3840x2160 --spp 4
-     --depth 5 --denoise --aovs --stats-every 2` (its main called by
-     `python -c`, which prints K1's launches after it: 48 closest and 44
-     any), writing a 3840x2160 PNG and three AOV PNGs (wall seconds, its
-     mean stage times), and `python -m lumenrenderer_tpu_torch.app.cli
-     --preset cornell --spp 4` with the defaults (stream, 1280x720). The
-     `kernels` line's K1 rows carry that CLI run's launches as
-     `launches_app`;
+     3840x2160 (Lanczos3, sharpen 0.3) of a 1-spp tiled frame: the
+     denoised frame nearer a 16-frame reference than the raw one, the
+     upscaled image finite and >= 0, its weight matrices built on the card
+     within 1e-5 of the CPU's; 15c: `render_sequence` over a 3-camera pan
+     with temporal denoising finite, and on a static camera the temporal
+     output's flicker below the raw frames'; 15d: a checkpoint after 2
+     frames loaded into init_state(999), the next frame equal to the
+     uninterrupted one within 1e-6; 15e: the CLI in subprocesses on the
+     card: a JSON config naming the tiled accel, `--preset interior --size
+     2560x1440 --out-size 3840x2160 --spp 4 --depth 5 --denoise --aovs
+     --stats-every 2` (its main called by `python -c`, which prints K1's
+     launches after it: 48 closest and 44 any), writing a 3840x2160 PNG and
+     three AOV PNGs, and `python -m lumenrenderer_tpu_torch.app.cli
+     --preset cornell --spp 4` with the defaults (stream, 1280x720);
  16. the BVH accels and the mesh on the interior at 2560x1440: the SAH
-     BVH built by the native and the numpy builders (host seconds) and the
-     LBVH on the card (ms), and kernel T's node and slot records made in
-     those builds (ms: the SAH BVH's on the host, both on the card); 16a:
-     kernel T against its twin on 65,536
-     evenly spaced rays of the primary pass and the sorted bounce and
-     shadow passes, through the SAH BVH and the LBVH, closest and any
-     mode (triangles or hit bits identical on MATCH_FRACTION, t, u and v
-     bit for bit where the triangle agrees, the walk counters identical),
-     then T on every ray of each pass (its time, counter-derived
-     operations, bound and share); 16b: Renderer(accel="sah") and
-     Renderer(accel="lbvh"), depth 5, Disney + MIS, 1 warm-up and 3 timed
-     frames (ms/frame, peak memory, T 5 closest and 5 any launches a
-     frame), held against the tiled frames of the same seed by phase 9's
-     bar, one profiled frame each; 16c: a one-rank NCCL mesh: the tiled
-     frame through Renderer(mesh=), its accumulator equal to the plain
-     one's element for element (K1 10 launches
-     a frame), the ReSTIR frame with its halo, one sharded training step
-     at 2560x1440 (remat) and its gradient all-reduce; then two ranks on
-     the one card in subprocesses (`--rank-worker`; gloo, collectives
-     staged through the host, as NCCL refuses two ranks on one device),
-     720 rows each: the gathered 4-frame image's mean within MEAN_RTOL of
-     the plain frames', its seam rows lit, two ReSTIR frames with the
-     halo, a 320x180 training step whose parameters are equal on both
-     ranks. The `kernels` line has T's rows for the SAH BVH and the LBVH;
+     BVH built by the native builder and the LBVH on the card; 16a: kernel
+     T against its twin on 65,536 evenly spaced rays of the primary pass
+     and the sorted bounce and shadow passes, through the SAH BVH and the
+     LBVH, closest and any mode (triangles or hit bits identical on
+     MATCH_FRACTION, t, u and v bit for bit where the triangle agrees, the
+     walk counters identical); 16b: Renderer(accel="sah") and
+     Renderer(accel="lbvh"), depth 5, Disney + MIS, 4 frames (T 5 closest
+     and 5 any launches a frame), held against the tiled frames of the
+     same seed by phase 9's bar; 16c: a one-rank NCCL mesh: the tiled frame
+     through Renderer(mesh=), its accumulator equal to the plain one's
+     element for element (K1 10 launches a frame), the ReSTIR frame with
+     its halo, one sharded training step at 2560x1440 (remat); then two
+     ranks on the one card in subprocesses (`--rank-worker`; gloo,
+     collectives staged through the host, as NCCL refuses two ranks on one
+     device), 720 rows each: the gathered 4-frame image's mean within
+     MEAN_RTOL of the plain frames', its seam rows lit, two ReSTIR frames
+     with the halo, a 320x180 training step whose parameters are equal on
+     both ranks;
  17. the options on the interior at 2560x1440, depth 5, Disney + MIS:
      17h (run first): the tensor cores: the probe (ops/mma_probe.py), one
      m16n8k16 bf16 product per case on crafted sums, compared bit for bit
      with candidate models of its rounding (its table; fails unless the
      bf16 twins' model, `visit_scan.MMA_MODEL`, fits every sum of the
      kernels' kind), and the SASS of K1's, K2's and K3's bf16 kernels
-     (HMMA in their loops; the loop's other instructions on the no-hit
-     path a pair, and K2's visit loop's instructions outside it a
-     ray-visit, for the epilogue bound);
+     (`cuobjdump -sass`: HMMA in their loops);
      17a: K1 in its bf16 mode (precision="default", on the tensor cores)
      against its twin (`mma_product`) on 1,024 tiles of each of the
      primary, sorted bounce and shadow passes, closest and any, keys, bits
-     and visit counters torch.equal; every tile of each pass in bf16 and
-     in fp32 (times in this call, flop, bound, the epilogue bound, shares)
-     and the share of live rays whose winner or bit differs from fp32
-     (printed, not barred: bf16 geometry is lossy by design); 17b: the
-     same for K2 on 256 tiles of each of phase 6's passes (its twin's
-     exact sum is slow) and K3 on phase 8's pair tiles, then a
-     two-level bf16 frame (K2's bf16 launches) and a bf16 pair frame
-     (K3's); 17c: Renderer(candidate_dtype="bfloat16"), 1
-     warm-up and 3 timed frames beside the default frame's (ms/frame, K1
-     bf16 launches, 5 closest and 5 any a frame, the mean beside fp32's);
-     17d: culling="dense" at max_visits = C = 84 (ms/frame, peak memory,
-     admitted clusters and visits run per primary tile against the
-     frustum's), held against the frustum frame by phase 7's rule and
-     MEAN_RTOL; 17e: swizzle=True (ms/frame, K1's visits per primary tile
-     with and without the swizzle, the mean within MEAN_RTOL, primary
-     AOVs by phase 7's rule on frames of pixel centres); 17f: decode=True
-     on the sorted bounce pass (its extra ms; t within the key's
-     resolution, and on 65,536 rays u, v within DECODE_UV_TOL of brute,
-     plus DECODE_UV_ROUNDINGS float32 roundings of the two formulas'
-     condition, on every ray whose triangle agrees); 17g: a bounce and
-     a shadow pass through `blocked_sorted_intersectors` beside
-     `sorted_intersectors` (pass ms, K1's visits per tile). The `kernels`
-     line gains the bf16 rows of K1, K2 and K3 (their bytes count the
-     table at 2 bytes a value, their flop go at the bf16 tensor-core rate;
-     they also carry their design, the epilogue bound, its share and
-     which bound sets their pace, and K2's its instructions a ray-visit).
-Then a JSON line of per-kernel results, the card's name and power limit, and
-as the last line {"ok": true, "device": {...}}. Needs no network; exits
-non-zero without a CUDA device or without the package next to it.
-
-The epilogue bound of the bf16 modes: the live pairs (flop / 80, less
-K2's affine flop) times the CUDA-core instructions a pair (17h's SASS
-count), plus for K2 the live ray-visits times its instructions a ray-visit
-(17h), over 132 SMs x 128 lanes at the card's maximum SM clock
-(nvidia-smi). Bounds: a kernel's
-least time is the larger of its flop over the H100's
-67 TFLOP/s of fp32 (no tensor cores; the bf16 rows: 989 TFLOP/s, the
-bf16 tensor-core rate, the peak for bf16 operands) and its bytes (each input read once,
-each output written once) over 3.35 TB/s. The flop are those these inputs
-need: 80 per (live ray, live triangle) pair of every visit a tile runs (K1
-and K2: the kernel's counter) or of every live pair tile (K3), and K2's 42
-per live ray and visit run for the object-space features; the bytes leave
-out K2's padding rows of `rayblk`, which it never reads, and count K2's
-per-visit inputs (cluster id, entry t, affine) for the visits run only.
-Kernel W: BOX_TEST_OPS operations per box test, one for each tile's root
-and two per internal node of the one-node-a-step walk stopped at mv + 1
-leaves (the twin's pop counter less the leaves it counted: the kernel pops
-other nodes); its bytes are the tiles' bounds, the tree, and the lists and
-counts out. Kernel T: its own BOX_TEST_OPS (26) per box test (each ray's
-root and two per internal node popped) and SLOT_TEST_OPS (54) per leaf slot
-tested, from its counters; its bytes are the rays in, the results out and the BVH once. No
-single PyTorch call computes any of the five functions, so library_ms is
-null. The row scatter (12b) is bound by bytes: the incoming gradient and
-the indices read once and the table written once; its library_ms is
-PyTorch's backward of `table[idx]` at the same indices.
+     and visit counters torch.equal; 17b: the same for K2 on 256 tiles of
+     each of phase 6's passes (its twin's exact sum is slow) and K3 on
+     phase 8's pair tiles, then two two-level bf16 frames (K2's bf16
+     launches only) and a bf16 pair frame (K3's); 17c:
+     Renderer(candidate_dtype="bfloat16"), 4 frames (K1 bf16 launches
+     only, 5 closest and 5 any a frame; the mean printed beside fp32's:
+     bf16 geometry is lossy by design); 17d: culling="dense" at max_visits
+     = C = 84, no overflow, held against the frustum frame by phase 7's
+     rule and MEAN_RTOL; 17e: swizzle=True, the mean within MEAN_RTOL,
+     primary AOVs by phase 7's rule on frames of pixel centres; 17f:
+     decode=True on the sorted bounce pass: t within the key's resolution,
+     and on 65,536 rays u, v within DECODE_UV_TOL of brute, plus
+     DECODE_UV_ROUNDINGS float32 roundings of the two formulas' condition,
+     on every ray whose triangle agrees.
+Then the card's name and power limit, and as the last line {"ok": true,
+"device": {...}}. Needs no network; exits non-zero without a CUDA device or
+without the package next to it.
 """
 from __future__ import annotations
 
@@ -295,8 +218,8 @@ PIXEL_FRACTION = 0.999       # small slice: pixels within PIXEL_RTOL
 PIXEL_RTOL, PIXEL_ATOL = 1e-3, 1e-4
 AOV_TOL = 1e-3               # full slices: primary depth and normal
 MEAN_RTOL = 0.01             # full slices: image means
-TIMED_FRAMES = 5
-SLICE_FRAMES = 3             # frames after the first in phases 7, 9, 10
+SLICE_FRAMES = 4             # frames of a run whose image a comparison reads
+LAUNCH_FRAMES = 2            # frames of a run whose launches a check counts
 RESTIR_LIGHTS = 256          # the JAX bench's restir scene
 RESTIR_RATIO = (0.6, 1.05)   # ReSTIR / NEE image mean (biased reuse)
 N_INSTANCES = 120
@@ -308,11 +231,6 @@ UNITS_INSTANCES = 2100       # phase 11b: 2,101 units
 GRAD_RTOL = 2e-3             # phase 12: linearity, central difference
 REMAT_RTOL = 1e-5            # phase 12: remat off, K1 against its twin
 TRAIN_STEPS, TRAIN_LR = 3, 0.05
-PEAK_FLOPS = 67e12           # H100 SXM, fp32 outside the tensor cores
-PEAK_BF16_FLOPS = 989e12     # H100 SXM, bf16 on the tensor cores, dense
-PEAK_BYTES = 3.35e12         # H100 SXM, HBM3
-SMS, LANES = 132, 128        # H100 SXM: SMs, lanes issued a cycle per SM
-MMA_DESIGN = "mma.sync m16n8k16"
 MMA_ENTRIES = {              # the bf16 tensor-core kernels at K = 128
     ("visit_scan", "closest"): "visit_scan_mma_kernelILi128ELb1E",
     ("visit_scan", "any"): "visit_scan_mma_kernelILi128ELb0E",
@@ -322,19 +240,6 @@ MMA_ENTRIES = {              # the bf16 tensor-core kernels at K = 128
         "visit_scan_instanced_mma_kernelILi128ELb0E",
     ("pair_scan", "closest"): "pair_scan_mma_kernelILi128ELb1E",
     ("pair_scan", "any"): "pair_scan_mma_kernelILi128ELb0E",
-}
-MMA_PAIRS_PER_LANE = 4       # a lane's pairs per group: 4 rays, 1 triangle
-FLOP_PER_PAIR = 80           # 40 FMAs per ray-triangle test
-AFFINE_FLOP = 42             # K2: a ray's object-space features per visit
-REPLACES = {
-    "visit_scan": "lumenrenderer_tpu/ops/pallas/intersect.py:325",
-    "visit_scan_instanced": "lumenrenderer_tpu/ops/pallas/instanced.py:168",
-    "pair_scan": "lumenrenderer_tpu/ops/pallas/pair_intersect.py:129",
-    "tree_walk": "lumenrenderer_tpu/accel/tiled.py:113 (XLA while_loop, no "
-                 "Pallas kernel)",
-    "bvh_traverse": "lumenrenderer_tpu/accel/traverse.py:60 "
-                    "_traverse_scalar (XLA while_loop under vmap, no Pallas "
-                    "kernel)",
 }
 
 
@@ -350,32 +255,15 @@ def smi_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_time_ms(fn, reps: int = 5) -> float:
-    """Mean device time of fn() over reps launches, after one warm-up."""
-    import torch
-
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def timed_frames(render_one, frames: int) -> float:
-    """ms per frame of `frames` calls of render_one(), on the host clock
-    around work that ends in a device synchronisation."""
-    import torch
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(frames):
-        render_one()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / frames * 1e3
+def _run_frames(r, cam, n, seed: int = 0):
+    """n frames of Renderer r from init_state(seed): (state, the first
+    frame's AOVs, the last frame's AOVs, whether any frame overflowed)."""
+    st, first = r.render_frame(r.init_state(seed), cam)
+    last, overflow = first, r.frame_stats["overflow"]
+    for _ in range(n - 1):
+        st, last = r.render_frame(st, cam)
+        overflow |= r.frame_stats["overflow"]
+    return st, first, last, overflow
 
 
 def phase_environment():
@@ -393,16 +281,13 @@ def phase_environment():
 def phase_build():
     from lumenrenderer_tpu_torch.ops import build
 
-    t0 = time.perf_counter()
     results = build.build_libraries(KERNELS, force=True)
     for name in KERNELS:
-        seconds, log = results[name]
+        log = results[name][1]
         ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln
                  or "spill" in ln]
-        say("2 build", kernel=name, seconds=f"{seconds:.2f}",
-            library=build.library_path(name).name,
+        say("2 build", kernel=name, library=build.library_path(name).name,
             ptxas=repr(" | ".join(ptxas)))
-    say("2 build", wall_seconds=f"{time.perf_counter() - t0:.2f}")
 
 
 def _scene(dev):
@@ -498,93 +383,28 @@ def _compare(kern, twin, closest, low_bits):
     return int(diff.sum()), int((diff & ~tie).sum()), err
 
 
-def bound_ms(flop, nbytes, peak=PEAK_FLOPS):
-    """(least ms, what sets it) for `flop` operations at `peak` flop/s (fp32
-    by default) and `nbytes`."""
-    ops_ms = flop / peak * 1e3
-    bytes_ms = nbytes / PEAK_BYTES * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
-                                                              "bytes")
-
-
-def _nbytes(*tensors):
-    return sum(x.numel() * x.element_size() for x in tensors)
-
-
-def _live_tris(feats, k):
-    """(C,) live triangles per cluster (or unit mesh cluster)."""
-    from lumenrenderer_tpu_torch.ops.visit_scan import slab_layout
-
-    return slab_layout(feats, k)[1].double()
-
-
-def visit_flop(live_rays, live_tris, sel, ran):
-    """Flop of the visits that tiles run: live_rays (T,) per tile, live_tris
-    (C,) per cluster, sel (T, mv) cluster ids, ran (T,) visits run."""
-    import torch
-
-    sel = sel.long().clamp(0, live_tris.shape[0] - 1)
-    mask = torch.arange(sel.shape[1], device=sel.device)[None] < ran[:, None]
-    return FLOP_PER_PAIR * float((live_rays.double()[:, None]
-                                  * live_tris[sel] * mask).sum())
-
-
 def hold_against_twin(phase, label, passes, subset, kernel, twin, low_bits,
-                      exact_bits, work):
+                      check):
     """Each pass's subset through kernel and twin, in both modes: raise
-    unless at least MATCH_FRACTION of keys (bits) are identical and every
-    other key is a tie (exact_bits: every bit identical); print times, and
-    the bound of the subset and of the full pass from `work(q, args,
-    closest, is_subset)` -> (flop, bytes, extra fields to print). Returns per
-    mode max_abs_err, mismatches, and means over the passes of ms,
-    plain_ms, bound_ms, full_pass_ms and full_pass_bound_ms, with
-    bound_by."""
-    import torch
-
-    results = {}
+    unless at least MATCH_FRACTION of keys are identical and every other
+    key is a tie, and every bit is identical; then `check(q, args,
+    closest)`, which raises."""
     for mode, closest in (("closest", True), ("any", False)):
-        worst, total, rows = 0.0, 0, []
         for name, q in passes.items():
             args = subset(q)
             kw = dict(q["kw"], closest=closest)
             kern = kernel(*args, **kw)
             ref = twin(*args, **kw)
-            torch.cuda.synchronize()
-            lb = low_bits(q)
-            mism, bad, err = _compare(kern, ref, closest, lb)
+            mism, bad, err = _compare(kern, ref, closest, low_bits(q))
             rays = kern.numel()
+            say(phase, kernel=label, mode=mode, rays=name, rays_n=rays,
+                mismatches=mism, non_ties=bad, max_abs_err=err)
             if (mism > (1 - MATCH_FRACTION) * rays or (closest and bad)
-                    or (exact_bits and not closest and mism)):
+                    or (not closest and mism)):
                 raise AssertionError(
                     f"{label} {mode} vs twin on the {name} pass: {mism} of "
                     f"{rays} differ, {bad} not ties")
-            ms = cuda_time_ms(lambda: kernel(*args, **kw))
-            plain_ms = cuda_time_ms(lambda: twin(*args, **kw), reps=2)
-            full_ms = cuda_time_ms(lambda: kernel(*q["args"], **kw))
-            flop, nb, extra = work(q, args, closest, True)
-            b_ms, b_by = bound_ms(flop, nb)
-            f_flop, f_nb, f_extra = work(q, q["args"], closest, False)
-            fb_ms, fb_by = bound_ms(f_flop, f_nb)
-            say(phase, kernel=label, mode=mode, rays=name, scope="subset",
-                rays_n=rays, mismatches=mism, non_ties=bad, max_abs_err=err,
-                kernel_ms=f"{ms:.4f}", twin_ms=f"{plain_ms:.4f}",
-                **extra, flop=f"{flop:.4g}", bound_ms=f"{b_ms:.4f}",
-                bound_by=b_by, share=f"{b_ms / ms:.3f}")
-            say(phase, kernel=label, mode=mode, rays=name, scope="full",
-                full_pass_kernel_ms=f"{full_ms:.4f}", **f_extra,
-                flop=f"{f_flop:.4g}", bytes=f_nb, bound_ms=f"{fb_ms:.4f}",
-                bound_by=fb_by, share=f"{fb_ms / full_ms:.3f}")
-            worst = max(worst, err)
-            total += mism
-            rows.append((ms, plain_ms, b_ms, full_ms, fb_ms, flop, nb))
-        mean = [sum(r[i] for r in rows) / len(rows) for i in range(5)]
-        results[mode] = {
-            "max_abs_err": worst, "mismatches": total, "ms": mean[0],
-            "plain_ms": mean[1], "bound_ms": mean[2],
-            "bound_by": bound_ms(sum(r[5] for r in rows),
-                                 sum(r[6] for r in rows))[1],
-            "full_pass_ms": mean[3], "full_pass_bound_ms": mean[4]}
-    return results
+            check(q, args, closest)
 
 
 def phase_kernel_vs_twin(dev, w=W, h=H, n_tiles=SUBSET_TILES):
@@ -598,20 +418,13 @@ def phase_kernel_vs_twin(dev, w=W, h=H, n_tiles=SUBSET_TILES):
         sc, cs, camf(w / h).to(dev), dev, w, h,
         lambda o, d, tn, tx: tiled.scan_inputs(cs, o, d, tn, tx, mv),
         primary=True)
-    live_tris = _live_tris(cs.tri_feat, 128)
-    for name, q in passes.items():
-        say("3 kernel", rays=name, full_pass_tiles=q["args"][0].shape[0],
-            subset_tiles=n_tiles,
-            listed_visits_per_tile=f"{float(q['args'][3].float().mean()):.3f}")
-
-    return _hold_k1("3 kernel", passes, live_tris, n_tiles)
+    _hold_k1("3 kernel", passes, n_tiles)
 
 
-def _hold_k1(phase, passes, live_tris, n_tiles):
+def _hold_k1(phase, passes, n_tiles):
     """hold_against_twin for K1 on `passes` (each tiled.scan_inputs, all of
-    one ClusterSet, whose cached kernel layout the kernel takes), with K1's
-    flop from its own visit counter, checked against the replay of its vote
-    on the subset."""
+    one ClusterSet, whose cached kernel layout the kernel takes), its visit
+    counter held against the replay of its vote on each subset."""
     import torch
 
     from lumenrenderer_tpu_torch.ops import visit_scan as vs
@@ -621,29 +434,21 @@ def _hold_k1(phase, passes, live_tris, n_tiles):
     def kernel(*args, **kw):
         return vs.visit_scan(*args, **kw, layout=layout)
 
-    def work(q, args, closest, is_subset):
+    def counter(q, args, closest):
         kw = dict(q["kw"], closest=closest)
-        rf_t, feats, sel, nv, tnb = args
-        visits = torch.empty(rf_t.shape[0], dtype=torch.int32,
-                             device=rf_t.device)
+        visits = torch.empty(args[0].shape[0], dtype=torch.int32,
+                             device=args[0].device)
         kernel(*args, **kw, visits=visits)
-        if is_subset:
-            ref = vs.executed_visits_ref(*args, **kw)
-            if not torch.equal(visits, ref):
-                raise AssertionError(
-                    f"K1's visit counter differs from executed_visits_ref on "
-                    f"{int((visits != ref).sum())} of {visits.numel()} tiles")
-        live_rays = (rf_t[..., 11] >= rf_t[..., 10]).sum(1)
-        flop = visit_flop(live_rays, live_tris, sel, visits)
-        nb = _nbytes(rf_t, feats, sel, nv, tnb) + rf_t.shape[0] * 128 * 4
-        return flop, nb, {
-            "visits_per_tile": f"{float(visits.float().mean()):.3f}"}
+        ref = vs.executed_visits_ref(*args, **kw)
+        if not torch.equal(visits, ref):
+            raise AssertionError(
+                f"K1's visit counter differs from executed_visits_ref on "
+                f"{int((visits != ref).sum())} of {visits.numel()} tiles")
 
-    return hold_against_twin(
+    hold_against_twin(
         phase, "visit_scan", passes,
         lambda q: _tile_subset(q["args"], 1, n_tiles), kernel,
-        vs.visit_scan_ref, lambda q: q["kw"]["low_bits"], exact_bits=True,
-        work=work)
+        vs.visit_scan_ref, lambda q: q["kw"]["low_bits"], counter)
 
 
 def phase_small_slice(dev, w=SMALL_W, h=SMALL_H):
@@ -737,7 +542,7 @@ def phase_small_restir(dev, w=SMALL_W, h=SMALL_H):
         raise AssertionError(f"kernel and twin ReSTIR frames differ: {frac}")
 
 
-def phase_full_slice(dev, w=W, h=H, frames=TIMED_FRAMES):
+def phase_full_slice(dev, w=W, h=H, frames=LAUNCH_FRAMES):
     import torch
 
     from lumenrenderer_tpu_torch.integrator.wavefront import RenderConfig
@@ -750,31 +555,15 @@ def phase_full_slice(dev, w=W, h=H, frames=TIMED_FRAMES):
     cfg = RenderConfig(width=w, height=h, max_depth=5, bsdf="disney",
                        light_strategy="mis")
     r = Renderer(sc, cfg, accel="tiled", device=dev)
-    torch.cuda.reset_peak_memory_stats(dev)
     vs.reset_launches()
-    st = r.init_state(0)
-    st, _ = r.render_frame(st, cam)
-    warm_ms = r.frame_stats["Total Frame Time"]
-    overflow = r.frame_stats["overflow"]
-    torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    for _ in range(frames):
-        st, _ = r.render_frame(st, cam)
-        overflow = overflow or r.frame_stats["overflow"]
-    torch.cuda.synchronize(dev)
-    ms = (time.perf_counter() - t0) / frames * 1e3
-    launches = dict(vs.LAUNCHES)
-    per_frame = {k: v / (frames + 1) for k, v in launches.items()}
-    peak = torch.cuda.max_memory_allocated(dev)
+    st, _, _, overflow = _run_frames(r, cam, frames)
+    per_frame = {k: v / frames for k, v in vs.LAUNCHES.items()}
     img = st.accum
     finite = bool(torch.isfinite(img).all())
     mean = float(img.mean())
     say("5 full slice", size=f"{w}x{h}", tris=sc.num_triangles,
         clusters=r.clusters.num_clusters, max_visits=r.max_visits,
-        warmup_ms=f"{warm_ms:.1f}", ms_per_frame=f"{ms:.1f}",
-        primary_rays_per_s=f"{w * h / ms * 1e3:.4g}",
-        peak_mem_gib=f"{peak / 2**30:.2f}", overflow=overflow,
-        mean=f"{mean:.5f}", finite=finite, launches=json.dumps(launches),
+        overflow=overflow, mean=f"{mean:.5f}", finite=finite,
         launches_per_frame=json.dumps(per_frame))
     if not finite or mean <= 0 or overflow:
         raise AssertionError(f"bad frame: finite={finite} mean={mean} "
@@ -783,61 +572,6 @@ def phase_full_slice(dev, w=W, h=H, frames=TIMED_FRAMES):
     if per_frame != {"closest": cfg.max_depth, "any": cfg.max_depth}:
         raise AssertionError(f"K1 launches per frame {per_frame}, expected "
                              f"{cfg.max_depth} in each mode")
-    _profile_frame("5 profile", lambda: r.render_frame(st, cam),
-                   "visit_scan_kernel")
-    return launches
-
-
-def _device_kernels(fn):
-    """fn() once under torch.profiler: (wall ms, [(device ms, kernel name,
-    calls)] sorted by time)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-
-    def dev_ms(e):
-        us = getattr(e, "self_device_time_total", None)
-        return (us if us is not None else e.self_cuda_time_total) / 1e3
-
-    # device-side events only: an aten op's row repeats its kernels' time,
-    # and a range's annotation on the device timeline (the program's spans
-    # record under the profiler) spans the kernels inside it
-    return wall_ms, sorted(((dev_ms(e), e.key, e.count) for e in events
-                            if e.device_type == torch.autograd.DeviceType.CUDA
-                            and not getattr(e, "is_user_annotation", False)
-                            and dev_ms(e) > 0), reverse=True)
-
-
-def _profile_frame(phase, render_one, kernel, also=()):
-    """One more frame, render_one(), under torch.profiler: device kernel
-    time, idle share of the frame's wall time, the share of the kernel whose
-    name contains `kernel` (and of each in `also`), the top kernels."""
-    wall_ms, kernels = _device_kernels(render_one)
-    device_ms = sum(k[0] for k in kernels)
-    if device_ms <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    k_ms = sum(k[0] for k in kernels if kernel in k[1])
-    say(phase, profile=kernel, frame_wall_ms=f"{wall_ms:.1f}",
-        device_kernel_ms=f"{device_ms:.1f}",
-        idle_share=f"{1 - device_ms / wall_ms:.3f}",
-        kernel_ms=f"{k_ms:.1f}",
-        kernel_share_of_device=f"{k_ms / device_ms:.3f}",
-        kernels=len(kernels), launches=sum(k[2] for k in kernels))
-    for name in also:
-        a_ms = sum(k[0] for k in kernels if name in k[1])
-        say(phase, profile=name, kernel_ms=f"{a_ms:.2f}",
-            kernel_share_of_device=f"{a_ms / device_ms:.4f}",
-            calls=sum(k[2] for k in kernels if name in k[1]))
-    for ms, key, count in kernels[:12]:
-        say(phase, kernel=repr(key[:90]), ms=f"{ms:.2f}", calls=count)
 
 
 def _instanced():
@@ -849,8 +583,7 @@ def _instanced():
 def phase_instanced_kernel_vs_twin(dev, w=W, h=H, n_tiles=SUBSET_TILES):
     import torch
 
-    from lumenrenderer_tpu_torch.accel import stream, tiled, two_level
-    from lumenrenderer_tpu_torch.ops import visit_scan as vs
+    from lumenrenderer_tpu_torch.accel import stream, two_level
     from lumenrenderer_tpu_torch.ops import visit_scan_instanced as vsi
     from lumenrenderer_tpu_torch.render.renderer import KERNEL_VISIT_CAP
 
@@ -864,66 +597,25 @@ def phase_instanced_kernel_vs_twin(dev, w=W, h=H, n_tiles=SUBSET_TILES):
         sc, cs, camf(w / h).to(dev), dev, w, h,
         lambda o, d, tn, tx: two_level.scan_inputs(ics, o, d, tn, tx, mv),
         primary=True)
-    for name, q in passes.items():
-        nv = q["args"][5]
-        say("6 instanced kernel", rays=name, units=ics.num_clusters,
-            unique_meshes=ics.tri_feat.shape[0], max_visits=mv,
-            full_pass_tiles=nv.shape[0], subset_tiles=n_tiles,
-            mean_visits_live_tiles=f"{float(nv[nv > 0].float().mean()):.2f}",
-            overflow=bool(q["overflow"]))
-    live_tris = _live_tris(ics.tri_feat, ics.tri_id.shape[1])
-    full_visits = {True: [], False: []}
 
-    def work(q, args, closest, is_subset):
-        """K2's flop from its own visit counter, checked against the replay
-        of its vote on the subset."""
+    def counter(q, args, closest):
+        """K2's visit counter against the replay of its vote."""
         kw = dict(q["kw"], closest=closest)
         tiles = args[0].shape[0]
         visits = torch.empty(tiles, dtype=torch.int32, device=dev)
         vsi.visit_scan_instanced(*args, **kw, visits=visits)
-        if is_subset:
-            ref = vsi.executed_visits_instanced_ref(*args, **kw)
-            if not torch.equal(visits, ref):
-                raise AssertionError(
-                    f"K2's visit counter differs from "
-                    f"executed_visits_instanced_ref on "
-                    f"{int((visits != ref).sum())} of {tiles} tiles")
-        else:
-            full_visits[closest].append(float(visits.float().mean()))
-        rayblk, wnd, feats, _, _, nv, _ = args
-        live_rays = (wnd[..., 1] >= wnd[..., 0]).sum(1)
-        flop = (visit_flop(live_rays, live_tris, args[3], visits)
-                + AFFINE_FLOP * float((live_rays * visits).sum()))
-        # the rays' o and d (not rayblk's two padding rows, which the kernel
-        # never reads), their windows (each ray's 32 B row is one memory
-        # sector), the table and, per visit run, its cluster id, entry t and
-        # 12-float affine; keys (bits) and the counter out
-        nb = (_nbytes(rayblk[:, :6], wnd, feats, nv)
-              + int(visits.sum()) * 56 + tiles * (128 + 1) * 4)
-        return flop, nb, {
-            "visits_per_tile": f"{float(visits.float().mean()):.3f}"}
+        ref = vsi.executed_visits_instanced_ref(*args, **kw)
+        if not torch.equal(visits, ref):
+            raise AssertionError(
+                f"K2's visit counter differs from "
+                f"executed_visits_instanced_ref on "
+                f"{int((visits != ref).sum())} of {tiles} tiles")
 
-    results = hold_against_twin(
+    hold_against_twin(
         "6 instanced kernel", "visit_scan_instanced", passes,
         lambda q: _tile_subset(q["args"], 2, n_tiles),
         vsi.visit_scan_instanced, vsi.visit_scan_instanced_ref,
-        lambda q: q["kw"]["low_bits"], exact_bits=True, work=work)
-    for mode, closest in (("closest", True), ("any", False)):
-        runs = full_visits[closest]
-        results[mode]["visits_per_tile"] = sum(runs) / len(runs)
-    # K1 on the same passes through the flattened clusters, for scale
-    flat = _secondary_passes(
-        sc, cs, camf(w / h).to(dev), dev, w, h,
-        lambda o, d, tn, tx: tiled.scan_inputs(
-            cs, o, d, tn, tx, min(cs.num_clusters, KERNEL_VISIT_CAP)))
-    for name, q in flat.items():
-        for mode in ("closest", "any"):
-            ms = cuda_time_ms(lambda: vs.visit_scan(
-                *q["args"], **q["kw"], closest=mode == "closest"))
-            say("6 instanced kernel", reference="visit_scan, flattened",
-                clusters=cs.num_clusters, rays=name, mode=mode,
-                full_pass_kernel_ms=f"{ms:.4f}")
-    return results
+        lambda q: q["kw"]["low_bits"], counter)
 
 
 def _aov_agreement(aux, ref, low_bits):
@@ -981,63 +673,36 @@ def phase_two_level_slice(dev, w=W, h=H, frames=SLICE_FRAMES):
     dyn = DynamicScene(builder)
     r = Renderer(dyn.build(), cfg, accel="two_level", builder=builder,
                  dynamic=dyn, device=dev)
-    torch.cuda.reset_peak_memory_stats(dev)
     vsi.reset_launches()
-    st, aux0 = r.render_frame(r.init_state(0), cam)
-    warm_ms = r.frame_stats["Total Frame Time"]
-    run = {"st": st, "overflow": r.frame_stats["overflow"]}
-
-    def one():
-        run["st"], _ = r.render_frame(run["st"], cam)
-        run["overflow"] |= r.frame_stats["overflow"]
-
-    ms = timed_frames(one, frames)
-    overflow = run["overflow"]
+    st, aux0, _, overflow = _run_frames(r, cam, frames)
     launches = dict(vsi.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated(dev)
-    img = run["st"].accum
+    img = st.accum
     finite = bool(torch.isfinite(img).all())
     mean = float(img.mean())
     say("7 two-level slice", size=f"{w}x{h}", tris=r.scene.num_triangles,
         units=r.instanced.num_clusters, max_visits=r.max_visits,
-        warmup_ms=f"{warm_ms:.1f}", ms_per_frame=f"{ms:.1f}",
-        peak_mem_gib=f"{peak / 2**30:.2f}", overflow=overflow,
-        tri_feat_bytes=r.instanced.tri_feat.numel() * 4, mean=f"{mean:.5f}",
-        finite=finite, launches=json.dumps(launches))
+        overflow=overflow, mean=f"{mean:.5f}", finite=finite,
+        launches=json.dumps(launches))
     if not finite or mean <= 0 or overflow:
         raise AssertionError(f"bad two-level frame: finite={finite} "
                              f"mean={mean} overflow={overflow}")
     if min(launches.values()) <= 0:
         raise AssertionError(f"K2 not launched on the two-level path: "
                              f"{launches}")
-    _profile_frame("7 profile", one, "visit_scan_instanced_kernel")
 
     # the same scene and seed through the flattened tiled accel
     rt = Renderer(builder.build(), cfg, accel="tiled", device=dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    st_t, aux_t = rt.render_frame(rt.init_state(0), cam)
-    run_t = {"st": st_t}
-
-    def one_t():
-        run_t["st"], _ = rt.render_frame(run_t["st"], cam)
-
-    ms_t = timed_frames(one_t, frames)
-    say("7 two-level slice", reference="tiled", ms_per_frame=f"{ms_t:.1f}",
-        peak_mem_gib=f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f}",
-        clusters=rt.clusters.num_clusters,
-        tri_feat_bytes=rt.clusters.tri_feat.numel() * 4,
-        overflow=rt.frame_stats["overflow"])
+    st_t, aux_t, _, _ = _run_frames(rt, cam, frames)
     low_bits = max(
         _key_low_bits(r.instanced.num_clusters, 128, r.max_visits),
         _key_low_bits(rt.clusters.num_clusters, 128, rt.max_visits))
     _hold_frames("7 two-level slice", "tiled", aux0, aux_t, mean,
-                 float(run_t["st"].accum.mean()), low_bits)
+                 float(st_t.accum.mean()), low_bits)
 
     # dynamic: move instance 0 out of view through its Transform
     st_before, _ = r.render_frame(r.init_state(1), cam)
     dyn.transform(0).translation = (50.0, 0.0, 0.0)
     st_moved, aux_moved = r.render_frame(r.init_state(1), cam)
-    rebake_ms = r.frame_stats["Rebake Time"]
     changed = float((st_moved.accum - st_before.accum).abs().amax())
     moved = _instanced()[0]
     moved.instances[0].transform = (
@@ -1047,14 +712,13 @@ def phase_two_level_slice(dev, w=W, h=H, frames=SLICE_FRAMES):
                   device=dev)
     st_f, aux_f = rf.render_frame(rf.init_state(1), cam)
     say("7 two-level slice", dynamic="instance 0 +50 x",
-        rebake_ms=f"{rebake_ms:.3f}", max_pixel_change=f"{changed:.4g}",
+        max_pixel_change=f"{changed:.4g}",
         overflow=r.frame_stats["overflow"])
     if changed <= 0.0 or r.frame_stats["overflow"]:
         raise AssertionError("moving instance 0 did not change the image")
     _hold_frames("7 two-level slice", "a fresh build at the new transform",
                  aux_moved, aux_f, float(st_moved.accum.mean()),
                  float(st_f.accum.mean()), low_bits)
-    return launches
 
 
 def phase_pair_kernel_vs_twin(dev, w=W, h=H, n_tiles=SUBSET_TILES):
@@ -1083,48 +747,22 @@ def phase_pair_kernel_vs_twin(dev, w=W, h=H, n_tiles=SUBSET_TILES):
         return (rf[idx].reshape(-1, 12).contiguous(), feats,
                 tile_cluster[idx].contiguous())
 
-    for name, q in passes.items():
+    def dead_tiles(q, args, closest):
+        """On every tile of the full pass, every dead tile (each pair dead)
+        holds the miss key (0)."""
         rf = q["args"][0].reshape(-1, 128, 12)
-        live_tiles = int((rf[..., 11] >= rf[..., 10]).any(1).sum())
-        live_rays = int(q["live"].sum())
-        say("8 pair kernel", rays=name, pair_tiles=rf.shape[0],
-            live_pair_tiles=live_tiles, subset_tiles=n_tiles,
-            admitted_pairs=q["pairs"],
-            pairs_per_live_ray=f"{q['pairs'] / max(live_rays, 1):.3f}",
-            pairs_per_ray=f"{q['pairs'] / q['r']:.3f}",
-            overflow=bool(q["overflow"]))
-    live_tris = _live_tris(cs.tri_feat, 128)
-
-    def work(q, args, closest, is_subset):
-        """K3's flop over its live pair tiles (dead tiles do no work);
-        bytes of the live tiles' rows and clusters, the dead tiles'
-        windows, every output, and the table. On the full pass, every dead
-        tile must hold the miss key (0)."""
-        rf_pairs, feats, tile_cluster = args
-        rf = rf_pairs.reshape(-1, 128, 12)
         live = (rf[..., 11] >= rf[..., 10]).sum(1)
-        n_live = int((live > 0).sum())
-        extra = {"live_pair_tiles": n_live}
-        if not is_subset:
-            out = ps.pair_scan(*args, **q["kw"], closest=closest)
-            dead = out.reshape(-1, 128)[live == 0]
-            miss = vs.KEY_MISS if closest else 0
-            if not bool((dead == miss).all()):
-                raise AssertionError(
-                    f"K3 wrote a hit on {int((dead != miss).sum())} pairs "
-                    f"of dead tiles")
-            extra["dead_tiles_miss"] = dead.shape[0]
-        flop = FLOP_PER_PAIR * float(
-            (live.double() * live_tris[tile_cluster.long()]).sum())
-        n_dead = rf.shape[0] - n_live
-        nb = (n_live * (128 * 12 + 1) * 4 + n_dead * 128 * 2 * 4
-              + rf.shape[0] * 128 * 4 + _nbytes(feats))
-        return flop, nb, extra
+        out = ps.pair_scan(*q["args"], **q["kw"], closest=closest)
+        dead = out.reshape(-1, 128)[live == 0]
+        miss = vs.KEY_MISS if closest else 0
+        if not bool((dead == miss).all()):
+            raise AssertionError(
+                f"K3 wrote a hit on {int((dead != miss).sum())} pairs "
+                f"of dead tiles")
 
-    return hold_against_twin(
+    hold_against_twin(
         "8 pair kernel", "pair_scan", passes, subset, ps.pair_scan,
-        ps.pair_scan_ref, lambda q: q["kw"]["k_bits"], exact_bits=True,
-        work=work)
+        ps.pair_scan_ref, lambda q: q["kw"]["k_bits"], dead_tiles)
 
 
 def phase_pair_slice(dev, w=W, h=H, frames=SLICE_FRAMES):
@@ -1158,25 +796,20 @@ def phase_pair_slice(dev, w=W, h=H, frames=SLICE_FRAMES):
 
     def frames_of(isect, occl, n, flags=()):
         """n frames from generator seed 0: (the first frame's outputs, the
-        mean of the frames' image means, ms per frame after the first, any
-        overflow of a closest or an occlusion query)."""
+        mean of the frames' image means, any overflow of a closest or an
+        occlusion query)."""
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
         uni = sampling.generator_uniforms(gen)
-        first, means, ovf = [], [], []
-
-        def one():
+        first, means, ovf = None, [], []
+        for i in range(n):
             with torch.no_grad():
-                out = wf.render_wavefront(sc, isect, occl, cam, uni,
-                                          len(means), cfg)
+                out = wf.render_wavefront(sc, isect, occl, cam, uni, i, cfg)
             means.append(wf.merge_channels(out).mean())
             ovf.append(out["overflow"])
-            if not first:
-                first.append(out)
-
-        one()
-        ms = timed_frames(one, n - 1) if n > 1 else float("nan")
-        return (first[0], float(torch.stack(means).mean()), ms,
+            if i == 0:
+                first = out
+        return (first, float(torch.stack(means).mean()),
                 bool(torch.stack(ovf + list(flags)).any()))
 
     # the smallest pair cap, from PAIRS_PER_RAY up, whose first frame does
@@ -1184,7 +817,7 @@ def phase_pair_slice(dev, w=W, h=H, frames=SLICE_FRAMES):
     per_ray = PAIRS_PER_RAY
     while True:
         flags = []
-        overflow = frames_of(*pair_fns(per_ray, flags), 1, flags)[3]
+        overflow = frames_of(*pair_fns(per_ray, flags), 1, flags)[2]
         say("9 pair slice", max_pairs_per_ray=per_ray,
             first_frame_overflow=overflow)
         if not overflow:
@@ -1195,16 +828,13 @@ def phase_pair_slice(dev, w=W, h=H, frames=SLICE_FRAMES):
                                  f"{2 * PAIRS_PER_RAY} pairs per ray")
     flags = []
     isect, occl = pair_fns(per_ray, flags)
-    torch.cuda.reset_peak_memory_stats(dev)
     ps.reset_launches()
-    out, mean, ms, overflow = frames_of(isect, occl, frames + 1, flags)
+    out, mean, overflow = frames_of(isect, occl, frames, flags)
     launches = dict(ps.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated(dev)
     img = wf.merge_channels(out)
     finite = bool(torch.isfinite(img).all())
     say("9 pair slice", size=f"{w}x{h}", clusters=cs.num_clusters,
-        max_visits=mv, max_pairs_per_ray=per_ray, ms_per_frame=f"{ms:.1f}",
-        peak_mem_gib=f"{peak / 2**30:.2f}", overflow=overflow,
+        max_visits=mv, max_pairs_per_ray=per_ray, overflow=overflow,
         mean=f"{mean:.5f}", finite=finite, launches=json.dumps(launches))
     if not finite or mean <= 0 or overflow:
         raise AssertionError(f"bad pair frame: finite={finite} mean={mean} "
@@ -1212,18 +842,11 @@ def phase_pair_slice(dev, w=W, h=H, frames=SLICE_FRAMES):
     if min(launches.values()) <= 0:
         raise AssertionError(f"K3 not launched on the pair path: "
                              f"{launches}")
-    _profile_frame("9 profile", lambda: frames_of(isect, occl, 1, flags),
-                   "pair_scan_kernel")
     t_isect, t_occl = tiled.tiled_intersectors(cs, mv, decode=False)
-    torch.cuda.reset_peak_memory_stats(dev)
-    out_t, mean_t, ms_t, ovf_t = frames_of(t_isect, t_occl, frames + 1)
-    say("9 pair slice", reference="tiled", ms_per_frame=f"{ms_t:.1f}",
-        peak_mem_gib=f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f}",
-        overflow=ovf_t)
+    out_t, mean_t, _ = frames_of(t_isect, t_occl, frames)
     # the pair key keeps more bits of t than the tiled key
     _hold_frames("9 pair slice", "tiled", out, out_t, mean, mean_t,
                  _key_low_bits(cs.num_clusters, 128, mv))
-    return launches
 
 
 def _restir_visibility_k1(r, st, cam, dev):
@@ -1282,8 +905,7 @@ def _restir_visibility_k1(r, st, cam, dev):
                            rad_all=rad_all)
         di.visibility_pass(sc, sd, res_s, capture("visibility_2"), hit,
                            rad_all=rad_all)
-        _hold_k1("10 restir K1", captured,
-                 _live_tris(r.clusters.tri_feat, 128), SUBSET_TILES)
+        _hold_k1("10 restir K1", captured, SUBSET_TILES)
 
 
 def phase_restir_slice(dev, w=W, h=H, frames=SLICE_FRAMES):
@@ -1297,20 +919,13 @@ def phase_restir_slice(dev, w=W, h=H, frames=SLICE_FRAMES):
     cfg = _restir_config(w, h)
     r = Renderer(sc, cfg, accel="tiled", device=dev)
     vs.reset_launches()
-    st, _ = r.render_frame(r.init_state(0), cam)
-    run = {"st": st, "overflow": r.frame_stats["overflow"],
-           "max_m": [float(st.restir.reservoir.m.max())]}
-
-    def one():
-        run["st"], _ = r.render_frame(run["st"], cam)
-        run["overflow"] |= r.frame_stats["overflow"]
-        run["max_m"].append(float(run["st"].restir.reservoir.m.max()))
-
+    st, overflow, max_m = r.init_state(0), False, []
     for _ in range(frames):
-        one()
+        st, _ = r.render_frame(st, cam)
+        overflow |= r.frame_stats["overflow"]
+        max_m.append(float(st.restir.reservoir.m.max()))
     launches = dict(vs.LAUNCHES)
-    per_frame = {k: v / (frames + 1) for k, v in launches.items()}
-    st = run["st"]
+    per_frame = {k: v / frames for k, v in launches.items()}
     img = st.accum
     finite = bool(torch.isfinite(img).all())
     mean = float(img.mean())
@@ -1322,19 +937,18 @@ def phase_restir_slice(dev, w=W, h=H, frames=SLICE_FRAMES):
     idx_ok = bool(((res.light_idx >= 0) & (res.light_idx < n_lights)).all())
     say("10 restir slice", size=f"{w}x{h}", tris=sc.num_triangles,
         lights=n_lights, clusters=r.clusters.num_clusters,
-        max_visits=r.max_visits, overflow=run["overflow"],
+        max_visits=r.max_visits, overflow=overflow,
         mean=f"{mean:.5f}", finite=finite, valid=bool(st.restir.valid),
-        max_m=json.dumps(run["max_m"]), reservoir_ok=fields_ok,
-        light_idx_ok=idx_ok, launches=json.dumps(launches),
-        launches_per_frame=json.dumps(per_frame))
-    if not finite or mean <= 0 or run["overflow"]:
+        max_m=json.dumps(max_m), reservoir_ok=fields_ok,
+        light_idx_ok=idx_ok, launches_per_frame=json.dumps(per_frame))
+    if not finite or mean <= 0 or overflow:
         raise AssertionError(f"bad ReSTIR frame: finite={finite} mean={mean} "
-                             f"overflow={run['overflow']}")
+                             f"overflow={overflow}")
     if not (bool(st.restir.valid) and fields_ok and idx_ok
-            and run["max_m"][1] > run["max_m"][0]):
+            and max_m[1] > max_m[0]):
         raise AssertionError(f"bad reservoirs: valid={st.restir.valid} "
                              f"fields_ok={fields_ok} idx_ok={idx_ok} "
-                             f"max M per frame {run['max_m']}")
+                             f"max M per frame {max_m}")
     # primary + 4 bounces closest; 4 NEE shadow + 2 ReSTIR visibility any
     expect = {"closest": cfg.max_depth, "any": cfg.max_depth + 1}
     if per_frame != expect:
@@ -1354,18 +968,15 @@ def phase_restir_slice(dev, w=W, h=H, frames=SLICE_FRAMES):
     # the same scene and seed with NEE at depth 0 instead
     rn = Renderer(sc, _restir_config(w, h, use_restir=False), accel="tiled",
                   device=dev)
-    st_n, _ = rn.render_frame(rn.init_state(0), cam)
-    for _ in range(frames):
-        st_n, _ = rn.render_frame(st_n, cam)
+    st_n = _run_frames(rn, cam, frames)[0]
     ratio = mean / float(st_n.accum.mean())
     say("10 restir slice", reference="NEE, same scene and seed",
-        frames=frames + 1, mean_ratio=f"{ratio:.5f}",
+        frames=frames, mean_ratio=f"{ratio:.5f}",
         bound=json.dumps(RESTIR_RATIO))
     if not RESTIR_RATIO[0] < ratio < RESTIR_RATIO[1]:
         raise AssertionError(f"ReSTIR / NEE mean {ratio} outside "
                              f"{RESTIR_RATIO}")
-    _restir_visibility_k1(r, run["st"], cam, dev)
-    return launches
+    _restir_visibility_k1(r, st, cam, dev)
 
 
 def _walk_args(acc, o, d, tn, tx):
@@ -1380,27 +991,11 @@ def _walk_args(acc, o, d, tn, tx):
             acc.tree_child1, acc.tree_leaf_cluster)
 
 
-def _max_abs_diff(pairs) -> float:
-    """Largest |a - b| over the entries of the tensor pairs (0 where equal,
-    infinities and NaNs included)."""
-    import torch
-
-    worst = 0.0
-    for a, b in pairs:
-        a, b = a.double(), b.double()
-        same = (a == b) | (a.isnan() & b.isnan())
-        gap = (a - b).abs().nan_to_num(torch.inf, torch.inf)
-        diff = torch.where(same, 0.0, gap)
-        worst = max(worst, float(diff.max()) if diff.numel() else 0.0)
-    return worst
-
-
 def _hold_walk(phase, name, acc, rays, mv):
     """Kernel W against its twin on every tile of one pass: raw lists,
     entry t bits and counts identical, and so the sorted visit lists (sel,
-    nv, tnb, overflow); its largest difference from the twin (0), its time,
-    the work of the twin's stopped walk (its pops) and the bound; the
-    admitted clusters per tile from one uncapped call."""
+    nv, tnb, overflow); one uncapped call must overflow the cap on the
+    same tiles as the capped twin."""
     import torch
 
     from lumenrenderer_tpu_torch.accel import tiled
@@ -1408,17 +1003,8 @@ def _hold_walk(phase, name, acc, rays, mv):
 
     args = _walk_args(acc, *rays)
     kw = dict(tree_depth=acc.tree_depth, mv=mv, nodes=acc.tree_nodes)
-    tiles = args[0].shape[0]
-    pops = torch.empty(tiles, dtype=torch.int32, device=args[0].device)
-    pops_ref = torch.empty_like(pops)
-    kern = tw.tile_tree_visits(*args, **kw, pops=pops)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    ref = tw.tile_tree_visits_ref(*args, **kw, pops=pops_ref)
-    end.record()
-    torch.cuda.synchronize()
-    plain_ms = start.elapsed_time(end)
+    kern = tw.tile_tree_visits(*args, **kw)
+    ref = tw.tile_tree_visits_ref(*args, **kw)
     same = (torch.equal(kern[0], ref[0]) and torch.equal(kern[2], ref[2])
             and torch.equal(kern[1].view(torch.int32),
                             ref[1].view(torch.int32)))
@@ -1426,39 +1012,18 @@ def _hold_walk(phase, name, acc, rays, mv):
     lists = [tiled.visit_lists(acc, po, pd, ptn, ptx, mv, "tree", walk)[:4]
              for walk in (tw.tile_tree_visits, lambda *a, **k: ref)]
     same_lists = all(torch.equal(a, b) for a, b in zip(*lists))
-    err = _max_abs_diff([*zip(kern, ref), *zip(*lists)])
     if not (same and same_lists):
         raise AssertionError(f"W differs from its twin on the {name} pass: "
-                             f"raw lists equal {same}, sorted {same_lists}, "
-                             f"max_abs_err {err}")
-    ms = cuda_time_ms(lambda: tw.tile_tree_visits(*args, **kw))
-    count = ref[2].double()
-    inner = float((pops_ref.double() - count).sum())
-    ops = tw.BOX_TEST_OPS * (tiles + 2 * inner)
-    nb = _nbytes(*args) + tiles * (mv * 8 + 4)
-    b_ms, b_by = bound_ms(ops, nb)
-    over = float((count > mv).double().mean())
-    leaves = args[10].shape[0]
-    admitted = tw.tile_tree_visits(*args, **dict(kw, mv=leaves))[2]
-    admitted = admitted.double()
-    say(phase, kernel="tree_walk", rays=name, tiles=tiles,
+                             f"raw lists equal {same}, sorted {same_lists}")
+    count = ref[2]
+    admitted = tw.tile_tree_visits(*args, **dict(kw, mv=args[10].shape[0]))[2]
+    say(phase, kernel="tree_walk", rays=name, tiles=args[0].shape[0],
         tree_nodes=args[6].shape[0], tree_depth=acc.tree_depth, mv=mv,
-        identical=True, max_abs_err=err, kernel_ms=f"{ms:.4f}",
-        twin_ms=f"{plain_ms:.1f}",
-        pops_mean=f"{float(pops_ref.double().mean()):.2f}",
-        pops_max=int(pops_ref.max()),
-        kernel_pops_mean=f"{float(pops.double().mean()):.2f}",
-        kernel_pops_max=int(pops.max()),
-        admitted_mean=f"{float(admitted.mean()):.2f}",
-        admitted_p99=f"{float(admitted.quantile(0.99)):.1f}",
-        admitted_max=int(admitted.max()), share_over_mv=f"{over:.5f}",
-        overflow=bool(lists[0][3]), ops=f"{ops:.4g}", bytes=nb,
-        bound_ms=f"{b_ms:.5f}", bound_by=b_by, share=f"{b_ms / ms:.4f}")
+        identical=True, tiles_over_mv=int((count > mv).sum()),
+        overflow=bool(lists[0][3]))
     if not torch.equal(admitted > mv, count > mv):
         raise AssertionError(f"W's uncapped and capped calls disagree on "
                              f"the overflowing tiles of the {name} pass")
-    return {"ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "ops": ops, "bytes": nb, "max_abs_err": err}
 
 
 def _hold_small_frame(phase, scene, camf, dev, bind, scans,
@@ -1504,58 +1069,26 @@ def _hold_small_frame(phase, scene, camf, dev, bind, scans,
                              f"{frac}")
 
 
-def _mega_renderer(dev, w, h):
-    """The mega scene (built once) and its Renderer on `dev`, with the host
-    build seconds: the scene, the Renderer (clusters, their tree, the upload)
-    and, timed inside that build, the tree."""
-    from lumenrenderer_tpu_torch.accel import stream
-    from lumenrenderer_tpu_torch.integrator.wavefront import RenderConfig
-    from lumenrenderer_tpu_torch.render.renderer import Renderer
-    from lumenrenderer_tpu_torch.scene import presets
-
-    t0 = time.perf_counter()
-    builder, camf = presets.mega_scene(n_tris=MEGA_TRIS, n_lights=MEGA_LIGHTS)
-    sc = builder.build()
-    t1 = time.perf_counter()
-    cfg = RenderConfig(width=w, height=h, max_depth=5, bsdf="disney",
-                       light_strategy="mis")
-    box_tree, tree_s = stream.box_tree, []
-
-    def timed_tree(lo, hi):
-        t = time.perf_counter()
-        out = box_tree(lo, hi)
-        tree_s.append(time.perf_counter() - t)
-        return out
-
-    stream.box_tree = timed_tree
-    try:
-        r = Renderer(sc, cfg, accel="tiled", device=dev)
-    finally:
-        stream.box_tree = box_tree
-    t2 = time.perf_counter()
-    cs = r.clusters
-    say("11 mega build", tris=sc.num_triangles, lights=int(sc.lights.count),
-        clusters=cs.num_clusters,
-        live_tris_per_cluster=f"{float(cs.nlive.double().mean()):.2f}",
-        tree_nodes=cs.tree_lo.shape[0], tree_depth=cs.tree_depth,
-        tri_feat_bytes=cs.tri_feat.numel() * 4, max_visits=r.max_visits,
-        culling=r.culling, scene_s=f"{t1 - t0:.2f}",
-        renderer_s=f"{t2 - t1:.2f}", tree_s=f"{sum(tree_s):.2f}")
-    return r, camf
-
-
-def phase_mega(dev, w=W, h=H, frames=SLICE_FRAMES):
+def phase_mega(dev, w=W, h=H, frames=LAUNCH_FRAMES):
     import torch
 
     from lumenrenderer_tpu_torch.accel import tiled
-    from lumenrenderer_tpu_torch.core import sampling
-    from lumenrenderer_tpu_torch.integrator import wavefront as wf
+    from lumenrenderer_tpu_torch.integrator.wavefront import RenderConfig
     from lumenrenderer_tpu_torch.ops import tree_walk as tw
     from lumenrenderer_tpu_torch.ops import visit_scan as vs
+    from lumenrenderer_tpu_torch.render.renderer import Renderer
+    from lumenrenderer_tpu_torch.scene import presets
 
-    r, camf = _mega_renderer(dev, w, h)
-    cs, mv, cfg = r.clusters, r.max_visits, r.config
+    builder, camf = presets.mega_scene(n_tris=MEGA_TRIS, n_lights=MEGA_LIGHTS)
+    cfg = RenderConfig(width=w, height=h, max_depth=5, bsdf="disney",
+                       light_strategy="mis")
+    r = Renderer(builder.build(), cfg, accel="tiled", device=dev)
+    cs, mv = r.clusters, r.max_visits
     cam = camf(w / h)
+    say("11 mega build", tris=r.scene.num_triangles,
+        lights=int(r.scene.lights.count), clusters=cs.num_clusters,
+        tree_nodes=cs.tree_lo.shape[0], tree_depth=cs.tree_depth,
+        max_visits=mv, culling=r.culling)
 
     # W and K1 against their twins on the passes of one frame
     def capture(o, d, tn, tx):
@@ -1565,14 +1098,9 @@ def phase_mega(dev, w=W, h=H, frames=SLICE_FRAMES):
 
     passes = _secondary_passes(r.scene, cs, cam.to(dev), dev, w, h, capture,
                                primary=True)
-    walk = {name: _hold_walk("11 mega W", name, cs, q["rays"], mv)
-            for name, q in passes.items()}
     for name, q in passes.items():
-        nv = q["args"][3]
-        say("11 mega K1", rays=name, full_pass_tiles=nv.shape[0],
-            listed_visits_per_tile=f"{float(nv.float().mean()):.3f}",
-            overflow=bool(q["overflow"]))
-    k1 = _hold_k1("11 mega K1", passes, cs.nlive.double(), SUBSET_TILES)
+        _hold_walk("11 mega W", name, cs, q["rays"], mv)
+    _hold_k1("11 mega K1", passes, SUBSET_TILES)
     del passes
 
     # depth 3 keeps the twin frame short: the twin walk takes one step of
@@ -1583,78 +1111,25 @@ def phase_mega(dev, w=W, h=H, frames=SLICE_FRAMES):
                       (vs.visit_scan, vs.visit_scan_ref))
 
     # the main path: the full frame through the Renderer
-    torch.cuda.reset_peak_memory_stats(dev)
     vs.reset_launches()
     tw.reset_launches()
-    st, _ = r.render_frame(r.init_state(0), cam)
-    warm_ms = r.frame_stats["Total Frame Time"]
-    run = {"st": st, "overflow": r.frame_stats["overflow"]}
-
-    def one():
-        run["st"], _ = r.render_frame(run["st"], cam)
-        run["overflow"] |= r.frame_stats["overflow"]
-
-    ms = timed_frames(one, frames)
+    st, _, _, overflow = _run_frames(r, cam, frames)
     launches = dict(vs.LAUNCHES)
     walks = tw.LAUNCHES["walk"]
-    peak = torch.cuda.max_memory_allocated(dev)
-    img = run["st"].accum
+    img = st.accum
     finite = bool(torch.isfinite(img).all())
     mean = float(img.mean())
-    per_frame = {k: v / (frames + 1) for k, v in launches.items()}
-    say("11 mega frame", size=f"{w}x{h}", tris=r.scene.num_triangles,
-        clusters=cs.num_clusters, max_visits=mv, warmup_ms=f"{warm_ms:.1f}",
-        ms_per_frame=f"{ms:.1f}",
-        primary_rays_per_s=f"{w * h / ms * 1e3:.4g}",
-        peak_mem_gib=f"{peak / 2**30:.2f}", overflow=run["overflow"],
-        mean=f"{mean:.5f}", finite=finite, launches=json.dumps(launches),
+    per_frame = {k: v / frames for k, v in launches.items()}
+    say("11 mega frame", size=f"{w}x{h}", overflow=overflow,
+        mean=f"{mean:.5f}", finite=finite,
         launches_per_frame=json.dumps(per_frame),
-        walk_launches_per_frame=walks / (frames + 1))
+        walk_launches_per_frame=walks / frames)
     if not finite or mean <= 0:
         raise AssertionError(f"bad mega frame: finite={finite} mean={mean}")
     expect = {"closest": cfg.max_depth, "any": cfg.max_depth}
-    if per_frame != expect or walks != 2 * cfg.max_depth * (frames + 1):
+    if per_frame != expect or walks != 2 * cfg.max_depth * frames:
         raise AssertionError(f"K1 launches per frame {per_frame} (expected "
                              f"{expect}), W launches {walks}")
-    _profile_frame("11 profile", one, "visit_scan_kernel",
-                   also=("tree_walk_",))
-
-    # the frame with the ClusterSet's cached kernel layout and without it
-    def frame_with(scan):
-        isect, occl = tiled.tiled_intersectors(cs, mv, scan=scan,
-                                               decode=False)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(0)
-        torch.cuda.synchronize(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.perf_counter()
-        with torch.no_grad():
-            wf.render_wavefront(r.scene, isect, occl, cam.to(dev),
-                                sampling.generator_uniforms(gen), 0, cfg)
-        torch.cuda.synchronize(dev)
-        return ((time.perf_counter() - t0) * 1e3,
-                torch.cuda.max_memory_allocated(dev) / 2**30)
-
-    def per_call(*args, layout=None, **kw):
-        return vs.visit_scan(*args, **kw)
-
-    order = (("cached", vs.visit_scan), ("per_call", per_call),
-             ("per_call", per_call), ("cached", vs.visit_scan))
-    got = {"cached": [], "per_call": []}
-    for label, scan in order:
-        got[label].append(frame_with(scan))
-    say("11 mega cache", order="cached, per_call, per_call, cached",
-        **{f"{k}_ms": json.dumps([round(x[0], 1) for x in v])
-           for k, v in got.items()},
-        **{f"{k}_peak_gib": json.dumps([round(x[1], 2) for x in v])
-           for k, v in got.items()})
-    mean_of = lambda key: sum(walk[p][key] for p in walk) / len(walk)
-    return {"k1": k1, "launches": launches, "walk": {
-        "ms": mean_of("ms"), "plain_ms": mean_of("plain_ms"), "bound_ms": mean_of("bound_ms"),
-        "max_abs_err": max(walk[p]["max_abs_err"] for p in walk),
-        "bound_by": bound_ms(sum(walk[p]["ops"] for p in walk),
-                             sum(walk[p]["bytes"] for p in walk))[1],
-        "launches": walks}}
 
 
 def phase_units_past_2048(dev, w=W, h=H):
@@ -1678,17 +1153,14 @@ def phase_units_past_2048(dev, w=W, h=H):
     st, aux = r.render_frame(r.init_state(0), cam)
     launches, walks = dict(vsi.LAUNCHES), tw.LAUNCHES["walk"]
     overflow = r.frame_stats["overflow"]
-    ms = r.frame_stats["Total Frame Time"]
     rt = Renderer(builder.build(), cfg, accel="tiled", culling="tree",
                   device=dev)
     st_t, aux_t = rt.render_frame(rt.init_state(0), cam)
     say("11b two-level units", size=f"{w}x{h}",
         units=r.instanced.num_clusters, unit_tree_depth=r.instanced.tree_depth,
-        max_visits=r.max_visits, first_frame_ms=f"{ms:.1f}",
-        overflow=overflow, k2_launches=json.dumps(launches),
-        walk_launches=walks, reference="tiled, culling=tree",
-        clusters=rt.clusters.num_clusters,
-        reference_ms=f"{rt.frame_stats['Total Frame Time']:.1f}",
+        max_visits=r.max_visits, overflow=overflow,
+        k2_launches=json.dumps(launches), walk_launches=walks,
+        reference="tiled, culling=tree", clusters=rt.clusters.num_clusters,
         reference_overflow=rt.frame_stats["overflow"])
     if min(launches.values()) <= 0 or walks != 2 * cfg.max_depth:
         raise AssertionError(f"K2 {launches} or W ({walks}) not launched on "
@@ -1745,9 +1217,9 @@ def _emission_frame(scene, isect, occl, cam, cfg, seed: int = 0):
     return frame
 
 
-def _grad(frame, em):
-    """(frame(em), d frame / d em) from one forward and backward."""
-    leaf = em.detach().clone().requires_grad_(True)
+def _grad(frame, x):
+    """(frame(x), d frame / d x) from one forward and backward."""
+    leaf = x.detach().clone().requires_grad_(True)
     loss = frame(leaf)
     loss.backward()
     return float(loss.detach()), leaf.grad
@@ -1762,11 +1234,10 @@ def _rel_err(a, b) -> float:
     return float(((a - b).abs()[nz] / b.abs()[nz]).max())
 
 
-def phase_gradients(dev, w=W, h=H, frames=SLICE_FRAMES):
+def phase_gradients(dev, w=W, h=H):
     """The JAX bench's BENCH_GRAD workload (bench.py:100-148): the gradient
     of the interior frame's mean with respect to every material's emissive,
-    remat on, through Renderer(accel="tiled")'s intersectors (K1). Returns
-    the row scatter's launches of one forward and backward, by path."""
+    remat on, through Renderer(accel="tiled")'s intersectors (K1)."""
     import dataclasses
 
     import torch
@@ -1780,7 +1251,6 @@ def phase_gradients(dev, w=W, h=H, frames=SLICE_FRAMES):
     from lumenrenderer_tpu_torch.render.renderer import Renderer
     from lumenrenderer_tpu_torch.scene import presets
 
-    gib = 2.0 ** 30
     torch.cuda.empty_cache()       # earlier phases' cached blocks
     builder, camf = presets.interior_scene(n_boxes=600, n_lights=64)
     r = Renderer(builder.build(),
@@ -1792,33 +1262,6 @@ def phase_gradients(dev, w=W, h=H, frames=SLICE_FRAMES):
     em0 = scene.materials.emissive
     frame = _emission_frame(scene, r._isect, r._occl, cam, cfg)
 
-    with torch.no_grad():
-        frame(em0)
-        torch.cuda.reset_peak_memory_stats(dev)
-        fwd_ms = timed_frames(lambda: frame(em0), frames)
-    peak_fwd = torch.cuda.max_memory_allocated(dev)
-
-    _grad(frame, em0)                                  # warm
-    graph_ms, bwd_ms, peak_graph, peak_bwd, held = [], [], 0, 0, 0
-    for _ in range(frames):
-        leaf = em0.clone().requires_grad_(True)
-        torch.cuda.synchronize(dev)
-        base = torch.cuda.memory_allocated(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.perf_counter()
-        loss = frame(leaf)
-        torch.cuda.synchronize(dev)
-        t1 = time.perf_counter()
-        peak_graph = max(peak_graph, torch.cuda.max_memory_allocated(dev))
-        held = max(held, torch.cuda.memory_allocated(dev) - base)
-        torch.cuda.reset_peak_memory_stats(dev)
-        loss.backward()
-        torch.cuda.synchronize(dev)
-        bwd_ms.append((time.perf_counter() - t1) * 1e3)
-        graph_ms.append((t1 - t0) * 1e3)
-        peak_bwd = max(peak_bwd, torch.cuda.max_memory_allocated(dev))
-    graph_ms, bwd_ms = sum(graph_ms) / frames, sum(bwd_ms) / frames
-
     # the main path: K1's and the row scatter's launches of one forward and
     # backward
     vs.reset_launches()
@@ -1828,14 +1271,6 @@ def phase_gradients(dev, w=W, h=H, frames=SLICE_FRAMES):
     scatters = dict(rg.LAUNCHES)
     say("12 gradients", size=f"{w}x{h}", depth=cfg.max_depth,
         materials=em0.shape[0], lights=int(scene.lights.count),
-        forward_ms=f"{fwd_ms:.1f}", forward_graph_ms=f"{graph_ms:.1f}",
-        backward_ms=f"{bwd_ms:.1f}",
-        ratio=f"{(graph_ms + bwd_ms) / fwd_ms:.3f}",
-        backward_over_forward=f"{bwd_ms / fwd_ms:.3f}",
-        peak_forward_gib=f"{peak_fwd / gib:.2f}",
-        peak_forward_graph_gib=f"{peak_graph / gib:.2f}",
-        graph_held_gib=f"{held / gib:.2f}",
-        peak_backward_gib=f"{peak_bwd / gib:.2f}",
         k1_launches_fwd_bwd=json.dumps(launches),
         row_scatter_launches_bwd=json.dumps(scatters))
     if launches != {"closest": cfg.max_depth, "any": cfg.max_depth}:
@@ -1850,25 +1285,11 @@ def phase_gradients(dev, w=W, h=H, frames=SLICE_FRAMES):
         raise AssertionError(f"row scatter launches per backward {scatters}, "
                              f"expected {want}")
 
-    leaf = em0.clone().requires_grad_(True)
-    loss = frame(leaf)
-    torch.cuda.synchronize(dev)
-    # the row gathers' backward: the row scatter-add (`row_scatter.cu`) onto
-    # the attribute, light, material and emissive tables
-    _profile_frame("12 profile backward", loss.backward, "visit_scan_kernel",
-                   also=("row_scatter", "indexing_backward", "RadixSort"))
-
     # once without remat
     frame_nr = _emission_frame(scene, r._isect, r._occl, cam,
                                dataclasses.replace(cfg, remat=False))
-    del leaf, loss
-    torch.cuda.synchronize(dev)
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
     mean_nr, grad_nr = _grad(frame_nr, em0)
-    nr_ms = (time.perf_counter() - t0) * 1e3
-    peak_nr = torch.cuda.max_memory_allocated(dev)
 
     light = em0.amax(-1) > 0
     slope = float((grad * em0).sum())     # d mean / d s of em0 * s at s = 1
@@ -1882,8 +1303,6 @@ def phase_gradients(dev, w=W, h=H, frames=SLICE_FRAMES):
         linearity_rel_err=f"{abs(slope - mean) / mean:.3e}",
         central_difference=f"{fd:.6f}",
         central_rel_err=f"{abs(slope - fd) / abs(fd):.3e}",
-        no_remat_ms=f"{nr_ms:.1f}",
-        peak_no_remat_gib=f"{peak_nr / gib:.2f}",
         remat_vs_no_remat_rel_err=f"{remat_err:.3e}")
     if not (bool(torch.isfinite(grad).all()) and bool((grad[light] > 0).all())
             and bool((grad >= 0).all())):
@@ -1926,27 +1345,21 @@ def phase_gradients(dev, w=W, h=H, frames=SLICE_FRAMES):
     init, step = train.make_train_step(
         scene, r._isect, r._occl, cam, cfg,
         lambda ps: torch.optim.Adam([ps["emissive"]], lr=TRAIN_LR))
-    run = {"st": init(), "losses": []}
-
-    def one_step():
-        run["st"], loss = step(run["st"], draws(), 0, target)
-        run["losses"].append(float(loss))
-
-    step_ms = timed_frames(one_step, TRAIN_STEPS)
+    state, losses = init(), []
+    for _ in range(TRAIN_STEPS):
+        state, loss = step(state, draws(), 0, target)
+        losses.append(float(loss))
     with torch.no_grad():
         img = wf.merge_channels(wf.render_wavefront(
-            train.merge_params(scene, run["st"].params), r._isect, r._occl,
+            train.merge_params(scene, state.params), r._isect, r._occl,
             cam, draws(), 0, cfg))
-        after = float(((img - target) ** 2).mean())
-    losses = run["losses"] + [after]
+        losses.append(float(((img - target) ** 2).mean()))
     say("12 train", steps=TRAIN_STEPS, params="emissive",
         optimizer=f"Adam(lr={TRAIN_LR})",
-        ms_per_step=f"{step_ms:.1f}",
         losses=json.dumps([round(x, 6) for x in losses]))
     if not all(math.isfinite(x) for x in losses) or not all(
             b < a for a, b in zip(losses, losses[1:])):
         raise AssertionError(f"the training loss did not fall: {losses}")
-    return scatters
 
 
 def _frame_gathers(dev, w, h):
@@ -1992,22 +1405,17 @@ def _frame_gathers(dev, w, h):
     return seen
 
 
-def phase_row_scatter(dev, launches):
+def phase_row_scatter(dev):
     """12b: the row gathers' backward at 1280x720 and 2560x1440 (module
-    docstring). Returns the `kernels` line's rows, each with `launches`,
-    its path's launches in phase 12's forward and backward (by path)."""
+    docstring)."""
     import torch
 
     from lumenrenderer_tpu_torch.ops import row_gather as rg
-    from lumenrenderer_tpu_torch.utils import profiling
 
-    rows_out = []
     for w, h in ((1280, 720), (2560, 1440)):
         calls = _frame_gathers(dev, w, h)
         attr = [c for c in calls if c[2] == "extract_surface_data"]
         light = [c for c in calls if c[2] == "select_light"][:1]
-        total = {"ms": 0.0, "bound_ms": 0.0, "index_add_ms": 0.0,
-                 "library_ms": 0.0}
         for depth, (table, idx, caller) in enumerate(attr + light):
             n, (t_rows, c) = idx.numel(), table.shape
             gen = torch.Generator(device=dev)
@@ -2015,74 +1423,29 @@ def phase_row_scatter(dev, launches):
             g = torch.randn((n, c), generator=gen, device=dev)
             idx = idx.reshape(-1)
             rg.reset_launches()
-            with profiling.recording():
-                with profiling.unit("12b"):
-                    got = rg.gather_rows_backward(g, idx, t_rows)
-            counts = profiling.span_table()["spans"]["12b"]
-            profiling.reset()
+            got = rg.gather_rows_backward(g, idx, t_rows)
             path = [k for k, v in rg.LAUNCHES.items() if v][0]
             ref = rg.gather_rows_backward_ref(g.cpu().double(), idx.cpu(),
                                               t_rows)
             mag = rg.gather_rows_backward_ref(g.cpu().double().abs(),
                                               idx.cpu(), t_rows)
-            err = ((got.cpu().double() - ref).abs() - 1e-5 * mag).max()
-            if float(err) > 1e-6:
-                raise AssertionError(f"row scatter of {caller} at {w}x{h} "
-                                     f"differs from its twin")
-            ms = cuda_time_ms(lambda: rg.gather_rows_backward(g, idx, t_rows))
-            # the gradient and the indices read once, the table written once
-            nbytes = n * (c * 4 + idx.element_size()) + t_rows * c * 4
-            bound = nbytes / PEAK_BYTES * 1e3
-            add_ms = cuda_time_ms(lambda: torch.zeros(
-                (t_rows, c), device=dev).index_add_(0, idx, g))
-            lib_ms = None
-            if depth < 2 or caller == "select_light":
-                leaf = table.clone().requires_grad_()
-                out = leaf[idx]
-                lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
-                    out, leaf, g, retain_graph=True), reps=2)
-                del leaf, out
+            err = float(((got.cpu().double() - ref).abs() - 1e-5 * mag).max())
             label = ("light rows" if caller == "select_light"
                      else f"attributes depth {depth}")
             say("12b row scatter", size=f"{w}x{h}", gather=repr(label),
                 path=path, entries=n, table=f"{t_rows}x{c}",
-                ms=f"{ms:.4f}", bound_ms=f"{bound:.4f}",
-                share=f"{bound / ms:.3f}",
-                updates_pct=f"{100 * counts['row_scatter_updates'] / n:.2f}",
-                index_add_ms=f"{add_ms:.4f}",
-                library_ms=("null" if lib_ms is None else f"{lib_ms:.2f}"))
-            if caller == "extract_surface_data":
-                total["ms"] += ms
-                total["bound_ms"] += bound
-                total["index_add_ms"] += add_ms
-                if lib_ms is not None:
-                    total["library_ms"] += lib_ms
-            rows_out.append({
-                "name": f"row_scatter[{label}, {w}x{h}]", "route": "cuda",
-                "source": "lumenrenderer_tpu_torch/ops/csrc/row_scatter.cu",
-                "replaces": "none (XLA's scatter-add; in the port PyTorch's "
-                            "indexing_backward_kernel)",
-                "launches": launches[path], "path": path, "entries": n,
-                "table": [t_rows, c], "ms": round(ms, 4),
-                "bound_ms": round(bound, 4), "bound_by": "bytes",
-                "updates_per_entry": round(
-                    counts["row_scatter_updates"] / n, 4),
-                "index_add_ms": round(add_ms, 4),
-                "library_ms": None if lib_ms is None else round(lib_ms, 2)})
-        say("12b row scatter", size=f"{w}x{h}",
-            attribute_gathers=len(attr),
-            attribute_ms_per_frame=f"{total['ms']:.3f}",
-            attribute_bound_ms_per_frame=f"{total['bound_ms']:.3f}",
-            attribute_index_add_ms_per_frame=f"{total['index_add_ms']:.3f}",
-            library_ms_depths_0_1=f"{total['library_ms']:.1f}")
+                err_over_rtol=f"{err:.3e}")
+            if err > 1e-6:
+                raise AssertionError(f"row scatter of {caller} at {w}x{h} "
+                                     f"differs from its twin")
         del calls, attr, light
         torch.cuda.empty_cache()
-    return rows_out
 
 
 # -- phase 13: a textured glTF interior through the cache -------------------
 
 TEX_SEED = 9
+MIP_FRAMES = 3               # 13b: frames of each mean held below
 MIP_MEAN_RTOL = 0.05         # 13b: level-0 against mipmapped 3-frame mean
 GRAD_W, GRAD_H = 640, 360    # 13c
 TEX_FD_STEP = 0.01           # 13c: central difference of a texture's scale
@@ -2217,40 +1580,10 @@ def write_textured_interior(directory):
     return str(path), camf, sizes
 
 
-def _strip_textures(scene):
-    """The scene with no textures: the white atlas, every texture id -1."""
-    import torch
-
-    from lumenrenderer_tpu_torch.scene.textures import build_texture_atlas
-
-    m = scene.materials
-    none = {f: torch.full_like(getattr(m, f), -1) for f in (
-        "base_color_tex", "emissive_tex", "normal_tex", "metal_rough_tex")}
-    return scene.replace(
-        textures=build_texture_atlas([]).to(scene.tri_pos.device),
-        materials=m.replace(**none))
-
-
-def _frames(r, cam, frames):
-    """A warm-up frame and `frames` timed ones: (ms/frame, warm-up ms,
-    state, overflow of any)."""
-    st, _ = r.render_frame(r.init_state(0), cam)
-    warm_ms = r.frame_stats["Total Frame Time"]
-    run = {"st": st, "overflow": r.frame_stats["overflow"]}
-
-    def one():
-        run["st"], _ = r.render_frame(run["st"], cam)
-        run["overflow"] |= r.frame_stats["overflow"]
-
-    ms = timed_frames(one, frames)
-    return ms, warm_ms, run["st"], run["overflow"]
-
-
 def _texel_gather(sc, isect, cam, w, h):
-    """The sampler's texel gather of one mip level at the primary hits
-    (the indices `textures.take_rows` receives there), timed with CUDA
-    events as take_rows and as PyTorch's row gather texels[idx]: (rows,
-    take_rows ms, row gather ms, bound ms)."""
+    """The sampler's texel gather of one mip level at the primary hits (the
+    indices `textures.take_rows` receives there): raise unless take_rows
+    equals PyTorch's row gather texels[idx]."""
     import torch
 
     from lumenrenderer_tpu_torch.core import sampling
@@ -2277,12 +1610,9 @@ def _texel_gather(sc, isect, cam, w, h):
     finally:
         textures.take_rows = take
     texels, idx = sc.textures.texels, seen[0]
+    say("13b texel gather", level_rows=idx.numel())
     if not torch.equal(take(texels, idx), texels[idx]):
         raise AssertionError("take_rows differs from the row gather")
-    # each index read once, each gathered row read once and written once
-    nbytes = idx.numel() * (idx.element_size() + 2 * 16)
-    return (idx.numel(), cuda_time_ms(lambda: take(texels, idx)),
-            cuda_time_ms(lambda: texels[idx]), nbytes / PEAK_BYTES * 1e3)
 
 
 def _texture_frame(scene, isect, occl, cam, cfg, seed: int = 0):
@@ -2306,7 +1636,7 @@ def _texture_frame(scene, isect, occl, cam, cfg, seed: int = 0):
     return frame
 
 
-def phase_textured(dev, w=W, h=H, frames=SLICE_FRAMES):
+def phase_textured(dev, w=W, h=H, frames=LAUNCH_FRAMES):
     """Phase 13: the interior as a textured glTF asset, through the scene
     cache, at 2560x1440 (13b), and its texel gradient (13c)."""
     import dataclasses
@@ -2321,19 +1651,13 @@ def phase_textured(dev, w=W, h=H, frames=SLICE_FRAMES):
                                                          Renderer)
     from lumenrenderer_tpu_torch.scene import cache
 
-    gib = 2.0 ** 30
     torch.cuda.empty_cache()
     # 13a: write the asset, build its cache cold, load it warm
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
         path, camf, sizes = write_textured_interior(tmp)
-        t1 = time.perf_counter()
         cold = cache.load_or_build(path)
-        t2 = time.perf_counter()
         warm = cache.load_or_build(path)
-        t3 = time.perf_counter()
         cache_bytes = Path(path + cache.CACHE_EXT).stat().st_size
-        png_bytes = sum(p.stat().st_size for p in Path(tmp).glob("*.png"))
     for name in cache.LEAVES:
         a, b = cold, warm
         for part in name.split("."):
@@ -2341,13 +1665,9 @@ def phase_textured(dev, w=W, h=H, frames=SLICE_FRAMES):
         if a.dtype != b.dtype or not torch.equal(a, b):
             raise AssertionError(f"the cached leaf {name} differs")
     atlas = cold.textures
-    atlas_bytes = atlas.texels.numel() * atlas.texels.element_size()
     say("13a cache", tris=cold.num_triangles, textures=atlas.count - 1,
         sizes=json.dumps(sizes), texels=atlas.texels.shape[0],
-        atlas_bytes=atlas_bytes, png_bytes=png_bytes,
-        cache_file_bytes=cache_bytes, write_asset_s=f"{t1 - t0:.2f}",
-        cold_build_s=f"{t2 - t1:.2f}", warm_load_s=f"{t3 - t2:.2f}",
-        leaves_equal=len(cache.LEAVES))
+        cache_file_bytes=cache_bytes, leaves_equal=len(cache.LEAVES))
     del warm
     sc = cold.to(dev)
     cs = stream.build_clusters(sc.tri_pos, cluster_size=128).to(dev)
@@ -2359,28 +1679,20 @@ def phase_textured(dev, w=W, h=H, frames=SLICE_FRAMES):
         (vs.visit_scan, vs.visit_scan_ref), extract_tangent=True)
     del cs
 
-    # 13b: the 2560x1440 frame, mipmapped, level 0, and without textures
+    # 13b: the 2560x1440 frame, mipmapped and level 0
     cam = camf(w / h)
     cfg = wf.RenderConfig(width=w, height=h, max_depth=5, bsdf="disney",
                           light_strategy="mis", mipmaps=True)
     r = Renderer(sc, cfg, accel="tiled", device=dev)
-    torch.cuda.synchronize(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
     vs.reset_launches()
-    ms, warm_ms, st, overflow = _frames(r, cam, frames)
-    launches = dict(vs.LAUNCHES)
-    per_frame = {k: v / (frames + 1) for k, v in launches.items()}
-    peak = torch.cuda.max_memory_allocated(dev)
+    st, _, _, overflow = _run_frames(r, cam, frames)
+    per_frame = {k: v / frames for k, v in vs.LAUNCHES.items()}
     img = st.accum
     finite, mean = bool(torch.isfinite(img).all()), float(img.mean())
     say("13b textured frame", size=f"{w}x{h}", tris=sc.num_triangles,
         clusters=r.clusters.num_clusters, extract_tangent=
         r.config.extract_tangent, alpha_materials=r.config.alpha_materials,
-        warmup_ms=f"{warm_ms:.1f}", ms_per_frame=f"{ms:.1f}",
-        primary_rays_per_s=f"{w * h / ms * 1e3:.4g}",
-        peak_mem_gib=f"{peak / gib:.2f}", atlas_bytes=atlas_bytes,
         overflow=overflow, mean=f"{mean:.5f}", finite=finite,
-        launches=json.dumps(launches),
         launches_per_frame=json.dumps(per_frame))
     if not finite or mean <= 0 or overflow:
         raise AssertionError(f"bad textured frame: finite={finite} "
@@ -2388,39 +1700,23 @@ def phase_textured(dev, w=W, h=H, frames=SLICE_FRAMES):
     if per_frame != {"closest": cfg.max_depth, "any": cfg.max_depth}:
         raise AssertionError(f"K1 launches per textured frame {per_frame}, "
                              f"expected {cfg.max_depth} in each mode")
-    _profile_frame("13b profile", lambda: r.render_frame(st, cam),
-                   "visit_scan_kernel", also=("take_put", "index"))
-    rows, take_ms, row_ms, gather_bound = _texel_gather(
-        r.scene, r._isect, cam.to(dev), w, h)
-    say("13b texel gather", level_rows=rows, take_rows_ms=f"{take_ms:.3f}",
-        row_gather_ms=f"{row_ms:.3f}", bound_ms=f"{gather_bound:.3f}",
-        bound_by="bytes")
+    _texel_gather(r.scene, r._isect, cam.to(dev), w, h)
     r_nomip = Renderer(sc, dataclasses.replace(cfg, mipmaps=False),
                        accel="tiled", device=dev)
-    ms_nomip, _, st_nomip, _ = _frames(r_nomip, cam, frames - 1)
+    st_nomip = _run_frames(r_nomip, cam, MIP_FRAMES)[0]
     del r_nomip
-    r_plain = Renderer(_strip_textures(sc), cfg, accel="tiled", device=dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    ms_plain, _, st_plain, _ = _frames(r_plain, cam, frames)
-    peak_plain = torch.cuda.max_memory_allocated(dev)
-    del r_plain
     # the same three frames' means: level 0 against mipmapped
     mean3 = float(st_nomip.accum.mean())
-    _, _, st_mip3, _ = _frames(r, cam, frames - 1)
+    st_mip3 = _run_frames(r, cam, MIP_FRAMES)[0]
     mip3 = float(st_mip3.accum.mean())
-    say("13b textured frame", mipmaps_off_ms=f"{ms_nomip:.1f}",
-        mip_3_frame_mean=f"{mip3:.6f}", level0_3_frame_mean=f"{mean3:.6f}",
-        ratio=f"{mean3 / mip3:.4f}", untextured_ms=f"{ms_plain:.1f}",
-        untextured_peak_gib=f"{peak_plain / gib:.2f}",
-        untextured_mean=f"{float(st_plain.accum.mean()):.5f}",
-        textures_cost_ms=f"{ms - ms_plain:.1f}")
+    say("13b textured frame", mip_3_frame_mean=f"{mip3:.6f}",
+        level0_3_frame_mean=f"{mean3:.6f}", ratio=f"{mean3 / mip3:.4f}")
     if abs(mean3 / mip3 - 1.0) > MIP_MEAN_RTOL:
         raise AssertionError(f"level-0 and mipmapped frame means differ: "
                              f"{mean3} against {mip3}")
-    del st, st_nomip, st_plain, st_mip3, r
+    del st, st_nomip, st_mip3, r
     torch.cuda.empty_cache()
     _texture_gradients(sc, camf, dev)
-    return launches
 
 
 def _texture_gradients(sc, camf, dev, w=GRAD_W, h=GRAD_H):
@@ -2433,7 +1729,6 @@ def _texture_gradients(sc, camf, dev, w=GRAD_W, h=GRAD_H):
     from lumenrenderer_tpu_torch.integrator import wavefront as wf
     from lumenrenderer_tpu_torch.render.renderer import Renderer
 
-    gib = 2.0 ** 30
     cam = camf(w / h).to(dev)
     cfg = wf.RenderConfig(width=w, height=h, max_depth=5, bsdf="disney",
                           light_strategy="mis", remat=True)
@@ -2441,26 +1736,11 @@ def _texture_gradients(sc, camf, dev, w=GRAD_W, h=GRAD_H):
     cfg = r.config
     frame = _texture_frame(r.scene, r._isect, r._occl, cam, cfg)
     tex0, em0 = r.scene.textures.texels, r.scene.materials.emissive
-    with torch.no_grad():
-        frame(tex0, em0)
-        fwd_ms = timed_frames(lambda: frame(tex0, em0), 3)
-
-    def grad_call():
-        tex = tex0.clone().requires_grad_(True)
-        em = em0.clone().requires_grad_(True)
-        torch.cuda.synchronize(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.perf_counter()
-        loss = frame(tex, em)
-        torch.cuda.synchronize(dev)
-        t1 = time.perf_counter()
-        loss.backward()
-        torch.cuda.synchronize(dev)
-        t2 = time.perf_counter()
-        return (float(loss.detach()), tex.grad, em.grad, (t1 - t0) * 1e3,
-                (t2 - t1) * 1e3, torch.cuda.max_memory_allocated(dev))
-
-    mean, g_tex, g_em, graph_ms, bwd_ms, peak = grad_call()
+    tex = tex0.clone().requires_grad_(True)
+    em = em0.clone().requires_grad_(True)
+    loss = frame(tex, em)
+    loss.backward()
+    mean, g_tex, g_em = float(loss.detach()), tex.grad, em.grad
     atlas = r.scene.textures
     offs = atlas.offset.tolist() + [atlas.texels.shape[0]]
     base_ids = sorted({i for i in r.scene.materials.base_color_tex.tolist()
@@ -2470,9 +1750,7 @@ def _texture_gradients(sc, camf, dev, w=GRAD_W, h=GRAD_H):
     finite = bool(torch.isfinite(g_tex).all() and torch.isfinite(g_em).all())
     slope_em = float((g_em * em0).sum())
     say("13c texture gradients", size=f"{w}x{h}", depth=cfg.max_depth,
-        remat=cfg.remat, forward_ms=f"{fwd_ms:.1f}",
-        forward_graph_ms=f"{graph_ms:.1f}", backward_ms=f"{bwd_ms:.1f}",
-        peak_backward_gib=f"{peak / gib:.2f}", finite=finite,
+        remat=cfg.remat, finite=finite,
         base_color_texels_with_gradient=json.dumps(nz),
         mean=f"{mean:.6f}", d_mean_d_emission_scale=f"{slope_em:.6f}",
         emission_linearity_rel_err=f"{abs(slope_em - mean) / mean:.3e}")
@@ -2482,12 +1760,6 @@ def _texture_gradients(sc, camf, dev, w=GRAD_W, h=GRAD_H):
     if abs(slope_em - mean) > GRAD_RTOL * mean:
         raise AssertionError(f"d mean / d emission scale {slope_em} against "
                              f"the mean {mean}")
-    tex = tex0.clone().requires_grad_(True)
-    em = em0.clone().requires_grad_(True)
-    loss = frame(tex, em)
-    torch.cuda.synchronize(dev)
-    _profile_frame("13c profile backward", loss.backward, "visit_scan_kernel",
-                   also=("indexing_backward", "take_put", "RadixSort"))
     del tex, em, loss, g_tex, g_em
     # a central difference on the scale of the room's base-colour texture
     # (id 0): with Lambert and no Russian roulette no sampling decision
@@ -2531,28 +1803,14 @@ VOL_FD_RTOL = 1e-2
 
 def _cloud_volumes():
     """The cloud, sphere_density(384, 0.4, 0.15) * noise_density(384, seed),
-    as a dense and a sparse volume set on the host, with the host seconds
-    of the grid and of each set."""
+    as a dense and a sparse volume set on the host."""
     from lumenrenderer_tpu_torch.volume import grid
 
-    t0 = time.perf_counter()
     cloud = (grid.sphere_density(CLOUD_RES, 0.4, 0.15)
              * grid.noise_density(CLOUD_RES, CLOUD_SEED))
-    t1 = time.perf_counter()
     args = ([cloud], [CLOUD_BOX[0]], [CLOUD_BOX[1]])
     kw = dict(sigma_t=[CLOUD_SIGMA_T], albedo=[CLOUD_ALBEDO])
-    dense = grid.make_volume_set(*args, **kw)
-    t2 = time.perf_counter()
-    sparse = grid.build_sparse(*args, **kw)
-    t3 = time.perf_counter()
-    return dense, sparse, {"grid_s": t1 - t0,
-                           "dense_s": t2 - t1, "sparse_s": t3 - t2}
-
-
-def _volume_bytes(vols) -> int:
-    return sum(getattr(vols, f).numel() * getattr(vols, f).element_size()
-               for f in ("density", "index", "bricks", "aabb_lo", "aabb_hi",
-                         "sigma_t", "albedo") if hasattr(vols, f))
+    return grid.make_volume_set(*args, **kw), grid.build_sparse(*args, **kw)
 
 
 def _check_nvdb():
@@ -2597,28 +1855,20 @@ def _volume_frame(scene, isect, occl, cam, cfg, leaf: str, seed: int = 0):
 
 
 def _frame_run(phase, r, cam, frames, expect_any, **fields):
-    """A warm-up and `frames` timed frames of Renderer r with K1's counts
-    set to 0 before and read after; raise on a bad image or on K1 launches
-    other than 5 closest and expect_any any a frame. Returns (ms/frame,
-    state, launches, mean)."""
+    """`frames` frames of Renderer r with K1's counts set to 0 before and
+    read after; raise on a bad image or on K1 launches other than 5
+    closest and expect_any any a frame. Returns the image mean."""
     import torch
 
     from lumenrenderer_tpu_torch.ops import visit_scan as vs
 
-    dev = r.device
-    torch.cuda.synchronize(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
     vs.reset_launches()
-    ms, warm_ms, st, overflow = _frames(r, cam, frames)
-    launches = dict(vs.LAUNCHES)
-    per_frame = {k: v / (frames + 1) for k, v in launches.items()}
-    peak = torch.cuda.max_memory_allocated(dev)
+    st, _, _, overflow = _run_frames(r, cam, frames)
+    per_frame = {k: v / frames for k, v in vs.LAUNCHES.items()}
     img = st.accum
     finite, mean = bool(torch.isfinite(img).all()), float(img.mean())
-    say(phase, size=f"{r.config.width}x{r.config.height}",
-        warmup_ms=f"{warm_ms:.1f}", ms_per_frame=f"{ms:.1f}",
-        peak_mem_gib=f"{peak / 2**30:.2f}", overflow=overflow,
-        mean=f"{mean:.6f}", finite=finite, launches=json.dumps(launches),
+    say(phase, size=f"{r.config.width}x{r.config.height}", frames=frames,
+        overflow=overflow, mean=f"{mean:.6f}", finite=finite,
         launches_per_frame=json.dumps(per_frame), **fields)
     if not finite or mean <= 0 or overflow:
         raise AssertionError(f"{phase}: bad frame: finite={finite} "
@@ -2627,7 +1877,7 @@ def _frame_run(phase, r, cam, frames, expect_any, **fields):
     if per_frame != want:
         raise AssertionError(f"{phase}: K1 launches per frame {per_frame}, "
                              f"expected {want}")
-    return ms, st, launches, mean
+    return mean
 
 
 def _one_frame(r, cam, scene=None, seed: int = 0):
@@ -2649,9 +1899,9 @@ def _one_frame(r, cam, scene=None, seed: int = 0):
 
 
 def _volumes_small(dev, plain, camf):
-    """14a: the reader, the cloud on the host (dense and sparse sets, their
-    bytes, the centre transmittance), and 320x180 frames with the .nvdb
-    fog and with the dense cloud through K1 and its twin."""
+    """14a: the reader, the cloud on the host (dense and sparse sets, the
+    centre transmittance), and 320x180 frames with the .nvdb fog and with
+    the dense cloud through K1 and its twin."""
     import torch
 
     from lumenrenderer_tpu_torch.accel import stream, tiled
@@ -2660,7 +1910,7 @@ def _volumes_small(dev, plain, camf):
     from lumenrenderer_tpu_torch.volume import march, nvdb
 
     _check_nvdb()
-    dense, sparse, host_s = _cloud_volumes()
+    dense, sparse = _cloud_volumes()
     vol = dense.to(dev)
     centre = torch.tensor([[(CLOUD_BOX[0][i] + CLOUD_BOX[1][i]) / 2
                             for i in range(2)] + [0.0]], device=dev)
@@ -2668,11 +1918,7 @@ def _volumes_small(dev, plain, camf):
         vol, centre, torch.tensor([[0.0, 0.0, 1.0]], device=dev), 1e-3,
         torch.tensor([20.0], device=dev), steps=1024)[0])
     say("14a cloud", res=CLOUD_RES, voxels=vol.density.numel(),
-        dense_bytes=_volume_bytes(dense), sparse_bytes=_volume_bytes(sparse),
-        sparse_bricks=sparse.bricks.shape[0],
-        cells=sparse.index.numel(), grid_host_s=f"{host_s['grid_s']:.2f}",
-        dense_host_s=f"{host_s['dense_s']:.2f}",
-        sparse_host_s=f"{host_s['sparse_s']:.2f}",
+        sparse_bricks=sparse.bricks.shape[0], cells=sparse.index.numel(),
         sigma_t=CLOUD_SIGMA_T, centre_transmittance=f"{t_centre:.4f}")
     if not CENTRE_T[0] <= t_centre <= CENTRE_T[1]:
         raise AssertionError(f"the cloud's centre transmittance {t_centre} "
@@ -2691,10 +1937,9 @@ def _volumes_small(dev, plain, camf):
     return dense, sparse
 
 
-def _volume_frames(dev, plain, dense, sparse, cam, cfg, frames):
-    """14b: the dense cloud at full size with Riemann, profiled, and the
-    room without it; 14c: the sparse cloud (the dense frame's image), then
-    ratio tracking. Returns 14b's K1 launches."""
+def _volume_frames(dev, plain, dense, sparse, cam, cfg):
+    """14b: the dense cloud at full size with Riemann; 14c: the sparse
+    cloud (the dense frame's image), then ratio tracking."""
     import dataclasses
 
     import torch
@@ -2704,9 +1949,8 @@ def _volume_frames(dev, plain, dense, sparse, cam, cfg, frames):
     march_any = cfg.volume_steps * cfg.volume_depths
     r = Renderer(plain.replace(volumes=dense), cfg, accel="tiled",
                  device=dev)
-    ms, st, launches, mean = _frame_run(
-        "14b dense cloud", r, cam, frames, cfg.max_depth + march_any,
-        volume_bytes=_volume_bytes(dense), transmittance="riemann")
+    mean = _frame_run("14b dense cloud", r, cam, SLICE_FRAMES,
+                      cfg.max_depth + march_any, transmittance="riemann")
     v_ch = _one_frame(r, cam)["volumetric"]
     lit = int((v_ch.amax(-1) > 0).sum())
     finite = bool(torch.isfinite(v_ch).all())
@@ -2715,22 +1959,12 @@ def _volume_frames(dev, plain, dense, sparse, cam, cfg, frames):
         volumetric_finite=finite)
     if lit == 0 or not finite:
         raise AssertionError("the volumetric channel is empty or not finite")
-    del v_ch
-    _profile_frame("14b profile", lambda: r.render_frame(st, cam),
-                   "visit_scan_kernel", also=("take_put", "put_kernel"))
-    del r, st
-    r = Renderer(plain, cfg, accel="tiled", device=dev)
-    ms_plain, _, _, mean_plain = _frame_run(
-        "14b without the cloud", r, cam, frames, cfg.max_depth)
-    say("14b dense cloud", cloud_cost_ms=f"{ms - ms_plain:.1f}",
-        mean_over_plain=f"{mean / mean_plain:.4f}")
-    del r
+    del v_ch, r
 
     r = Renderer(plain.replace(volumes=sparse), cfg, accel="tiled",
                  device=dev)
-    ms_sp, _, _, mean_sp = _frame_run(
-        "14c sparse cloud", r, cam, frames, cfg.max_depth + march_any,
-        volume_bytes=_volume_bytes(sparse), transmittance="riemann")
+    mean_sp = _frame_run("14c sparse cloud", r, cam, SLICE_FRAMES,
+                         cfg.max_depth + march_any, transmittance="riemann")
     sp_err = abs(mean_sp - mean) / mean
     say("14c sparse cloud", dense_mean=f"{mean:.6f}",
         sparse_mean=f"{mean_sp:.6f}", rel_err=f"{sp_err:.3e}",
@@ -2741,42 +1975,36 @@ def _volume_frames(dev, plain, dense, sparse, cam, cfg, frames):
     del r
     r = Renderer(plain.replace(volumes=sparse), dataclasses.replace(
         cfg, volume_transmittance="ratio"), accel="tiled", device=dev)
-    ms_ratio, st, _, mean_ratio = _frame_run(
-        "14c ratio tracking", r, cam, frames, cfg.max_depth + march_any,
-        transmittance="ratio")
+    mean_ratio = _frame_run("14c ratio tracking", r, cam, SLICE_FRAMES,
+                            cfg.max_depth + march_any, transmittance="ratio")
     ratio_err = abs(mean_ratio - mean_sp) / mean_sp
     say("14c ratio tracking", riemann_mean=f"{mean_sp:.6f}",
         ratio_mean=f"{mean_ratio:.6f}", rel_diff=f"{ratio_err:.4f}",
-        rtol=RATIO_RTOL, ratio_over_riemann_ms=f"{ms_ratio / ms_sp:.3f}")
+        rtol=RATIO_RTOL)
     if ratio_err > RATIO_RTOL:
         raise AssertionError(f"ratio tracking's mean {mean_ratio} is not "
                              f"within {RATIO_RTOL} of Riemann's {mean_sp}")
-    _profile_frame("14c profile ratio", lambda: r.render_frame(st, cam),
-                   "visit_scan_kernel", also=("take_put",))
-    return launches
 
 
-def _volume_restir(dev, dense, w, h, frames, march_any):
-    """14d: the restir workload of phase 10 in the cloud, timed against
-    the same frame without it, and held against the same frame and draws
-    with the cloud's extinction at 0."""
+def _volume_restir(dev, dense, w, h, march_any):
+    """14d: the restir workload of phase 10 in the cloud, held against the
+    same frame and draws with the cloud's extinction at 0."""
     import torch
 
     from lumenrenderer_tpu_torch.integrator import wavefront as wf
     from lumenrenderer_tpu_torch.render.renderer import Renderer
 
     builder, camf = _restir_scene()
-    plain = builder.build()
     cfg = _restir_config(w, h)
     cam = camf(w / h)
-    r = Renderer(plain.replace(volumes=dense), cfg, accel="tiled",
+    r = Renderer(builder.build().replace(volumes=dense), cfg, accel="tiled",
                  device=dev)
     # NEE's 4 shadow passes, ReSTIR's 2 visibility passes, the march's
-    ms_c, st, _, mean_c = _frame_run("14d restir cloud", r, cam, frames,
-                                     cfg.max_depth + 1 + march_any)
+    _frame_run("14d restir cloud", r, cam, LAUNCH_FRAMES,
+               cfg.max_depth + 1 + march_any)
     # the same frame without the cloud, paired: the cloud's extinction at 0
     # (transmittance 1 everywhere, no in-scattering) with the same draws,
-    # which the unpaired frames do not share (the march draws first); at
+    # which unpaired frames do not share (the march draws first); at
     # depth 0 the reservoirs do not depend on the density, so the cloud's
     # direct light is at most the clear one's everywhere
     out = _one_frame(r, cam)
@@ -2788,18 +2016,11 @@ def _volume_restir(dev, dense, w, h, frames, march_any):
     d_c, d_0 = float(out["direct"].mean()), float(out0["direct"].mean())
     m_c = float(wf.merge_channels(out).mean())
     m_0 = float(wf.merge_channels(out0).mean())
-    vol_c = float(out["volumetric"].mean())
-    del r, st, out, out0
-    r = Renderer(plain, cfg, accel="tiled", device=dev)
-    ms_p, _, _, mean_p = _frame_run("14d restir without the cloud", r, cam,
-                                    frames, cfg.max_depth + 1)
-    say("14d restir cloud", cloud_cost_ms=f"{ms_c - ms_p:.1f}",
-        unpaired_mean_over_plain=f"{mean_c / mean_p:.4f}",
-        frame_mean=f"{m_c:.6f}", clear_frame_mean=f"{m_0:.6f}",
-        mean_over_clear=f"{m_c / m_0:.4f}", direct_mean=f"{d_c:.6f}",
-        clear_direct_mean=f"{d_0:.6f}", direct_over_clear=f"{d_c / d_0:.4f}",
-        direct_at_most_clear_everywhere=paired_ok,
-        volumetric_mean=f"{vol_c:.6f}")
+    say("14d restir cloud", frame_mean=f"{m_c:.6f}",
+        clear_frame_mean=f"{m_0:.6f}", mean_over_clear=f"{m_c / m_0:.4f}",
+        direct_mean=f"{d_c:.6f}", clear_direct_mean=f"{d_0:.6f}",
+        direct_over_clear=f"{d_c / d_0:.4f}",
+        direct_at_most_clear_everywhere=paired_ok)
     if not (m_c < m_0 and paired_ok and d_c < d_0):
         raise AssertionError(
             f"the ReSTIR frame in the cloud is not darker than the same "
@@ -2808,35 +2029,7 @@ def _volume_restir(dev, dense, w, h, frames, march_any):
             f"{paired_ok})")
 
 
-def _grad_call(frame, grid, dev):
-    """(frame(grid), d frame / d grid, forward ms, backward ms, peak bytes)
-    of one forward with a graph and its backward."""
-    import torch
-
-    leaf = grid.clone().requires_grad_(True)
-    torch.cuda.synchronize(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    loss = frame(leaf)
-    torch.cuda.synchronize(dev)
-    t1 = time.perf_counter()
-    loss.backward()
-    torch.cuda.synchronize(dev)
-    t2 = time.perf_counter()
-    return (float(loss.detach()), leaf.grad, (t1 - t0) * 1e3,
-            (t2 - t1) * 1e3, torch.cuda.max_memory_allocated(dev))
-
-
-def _profile_backward(phase, frame, grid, also):
-    """One backward of frame(grid) under torch.profiler."""
-    import torch
-
-    loss = frame(grid.clone().requires_grad_(True))
-    torch.cuda.synchronize()
-    _profile_frame(phase, loss.backward, "visit_scan_kernel", also=also)
-
-
-def _volume_gradients(dev, plain, dense, sparse, camf, cfg, frames):
+def _volume_gradients(dev, plain, dense, sparse, camf, cfg):
     """14e: d mean / d density at full size, remat on (and d mean /
     d bricks of the sparse cloud), remat off, K1 against its twin at
     320x180, and a central difference of the density's scale."""
@@ -2848,7 +2041,6 @@ def _volume_gradients(dev, plain, dense, sparse, camf, cfg, frames):
     from lumenrenderer_tpu_torch.ops import visit_scan as vs
     from lumenrenderer_tpu_torch.render.renderer import Renderer
 
-    gib = 2.0 ** 30
     torch.cuda.empty_cache()
     r = Renderer(plain.replace(volumes=dense),
                  dataclasses.replace(cfg, remat=True), accel="tiled",
@@ -2856,21 +2048,13 @@ def _volume_gradients(dev, plain, dense, sparse, camf, cfg, frames):
     gcfg, cam = r.config, camf(cfg.width / cfg.height).to(dev)
     d0 = r.scene.volumes.density
     frame = _volume_frame(r.scene, r._isect, r._occl, cam, gcfg, "density")
-    with torch.no_grad():
-        frame(d0)
-        fwd_ms = timed_frames(lambda: frame(d0), frames)
-    _grad_call(frame, d0, dev)                            # warm
     vs.reset_launches()
-    mean_g, g, graph_ms, bwd_ms, peak = _grad_call(frame, d0, dev)
+    mean_g, g = _grad(frame, d0)
     g_launches = dict(vs.LAUNCHES)
     with_grad = int(g.ne(0).sum())
     finite = bool(torch.isfinite(g).all())
     say("14e density gradient", size=f"{cfg.width}x{cfg.height}",
-        remat=gcfg.remat, voxels=g.numel(), forward_ms=f"{fwd_ms:.1f}",
-        forward_graph_ms=f"{graph_ms:.1f}", backward_ms=f"{bwd_ms:.1f}",
-        ratio=f"{(graph_ms + bwd_ms) / fwd_ms:.3f}",
-        backward_over_forward=f"{bwd_ms / fwd_ms:.3f}",
-        peak_gib=f"{peak / gib:.2f}", finite=finite,
+        remat=gcfg.remat, voxels=g.numel(), finite=finite,
         voxels_with_gradient=with_grad,
         d_mean_d_scale=f"{float((g * d0).sum()):.6e}",
         k1_launches_fwd_bwd=json.dumps(g_launches))
@@ -2882,39 +2066,29 @@ def _volume_gradients(dev, plain, dense, sparse, camf, cfg, frames):
         raise AssertionError(f"K1 launches per forward and backward "
                              f"{g_launches}, expected {want} (the recompute "
                              "launches none)")
-    _profile_backward("14e profile backward", frame, d0,
-                      ("take_put", "indexing_backward"))
 
     # the sparse bricks: every sample in empty space reads the shared zero
     # brick (slot 0), so its 729 floats take most of the atomic adds
     sp = plain.replace(volumes=sparse).to(dev)
     frame_b = _volume_frame(sp, r._isect, r._occl, cam, gcfg, "bricks")
-    mean_b, g_b, graph_b, bwd_b, peak_b = _grad_call(
-        frame_b, sp.volumes.bricks, dev)
+    mean_b, g_b = _grad(frame_b, sp.volumes.bricks)
     finite_b = bool(torch.isfinite(g_b).all())
-    say("14e bricks gradient", bricks=g_b.shape[0],
-        forward_graph_ms=f"{graph_b:.1f}", backward_ms=f"{bwd_b:.1f}",
-        peak_gib=f"{peak_b / gib:.2f}", finite=finite_b,
+    say("14e bricks gradient", bricks=g_b.shape[0], finite=finite_b,
         bricks_with_gradient=int(g_b.ne(0).flatten(1).any(1).sum()),
-        zero_brick_gradient=f"{float(g_b[0].abs().sum()):.3e}",
         mean_rel_to_dense=f"{abs(mean_b - mean_g) / mean_g:.3e}")
     if not finite_b or not bool(g_b.ne(0).any()):
         raise AssertionError("the bricks' gradient is not finite, or zero")
-    del g_b
-    _profile_backward("14e profile bricks backward", frame_b,
-                      sp.volumes.bricks, ("take_put",))
-    del sp, frame_b
+    del g_b, sp, frame_b
 
     # remat off: the march's replay changes nothing
     torch.cuda.empty_cache()
     frame_nr = _volume_frame(r.scene, r._isect, r._occl, cam,
                              dataclasses.replace(gcfg, remat=False),
                              "density")
-    mean_nr, g_nr, _, bwd_nr, peak_nr = _grad_call(frame_nr, d0, dev)
+    mean_nr, g_nr = _grad(frame_nr, d0)
     remat_err = float((g_nr - g).abs().max() / g.abs().max())
-    say("14e density gradient", remat_off_backward_ms=f"{bwd_nr:.1f}",
-        remat_off_peak_gib=f"{peak_nr / gib:.2f}",
-        remat_vs_off_max_err=f"{remat_err:.3e}", rtol=REMAT_RTOL)
+    say("14e density gradient", remat_vs_off_max_err=f"{remat_err:.3e}",
+        rtol=REMAT_RTOL)
     if abs(mean_nr - mean_g) > 1e-6 * mean_g or remat_err > REMAT_RTOL:
         raise AssertionError(f"remat changed the frame ({mean_nr} vs "
                              f"{mean_g}) or its gradient ({remat_err})")
@@ -2924,10 +2098,9 @@ def _volume_gradients(dev, plain, dense, sparse, camf, cfg, frames):
     # a 320x180 gradient through K1 and through its twin
     small = dataclasses.replace(gcfg, width=SMALL_W, height=SMALL_H)
     scam = camf(SMALL_W / SMALL_H).to(dev)
-    grads = [_grad_call(_volume_frame(r.scene, *tiled.tiled_intersectors(
+    grads = [_grad(_volume_frame(r.scene, *tiled.tiled_intersectors(
         r.clusters, r.max_visits, scan=scan, decode=False), scam, small,
-        "density"),
-        d0, dev)[1] for scan in (vs.visit_scan, vs.visit_scan_ref)]
+        "density"), d0)[1] for scan in (vs.visit_scan, vs.visit_scan_ref)]
     twin_err = float((grads[0] - grads[1]).abs().max()
                      / grads[1].abs().max())
     say("14e density gradient small", size=f"{SMALL_W}x{SMALL_H}",
@@ -2944,7 +2117,7 @@ def _volume_gradients(dev, plain, dense, sparse, camf, cfg, frames):
                                  rr_start_depth=gcfg.max_depth)
     frame_fd = _volume_frame(r.scene, r._isect, r._occl, cam, fd_cfg,
                              "density")
-    g_fd = _grad_call(frame_fd, d0, dev)[1]
+    g_fd = _grad(frame_fd, d0)[1]
     slope = float((g_fd * d0).sum())
     with torch.no_grad():
         f_hi = float(frame_fd(d0 * (1 + VOL_FD_STEP)))
@@ -2959,11 +2132,11 @@ def _volume_gradients(dev, plain, dense, sparse, camf, cfg, frames):
                              f"central difference {fd}")
 
 
-def phase_volumes(dev, w=W, h=H, frames=SLICE_FRAMES):
+def phase_volumes(dev, w=W, h=H):
     """Phase 14: a 384³ cloud in the 2560x1440 interior frame: the .nvdb
     reader and small frames through K1 and its twin (14a), the dense cloud
     (14b), the sparse one and ratio tracking (14c), ReSTIR in the cloud
-    (14d), the density gradient (14e). Returns 14b's K1 launches."""
+    (14d), the density gradient (14e)."""
     import torch
 
     from lumenrenderer_tpu_torch.integrator import wavefront as wf
@@ -2976,16 +2149,12 @@ def phase_volumes(dev, w=W, h=H, frames=SLICE_FRAMES):
     cfg = wf.RenderConfig(width=w, height=h, max_depth=5, bsdf="disney",
                           light_strategy="mis", volume_steps=5,
                           volume_depths=2)
-    launches = _volume_frames(dev, plain, dense, sparse, camf(w / h), cfg,
-                              frames)
-    _volume_restir(dev, dense, w, h, frames,
-                   cfg.volume_steps * cfg.volume_depths)
-    _volume_gradients(dev, plain, dense, sparse, camf, cfg, frames)
-    return launches
+    _volume_frames(dev, plain, dense, sparse, camf(w / h), cfg)
+    _volume_restir(dev, dense, w, h, cfg.volume_steps * cfg.volume_depths)
+    _volume_gradients(dev, plain, dense, sparse, camf, cfg)
 
 # -- phase 15: the application ------------------------------------------------
 
-APP_FRAMES = 3               # 15a: timed stream frames
 APP_REF_SPP = 16             # 15b: frames of the denoiser's reference
 OUT_W, OUT_H = 3840, 2160    # 15b, 15e: the upscaled output
 SHARPEN = 0.3
@@ -3006,14 +2175,6 @@ def _interior_renderer(dev, accel, w=W, h=H, depth=5, **kw):
                        light_strategy="mis")
     return (Renderer(builder.build(), cfg, accel=accel, device=dev, **kw),
             camf(w / h))
-
-
-def _frames_from(r, cam, seed, n):
-    """n frames from init_state(seed): (state, the last frame's AOVs)."""
-    st, aux = r.init_state(seed), None
-    for _ in range(n):
-        st, aux = r.render_frame(st, cam)
-    return st, aux
 
 
 def _stream_passes(r, cam):
@@ -3090,15 +2251,13 @@ def _stream_vs_brute(dev):
                                  f"brute: {same_or_tie}, {t_ok}")
 
 
-def _app_stream(dev, frames=APP_FRAMES):
+def _app_stream(dev, frames=SLICE_FRAMES):
     """15a: the interior through Renderer(accel="stream"), held against
     the tiled frame of the same seed."""
     import torch
 
     rt, cam = _interior_renderer(dev, "tiled")
-    st_t, aux_t = rt.render_frame(rt.init_state(0), cam)
-    for _ in range(frames):
-        st_t, _ = rt.render_frame(st_t, cam)
+    st_t, aux_t, _, _ = _run_frames(rt, cam, frames)
     r, _ = _interior_renderer(dev, "stream")
     rows = _stream_passes(r, cam)
     for mode, rays, pairs, ovf, tiles, blocks in rows:
@@ -3108,29 +2267,17 @@ def _app_stream(dev, frames=APP_FRAMES):
     if any(row[3] for row in rows):
         raise AssertionError(f"15a: a stream query overflows at "
                              f"{r.max_pairs_per_ray} pairs per ray")
-    torch.cuda.reset_peak_memory_stats(dev)
-    st, aux = r.render_frame(r.init_state(0), cam)
-    warm = r.frame_stats["Total Frame Time"]
-
-    def one():
-        nonlocal st
-        st, _ = r.render_frame(st, cam)
-
-    ms = timed_frames(one, frames)
-    peak = torch.cuda.max_memory_allocated(dev)
+    st, aux, _, _ = _run_frames(r, cam, frames)
     mean = float(st.accum.mean())
     finite = bool(torch.isfinite(st.accum).all())
     say("15a stream", size=f"{W}x{H}", max_pairs_per_ray=r.max_pairs_per_ray,
-        warmup_ms=f"{warm:.1f}", ms_per_frame=f"{ms:.1f}",
-        peak_mem_gib=f"{peak / 2**30:.2f}", mean=f"{mean:.6f}",
-        finite=finite, overflow=r.frame_stats["overflow"])
+        mean=f"{mean:.6f}", finite=finite, overflow=r.frame_stats["overflow"])
     if not finite or mean <= 0 or r.frame_stats["overflow"]:
         raise AssertionError(f"15a: bad stream frame: {finite} {mean}")
-    # the first frames' AOVs, and the means of frames + 1 frames
+    # the first frames' AOVs, and the means of `frames` frames
     _hold_frames("15a stream", "tiled", aux, aux_t, mean,
                  float(st_t.accum.mean()),
                  _key_low_bits(rt.clusters.num_clusters, 128, rt.max_visits))
-    _profile_frame("15a profile", lambda: r.render_frame(st, cam), "gemm")
     _stream_vs_brute(dev)
     return rt, cam
 
@@ -3141,31 +2288,10 @@ def _app_post(dev, rt, cam):
 
     from lumenrenderer_tpu_torch.render import denoise, upscale
 
-    st, aux = _frames_from(rt, cam, 0, 1)
-    ref = _frames_from(rt, cam, 1, APP_REF_SPP)[0].accum
+    st, _, aux, _ = _run_frames(rt, cam, 1)
+    ref = _run_frames(rt, cam, APP_REF_SPP, seed=1)[0].accum
     raw = st.accum
-
-    def den():
-        return denoise.denoise_frame(raw, aux, W, H)
-
-    def up():
-        return upscale.upscale(out.reshape(H, W, 3), OUT_H, OUT_W,
-                               "lanczos3", sharpen=SHARPEN)
-
-    out = den()
-    for name, fn in (("denoise_frame", den), ("upscale", up)):
-        ms = cuda_time_ms(fn, reps=3)
-        torch.cuda.synchronize(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        base = torch.cuda.memory_allocated(dev)
-        fn()
-        torch.cuda.synchronize(dev)
-        peak = torch.cuda.max_memory_allocated(dev) - base
-        _, kernels = _device_kernels(fn)
-        say("15b post", stage=name, ms=f"{ms:.2f}",
-            launches=sum(k[2] for k in kernels),
-            device_ms=f"{sum(k[0] for k in kernels):.2f}",
-            extra_peak_mem_gib=f"{peak / 2**30:.2f}")
+    out = denoise.denoise_frame(raw, aux, W, H)
     err_raw = float((raw - ref).abs().mean())
     err_den = float((out - ref).abs().mean())
     say("15b post", reference_spp=APP_REF_SPP, raw_mae=f"{err_raw:.6f}",
@@ -3173,10 +2299,11 @@ def _app_post(dev, rt, cam):
     if not err_den < err_raw:
         raise AssertionError(f"15b: denoising did not lower the error: "
                              f"{err_den} vs {err_raw}")
-    img = up()
+    img = upscale.upscale(out.reshape(H, W, 3), OUT_H, OUT_W, "lanczos3",
+                          sharpen=SHARPEN)
     finite = bool(torch.isfinite(img).all())
     low = float(img.min())
-    worst, worst64 = 0.0, 0.0
+    worst = 0.0
     for n_in, n_out, kern in ((H, OUT_H, "lanczos3"), (W, OUT_W, "lanczos3"),
                               (OUT_H, OUT_H // 2, "linear"),
                               (OUT_W // 2, OUT_W, "linear")):
@@ -3185,11 +2312,8 @@ def _app_post(dev, rt, cam):
         a = upscale.compute_weight_mat(*args, device=dev).cpu()
         worst = max(worst, float((a - upscale.compute_weight_mat(
             *args)).abs().max()))
-        worst64 = max(worst64, float((a.double() - upscale.compute_weight_mat(
-            *args, dtype=torch.float64)).abs().max()))
     say("15b post", upscaled=f"{OUT_W}x{OUT_H}", finite=finite,
-        min=f"{low:.6f}", weights_max_abs_err_vs_cpu=f"{worst:.3e}",
-        weights_max_abs_err_vs_float64=f"{worst64:.3e}")
+        min=f"{low:.6f}", weights_max_abs_err_vs_cpu=f"{worst:.3e}")
     if not finite or low < 0 or worst > WEIGHT_TOL:
         raise AssertionError(f"15b: bad upscale: {finite} {low} {worst}")
 
@@ -3215,46 +2339,35 @@ def _app_sequence(rt, cam):
     """15c: render_sequence over a pan; flicker on a static camera."""
     import numpy as np
 
-    t0 = time.perf_counter()
     imgs = rt.render_sequence(_pan(cam, 3), spp=1, denoise="temporal")
-    ms = (time.perf_counter() - t0) / 3 * 1e3
     finite = all(np.isfinite(i).all() for i in imgs)
     raw = rt.render_sequence([cam] * 3, spp=1, denoise="off", seed=5)
     tmp = rt.render_sequence([cam] * 3, spp=1, denoise="temporal", seed=5)
     flick_r = float(np.abs(raw[2] - raw[1]).mean())
     flick_t = float(np.abs(tmp[2] - tmp[1]).mean())
-    say("15c sequence", cameras=3, ms_per_camera=f"{ms:.1f}",
-        finite=finite, flicker_raw=f"{flick_r:.6f}",
-        flicker_temporal=f"{flick_t:.6f}",
+    say("15c sequence", cameras=3, finite=finite,
+        flicker_raw=f"{flick_r:.6f}", flicker_temporal=f"{flick_t:.6f}",
         ratio=f"{flick_t / flick_r:.4f}")
     if not finite or not flick_t < flick_r:
         raise AssertionError(f"15c: sequence {finite}, flicker {flick_t} "
                              f"vs {flick_r}")
 
 
-def _app_checkpoint(dev, rt, cam, directory):
+def _app_checkpoint(rt, cam, directory):
     """15d: save after 2 frames, load into init_state(999), resume."""
     import os
 
-    import torch
-
     from lumenrenderer_tpu_torch.render import checkpoint
 
-    st, _ = _frames_from(rt, cam, 3, 2)
+    st = _run_frames(rt, cam, 2, seed=3)[0]
     path = os.path.join(directory, "state.npz")
-    t0 = time.perf_counter()
     checkpoint.save_state(path, st)
-    save_ms = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
     resumed = checkpoint.load_state(path, rt.init_state(999))
-    torch.cuda.synchronize(dev)
-    load_ms = (time.perf_counter() - t0) * 1e3
     a, _ = rt.render_frame(st, cam)
     b, _ = rt.render_frame(resumed, cam)
     diff = float((a.accum - b.accum).abs().max())
-    say("15d checkpoint", bytes=os.path.getsize(path),
-        save_ms=f"{save_ms:.1f}", load_ms=f"{load_ms:.1f}",
-        frame_index=resumed.frame_index, max_abs_diff=f"{diff:.3e}")
+    say("15d checkpoint", frame_index=resumed.frame_index,
+        max_abs_diff=f"{diff:.3e}")
     if diff > RESUME_TOL or resumed.frame_index != 2:
         raise AssertionError(f"15d: resumed frame differs by {diff}")
 
@@ -3268,9 +2381,9 @@ def _png_size(path):
 
 
 def _run_cli(args, directory, launches=False):
-    """The CLI in a subprocess on the card: (seconds, stderr). With
-    launches, the subprocess calls the CLI's main and prints K1's launch
-    counts after it."""
+    """The CLI in a subprocess on the card: its stdout. With launches, the
+    subprocess calls the CLI's main and prints K1's launch counts after
+    it."""
     import os
 
     if launches:
@@ -3282,27 +2395,24 @@ def _run_cli(args, directory, launches=False):
     else:
         cmd = [sys.executable, "-m", "lumenrenderer_tpu_torch.app.cli"]
     env = dict(os.environ, PYTHONPATH=str(REPO))
-    t0 = time.perf_counter()
     proc = subprocess.run(cmd + args, cwd=directory, env=env,
                           capture_output=True, text=True, timeout=600)
-    seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         raise AssertionError(f"15e: the CLI exited {proc.returncode}: "
                              f"{proc.stderr[-3000:]}")
-    return seconds, proc.stdout, proc.stderr
+    return proc.stdout
 
 
 def _app_cli(directory):
     """15e: the CLI end to end on the interior (tiled, from a JSON config)
-    and with its defaults on the Cornell box. Returns K1's launches in the
-    interior run."""
+    and with its defaults on the Cornell box."""
     import os
 
     cfg_path = os.path.join(directory, "app.json")
     with open(cfg_path, "w") as f:
         json.dump({"accel": "tiled"}, f)
     out = os.path.join(directory, "interior.png")
-    seconds, stdout, stderr = _run_cli(
+    stdout = _run_cli(
         [cfg_path, "--preset", "interior", "--size", f"{W}x{H}",
          "--out-size", f"{OUT_W}x{OUT_H}", "--spp", str(CLI_SPP),
          "--depth", "5", "--denoise", "--aovs", "--stats-every",
@@ -3310,12 +2420,9 @@ def _app_cli(directory):
     size = _png_size(out)
     aovs = [os.path.exists(out.replace(".png", f".{n}.png"))
             for n in ("albedo", "normal", "depth")]
-    stages = [ln for ln in stderr.splitlines() if "mean stage times" in ln]
     launches = json.loads(stdout.split("K1_LAUNCHES", 1)[1].strip())
-    say("15e cli", run="interior", seconds=f"{seconds:.1f}",
-        png=f"{size[0]}x{size[1]}", aovs=all(aovs),
-        launches=json.dumps(launches))
-    say("15e cli", run="interior", stage_times=repr(stages[-1][:600]))
+    say("15e cli", run="interior", png=f"{size[0]}x{size[1]}",
+        aovs=all(aovs), launches=json.dumps(launches))
     # 4 frames of 5 closest and 5 any; 2 probes of 2 frames, 2 primary and
     # 2 bounce closest queries and 2 occlusion queries
     probes = -(-CLI_SPP // CLI_STATS_EVERY)
@@ -3324,23 +2431,17 @@ def _app_cli(directory):
     if size != (OUT_W, OUT_H) or not all(aovs) or launches != expect:
         raise AssertionError(f"15e: interior CLI wrote {size}, AOVs {aovs}, "
                              f"K1 {launches} (expected {expect})")
-    seconds, _, stderr = _run_cli(
-        ["--preset", "cornell", "--spp", "4", "-o",
-         os.path.join(directory, "cornell.png")], directory)
+    _run_cli(["--preset", "cornell", "--spp", "4", "-o",
+              os.path.join(directory, "cornell.png")], directory)
     size = _png_size(os.path.join(directory, "cornell.png"))
-    say("15e cli", run="cornell defaults", seconds=f"{seconds:.1f}",
-        png=f"{size[0]}x{size[1]}",
-        scene=repr([ln for ln in stderr.splitlines()
-                    if ln.startswith("scene:")][0]))
+    say("15e cli", run="cornell defaults", png=f"{size[0]}x{size[1]}")
     if size != (1280, 720):
         raise AssertionError(f"15e: the default CLI wrote {size}")
-    return launches
 
 
 def phase_app(dev):
     """Phase 15: the application (stream, denoise, upscale, sequence,
-    checkpoint, the CLI). Returns K1's launches in the CLI's interior
-    run."""
+    checkpoint, the CLI)."""
     import tempfile
 
     import torch
@@ -3350,18 +2451,13 @@ def phase_app(dev):
     _app_post(dev, rt, cam)
     _app_sequence(rt, cam)
     with tempfile.TemporaryDirectory() as directory:
-        _app_checkpoint(dev, rt, cam, directory)
-        stages = rt.profile_stages(cam, reps=3)
-        say("15e profile_stages", **{k.replace(" ", "_"): f"{v:.2f}"
-                                     for k, v in stages.items()})
-        return _app_cli(directory)
-
+        _app_checkpoint(rt, cam, directory)
+        _app_cli(directory)
 
 
 # -- phase 16: the BVH accels (kernel T) and the mesh -------------------------
 
 BVH_SUBSET = 65_536          # 16a: evenly spaced rays of each pass
-MESH_FRAMES = SLICE_FRAMES + 1   # 16c: the 2-rank image's frames
 RANK_TIMEOUT = 420           # 16c: seconds a rank subprocess may take
 RANK_TRAIN_W, RANK_TRAIN_H = 320, 180    # 16c: the 2-rank training step
 
@@ -3390,27 +2486,10 @@ def _bvh_passes(dev, sc, cam):
     return {name: q["rays"] for name, q in passes.items()}
 
 
-def _walk_work(bvh, rays, counts, closest):
-    """(operations, bytes) of T's walk of `rays` from its counters: a box
-    test for each root and two for each internal node popped, a
-    Möller–Trumbore test for each slot of each leaf popped; the rays in,
-    the results out and the BVH once."""
-    from lumenrenderer_tpu_torch.ops import bvh_traverse as bt
-
-    r = rays[0].shape[0]
-    c = counts.double().sum(0)
-    ops = (bt.BOX_TEST_OPS * (r + 2 * float(c[0]))
-           + bt.SLOT_TEST_OPS * bvh.leaf_size * float(c[1]))
-    bvh_bytes = _nbytes(bvh.node_lo, bvh.node_hi, bvh.child0, bvh.child1,
-                        bvh.tri_p0, bvh.tri_e1, bvh.tri_e2, bvh.tri_id)
-    return ops, _nbytes(*rays) + r * (16 if closest else 1) + bvh_bytes
-
-
 def _hold_walk_pass(label, name, bvh, rays, closest):
-    """T against its twin on BVH_SUBSET evenly spaced rays of one pass
-    (triangles or hit bits identical on MATCH_FRACTION, t, u and v bit for
-    bit where the triangle agrees, the counters identical), then T on
-    every ray of it: its time, operations, bound and share."""
+    """T against its twin on BVH_SUBSET evenly spaced rays of one pass:
+    triangles or hit bits identical on MATCH_FRACTION, t, u and v bit for
+    bit where the triangle agrees, the counters identical."""
     import torch
 
     from lumenrenderer_tpu_torch.ops import bvh_traverse as bt
@@ -3432,139 +2511,55 @@ def _hold_walk_pass(label, name, bvh, rays, closest):
                                      b.view(torch.int32)[same])
                          for a, b in zip((kern[0], kern[2], kern[3]),
                                          (twin[0], twin[2], twin[3])))
-        both = same & (kern[1] >= 0)
-        err = float((kern[0] - twin[0]).abs()[both].max()) if bool(
-            both.any()) else 0.0
     else:
         same = kern == twin
-        bits_equal, err = True, float((~same).any())
+        bits_equal = True
     match = float(same.float().mean())
     counters = float((ck == ct).all(1).float().mean())
-    ms = cuda_time_ms(lambda: bt.bvh_traverse(bvh, *sub,
-                                              any_hit=not closest))
-    plain_ms = cuda_time_ms(lambda: bt.bvh_traverse_ref(
-        bvh, *sub, any_hit=not closest), reps=1)
-    ops, nb = _walk_work(bvh, sub, ck, closest)
-    b_ms, b_by = bound_ms(ops, nb)
-    say("16a walk", bvh=label, rays=name, mode=mode, scope="subset",
+    say("16a walk", bvh=label, rays=name, mode=mode,
         rays_n=sub[0].shape[0], match=f"{match:.6f}",
-        tuv_bits_equal=bits_equal, counters_equal=f"{counters:.6f}",
-        max_abs_err=err, kernel_ms=f"{ms:.4f}", twin_ms=f"{plain_ms:.2f}",
-        ops=f"{ops:.4g}", bound_ms=f"{b_ms:.5f}", bound_by=b_by,
-        share=f"{b_ms / ms:.4f}")
+        tuv_bits_equal=bits_equal, counters_equal=f"{counters:.6f}")
     if match < MATCH_FRACTION or not bits_equal or counters < MATCH_FRACTION:
         raise AssertionError(f"16a: T differs from its twin on the {label} "
                              f"{name} pass ({mode}): match {match}, t/u/v "
                              f"bits {bits_equal}, counters {counters}")
-    counts = torch.zeros((n, 2), dtype=torch.int32, device=dev)
-    bt.bvh_traverse(bvh, *rays, any_hit=not closest, counts=counts)
-    full_ms = cuda_time_ms(lambda: bt.bvh_traverse(bvh, *rays,
-                                                   any_hit=not closest))
-    f_ops, f_nb = _walk_work(bvh, rays, counts, closest)
-    fb_ms, fb_by = bound_ms(f_ops, f_nb)
-    live = int((rays[3] >= rays[2]).sum())
-    say("16a walk", bvh=label, rays=name, mode=mode, scope="full",
-        rays_n=n, live_rays=live, full_pass_kernel_ms=f"{full_ms:.4f}",
-        inner_per_ray=f"{float(counts[:, 0].double().mean()):.2f}",
-        leaves_per_ray=f"{float(counts[:, 1].double().mean()):.2f}",
-        ops=f"{f_ops:.4g}", bytes=f_nb, bound_ms=f"{fb_ms:.5f}",
-        bound_by=fb_by, share=f"{fb_ms / full_ms:.4f}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "ops": ops, "bytes": nb, "full_pass_ms": full_ms,
-            "full_pass_bound_ms": fb_ms}
-
-
-def _hold_walks(label, bvh, passes):
-    """_hold_walk_pass over the passes in both modes: per mode the worst
-    error and the passes' mean times and bounds, with bound_by."""
-    out = {}
-    for mode, closest in (("closest", True), ("any", False)):
-        rows = [_hold_walk_pass(label, name, bvh, rays, closest)
-                for name, rays in passes.items()]
-        mean = {k: sum(r[k] for r in rows) / len(rows)
-                for k in ("ms", "plain_ms", "bound_ms", "full_pass_ms",
-                          "full_pass_bound_ms")}
-        out[mode] = {"max_abs_err": max(r["max_abs_err"] for r in rows),
-                     **mean, "bound_by": bound_ms(
-                         sum(r["ops"] for r in rows),
-                         sum(r["bytes"] for r in rows))[1]}
-    return out
 
 
 def _bvh_builds(dev, sc):
-    """Host build seconds of the native and numpy SAH builders, the LBVH's
-    device build ms; (sah BVH, lbvh BVH) on the card."""
-    import torch
-
-    from lumenrenderer_tpu_torch.accel import format as bvh_format
+    """The SAH BVH from the native builder (on the host) and the LBVH (on
+    the card), both on the card."""
     from lumenrenderer_tpu_torch.accel import lbvh, sah
     from lumenrenderer_tpu_torch.native import bvh_native
 
     tri_np = sc.tri_pos.cpu().numpy()
     bvh_native.build_library()
-    t0 = time.perf_counter()
-    native = sah.bvh_from_arrays(tri_np, bvh_native.build_sah(tri_np, 4))
-    native_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    plain = sah.bvh_from_arrays(tri_np, sah.build_sah_arrays(tri_np, 4))
-    numpy_s = time.perf_counter() - t0
+    sah_bvh = sah.bvh_from_arrays(tri_np, bvh_native.build_sah(tri_np, 4))
     lb = lbvh.build_lbvh(sc.tri_pos)
-    lbvh_ms = cuda_time_ms(lambda: lbvh.build_lbvh(sc.tri_pos), reps=3)
-    for label, b in (("sah native", native), ("sah numpy", plain),
-                     ("lbvh", lb)):
+    for label, b in (("sah native", sah_bvh), ("lbvh", lb)):
         say("16 build", bvh=label, nodes=b.num_nodes, leaves=b.num_leaves,
             max_depth=b.max_depth, leaf_size=b.leaf_size)
-    # kernel T's records, part of each build above (host for the SAH BVH)
-    t0 = time.perf_counter()
-    bvh_format.kernel_records(native)
-    records_host_ms = (time.perf_counter() - t0) * 1e3
-    sah_dev = native.to(dev)
-    records_ms = {b: cuda_time_ms(lambda: bvh_format.kernel_records(x),
-                                  reps=3)
-                  for b, x in (("sah", sah_dev), ("lbvh", lb))}
-    say("16 build", sah_native_host_s=f"{native_s:.3f}",
-        sah_numpy_host_s=f"{numpy_s:.3f}", lbvh_device_ms=f"{lbvh_ms:.3f}",
-        sah_records_host_ms=f"{records_host_ms:.3f}",
-        sah_records_device_ms=f"{records_ms['sah']:.3f}",
-        lbvh_records_device_ms=f"{records_ms['lbvh']:.3f}")
-    torch.cuda.synchronize()
-    return sah_dev, lb
+    return sah_bvh.to(dev), lb
 
 
 def _bvh_frames(dev, accel, ref, frames=SLICE_FRAMES):
-    """16b: Renderer(accel) on the interior at 2560x1440, 1 warm-up and
-    `frames` timed frames, T launched 5 closest and 5 any a frame, held
-    against the tiled frames `ref` of the same seed, one profiled frame.
-    Returns T's launches."""
+    """16b: `frames` frames of Renderer(accel) on the interior at
+    2560x1440, T launched 5 closest and 5 any a frame, held against the
+    tiled frames `ref` of the same seed."""
     import torch
 
     from lumenrenderer_tpu_torch.ops import bvh_traverse as bt
 
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     r, cam = _interior_renderer(dev, accel)
-    build_s = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats(dev)
     bt.reset_launches()
-    st, aux = r.render_frame(r.init_state(0), cam)
-    warm = r.frame_stats["Total Frame Time"]
-
-    def one():
-        nonlocal st
-        st, _ = r.render_frame(st, cam)
-
-    ms = timed_frames(one, frames)
-    launches = dict(bt.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated(dev)
+    st, aux, _, _ = _run_frames(r, cam, frames)
     mean = float(st.accum.mean())
     finite = bool(torch.isfinite(st.accum).all())
-    per_frame = {k: v / (frames + 1) for k, v in launches.items()}
-    say("16b bvh frame", accel=accel, size=f"{W}x{H}",
-        renderer_build_s=f"{build_s:.2f}", nodes=r.bvh.num_nodes,
-        max_depth=r.bvh.max_depth, warmup_ms=f"{warm:.1f}",
-        ms_per_frame=f"{ms:.1f}", peak_mem_gib=f"{peak / 2**30:.2f}",
-        mean=f"{mean:.6f}", finite=finite,
-        overflow=r.frame_stats["overflow"], launches=json.dumps(launches))
+    per_frame = {k: v / frames for k, v in bt.LAUNCHES.items()}
+    say("16b bvh frame", accel=accel, size=f"{W}x{H}", nodes=r.bvh.num_nodes,
+        max_depth=r.bvh.max_depth, mean=f"{mean:.6f}", finite=finite,
+        overflow=r.frame_stats["overflow"],
+        launches_per_frame=json.dumps(per_frame))
     if not finite or mean <= 0 or per_frame != {"closest": 5, "any": 5}:
         raise AssertionError(f"16b: bad {accel} frame: finite {finite}, "
                              f"mean {mean}, T launches {per_frame}")
@@ -3572,9 +2567,6 @@ def _bvh_frames(dev, accel, ref, frames=SLICE_FRAMES):
     _hold_frames("16b bvh frame", f"tiled ({accel})", aux, aux_t, mean,
                  mean_t, _key_low_bits(rt.clusters.num_clusters, 128,
                                        rt.max_visits))
-    _profile_frame(f"16b profile {accel}", lambda: r.render_frame(st, cam),
-                   "bvh_traverse_kernel")
-    return launches
 
 
 def _train_setup(r, cam, dev):
@@ -3604,7 +2596,8 @@ def _train_setup(r, cam, dev):
 def _mesh_one_rank(dev):
     """16c: a one-rank NCCL mesh: the tiled frame through mesh= against the
     plain one (K1 10 launches a frame on the rank), the ReSTIR frame with
-    its halo, and one sharded training step with its all-reduce time."""
+    its halo, and one sharded training step. Returns the plain frames'
+    mean."""
     import dataclasses
 
     import torch
@@ -3616,22 +2609,18 @@ def _mesh_one_rank(dev):
 
     mesh = shard.make_mesh("cuda")
     say("16c mesh", ranks=mesh.size(), backend=dist.get_backend())
-    rows, accums = {}, {}
+    means, accums = {}, {}
     for label, kw in (("plain", {}), ("mesh", {"mesh": mesh})):
         r, cam = _interior_renderer(dev, "tiled", **kw)
         st = r.render_frame(r.init_state(0), cam)[0]
         vs.reset_launches()
-
-        def one():
-            nonlocal st
+        for _ in range(SLICE_FRAMES - 1):
             st, _ = r.render_frame(st, cam)
-
-        ms = timed_frames(one, SLICE_FRAMES)
-        rows[label] = (ms, float(st.accum.mean()))
+        means[label] = float(st.accum.mean())
         accums[label] = st.accum
-        per_frame = {k: v / SLICE_FRAMES for k, v in vs.LAUNCHES.items()}
+        per_frame = {k: v / (SLICE_FRAMES - 1) for k, v in vs.LAUNCHES.items()}
         say("16c mesh", frame=label, size=f"{W}x{H}",
-            ms_per_frame=f"{ms:.1f}", mean=f"{rows[label][1]:.6f}",
+            mean=f"{means[label]:.6f}",
             k1_launches_per_frame=json.dumps(per_frame))
         if per_frame != {"closest": 5, "any": 5}:
             raise AssertionError(f"16c: K1 launches {per_frame} a frame")
@@ -3639,22 +2628,16 @@ def _mesh_one_rank(dev):
     say("16c mesh", accumulators_equal=equal)
     if not equal:
         raise AssertionError(f"16c: a one-rank mesh frame differs from the "
-                             f"plain one: {rows}")
+                             f"plain one: {means}")
     del accums
     cfg = dataclasses.replace(r.config, light_strategy="nee",
                               use_restir=True)
     rr = Renderer(r.scene, cfg, accel="tiled", device=dev, mesh=mesh)
-    st = rr.render_frame(rr.init_state(0), cam)[0]
-
-    def one_restir():
-        nonlocal st
-        st, _ = rr.render_frame(st, cam)
-
-    ms = timed_frames(one_restir, SLICE_FRAMES)
+    st = _run_frames(rr, cam, LAUNCH_FRAMES)[0]
     mean = float(st.accum.mean())
     say("16c mesh restir", size=f"{W}x{H}", halo_rows=min(
-        rr._restir_fn.cfg.spatial_radius, H), ms_per_frame=f"{ms:.1f}",
-        mean=f"{mean:.6f}", valid=bool(st.restir.valid))
+        rr._restir_fn.cfg.spatial_radius, H), mean=f"{mean:.6f}",
+        valid=bool(st.restir.valid))
     if not bool(torch.isfinite(st.accum).all()) or mean <= 0:
         raise AssertionError(f"16c: bad ReSTIR mesh frame, mean {mean}")
     del rr, st
@@ -3666,21 +2649,13 @@ def _mesh_one_rank(dev):
     init, step = train.make_sharded_train_step(
         r.scene, r._isect, r._occl, cam, cfg,
         lambda ps: torch.optim.Adam([ps["emissive"]], lr=TRAIN_LR), mesh)
-    state = init()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state, loss = step(state, draws(), 0, target)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3
-    reduce_ms = cuda_time_ms(lambda: train.all_reduce_grads(state.params,
-                                                            mesh))
+    _, loss = step(init(), draws(), 0, target)
     say("16c mesh train", size=f"{W}x{H}", remat=True,
-        step_ms=f"{step_ms:.1f}", all_reduce_ms=f"{reduce_ms:.4f}",
         loss=f"{float(loss):.6g}")
     if not math.isfinite(float(loss)):
         raise AssertionError("16c: the sharded step's loss is not finite")
     dist.destroy_process_group()
-    return rows["plain"][1]
+    return means["plain"]
 
 
 def rank_worker(rank: int, world: int, port: int, out: str) -> int:
@@ -3703,9 +2678,7 @@ def rank_worker(rank: int, world: int, port: int, out: str) -> int:
     mesh = shard.make_mesh("cuda")
     res = {"rank": rank, "backend": dist.get_backend()}
     r, cam = _interior_renderer(dev, "tiled", mesh=mesh)
-    t0 = time.perf_counter()
-    img = torch.from_numpy(r.render(cam, spp=MESH_FRAMES))
-    res["render_s"] = time.perf_counter() - t0
+    img = torch.from_numpy(r.render(cam, spp=SLICE_FRAMES))
     seam = img[H // world - 1:H // world + 1]
     res.update(mean=float(img.mean()), finite=bool(torch.isfinite(img).all()),
                seam_row_means=[float(x) for x in seam.mean((1, 2))])
@@ -3738,7 +2711,7 @@ def rank_worker(rank: int, world: int, port: int, out: str) -> int:
     return 0
 
 
-def _mesh_two_ranks(plain_mean_4):
+def _mesh_two_ranks(plain_mean):
     """16c: two ranks in subprocesses on the one card, 720 rows each."""
     import os
     import tempfile
@@ -3752,12 +2725,12 @@ def _mesh_two_ranks(plain_mean_4):
             [sys.executable, str(REPO / "chip_smoke.py"), "--rank-worker",
              str(i), "2", str(port), outs[i]], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True) for i in range(2)]
-        t0 = time.perf_counter()
+        deadline = time.perf_counter() + RANK_TIMEOUT
         logs = []
         try:
             for p in procs:
                 logs.append(p.communicate(timeout=max(
-                    1.0, RANK_TIMEOUT - (time.perf_counter() - t0)))[0])
+                    1.0, deadline - time.perf_counter()))[0])
         except subprocess.TimeoutExpired:
             for p in procs:
                 p.kill()
@@ -3770,14 +2743,12 @@ def _mesh_two_ranks(plain_mean_4):
         for path in outs:
             with open(path) as f:
                 res.append(json.load(f))
-    seconds = time.perf_counter() - t0
     mean = res[0]["mean"]
-    rel = abs(mean - plain_mean_4) / plain_mean_4
+    rel = abs(mean - plain_mean) / plain_mean
     seam = res[0]["seam_row_means"]
     say("16c two ranks", ranks=2, backend=res[0]["backend"],
         staging="host (gloo)", rows_per_rank=H // 2,
-        wall_s=f"{seconds:.1f}", render_s=f"{res[0]['render_s']:.2f}",
-        mean=f"{mean:.6f}", plain_mean=f"{plain_mean_4:.6f}",
+        mean=f"{mean:.6f}", plain_mean=f"{plain_mean:.6f}",
         mean_rel_diff=f"{rel:.2e}", seam_row_means=json.dumps(seam),
         restir_mean=f"{res[0]['restir_mean']:.6f}",
         train_loss=f"{res[0]['loss']:.6g}",
@@ -3791,7 +2762,7 @@ def _mesh_two_ranks(plain_mean_4):
 
 def phase_bvh(dev):
     """Phase 16: kernel T against its twin (16a), the BVH frames (16b),
-    the mesh on the card (16c). Returns T's rows' inputs."""
+    the mesh on the card (16c)."""
     import torch
 
     torch.cuda.empty_cache()
@@ -3799,44 +2770,22 @@ def phase_bvh(dev):
     cam = camf(W / H).to(dev)
     sah_bvh, lbvh_bvh = _bvh_builds(dev, sc)
     passes = _bvh_passes(dev, sc, cam)
-    checks = {"sah": _hold_walks("sah", sah_bvh, passes),
-              "lbvh": _hold_walks("lbvh", lbvh_bvh, passes)}
+    for label, bvh in (("sah", sah_bvh), ("lbvh", lbvh_bvh)):
+        for closest in (True, False):
+            for name, rays in passes.items():
+                _hold_walk_pass(label, name, bvh, rays, closest)
     del passes
     torch.cuda.empty_cache()
     rt, cam = _interior_renderer(dev, "tiled")
-    st_t, aux_t = _frames_from(rt, cam, 0, 1)
-    for _ in range(SLICE_FRAMES):
-        st_t, _ = rt.render_frame(st_t, cam)
+    st_t, aux_t, _, _ = _run_frames(rt, cam, SLICE_FRAMES)
     ref = (rt, aux_t, float(st_t.accum.mean()))
-    launches = {accel: _bvh_frames(dev, accel, ref)
-                for accel in ("sah", "lbvh")}
-    del rt, st_t
-    plain_mean_4 = _mesh_one_rank(dev)
-    _mesh_two_ranks(plain_mean_4)
-    return checks, launches
-
-
-def _bvh_rows(bvh_checks, bvh_launches):
-    """The `kernels` line's rows of kernel T: the SAH BVH's and the LBVH's,
-    closest and any."""
-    rows = []
     for accel in ("sah", "lbvh"):
-        for mode in ("closest", "any"):
-            c = bvh_checks[accel][mode]
-            rows.append({
-                "name": f"bvh_traverse[{mode}, {accel}]", "route": "cuda",
-                "source": "lumenrenderer_tpu_torch/ops/csrc/bvh_traverse.cu",
-                "replaces": REPLACES["bvh_traverse"],
-                "launches": bvh_launches[accel][mode],
-                **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                     "bound_ms", "bound_by", "full_pass_ms",
-                                     "full_pass_bound_ms")},
-                "library_ms": None})
-    return rows
+        _bvh_frames(dev, accel, ref)
+    del rt, st_t
+    _mesh_two_ranks(_mesh_one_rank(dev))
 
 
-# -- phase 17: the options (bf16 candidates, dense culling, swizzle, decode,
-# the blocked sort) -------------------------------------------------------------
+# -- phase 17: the options (bf16 candidates, dense culling, swizzle, decode)
 
 DECODE_RAYS = 65_536         # 17f: evenly spaced rays of the bounce pass
 DECODE_UV_TOL = 1e-5         # 17f: u, v against brute where tri agrees,
@@ -3848,148 +2797,51 @@ OPTION_PAIRS_PER_RAY = 16    # 17b: the bf16 pair frame's pair cap
 K2_BF16_SUBSET_TILES = 256   # 17b: K2's tiles held against its exact twin
 
 
-def _bf16_disagreement(out32, out16, closest, low_bits, live):
-    """Share of the live rays whose winner (miss, or visit and slot) or
-    occlusion bit differs between the fp32 and the bf16 mode."""
-    import torch
-
-    from lumenrenderer_tpu_torch.ops.visit_scan import KEY_MISS
-
-    if closest:
-        field = (1 << low_bits) - 1
-        out32 = torch.where(out32 < KEY_MISS, out32 & field, -1)
-        out16 = torch.where(out16 < KEY_MISS, out16 & field, -1)
-    return float((out32 != out16)[live].float().mean())
-
-
-def _epilogue_ms(flop, per_pair, clock_mhz, ray_visits=0, per_visit=0):
-    """The epilogue bound: the live pairs ((flop less K2's AFFINE_FLOP a
-    live ray-visit) / FLOP_PER_PAIR) times the instructions a pair on the
-    CUDA cores, plus the live ray-visits times K2's instructions a
-    ray-visit (both from the SASS), over SMS x LANES lanes at the card's
-    clock."""
-    pairs = (flop - AFFINE_FLOP * ray_visits) / FLOP_PER_PAIR
-    return ((pairs * per_pair + ray_visits * per_visit)
-            / (SMS * LANES * clock_mhz * 1e6) * 1e3)
-
-
-def _hold_bf16(phase, label, passes, subset, kernel, twin, counter, work,
-               live_of, low_bits, epilogue=None):
+def _hold_bf16(phase, label, passes, subset, kernel, twin, counter=None):
     """Each pass's subset through `kernel` in its bf16 mode and through its
-    twin, in both modes: raise unless keys (bits) and, where the kernel
-    counts, visit counters (`counter(args, kw)`, which raises) are
-    torch.equal. Times the subset (kernel, twin) and the full pass in bf16
-    and in fp32 within this call, the bounds from `work(q, args, kw)` ->
-    (flop, bytes, fields) at the bf16 tensor-core rate, the peak for these
-    operands, and the share of the full pass's live rays
-    (`live_of(q)`) whose winner or bit differs from fp32 (not barred).
-    `epilogue` ({mode: instructions a pair}, the clock in MHz, and for K2
-    {mode: instructions a live ray-visit}, whose count `work` gives as
-    its field "ray_visits") adds the epilogue bound and says which bound
-    sets the pace. Returns per mode the kernels line's numbers, means over
-    the passes."""
+    twin, in both modes: raise unless keys (bits) are torch.equal and,
+    where the kernel counts, its visit counter (`counter(args, kw)`, which
+    raises) equals its twin's replay."""
     import torch
 
-    results = {}
     for mode, closest in (("closest", True), ("any", False)):
-        rows, epi = [], []
         for name, q in passes.items():
             args = subset(q)
             kw = dict(q["kw"], closest=closest, precision="default")
-            kw32 = dict(kw, precision="highest")
             kern = kernel(*args, **kw)
             ref = twin(*args, **kw)
-            torch.cuda.synchronize()
             if not torch.equal(kern, ref):
                 raise AssertionError(
                     f"{label} bf16 {mode} vs twin on the {name} pass: "
                     f"{int((kern != ref).sum())} of {kern.numel()} differ")
-            counted = counter(args, kw)
-            ms = cuda_time_ms(lambda: kernel(*args, **kw))
-            plain_ms = cuda_time_ms(lambda: twin(*args, **kw), reps=1)
-            full16 = cuda_time_ms(lambda: kernel(*q["args"], **kw))
-            full32 = cuda_time_ms(lambda: kernel(*q["args"], **kw32))
-            flop, nb, sub = work(q, args, kw)
-            f_flop, f_nb, extra = work(q, q["args"], kw)
-            b_ms, b_by = bound_ms(flop, nb, PEAK_BF16_FLOPS)
-            fb_ms, fb_by = bound_ms(f_flop, f_nb, PEAK_BF16_FLOPS)
-            share = _bf16_disagreement(
-                kernel(*q["args"], **kw32), kernel(*q["args"], **kw),
-                closest, low_bits(q), live_of(q))
-            fields = {}
-            if epilogue is not None:
-                per_pair, clock = epilogue[0][mode], epilogue[1]
-                per_visit = epilogue[2][mode] if len(epilogue) > 2 else 0
-                e_ms = _epilogue_ms(flop, per_pair, clock,
-                                    sub.get("ray_visits", 0), per_visit)
-                fe_ms = _epilogue_ms(f_flop, per_pair, clock,
-                                     extra.get("ray_visits", 0), per_visit)
-                epi.append((e_ms, fe_ms))
-                fields = dict(
-                    design=repr(MMA_DESIGN), epilogue_bound_ms=f"{e_ms:.4f}",
-                    epilogue_share=f"{e_ms / ms:.3f}",
-                    full_epilogue_bound_ms=f"{fe_ms:.4f}",
-                    full_epilogue_share=f"{fe_ms / full16:.3f}",
-                    paced_by="epilogue" if fe_ms > fb_ms else fb_by)
+            if counter is not None:
+                counter(args, kw)
             say(phase, kernel=label, precision="bf16", mode=mode, rays=name,
-                subset_equal=True, **counted, kernel_ms=f"{ms:.4f}",
-                twin_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.4f}",
-                bound_by=b_by, share=f"{b_ms / ms:.3f}",
-                full_pass_ms=f"{full16:.4f}",
-                full_pass_fp32_ms=f"{full32:.4f}", **extra,
-                flop=f"{f_flop:.4g}", bytes=f_nb,
-                full_pass_bound_ms=f"{fb_ms:.4f}", full_bound_by=fb_by,
-                full_share=f"{fb_ms / full16:.3f}", **fields,
-                differs_from_fp32=f"{share:.5f}")
-            rows.append((ms, plain_ms, b_ms, full16, fb_ms, full32, share,
-                         flop, nb))
-        mean = [sum(r[i] for r in rows) / len(rows) for i in range(7)]
-        results[mode] = {
-            "max_abs_err": 0.0, "ms": mean[0], "plain_ms": mean[1],
-            "bound_ms": mean[2],
-            "bound_by": bound_ms(sum(r[7] for r in rows),
-                                 sum(r[8] for r in rows),
-                                 PEAK_BF16_FLOPS)[1],
-            "full_pass_ms": mean[3], "full_pass_bound_ms": mean[4],
-            "fp32_full_pass_ms": mean[5], "differs_from_fp32": mean[6]}
-        if epilogue is not None:
-            e_ms = sum(e[0] for e in epi) / len(epi)
-            fe_ms = sum(e[1] for e in epi) / len(epi)
-            results[mode].update({
-                "design": MMA_DESIGN, "epilogue_bound_ms": e_ms,
-                "epilogue_share": e_ms / mean[0],
-                "full_pass_epilogue_bound_ms": fe_ms,
-                "epilogue_instructions_per_pair": epilogue[0][mode],
-                **({"instructions_per_ray_visit": epilogue[2][mode]}
-                   if len(epilogue) > 2 else {}),
-                "paced_by": ("epilogue" if fe_ms > mean[4]
-                             else results[mode]["bound_by"])})
-    return results
+                rays_n=kern.numel(), subset_equal=True,
+                counter_equal=counter is not None)
 
 
 def _visits_equal(kernel, replay, args, kw):
     """The kernel's visit counter against its twin's replay: raise unless
-    equal; returns the fields to print."""
+    equal."""
     import torch
 
     visits = torch.empty(args[0].shape[0], dtype=torch.int32,
                          device=args[0].device)
     kernel(*args, **kw, visits=visits)
-    ref = replay(*args, **{k: v for k, v in kw.items() if k != "layout"})
+    ref = replay(*args, **kw)
     if not torch.equal(visits, ref):
         raise AssertionError(f"bf16 visit counter differs from its replay on "
                              f"{int((visits != ref).sum())} tiles")
-    return {"counter_equal": True,
-            "subset_visits_per_tile": f"{float(visits.float().mean()):.3f}"}
 
 
-def _with_layouts(fn, fp32_layout, feats, k):
-    """fn with the table's kernel layout of each precision, made once (the
-    bf16 one in fragment order)."""
+def _with_mma_layout(fn, feats, k):
+    """fn with the bf16 table in fragment order (`mma_layout`), made
+    once."""
     from lumenrenderer_tpu_torch.ops import visit_scan as vs
 
-    layouts = {"highest": fp32_layout, "default": vs.mma_layout(feats, k)}
-    return lambda *a, **kw: fn(*a, **kw, layout=layouts[kw["precision"]])
+    layout = vs.mma_layout(feats, k)
+    return lambda *a, **kw: fn(*a, **kw, layout=layout)
 
 
 def _bra_target(text):
@@ -4029,45 +2881,20 @@ def _loop_around(instrs, first, last):
     return head, end
 
 
-def _loop_pass(instrs, head, end, skip=None):
-    """(HMMAs, instructions) of one pass from head to the backward branch
-    at end, every forward branch inside the loop taken (on the kernels'
-    no-hit path they skip a pair's window test once an earlier test
-    failed, the work of a hit, and thread 0's bulk copies) and backward
-    ones not; the addresses of `skip` (head, end), an inner loop, jumped
-    over."""
+def _loop_pass(instrs, head, end):
+    """HMMAs of one pass from head to the backward branch at end, every
+    forward branch inside the loop taken (on the kernels' no-hit path they
+    skip a pair's window test once an earlier test failed, the work of a
+    hit, and thread 0's bulk copies) and backward ones not."""
     index = {a: i for i, (a, _) in enumerate(instrs)}
-    i, count, n_hmma = index[head], 0, 0
+    i, n_hmma = index[head], 0
     while True:
         a, t = instrs[i]
-        if skip is not None and skip[0] <= a <= skip[1]:
-            i = index[skip[1]] + 1
-            continue
-        count += 1
         n_hmma += t.startswith("HMMA")
         tgt = _bra_target(t)
         if a == end:
-            return n_hmma, count
+            return n_hmma
         i = index[tgt] if tgt is not None and a < tgt <= end else i + 1
-
-
-def mma_loop_count(instrs):
-    """(HMMAs, instructions) of one pass through the loop around a
-    kernel's HMMAs on its no-hit path (`_loop_pass`)."""
-    hmma = [a for a, t in instrs if t.startswith("HMMA")]
-    if not hmma:
-        return 0, 0
-    return _loop_pass(instrs, *_loop_around(instrs, hmma[0], hmma[-1]))
-
-
-def mma_visit_count(instrs):
-    """Instructions of one pass through the visit loop around the loop of
-    a kernel's HMMAs, that loop left out, on the path of a thread that
-    issues no bulk copy (`_loop_pass`): the vote, the wait and, in K2, the
-    A fragments formed, traded and rounded."""
-    hmma = [a for a, t in instrs if t.startswith("HMMA")]
-    inner = _loop_around(instrs, hmma[0], hmma[-1])
-    return _loop_pass(instrs, *_loop_around(instrs, *inner), skip=inner)[1]
 
 
 def _options_tensor_cores(dev):
@@ -4075,13 +2902,7 @@ def _options_tensor_cores(dev):
     case on crafted sums, each result against the candidate models bit for
     bit; raise unless the bf16 twins' model (MMA_MODEL) fits every sum of
     the kernels' kind. Then the SASS of the bf16 kernels of K1, K2 and K3:
-    raise unless their loops run HMMA; each loop's instructions on the
-    no-hit path, less its HMMAs, over the lane's 4 pairs, are the
-    epilogue's instructions a pair; K2's visit loop's other instructions
-    (the vote, the wait, the A fragments formed and traded) are its
-    instructions a ray and visit (a block's 128 lanes for its 128 rays).
-    Returns ({kernel: {mode: instructions a pair}}, {mode: K2's
-    instructions a ray-visit}, the clock in MHz)."""
+    raise unless their loops run HMMA."""
     from lumenrenderer_tpu_torch.ops import build
     from lumenrenderer_tpu_torch.ops import mma_probe as mp
     from lumenrenderer_tpu_torch.ops.visit_scan import MMA_MODEL
@@ -4103,40 +2924,24 @@ def _options_tensor_cores(dev):
     if mp.model_name(MMA_MODEL) not in out["fits"]:
         raise AssertionError("17h: the twins' tensor-core model does not fit "
                              "the card")
-    clock = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True).stdout.split()[0])
-    per_pair, per_visit = {}, {}
     for name in ("visit_scan", "visit_scan_instanced", "pair_scan"):
         funcs = _sass_functions(build.library_path(name))
         for mode in ("closest", "any"):
             (fname, instrs), = [(f, i) for f, i in funcs.items()
                                 if MMA_ENTRIES[name, mode] in f]
-            n_hmma, count = mma_loop_count(instrs)
-            total = sum(t.startswith("HMMA") for _, t in instrs)
+            hmma = [a for a, t in instrs if t.startswith("HMMA")]
+            n_hmma = (_loop_pass(instrs, *_loop_around(instrs, hmma[0],
+                                                       hmma[-1]))
+                      if hmma else 0)
+            say("17h sass", kernel=name, mode=mode, k=128,
+                hmma_in_function=len(hmma), hmma_in_loop=n_hmma)
             if n_hmma == 0:
                 raise AssertionError(f"17h: no HMMA in {fname}'s loop")
-            per = (count - n_hmma) / MMA_PAIRS_PER_LANE
-            per_pair.setdefault(name, {})[mode] = per
-            visit = {}
-            if name == "visit_scan_instanced":
-                per_visit[mode] = mma_visit_count(instrs)
-                visit = {"instructions_per_ray_visit": per_visit[mode]}
-            say("17h sass", kernel=name, mode=mode, k=128,
-                hmma_in_function=total, hmma_in_loop=n_hmma,
-                loop_instructions=count,
-                epilogue_instructions_per_pair=per, **visit,
-                clock_max_mhz=clock)
-    return per_pair, per_visit, clock
 
 
-def _options_k1(dev, epilogue, w=W, h=H, n_tiles=SUBSET_TILES):
+def _options_k1(dev, w=W, h=H, n_tiles=SUBSET_TILES):
     """17a: K1's bf16 mode (the tensor cores) against its twin on the
-    primary, sorted bounce and shadow passes of the interior; `epilogue`:
-    (its instructions a pair per mode, the clock in MHz)."""
-    import torch
-
+    primary, sorted bounce and shadow passes of the interior."""
     from lumenrenderer_tpu_torch.accel import stream, tiled
     from lumenrenderer_tpu_torch.ops import visit_scan as vs
     from lumenrenderer_tpu_torch.render.renderer import KERNEL_VISIT_CAP
@@ -4148,42 +2953,24 @@ def _options_k1(dev, epilogue, w=W, h=H, n_tiles=SUBSET_TILES):
         sc, cs, camf(w / h).to(dev), dev, w, h,
         lambda o, d, tn, tx: tiled.scan_inputs(cs, o, d, tn, tx, mv),
         primary=True)
-    kernel = _with_layouts(vs.visit_scan, (cs.slabs, cs.nlive), cs.tri_feat,
-                           128)
-    live_tris = vs.slab_layout(cs.tri_feat, 128, bf16=True)[1].double()
-
-    def work(q, args, kw):
-        rf_t, feats, sel, nv, tnb = args
-        visits = torch.empty(rf_t.shape[0], dtype=torch.int32, device=dev)
-        kernel(*args, **kw, visits=visits)
-        live_rays = (rf_t[..., 11] >= rf_t[..., 10]).sum(1)
-        flop = visit_flop(live_rays, live_tris, sel, visits)
-        # the bf16 table at 2 bytes a value
-        nb = (_nbytes(rf_t, sel, nv, tnb) + feats.numel() * 2
-              + rf_t.shape[0] * 128 * 4)
-        return flop, nb, {
-            "visits_per_tile": f"{float(visits.float().mean()):.3f}"}
-
-    return _hold_bf16(
+    kernel = _with_mma_layout(vs.visit_scan, cs.tri_feat, 128)
+    _hold_bf16(
         "17a bf16 K1", "visit_scan", passes,
         lambda q: _tile_subset(q["args"], 1, n_tiles), kernel,
         vs.visit_scan_ref,
         lambda args, kw: _visits_equal(kernel, vs.executed_visits_ref, args,
-                                       kw),
-        work, lambda q: q["args"][0][..., 11] >= q["args"][0][..., 10],
-        lambda q: q["kw"]["low_bits"], epilogue)
+                                       kw))
 
 
-def _options_k2(dev, epilogue, w=W, h=H, n_tiles=K2_BF16_SUBSET_TILES):
+def _options_k2(dev, w=W, h=H, n_tiles=K2_BF16_SUBSET_TILES,
+                frames=LAUNCH_FRAMES):
     """17b: K2's bf16 mode (the tensor cores) against its twin on the
-    instanced scene's passes, then the two-level bf16 frame (K2's bf16
-    launches); `epilogue`: (its instructions a pair per mode, the clock in
-    MHz, its instructions a ray-visit per mode)."""
+    instanced scene's passes, then the two-level bf16 frames (K2's bf16
+    launches)."""
     import torch
 
     from lumenrenderer_tpu_torch.accel import stream, two_level
     from lumenrenderer_tpu_torch.integrator.wavefront import RenderConfig
-    from lumenrenderer_tpu_torch.ops import visit_scan as vs
     from lumenrenderer_tpu_torch.ops import visit_scan_instanced as vsi
     from lumenrenderer_tpu_torch.render.renderer import (KERNEL_VISIT_CAP,
                                                          Renderer)
@@ -4198,34 +2985,14 @@ def _options_k2(dev, epilogue, w=W, h=H, n_tiles=K2_BF16_SUBSET_TILES):
         sc, cs, camf(w / h).to(dev), dev, w, h,
         lambda o, d, tn, tx: two_level.scan_inputs(ics, o, d, tn, tx, mv),
         primary=True)
-    kernel = _with_layouts(vsi.visit_scan_instanced, (ics.slabs, ics.nlive),
-                           ics.tri_feat, ics.tri_id.shape[1])
-    live_tris = vs.slab_layout(ics.tri_feat, ics.tri_id.shape[1],
-                               bf16=True)[1].double()
-
-    def work(q, args, kw):
-        rayblk, wnd, feats, sel_cl, _, nv, _ = args
-        tiles = rayblk.shape[0]
-        visits = torch.empty(tiles, dtype=torch.int32, device=dev)
-        kernel(*args, **kw, visits=visits)
-        live_rays = (wnd[..., 1] >= wnd[..., 0]).sum(1)
-        ray_visits = float((live_rays * visits).sum())
-        flop = (visit_flop(live_rays, live_tris, sel_cl, visits)
-                + AFFINE_FLOP * ray_visits)
-        nb = (_nbytes(rayblk[:, :6], wnd, nv) + feats.numel() * 2
-              + int(visits.sum()) * 56 + tiles * (128 + 1) * 4)
-        return flop, nb, {
-            "visits_per_tile": f"{float(visits.float().mean()):.3f}",
-            "ray_visits": ray_visits}
-
-    checks = _hold_bf16(
+    kernel = _with_mma_layout(vsi.visit_scan_instanced, ics.tri_feat,
+                              ics.tri_id.shape[1])
+    _hold_bf16(
         "17b bf16 K2", "visit_scan_instanced", passes,
         lambda q: _tile_subset(q["args"], 2, n_tiles), kernel,
         vsi.visit_scan_instanced_ref,
         lambda args, kw: _visits_equal(
-            kernel, vsi.executed_visits_instanced_ref, args, kw),
-        work, lambda q: q["args"][1][..., 1] >= q["args"][1][..., 0],
-        lambda q: q["kw"]["low_bits"], epilogue)
+            kernel, vsi.executed_visits_instanced_ref, args, kw))
     del passes
     cfg = RenderConfig(width=w, height=h, max_depth=5, bsdf="disney",
                        light_strategy="mis")
@@ -4233,33 +3000,29 @@ def _options_k2(dev, epilogue, w=W, h=H, n_tiles=K2_BF16_SUBSET_TILES):
     r = Renderer(builder.build(), cfg, accel="two_level", builder=builder,
                  device=dev, candidate_dtype="bfloat16")
     vsi.reset_launches()
-    ms, warm_ms, st, overflow = _frames(r, cam, SLICE_FRAMES)
+    st, _, _, overflow = _run_frames(r, cam, frames)
     launches = dict(vsi.LAUNCHES_BF16)
     mean = float(st.accum.mean())
     finite = bool(torch.isfinite(st.accum).all())
     say("17b two-level bf16", size=f"{w}x{h}", units=ics.num_clusters,
-        warmup_ms=f"{warm_ms:.1f}", ms_per_frame=f"{ms:.1f}",
         k2_bf16_launches=json.dumps(launches),
         k2_fp32_launches=json.dumps(vsi.LAUNCHES), mean=f"{mean:.6f}",
         finite=finite, overflow=overflow)
-    per = SLICE_FRAMES + 1
     if (not finite or mean <= 0 or vsi.LAUNCHES != {"closest": 0, "any": 0}
-            or launches != {"closest": 5 * per, "any": 5 * per}):
+            or launches != {"closest": 5 * frames, "any": 5 * frames}):
         raise AssertionError(f"17b: bad two-level bf16 frame: {launches}")
-    return checks, launches
 
 
-def _options_k3(dev, epilogue, w=W, h=H, n_tiles=SUBSET_TILES):
+def _options_k3(dev, w=W, h=H, n_tiles=SUBSET_TILES):
     """17b: K3's bf16 mode (the tensor cores) against its twin on the
-    interior's pair tiles, then one bf16 pair frame (K3's bf16 launches);
-    `epilogue` as for `_options_k1`."""
+    interior's pair tiles, then one bf16 pair frame (K3's bf16
+    launches)."""
     import torch
 
     from lumenrenderer_tpu_torch.accel import pairs, stream
     from lumenrenderer_tpu_torch.core import sampling
     from lumenrenderer_tpu_torch.integrator import wavefront as wf
     from lumenrenderer_tpu_torch.ops import pair_scan as ps
-    from lumenrenderer_tpu_torch.ops import visit_scan as vs
     from lumenrenderer_tpu_torch.render.renderer import KERNEL_VISIT_CAP
 
     sc, camf = _scene(dev)
@@ -4280,27 +3043,9 @@ def _options_k3(dev, epilogue, w=W, h=H, n_tiles=SUBSET_TILES):
         return (rf[idx].reshape(-1, 12).contiguous(), feats,
                 tile_cluster[idx].contiguous())
 
-    kernel = _with_layouts(ps.pair_scan, (cs.slabs, cs.nlive), cs.tri_feat,
-                           128)
-    live_tris = vs.slab_layout(cs.tri_feat, 128, bf16=True)[1].double()
-
-    def work(q, args, kw):
-        rf_pairs, feats, tile_cluster = args
-        rf = rf_pairs.reshape(-1, 128, 12)
-        live = (rf[..., 11] >= rf[..., 10]).sum(1)
-        n_live = int((live > 0).sum())
-        flop = FLOP_PER_PAIR * float(
-            (live.double() * live_tris[tile_cluster.long()]).sum())
-        nb = (n_live * (128 * 12 + 1) * 4
-              + (rf.shape[0] - n_live) * 128 * 2 * 4
-              + rf.shape[0] * 128 * 4 + feats.numel() * 2)
-        return flop, nb, {"live_pair_tiles": n_live}
-
-    checks = _hold_bf16(
-        "17b bf16 K3", "pair_scan", passes, subset, kernel, ps.pair_scan_ref,
-        lambda args, kw: {}, work,
-        lambda q: q["args"][0][:, 11] >= q["args"][0][:, 10],
-        lambda q: q["kw"]["k_bits"], epilogue)
+    _hold_bf16("17b bf16 K3", "pair_scan", passes, subset,
+               _with_mma_layout(ps.pair_scan, cs.tri_feat, 128),
+               ps.pair_scan_ref)
     del passes
     cfg = wf.RenderConfig(width=w, height=h, max_depth=5, bsdf="disney",
                           light_strategy="mis")
@@ -4310,108 +3055,62 @@ def _options_k3(dev, epilogue, w=W, h=H, n_tiles=SUBSET_TILES):
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     ps.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     with torch.no_grad():
         out = wf.render_wavefront(sc, isect, occl, camf(w / h).to(dev),
                                   sampling.generator_uniforms(gen), 0, cfg)
     img = wf.merge_channels(out)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3
     launches = dict(ps.LAUNCHES_BF16)
     finite = bool(torch.isfinite(img).all())
     say("17b pair bf16", size=f"{w}x{h}", max_pairs_per_ray=
-        OPTION_PAIRS_PER_RAY, frame_ms=f"{ms:.1f}",
-        k3_bf16_launches=json.dumps(launches),
+        OPTION_PAIRS_PER_RAY, k3_bf16_launches=json.dumps(launches),
         k3_fp32_launches=json.dumps(ps.LAUNCHES),
         mean=f"{float(img.mean()):.6f}", finite=finite,
         overflow=bool(out["overflow"]))
     if (not finite or launches != {"closest": 5, "any": 5}
             or ps.LAUNCHES != {"closest": 0, "any": 0}):
         raise AssertionError(f"17b: bad bf16 pair frame: {launches}")
-    return checks, launches
 
 
 def _option_frames(phase, r, cam, frames=SLICE_FRAMES):
-    """A warm-up frame and `frames` timed ones from init_state(0): (ms per
-    frame, warm-up ms, state, the last frame's AOVs, overflow, peak GiB)."""
+    """`frames` frames of Renderer r from init_state(0): (state, the last
+    frame's AOVs, overflow of any); raise on a bad image."""
     import torch
 
-    torch.cuda.reset_peak_memory_stats()
-    st, aux = r.render_frame(r.init_state(0), cam)
-    warm_ms = r.frame_stats["Total Frame Time"]
-    run = {"st": st, "aux": aux, "overflow": r.frame_stats["overflow"]}
-
-    def one():
-        run["st"], run["aux"] = r.render_frame(run["st"], cam)
-        run["overflow"] |= r.frame_stats["overflow"]
-
-    ms = timed_frames(one, frames)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    finite = bool(torch.isfinite(run["st"].accum).all())
-    if not finite or float(run["st"].accum.mean()) <= 0:
+    st, _, aux, overflow = _run_frames(r, cam, frames)
+    finite = bool(torch.isfinite(st.accum).all())
+    if not finite or float(st.accum.mean()) <= 0:
         raise AssertionError(f"{phase}: bad frame")
-    return ms, warm_ms, run["st"], run["aux"], run["overflow"], peak
-
-
-def _primary_visits(r, cam, w, h, perm=None):
-    """K1's executed visits per tile on the frame's primary pass (rays in
-    `perm` order when given) and the mean admitted clusters per tile."""
-    import torch
-
-    from lumenrenderer_tpu_torch.accel import tiled
-    from lumenrenderer_tpu_torch.core import sampling
-    from lumenrenderer_tpu_torch.core.camera import generate_primary_rays
-    from lumenrenderer_tpu_torch.ops import visit_scan as vs
-
-    gen = torch.Generator(device=r.device)
-    gen.manual_seed(3)
-    ids = None if perm is None else torch.from_numpy(perm).to(r.device)
-    o, d = generate_primary_rays(cam.to(r.device), w, h, 0,
-                                 sampling.generator_uniforms(gen), "random",
-                                 pixel_ids=ids)
-    q = tiled.scan_inputs(r.clusters, o, d, 1e-3, 1e9, r.max_visits,
-                          r.culling)
-    visits = torch.empty(q["args"][0].shape[0], dtype=torch.int32,
-                         device=r.device)
-    vs.visit_scan(*q["args"], **q["kw"], closest=True, layout=q["layout"],
-                  visits=visits)
-    return float(visits.float().mean()), float(q["args"][3].float().mean())
+    return st, aux, overflow
 
 
 def _options_frames(dev, w=W, h=H):
     """17c-e: the interior through Renderer(accel="tiled") with
     candidate_dtype="bfloat16", culling="dense" and swizzle=True, each
-    beside the default frame of the same seed. Returns K1's bf16
-    launches of 17c's frames."""
+    beside the default frame of the same seed."""
     import dataclasses
 
     import torch
 
-    from lumenrenderer_tpu_torch.core.camera import block_swizzle_map
     from lumenrenderer_tpu_torch.ops import visit_scan as vs
 
     base, cam = _interior_renderer(dev, "tiled", w, h)
-    ms0, _, st0, aux0, _, peak0 = _option_frames("17 default", base, cam)
+    st0, aux0, _ = _option_frames("17 default", base, cam)
     mean0 = float(st0.accum.mean())
     low_bits = _key_low_bits(base.clusters.num_clusters, 128,
                              base.max_visits)
-    say("17 default", size=f"{w}x{h}", ms_per_frame=f"{ms0:.1f}",
-        peak_mem_gib=f"{peak0:.2f}", mean=f"{mean0:.6f}")
+    say("17 default", size=f"{w}x{h}", mean=f"{mean0:.6f}")
+    del base, st0
 
     # 17c: bf16 candidates (K1's bf16 mode on the main path)
     r, cam = _interior_renderer(dev, "tiled", w, h,
                                 candidate_dtype="bfloat16")
     vs.reset_launches()
-    ms, warm, st, aux, ovf, peak = _option_frames("17c bf16", r, cam)
+    st, aux, ovf = _option_frames("17c bf16", r, cam)
     launches = dict(vs.LAUNCHES_BF16)
-    per = {k: v / (SLICE_FRAMES + 1) for k, v in launches.items()}
+    per = {k: v / SLICE_FRAMES for k, v in launches.items()}
     strict, _ = _aov_agreement(aux, aux0, low_bits)
-    say("17c bf16", size=f"{w}x{h}", warmup_ms=f"{warm:.1f}",
-        ms_per_frame=f"{ms:.1f}", fp32_ms_per_frame=f"{ms0:.1f}",
-        peak_mem_gib=f"{peak:.2f}", k1_bf16_launches=json.dumps(launches),
-        k1_bf16_launches_per_frame=json.dumps(per),
-        k1_fp32_launches=json.dumps(vs.LAUNCHES),
+    say("17c bf16", size=f"{w}x{h}", k1_bf16_launches_per_frame=json.dumps(
+        per), k1_fp32_launches=json.dumps(vs.LAUNCHES),
         mean=f"{float(st.accum.mean()):.6f}", fp32_mean=f"{mean0:.6f}",
         aov_pixels_agree_with_fp32=f"{strict:.6f}", overflow=ovf)
     if (per != {"closest": 5, "any": 5}
@@ -4422,17 +3121,9 @@ def _options_frames(dev, w=W, h=H):
 
     # 17d: dense culling, uncapped (max_visits = C)
     r, cam = _interior_renderer(dev, "tiled", w, h, culling="dense")
-    ms, warm, st, aux, ovf, peak = _option_frames("17d dense", r, cam)
-    dense_v, dense_adm = _primary_visits(r, cam, w, h)
-    base_v, base_adm = _primary_visits(base, cam, w, h)
+    st, aux, ovf = _option_frames("17d dense", r, cam)
     say("17d dense", size=f"{w}x{h}", clusters=r.clusters.num_clusters,
-        max_visits=r.max_visits, warmup_ms=f"{warm:.1f}",
-        ms_per_frame=f"{ms:.1f}", frustum_ms_per_frame=f"{ms0:.1f}",
-        peak_mem_gib=f"{peak:.2f}", frustum_peak_mem_gib=f"{peak0:.2f}",
-        admitted_per_tile=f"{dense_adm:.3f}",
-        frustum_admitted_per_tile=f"{base_adm:.3f}",
-        visits_run_per_tile=f"{dense_v:.3f}",
-        frustum_visits_run_per_tile=f"{base_v:.3f}", overflow=ovf)
+        max_visits=r.max_visits, overflow=ovf)
     if ovf:
         raise AssertionError("17d: dense lists overflowed at max_visits = C")
     _hold_frames("17d dense", "the frustum frame", aux, aux0,
@@ -4444,20 +3135,11 @@ def _options_frames(dev, w=W, h=H):
     # draws, so the primary AOVs are held on a frame of pixel centres
     r, cam = _interior_renderer(dev, "tiled", w, h)
     r.config = dataclasses.replace(r.config, swizzle=True)
-    ms, warm, st, aux, ovf, peak = _option_frames("17e swizzle", r, cam)
-    perm, _ = block_swizzle_map(w, h)
-    swz_v, swz_adm = _primary_visits(r, cam, w, h, perm)
-    say("17e swizzle", size=f"{w}x{h}", warmup_ms=f"{warm:.1f}",
-        ms_per_frame=f"{ms:.1f}", row_major_ms_per_frame=f"{ms0:.1f}",
-        primary_visits_run_per_tile=f"{swz_v:.3f}",
-        row_major_primary_visits_run_per_tile=f"{base_v:.3f}",
-        primary_admitted_per_tile=f"{swz_adm:.3f}",
-        row_major_primary_admitted_per_tile=f"{base_adm:.3f}",
-        overflow=ovf)
+    st, _, ovf = _option_frames("17e swizzle", r, cam)
     mean = float(st.accum.mean())
     rel = abs(mean - mean0) / mean0
-    say("17e swizzle", mean=f"{mean:.6f}", row_major_mean=f"{mean0:.6f}",
-        mean_rel_diff=f"{rel:.2e}")
+    say("17e swizzle", size=f"{w}x{h}", overflow=ovf, mean=f"{mean:.6f}",
+        row_major_mean=f"{mean0:.6f}", mean_rel_diff=f"{rel:.2e}")
     if rel > MEAN_RTOL:
         raise AssertionError(f"17e: swizzled mean {mean} vs {mean0}")
     centred = []
@@ -4469,7 +3151,6 @@ def _options_frames(dev, w=W, h=H):
     _hold_frames("17e swizzle", "the row-major frame (pixel centres)",
                  centred[0][0], centred[1][0], centred[0][1], centred[1][1],
                  low_bits, hold_mean=False)
-    return launches
 
 
 def _raw_passes(dev, sc, cs, cam, w, h):
@@ -4531,8 +3212,8 @@ def _uv_condition(sc, cs, o, d, tri, uv):
 
 
 def _options_decode(dev, raw, cs, sc):
-    """17f: decode=True on the sorted bounce pass: its extra ms, and t, u,
-    v against brute on DECODE_RAYS rays."""
+    """17f: decode=True on the sorted bounce pass: t, u, v against brute on
+    DECODE_RAYS rays."""
     import torch
 
     from lumenrenderer_tpu_torch.accel import brute, sorting, tiled
@@ -4546,8 +3227,6 @@ def _options_decode(dev, raw, cs, sc):
         calls[decode] = sorting.sorted_intersectors(
             isect, None, pts.amin(0), pts.amax(0))[0]
     o, d, tn, tx = raw["bounce"]
-    ms = {k: cuda_time_ms(lambda: fn(o, d, tn, tx), reps=3)
-          for k, fn in calls.items()}
     key = calls[False](o, d, tn, tx)
     dec = calls[True](o, d, tn, tx)
     idx = torch.linspace(0, o.shape[0] - 1, DECODE_RAYS, device=dev).long()
@@ -4564,9 +3243,7 @@ def _options_decode(dev, raw, cs, sc):
         sc, cs, o[idx][same], d[idx][same], ref["tri"][same], got_uv)
     tri_agree = float((dec["tri"][idx] == ref["tri"]).float().mean())
     uv_ok = bool((uv <= tol).all())
-    say("17f decode", rays=o.shape[0], decode_ms=f"{ms[True]:.3f}",
-        key_only_ms=f"{ms[False]:.3f}",
-        extra_ms=f"{ms[True] - ms[False]:.3f}", subset=DECODE_RAYS,
+    say("17f decode", rays=o.shape[0], subset=DECODE_RAYS,
         hits=int(hit.sum()), tri_agree_with_brute=f"{tri_agree:.6f}",
         t_within_key=f"{float(t_ok.float().mean()):.6f}",
         uv_max_err_same_tri=f"{float(uv.max()):.3g}",
@@ -4579,76 +3256,25 @@ def _options_decode(dev, raw, cs, sc):
         raise AssertionError("17f: the exact decode disagrees with brute")
 
 
-def _options_blocked(dev, raw, cs, sc):
-    """17g: one bounce and one shadow pass through
-    `blocked_sorted_intersectors` beside `sorted_intersectors`: time and
-    K1's visits per tile."""
-    import torch
-
-    from lumenrenderer_tpu_torch.accel import sorting, tiled
-    from lumenrenderer_tpu_torch.ops import visit_scan as vs
-    from lumenrenderer_tpu_torch.render.renderer import KERNEL_VISIT_CAP
-
-    mv = min(cs.num_clusters, KERNEL_VISIT_CAP)
-    pts = sc.tri_pos.reshape(-1, 3)
-    isect, occl = tiled.tiled_intersectors(cs, mv, decode=False)
-    seen = {}
-
-    def counted(closest):
-        def fn(o, d, tn, tx):
-            q = tiled.scan_inputs(cs, o, d, tn, tx, mv)
-            visits = torch.empty(q["args"][0].shape[0], dtype=torch.int32,
-                                 device=dev)
-            vs.visit_scan(*q["args"], **q["kw"], closest=closest,
-                          layout=q["layout"], visits=visits)
-            seen["visits"] = float(visits.float().mean())
-            seen["admitted"] = float(q["args"][3].float().mean())
-            n = o.shape[0]
-            return ({"tri": torch.zeros(n, device=dev),
-                     "overflow": q["overflow"]} if closest
-                    else torch.zeros(n, dtype=torch.bool, device=dev))
-        return fn
-
-    for label, wrap in (("global sort", sorting.sorted_intersectors),
-                        ("block partition",
-                         sorting.blocked_sorted_intersectors)):
-        timed = wrap(isect, occl, pts.amin(0), pts.amax(0))
-        spies = wrap(counted(True), counted(False), pts.amin(0), pts.amax(0))
-        for i, name in ((0, "bounce"), (1, "shadow")):
-            rays = raw[name]
-            ms = cuda_time_ms(lambda: timed[i](*rays), reps=3)
-            spies[i](*rays)
-            say("17g sort", wrapper=label, rays=name, pass_ms=f"{ms:.3f}",
-                visits_run_per_tile=f"{seen['visits']:.3f}",
-                admitted_per_tile=f"{seen['admitted']:.3f}")
-
-
 def phase_options(dev, w=W, h=H):
-    """Phase 17: returns the bf16 rows' checks and launches per kernel."""
+    """Phase 17: 17h, then 17a-f."""
     import torch
 
     from lumenrenderer_tpu_torch.accel import stream
 
-    per_pair, per_visit, clock = _options_tensor_cores(dev)
-    checks = {"visit_scan": _options_k1(
-        dev, (per_pair["visit_scan"], clock), w, h)}
+    _options_tensor_cores(dev)
+    _options_k1(dev, w, h)
     torch.cuda.empty_cache()
-    checks["visit_scan_instanced"], k2_launches = _options_k2(
-        dev, (per_pair["visit_scan_instanced"], clock, per_visit), w, h)
+    _options_k2(dev, w, h)
     torch.cuda.empty_cache()
-    checks["pair_scan"], k3_launches = _options_k3(
-        dev, (per_pair["pair_scan"], clock), w, h)
+    _options_k3(dev, w, h)
     torch.cuda.empty_cache()
-    launches = {"visit_scan": _options_frames(dev, w, h),
-                "visit_scan_instanced": k2_launches,
-                "pair_scan": k3_launches}
+    _options_frames(dev, w, h)
     torch.cuda.empty_cache()
     sc, camf = _scene(dev)
     cs = stream.build_clusters(sc.tri_pos, cluster_size=128).to(dev)
-    raw = _raw_passes(dev, sc, cs, camf(w / h).to(dev), w, h)
-    _options_decode(dev, raw, cs, sc)
-    _options_blocked(dev, raw, cs, sc)
-    return checks, launches
+    _options_decode(dev, _raw_passes(dev, sc, cs, camf(w / h).to(dev), w, h),
+                    cs, sc)
 
 
 def main(argv=None) -> int:
@@ -4675,99 +3301,29 @@ def main(argv=None) -> int:
 
     def run(name, fn, *args):
         t0 = time.perf_counter()
-        out = fn(*args)
+        fn(*args)
         say(name, seconds=f"{time.perf_counter() - t0:.1f}")
-        return out
 
     run("1 environment", phase_environment)
     run("2 build", phase_build)
-    checks = {"visit_scan": run("3 kernel", phase_kernel_vs_twin, dev)}
+    run("3 kernel", phase_kernel_vs_twin, dev)
     run("4 small slice", phase_small_slice, dev)
     run("4b small restir", phase_small_restir, dev)
-    launches = {"visit_scan": run("5 full slice", phase_full_slice, dev)}
-    checks["visit_scan_instanced"] = run(
-        "6 instanced kernel", phase_instanced_kernel_vs_twin, dev)
-    launches["visit_scan_instanced"] = run(
-        "7 two-level slice", phase_two_level_slice, dev)
-    checks["pair_scan"] = run("8 pair kernel", phase_pair_kernel_vs_twin,
-                              dev)
-    launches["pair_scan"] = run("9 pair slice", phase_pair_slice, dev)
+    run("5 full slice", phase_full_slice, dev)
+    run("6 instanced kernel", phase_instanced_kernel_vs_twin, dev)
+    run("7 two-level slice", phase_two_level_slice, dev)
+    run("8 pair kernel", phase_pair_kernel_vs_twin, dev)
+    run("9 pair slice", phase_pair_slice, dev)
     run("10 restir slice", phase_restir_slice, dev)
-    mega = run("11 mega slice", phase_mega, dev)
+    run("11 mega slice", phase_mega, dev)
     run("11b two-level units", phase_units_past_2048, dev)
-    scatter_launches = run("12 gradients", phase_gradients, dev)
-    scatter_rows = run("12b row scatter", phase_row_scatter, dev,
-                       scatter_launches)
-    textured = run("13 textured", phase_textured, dev)
-    volume = run("14 volumes", phase_volumes, dev)
-    app = run("15 application", phase_app, dev)
-    bvh_checks, bvh_launches = run("16 bvh and mesh", phase_bvh, dev)
-    bf16_checks, bf16_launches = run("17 options", phase_options, dev)
-
-    kernels = []
-    for name in KERNELS[:3]:
-        for mode in ("closest", "any"):
-            c = checks[name][mode]
-            kernels.append({
-                "name": f"{name}[{mode}]", "route": "cuda",
-                "source": f"lumenrenderer_tpu_torch/ops/csrc/{name}.cu",
-                "replaces": REPLACES[name],
-                "launches": launches[name][mode],
-                "max_abs_err": c["max_abs_err"], "ms": c["ms"],
-                "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-                "bound_by": c["bound_by"], "library_ms": None,
-                "full_pass_ms": c["full_pass_ms"],
-                "full_pass_bound_ms": c["full_pass_bound_ms"],
-                **({"visits_per_tile": c["visits_per_tile"]}
-                   if "visits_per_tile" in c else {}),
-                **({"launches_textured": textured[mode],
-                    "launches_volume": volume[mode],
-                    "launches_app": app[mode]}
-                   if name == "visit_scan" else {})})
-    for mode in ("closest", "any"):
-        c = mega["k1"][mode]
-        kernels.append({
-            "name": f"visit_scan[{mode}, mega]", "route": "cuda",
-            "source": "lumenrenderer_tpu_torch/ops/csrc/visit_scan.cu",
-            "replaces": REPLACES["visit_scan"],
-            "launches": mega["launches"][mode],
-            **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                 "bound_by", "full_pass_ms",
-                                 "full_pass_bound_ms")},
-            "library_ms": None})
-    w_ = mega["walk"]
-    kernels.append({
-        "name": "tree_walk", "route": "cuda",
-        "source": "lumenrenderer_tpu_torch/ops/csrc/tree_walk.cu",
-        "replaces": REPLACES["tree_walk"], "launches": w_["launches"],
-        "max_abs_err": w_["max_abs_err"], "ms": w_["ms"],
-        "plain_ms": w_["plain_ms"],
-        "bound_ms": w_["bound_ms"], "bound_by": w_["bound_by"],
-        "library_ms": None})
-    kernels += _bvh_rows(bvh_checks, bvh_launches)
-    kernels += scatter_rows
-    for name in KERNELS[:3]:
-        for mode in ("closest", "any"):
-            c = bf16_checks[name][mode]
-            kernels.append({
-                "name": f"{name}[{mode}, bf16]", "route": "cuda",
-                "source": f"lumenrenderer_tpu_torch/ops/csrc/{name}.cu",
-                "replaces": REPLACES[name] + " (precision=\"default\")",
-                "launches": bf16_launches[name][mode],
-                **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                     "bound_ms", "bound_by", "full_pass_ms",
-                                     "full_pass_bound_ms",
-                                     "fp32_full_pass_ms",
-                                     "differs_from_fp32")},
-                "bound_peak": "bf16 tensor cores, 989 TFLOP/s",
-                **{k: c[k] for k in ("design", "epilogue_bound_ms",
-                                     "epilogue_share",
-                                     "full_pass_epilogue_bound_ms",
-                                     "epilogue_instructions_per_pair",
-                                     "instructions_per_ray_visit",
-                                     "paced_by") if k in c},
-                "library_ms": None})
-    print(json.dumps({"kernels": kernels}))
+    run("12 gradients", phase_gradients, dev)
+    run("12b row scatter", phase_row_scatter, dev)
+    run("13 textured", phase_textured, dev)
+    run("14 volumes", phase_volumes, dev)
+    run("15 application", phase_app, dev)
+    run("16 bvh and mesh", phase_bvh, dev)
+    run("17 options", phase_options, dev)
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

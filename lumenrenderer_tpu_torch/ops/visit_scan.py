@@ -320,17 +320,13 @@ def executed_visits_ref(rf_t, feats, sel, nv, tnb, *, k: int, mv: int,
                              bf16=is_bf16(precision))
 
 
-def slab_layout(feats: torch.Tensor, k: int, bf16: bool = False):
+def slab_layout(feats: torch.Tensor, k: int):
     """The kernel's order of the coefficient table and its live slots:
     (slabs (C,K,10,4), nlive (C,) int32). Global (f, q·K + j) goes to
     ((j·10 + f)·4 + q), so that each cluster's slab is one contiguous block
     of K·10 quadruples (triangle j's ten (det, u, v, t) in a row).
     nlive is one past the cluster's last slot with a nonzero coefficient
-    (at least 1): the slots after it are padding, which never hits. With
-    `bf16`, slabs are bfloat16 and nlive counts the rounded table."""
-    if bf16:
-        slabs, nlive = slab_layout(round_bf16(feats), k)
-        return slabs.to(torch.bfloat16), nlive
+    (at least 1): the slots after it are padding, which never hits."""
     c = feats.shape[0]
     slabs = feats.view(c, 10, 4, k).permute(0, 3, 1, 2).contiguous()
     slot = torch.arange(1, k + 1, dtype=torch.int32, device=feats.device)

@@ -326,11 +326,7 @@ def test_bf16_layout_and_precision_checks():
     cs = jstream.build_clusters(jnp.asarray(random_tris(g, 300)),
                                 cluster_size=32)
     feats = t(cs.tri_feat)
-    slabs, nlive = pvs.slab_layout(feats, 32, bf16=True)
-    ref_slabs, ref_nlive = pvs.slab_layout(pvs.round_bf16(feats), 32)
-    assert slabs.dtype == torch.bfloat16
-    assert torch.equal(slabs.float(), ref_slabs)
-    assert torch.equal(nlive, ref_nlive)
+    nlive = pvs.slab_layout(pvs.round_bf16(feats), 32)[1]
     assert torch.equal(nlive, pvs.slab_layout(feats, 32)[1])
     rf_t, sel, nv, tnb = _k1_inputs(g, cs, random_tris(g, 10), 8, r=256)
     k_bits, _, low_bits = ptiled.key_bits(32, 8)

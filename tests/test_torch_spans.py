@@ -5,8 +5,8 @@ remat's recompute marked as the backward, K1's visit counter on the
 frame's own launches, a frame's table taken alone, the held spans kept
 bounded, the CLI's `--spans`, and the benchmark's span readers on a traced
 CPU run of each cell. The `cuda` cases (CUDA events, allocator and
-host-sync counters, timed waits, a sync debug mode the caller set,
-`chip_smoke.py`'s kernel rows under spans) run on the card:
+host-sync counters, timed waits, a sync debug mode the caller set) run on
+the card:
 `python -m pytest --noconftest tests/test_torch_spans.py -q -m cuda`."""
 import importlib.util
 import sys
@@ -506,27 +506,3 @@ def test_cuda_sync_debug_mode_the_caller_set(cuda):
     assert [str(w.message) for w in caught
             if str(w.message).startswith(profiling.SYNC_WARNING)]
     assert profiling.span_table(u.unit)["spans"]["step"]["host_syncs"] == 1
-
-
-@pytest.mark.cuda
-def test_cuda_chip_smoke_kernel_rows_leave_out_spans(cuda):
-    spec = importlib.util.spec_from_file_location("chip_smoke_spans",
-                                                  ROOT / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    a = torch.randn(2048, 2048, device=cuda)
-
-    def fn():
-        with profiling.unit("frame"):
-            with profiling.span("accel.k1"):
-                for _ in range(4):
-                    torch.mm(a, a)
-
-    fn()
-    wall_ms, kernels = smoke._device_kernels(fn)
-    names = {k[1] for k in kernels}
-    assert not names & {"frame", "accel.k1"}
-    # the products' kernels alone, each once, inside the wall time
-    assert sum(k[2] for k in kernels) >= 4
-    assert sum(k[0] for k in kernels) < wall_ms
-    assert profiling.span_table()["units"] == 1      # the spans recorded
