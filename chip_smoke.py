@@ -9,9 +9,9 @@ first failure, so the exit code is non-zero. The benchmark (`perfbench/`)
 times the port; this script times nothing but prints each phase's seconds.
 Phases:
   1. environment: torch, CUDA, nvcc, the card's name and power limit;
-  2. build kernels K1, K2, K3, W, T, the tensor-core probe and the row
-     scatter (ops/csrc/*.cu) with nvcc from this checkout, one nvcc each,
-     all at once; ptxas registers and spills;
+  2. build kernels K1, K2, K3, W, T, D, the tensor-core probe and the
+     row scatter (ops/csrc/*.cu) with nvcc from this checkout, one nvcc
+     each, all at once; ptxas registers and spills;
   3. K1 against its twin: 1,024 tiles each of the interior scene's
      2560x1440 primary pass and sorted bounce and shadow passes, closest
      and any mode, keys identical on MATCH_FRACTION of the rays and ties
@@ -26,7 +26,16 @@ Phases:
   5. the tiled slice at full size: Renderer(accel="tiled") on the interior
      scene (600 boxes, 64 lights), 2560x1440, 1 spp, depth 5, Disney + MIS,
      two frames: finite, mean > 0, no overflow, K1 launched 5 times a frame
-     in each mode;
+     in each mode, kernel D (the Disney BSDF) 5 times to evaluate and 4 to
+     sample;
+  5b. D against its twin on the frame's own surfaces: every `evaluate` and
+     `sample` call of one such frame (the primary surface and each
+     bounce's, 3,686,400 rays a call, the surface data's column views as
+     the frame gathers them) also run through the eager body on the same
+     tensors, under the card test's rule (tests/test_torch_disney_kernel.py:
+     1e-5 relative or 1e-6 absolute, non-finite at the same places, lobe
+     codes and is_specular equal off the draws within 1e-6 of a threshold,
+     which must be under 1 in 10^5);
   6. K2 against its twin as in phase 3, on the instanced scene (120 box
      instances and a light: 121 units, 2 unique meshes), its visit counter
      equal to `executed_visits_instanced_ref`;
@@ -201,6 +210,7 @@ without the package next to it.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import math
 import re
@@ -225,7 +235,7 @@ RESTIR_RATIO = (0.6, 1.05)   # ReSTIR / NEE image mean (biased reuse)
 N_INSTANCES = 120
 PAIRS_PER_RAY = 8
 KERNELS = ("visit_scan", "visit_scan_instanced", "pair_scan", "tree_walk",
-           "bvh_traverse", "mma_probe", "row_scatter")
+           "bvh_traverse", "disney_bsdf", "mma_probe", "row_scatter")
 MEGA_TRIS, MEGA_LIGHTS = 1_000_000, 256      # the JAX bench's mega scene
 UNITS_INSTANCES = 2100       # phase 11b: 2,101 units
 GRAD_RTOL = 2e-3             # phase 12: linearity, central difference
@@ -546,6 +556,7 @@ def phase_full_slice(dev, w=W, h=H, frames=LAUNCH_FRAMES):
     import torch
 
     from lumenrenderer_tpu_torch.integrator.wavefront import RenderConfig
+    from lumenrenderer_tpu_torch.ops import disney_bsdf as dk
     from lumenrenderer_tpu_torch.ops import visit_scan as vs
     from lumenrenderer_tpu_torch.render.renderer import Renderer
     from lumenrenderer_tpu_torch.scene import presets
@@ -556,15 +567,18 @@ def phase_full_slice(dev, w=W, h=H, frames=LAUNCH_FRAMES):
                        light_strategy="mis")
     r = Renderer(sc, cfg, accel="tiled", device=dev)
     vs.reset_launches()
+    dk.reset_launches()
     st, _, _, overflow = _run_frames(r, cam, frames)
     per_frame = {k: v / frames for k, v in vs.LAUNCHES.items()}
+    d_per_frame = {k: v / frames for k, v in dk.LAUNCHES.items()}
     img = st.accum
     finite = bool(torch.isfinite(img).all())
     mean = float(img.mean())
     say("5 full slice", size=f"{w}x{h}", tris=sc.num_triangles,
         clusters=r.clusters.num_clusters, max_visits=r.max_visits,
         overflow=overflow, mean=f"{mean:.5f}", finite=finite,
-        launches_per_frame=json.dumps(per_frame))
+        launches_per_frame=json.dumps(per_frame),
+        disney_launches_per_frame=json.dumps(d_per_frame))
     if not finite or mean <= 0 or overflow:
         raise AssertionError(f"bad frame: finite={finite} mean={mean} "
                              f"overflow={overflow}")
@@ -572,6 +586,86 @@ def phase_full_slice(dev, w=W, h=H, frames=LAUNCH_FRAMES):
     if per_frame != {"closest": cfg.max_depth, "any": cfg.max_depth}:
         raise AssertionError(f"K1 launches per frame {per_frame}, expected "
                              f"{cfg.max_depth} in each mode")
+    # NEE at each depth, a bounce after each but the last
+    if d_per_frame != {"evaluate": cfg.max_depth,
+                       "sample": cfg.max_depth - 1}:
+        raise AssertionError(f"D launches per frame {d_per_frame}, expected "
+                             f"{cfg.max_depth} and {cfg.max_depth - 1}")
+
+
+def _disney_card_test():
+    """tests/test_torch_disney_kernel.py as a module: its comparison rule."""
+    spec = importlib.util.spec_from_file_location(
+        "test_torch_disney_kernel",
+        REPO / "tests" / "test_torch_disney_kernel.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_disney_vs_twin(dev, w=W, h=H):
+    import torch
+
+    from lumenrenderer_tpu_torch.bsdf import disney
+    from lumenrenderer_tpu_torch.ops import disney_bsdf as dk
+
+    t = _disney_card_test()
+    r, cam = _interior_renderer(dev, "tiled", w, h)
+    evaluate, sample = dk.evaluate, dk.sample
+    held = []
+
+    def differ(a, b):
+        return int((a != b).sum() - (a.isnan() & b.isnan()).sum())
+
+    def held_evaluate(sd, wo, wi):
+        f, pdf = evaluate(sd, wo, wi)
+        f_e, pdf_e = disney._evaluate(sd, wo, wi)
+        keep = torch.ones(wo.shape[0], dtype=torch.bool, device=dev)
+        t.assert_close("f", f, f_e, t._row_keep(keep, 3))
+        t.assert_close("pdf", pdf, pdf_e, keep)
+        held.append("evaluate")
+        say("5b disney", entry="evaluate", call=len(held), rays=wo.shape[0],
+            values_differ=differ(f, f_e) + differ(pdf, pdf_e),
+            nonfinite=int((~torch.isfinite(pdf)).sum()),
+            pdf_positive=int((pdf > 0).sum()))
+        return f, pdf
+
+    def held_sample(sd, wo, u, with_lobe=False):
+        wi, f, pdf, spec, code = sample(sd, wo, u, with_lobe=True)
+        wi_e, f_e, pdf_e, spec_e = disney._sample(sd, wo, u)
+        code_e, near = t.eager_codes(sd, wo, u)
+        n, n_near = wo.shape[0], int(near.sum())
+        if n_near >= t.NEAR_SHARE * n:
+            raise AssertionError(f"{n_near} of {n} draws near a threshold")
+        keep = ~near
+        if not (torch.equal(code[keep], code_e[keep])
+                and torch.equal(spec[keep], spec_e[keep])):
+            raise AssertionError(
+                f"lobe codes or is_specular differ on "
+                f"{int(((code != code_e) | (spec != spec_e))[keep].sum())} "
+                f"of {n} rays")
+        for name, a, b, width in (("wi", wi, wi_e, 3), ("f", f, f_e, 3),
+                                  ("pdf", pdf, pdf_e, 0)):
+            t.assert_close(name, a, b, t._row_keep(keep, width))
+        held.append("sample")
+        say("5b disney", entry="sample", call=len(held), rays=n,
+            near=n_near, values_differ=differ(wi, wi_e) + differ(f, f_e)
+            + differ(pdf, pdf_e),
+            codes_differ=int((code != code_e).sum()),
+            lobes=json.dumps(torch.bincount((code & 3).long(),
+                                            minlength=4).tolist()),
+            specular=int(spec.sum()))
+        return (wi, f, pdf, spec) + ((code,) if with_lobe else ())
+
+    dk.evaluate, dk.sample = held_evaluate, held_sample
+    try:
+        r.render_frame(r.init_state(0), cam)
+    finally:
+        dk.evaluate, dk.sample = evaluate, sample
+    depth = r.config.max_depth
+    if held.count("evaluate") != depth or held.count("sample") != depth - 1:
+        raise AssertionError(f"held {held}, expected {depth} evaluate and "
+                             f"{depth - 1} sample calls")
 
 
 def _instanced():
@@ -3310,6 +3404,7 @@ def main(argv=None) -> int:
     run("4 small slice", phase_small_slice, dev)
     run("4b small restir", phase_small_restir, dev)
     run("5 full slice", phase_full_slice, dev)
+    run("5b disney", phase_disney_vs_twin, dev)
     run("6 instanced kernel", phase_instanced_kernel_vs_twin, dev)
     run("7 two-level slice", phase_two_level_slice, dev)
     run("8 pair kernel", phase_pair_kernel_vs_twin, dev)

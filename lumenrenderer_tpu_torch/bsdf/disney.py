@@ -5,6 +5,13 @@ Diffuse with Burley retro-reflection and subsurface lerp, sheen, anisotropic
 GGX specular, GTR1 clearcoat and rough dielectric transmission, all lobes
 evaluated for every ray and selected with `torch.where`. `evaluate` returns
 f (no cosine) and the solid-angle pdf of `sample`.
+
+Two paths give the same numbers. A call on CUDA tensors that needs no
+gradient (grad mode off, or no input requires grad) runs kernel D
+(`ops/disney_bsdf.py`), one launch a call; every other call runs the eager
+body here, which is the differentiable path, the CPU path and the kernel's
+twin. While spans record, each call charges its rays to the innermost span
+(`profiling.count_bsdf`: `bsdf_rays`, and `bsdf_fused_rays` where D ran).
 """
 from __future__ import annotations
 
@@ -15,7 +22,9 @@ import torch
 
 from ..core import sampling
 from ..core import vecmath as vm
+from ..ops import disney_bsdf as kernel
 from ..scene.materials import GatheredMaterial
+from ..utils import profiling
 from . import common
 
 
@@ -161,9 +170,36 @@ def _eval_transmission(g, sd, wo_l, wi_l):
     return f_trans, pdf_trans
 
 
+def _needs_grad(sd, *tensors) -> bool:
+    """True where autograd would record the call: grad mode on and an input
+    that requires grad."""
+    return torch.is_grad_enabled() and any(
+        x.requires_grad for x in (*tensors, sd.normal, sd.tangent,
+                                  sd.base_color, sd.metallic, sd.roughness,
+                                  sd.mat_rows))
+
+
+def _fused(sd, wo, other) -> bool:
+    """Whether kernel D runs the call: CUDA tensors and no gradient asked
+    for."""
+    return wo.is_cuda and not _needs_grad(sd, wo, other)
+
+
 def evaluate(sd, wo, wi):
     """Combined Disney f (no cosine) and sampling pdf, world-space wo/wi.
-    Material parameters come from the packed rows on `sd`."""
+    Material parameters come from the packed rows on `sd`. A CUDA call that
+    needs no gradient runs kernel D, which takes float32 (R,k) inputs only
+    and raises ValueError on other dtypes or leading shapes; every other
+    call takes any float dtype and leading shape [..., k]."""
+    fused = _fused(sd, wo, wi)
+    profiling.count_bsdf(wo.shape[0], fused)
+    if fused:
+        return kernel.evaluate(sd, wo, wi)
+    return _evaluate(sd, wo, wi)
+
+
+def _evaluate(sd, wo, wi):
+    """The eager body of `evaluate`."""
     g = GatheredMaterial(sd.mat_rows)
     t, b, n = _frame(sd)
     wo_l = vm.to_local_frame(wo, t, b, n)
@@ -182,7 +218,17 @@ def evaluate(sd, wo, wi):
 
 def sample(sd, wo, u):
     """Sample the Disney BSDF. u: (R,4) uniforms (2 direction, 1 lobe, 1
-    Fresnel). Returns (wi, f, pdf, is_specular)."""
+    Fresnel). Returns (wi, f, pdf, is_specular). Inputs as `evaluate`'s:
+    float32 (R,k) on a CUDA call that needs no gradient."""
+    fused = _fused(sd, wo, u)
+    profiling.count_bsdf(wo.shape[0], fused)
+    if fused:
+        return kernel.sample(sd, wo, u)
+    return _sample(sd, wo, u)
+
+
+def _sample(sd, wo, u):
+    """The eager body of `sample`."""
     g = GatheredMaterial(sd.mat_rows)
     t, b, n = _frame(sd)
     wo_l = _clamp_up(vm.to_local_frame(wo, t, b, n))
@@ -226,7 +272,7 @@ def sample(sd, wo, u):
     # through the warps (whose sqrt(0) corners give NaN), f stays live
     wi_l = wi_l.detach()
     wi = vm.to_world_frame(wi_l, t, b, n)
-    f, pdf = evaluate(sd, wo, wi)
+    f, pdf = _evaluate(sd, wo, wi)
     # the Fresnel reflection off a transmissive microfacet looks like the
     # specular lobe: fold its probability into the pdf
     h_rfl = vm.normalize(wo_l + wi_l)

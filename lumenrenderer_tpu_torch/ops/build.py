@@ -25,8 +25,14 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_STATIC_SMEM = 48 * 1024  # launch limit without an opt-in attribute
+# flags of one kernel beside NVCC_FLAGS: D repeats PyTorch's rounding, each
+# product and sum rounded apart (csrc/disney_bsdf.cu)
+KERNEL_FLAGS = {"disney_bsdf": ("-fmad=false",)}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# nvcc processes started and not yet waited for, by kernel name:
+# (process, start time, temporary output, library path)
+_building: Dict[str, Tuple[subprocess.Popen, float, Path, Path]] = {}
 
 
 def nvcc_path() -> str:
@@ -41,33 +47,51 @@ def source_path(name: str) -> Path:
     return CSRC / f"{name}.cu"
 
 
+def kernel_flags(name: str) -> Tuple[str, ...]:
+    """nvcc's flags for kernel `name`: NVCC_FLAGS and its own."""
+    return NVCC_FLAGS + KERNEL_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     """The library's path, keyed by a hash of source, headers and flags."""
     h = hashlib.sha256(source_path(name).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(kernel_flags(name)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def start_builds(names: Iterable[str], force: bool = False) -> None:
+    """Start one nvcc process for each named kernel not built yet (each of
+    them if `force`) and not being built already, and return without
+    waiting; `build_libraries` and `load_function` wait for them."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for name in names:
+        so = library_path(name)
+        if name in _building or (so.exists() and not force):
+            continue
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *kernel_flags(name), "-o", str(tmp),
+               str(source_path(name))]
+        _building[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True),
+                           time.perf_counter(), tmp, so)
 
 
 def build_libraries(names: Iterable[str], force: bool = False
                     ) -> Dict[str, Tuple[float, str]]:
     """Compile the named kernels, one nvcc process each, all started
-    together; skip those already built unless `force`. Returns per name
-    (seconds spent, compiler output); raises if any build fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        so = library_path(name)
-        if so.exists() and not force:
-            continue
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       time.perf_counter(), tmp, so)
+    together, and wait for them; skip those already built unless `force`.
+    Returns per name built (seconds since its start, compiler output);
+    raises if any build fails."""
+    names = list(names)
+    start_builds(names, force)
     results, failed = {}, []
-    for name, (proc, t0, tmp, so) in procs.items():
+    for name in names:
+        if name not in _building:
+            continue
+        proc, t0, tmp, so = _building.pop(name)
         log = proc.communicate()[0]
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:

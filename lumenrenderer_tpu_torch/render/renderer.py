@@ -49,6 +49,7 @@ from ..core.camera import Camera
 from ..integrator import nee as nee_mod
 from ..integrator import wavefront
 from ..integrator.surface import extract_surface_data
+from ..ops import build
 from ..scene.scene import SceneData
 from ..utils import log as log_mod
 from ..utils import profiling
@@ -168,6 +169,10 @@ class Renderer:
         self.bvh = None
         self.max_pairs_per_ray = int(max_pairs_per_ray)
         kernel = self.device.type == "cuda"
+        if kernel and config.bsdf == "disney":
+            # kernel D compiles while the accel builds and the first frame
+            # compiles the accel's kernel; D's first call waits for it
+            build.start_builds(("disney_bsdf",))
         units, twin_cap = 0, 0          # stream and brute: no visit lists
         if accel in ("tiled", "stream"):
             self.clusters = stream.build_clusters(

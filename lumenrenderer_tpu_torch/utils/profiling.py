@@ -35,7 +35,10 @@ of `ops/row_gather.py`); and ReSTIR's visibility rays sent and live
 (`count_restir_rays`, `restir/di.py`). The last two are device tensors,
 kept until `span_table()` resolves them. `graph_replays`, the replays of
 a captured training step (`count_graph_replay`, `parallel/train.py`), is
-charged to the open unit. Inside a `paused()` block nothing records: a
+charged to the open unit. `bsdf_rays` and `bsdf_fused_rays`, the rays of
+each call of the Disney BSDF's `sample` or `evaluate` and those of the
+calls kernel D ran (`count_bsdf`, `bsdf/disney.py`), are host counts read
+from the shape. Inside a `paused()` block nothing records: a
 CUDA graph's capture holds no span's events and no counter's tensors.
 The outermost open unit switches sync debug mode to warn and counts its
 warnings; a mode the caller set to warn still warns, and one set to
@@ -274,7 +277,8 @@ class _Span:
     def __init__(self, name: str, attrs: Dict, is_unit: bool):
         self.name, self.attrs, self.is_unit = name, attrs, is_unit
         self.counts = {"host_syncs": 0, "host_wait_ms": 0.0,
-                       "device_allocs": None, "graph_replays": 0}
+                       "device_allocs": None, "graph_replays": 0,
+                       "bsdf_rays": 0, "bsdf_fused_rays": 0}
         self.visits: List = []              # K1 launches' (visits, nv)
         self.device_counts: List = []       # (fields, (len(fields),) tensor)
         self.events = None
@@ -461,6 +465,17 @@ def count_graph_replay() -> None:
         u.counts["graph_replays"] += 1
 
 
+def count_bsdf(rays: int, fused: bool) -> None:
+    """Charge one call of the Disney BSDF's `sample` or `evaluate` to the
+    innermost span while recording: `rays` to `bsdf_rays`, and to
+    `bsdf_fused_rays` where kernel D ran it."""
+    s = _LOG.innermost() if _records() else None
+    if s is not None:
+        s.counts["bsdf_rays"] += rays
+        if fused:
+            s.counts["bsdf_fused_rays"] += rays
+
+
 def reset() -> None:
     """Forget every recorded span and the totals (call it outside any open
     span)."""
@@ -473,6 +488,7 @@ def _row() -> Dict:
     return {"calls": 0, "host_ms": 0.0, "host_self_ms": 0.0,
             "device_ms": None, "device_self_ms": None, "host_syncs": 0,
             "host_wait_ms": 0.0, "device_allocs": None, "graph_replays": 0,
+            "bsdf_rays": 0, "bsdf_fused_rays": 0,
             "k1_visits_run": 0, "k1_visits_listed": 0,
             **{field: 0 for field in DEVICE_COUNTERS}}
 
@@ -548,7 +564,8 @@ def span_table(unit: Optional[int] = None) -> Dict:
     "host_ms", "host_self_ms", "device_ms", "device_self_ms" (None without
     CUDA events), "host_syncs", "host_wait_ms" (host ms blocked in
     `synchronize`), "device_allocs" (units only; None without CUDA),
-    "graph_replays" (units only), "k1_visits_run", "k1_visits_listed",
+    "graph_replays" (units only), "bsdf_rays", "bsdf_fused_rays",
+    "k1_visits_run", "k1_visits_listed",
     and each of DEVICE_COUNTERS: "row_scatter_rows",
     "row_scatter_updates", "restir_rays_sent", "restir_rays_live"}}}.
     Totals over the units, in ms; the key is the span's name, with
